@@ -1,0 +1,153 @@
+"""Build, load and launch the hand-written CUDA kernels of `csrc/`.
+
+The kernels are compiled at first use with nvcc into one shared library
+with a plain C interface (no PyTorch headers, so the build takes seconds
+rather than minutes) and loaded with ctypes:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -Xptxas -v -o _build/libgoldfish_kernels_<hash>.so csrc/*.cu
+
+The build directory `goldfish_tpu_torch/_build/` is keyed by a hash of the
+sources, so an edited source rebuilds. Nothing here runs at import time.
+
+Every C entry returns a cudaError_t; `launch` raises on anything but 0 and
+counts the launch under the wrapper's name in `launch_counts`, so a run can
+show that its main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+import torch
+
+__all__ = ["library", "launch", "launch_counts", "reset_launch_counts",
+           "check", "ptr", "on_cuda", "build_info", "COUNTERS"]
+
+_PKG = os.path.dirname(os.path.abspath(__file__))
+_CSRC = os.path.join(_PKG, "csrc")
+_BUILD = os.path.join(_PKG, "_build")
+
+# kernel wrapper name -> launches since the last reset
+COUNTERS = ("shell_qp/value_grad", "shell_qp/hess", "shell_qp/adjoint",
+            "penalty_qp/value_grad", "penalty_qp/hess", "penalty_qp/adjoint",
+            "jet_assemble", "jet_matvec")
+launch_counts: dict[str, int] = {k: 0 for k in COUNTERS}
+_lib = None
+build_info: dict = {}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "gf_shell_qp": [_I] + [_P] * 17 + [_I] * 5 + [_P],
+    "gf_penalty_qp": [_I] + [_P] * 23 + [_I] * 4 + [_P],
+    "gf_jet_assemble": [_P] * 5 + [_I] * 4 + [ctypes.c_longlong, _P],
+    "gf_jet_matvec": [_P] * 6 + [_I] * 4 + [_P],
+}
+
+
+def reset_launch_counts():
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def _nvcc():
+    cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def library():
+    """The loaded kernel library, building it first if needed."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    sources = sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
+    headers = sorted(glob.glob(os.path.join(_CSRC, "*.cuh")))
+    h = hashlib.sha256()
+    for f in sources + headers:
+        with open(f, "rb") as fh:
+            h.update(os.path.basename(f).encode() + fh.read())
+    tag = h.hexdigest()[:16]
+    so = os.path.join(_BUILD, f"libgoldfish_kernels_{tag}.so")
+    log = os.path.join(_BUILD, f"ptxas_{tag}.txt")
+    t0 = time.perf_counter()
+    built = False
+    if not os.path.exists(so):
+        os.makedirs(_BUILD, exist_ok=True)
+        tmp = so + f".{os.getpid()}.tmp"
+        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+               "-Xptxas", "-v", "-o", tmp] + sources
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        with open(log, "w") as fh:
+            fh.write(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed (rc {res.returncode}); log in {log}:\n"
+                + res.stderr[-4000:])
+        os.replace(tmp, so)
+        built = True
+    lib = ctypes.CDLL(so)
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    build_info.update(path=so, ptxas_log=log, built=built,
+                      seconds=time.perf_counter() - t0)
+    _lib = lib
+    return lib
+
+
+def ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape,
+          device: torch.device):
+    """Raise unless `t` is a tensor of `dtype` and `shape` (None = any) on
+    `device`; on a CUDA device it must also be contiguous (the kernels
+    index raw pointers)."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if t.is_cuda and not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def launch(counter: str, entry: str, *args):
+    """Call C entry `entry` on the current stream; raise on a non-zero
+    cudaError_t; count one launch under `counter`."""
+    fn = getattr(library(), entry)
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry} ({counter}) failed: cudaError_t {rc}")
+    launch_counts[counter] += 1
+
+
+def on_cuda(t: torch.Tensor) -> bool:
+    """Dispatch rule of every kernel wrapper: True -> launch the kernel
+    (or raise); False -> the plain PyTorch version, for CPU tensors only."""
+    if t.is_cuda:
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain path for device {t.device}")

@@ -1,0 +1,68 @@
+"""Design-variable pipelines: flat design vectors -> padded system tensors.
+
+Port of goldfish_tpu/design/pipeline.py (`CPLayout`, `ThicknessFFD`). The
+FFD basis evaluation is one constant dense matrix F built on the host
+(design/ffd.py, NumPy); the map h_ffd -> F h_ffd -> padded (P, C) is a
+matrix-vector product and an index gather, differentiable by autograd.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from goldfish_tpu_torch.config import tensor
+from goldfish_tpu_torch.design.ffd import FFDBlock, create_3D_block
+from goldfish_tpu_torch.geometry.patch_stack import PatchMeta
+
+__all__ = ["CPLayout", "ThicknessFFD"]
+
+
+class CPLayout:
+    """Index maps between flat stacked CP vectors (all patches
+    concatenated, real CPs only) and padded (P, C) tensors."""
+
+    def __init__(self, metas: list[PatchMeta], max_cp: int, device=None):
+        self.n_per_patch = [m.n_cp for m in metas]
+        self.offsets = np.cumsum([0] + self.n_per_patch)
+        self.n_flat = int(self.offsets[-1])
+        idx = np.full((len(metas), max_cp), self.n_flat, dtype=np.int64)
+        for i, m in enumerate(metas):
+            idx[i, : m.n_cp] = self.offsets[i] + np.arange(m.n_cp)
+        self._idx = tensor(idx, device, torch.int64)
+
+    def to_padded(self, flat):
+        """(n_flat, ...) -> (P, C, ...); padding entries become 0."""
+        ext = torch.cat([flat, flat.new_zeros((1,) + flat.shape[1:])], 0)
+        return ext[self._idx]
+
+
+class ThicknessFFD:
+    """h_ffd (n_ffd,) -> padded thickness coefficients (P, C).
+
+    The FFD block spans the surface CPs' bounding box; the initial h_ffd
+    is the constant-thickness vector (partition of unity makes the map
+    exact for constants)."""
+
+    def __init__(self, system, num_els=(2, 1, 1), p=2, lims=None):
+        device = system.device
+        metas = system.metas
+        self.layout = CPLayout(metas, system.stack.max_cp, device)
+        pts = np.concatenate(
+            [m.surf.points.reshape(-1, 3) for m in metas], axis=0)
+        if lims is None:
+            lo, hi = pts.min(0), pts.max(0)
+            pad = 1e-6 * np.maximum(hi - lo, 1.0)
+            lims = np.stack([lo - pad, hi + pad], axis=1)
+        self.block = create_3D_block(num_els, p, lims)
+        self.ffd = FFDBlock(self.block, pts)
+        self.F = tensor(self.ffd.F, device)
+        self.n_ffd = self.ffd.n_ffd
+        self.shape = self.ffd.shape
+
+    def init_h_ffd(self, h0: float) -> np.ndarray:
+        return np.full(self.n_ffd, float(h0))
+
+    def __call__(self, h_ffd):
+        return self.layout.to_padded(self.F @ h_ffd)
+

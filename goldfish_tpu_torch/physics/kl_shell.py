@@ -1,0 +1,314 @@
+"""St. Venant-Kirchhoff Kirchhoff-Love shell energy, batched over patches.
+
+Port of goldfish_tpu/physics/kl_shell.py (value, residual, element
+Hessians and the residual's design VJP). The strain energy is
+
+    W = sum_qp psi(X, z, h) J_ref w,
+    psi = h/2 eps:H:eps + h^3/24 kappa:H:kappa,
+
+with eps = (a - A)/2, kappa = B - b in curvilinear components. At a
+quadrature point the density depends on the geometry and the
+displacement only through their 15-component jets
+(d/du, d/dv, d2/du2, d2/dudv, d2/dv2) x 3, so every derivative the solver
+needs is a per-qp derivative in the jet, mapped to control points by the
+basis rows:
+
+- `shell_value_grad`: per-element energy, r_shell = dW/dd, dW/dh;
+- `shell_hessians`: the per-qp 15x15 jet Hessian H_q (K = sum B^T H_q B);
+- `shell_adjoint`: -d/d(cp, h) of lambda^T r_shell.
+
+Each of the three runs the CUDA kernel K1 `shell_qp`
+(csrc/shell_qp.cu) on CUDA tensors and its plain PyTorch version
+(torch.func on `shell_density`) on CPU tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from goldfish_tpu_torch import _cuda
+from goldfish_tpu_torch.config import DTYPE, INDEX_DTYPE
+from goldfish_tpu_torch.geometry.patch_stack import PatchStack
+
+__all__ = ["gather", "shell_density", "shell_value_grad", "shell_hessians",
+           "shell_adjoint", "internal_energy", "element_hessians",
+           "external_work_dead_load", "dead_load_force"]
+
+NJ = 15  # displacement / geometry jet size
+
+
+def gather(coef, conn):
+    """coef: (P, C, k), conn: (P, E, L) -> (P, E, L, k)."""
+    p = torch.arange(coef.shape[0], device=coef.device)[:, None, None]
+    return coef[p, conn.long()]
+
+
+def _jet_tables(stack: PatchStack):
+    return (stack.R10, stack.R01, stack.R20, stack.R11, stack.R02)
+
+
+def jets(stack: PatchStack, coef):
+    """(P, C, 3) field -> (P, E, Q, 15) jets at every qp."""
+    ce = gather(coef, stack.conn)
+    return torch.cat([torch.einsum("peql,pelk->peqk", R, ce)
+                      for R in _jet_tables(stack)], dim=-1)
+
+
+def h_at_qps(stack: PatchStack, h):
+    """(P, C) thickness coefficients -> (P, E, Q)."""
+    return torch.einsum("peql,pel->peq", stack.R00, gather(h[..., None],
+                                                           stack.conn)[..., 0])
+
+
+def _scatter_jets(stack: PatchStack, gz, C):
+    """B^T g: (P, E, Q, 15) jet cotangents -> (P, C, 3)."""
+    P = gz.shape[0]
+    contrib = sum(torch.einsum("peql,peqk->pelk", R, gz[..., 3 * j:3 * j + 3])
+                  for j, R in enumerate(_jet_tables(stack)))
+    return _index_add_nodes(stack.conn, contrib, P, C)
+
+
+def _scatter_h(stack: PatchStack, gh, C):
+    """R00^T g: (P, E, Q) -> (P, C)."""
+    contrib = torch.einsum("peql,peq->pel", stack.R00, gh)
+    return _index_add_nodes(stack.conn, contrib[..., None], gh.shape[0],
+                            C)[..., 0]
+
+
+def _index_add_nodes(conn, contrib, P, C):
+    node = (torch.arange(P, device=conn.device)[:, None, None] * C
+            + conn.long()).reshape(-1)
+    k = contrib.shape[-1]
+    out = torch.zeros(P * C, k, dtype=contrib.dtype, device=contrib.device)
+    out.index_add_(0, node, contrib.reshape(-1, k))
+    return out.reshape(P, C, k)
+
+
+def _dot(a, b):
+    return (a * b).sum(-1)
+
+
+def _cross(a, b):
+    return torch.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
+                        a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+                        a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], -1)
+
+
+def _quad_form(A, s, c, nu):
+    """SVK quadratic form E/(1-nu^2)[nu tr^2 + (1-nu) Aup s Aup : s] with
+    symmetric 2x2 tensors stored as (11, 12, 22)."""
+    tr = A[0] * s[0] + 2.0 * (A[1] * s[1]) + A[2] * s[2]
+    m11 = A[0] * s[0] + A[1] * s[1]
+    m12 = A[0] * s[1] + A[1] * s[2]
+    m21 = A[1] * s[0] + A[2] * s[1]
+    m22 = A[1] * s[1] + A[2] * s[2]
+    full = ((m11 * A[0] + m12 * A[1]) * s[0]
+            + ((m11 * A[1] + m12 * A[2]) + (m21 * A[0] + m22 * A[1])) * s[1]
+            + (m21 * A[1] + m22 * A[2]) * s[2])
+    return c * (nu * (tr * tr) + (1.0 - nu) * full)
+
+
+def shell_density(X, z, h, E, nu, wq):
+    """psi * J_ref * w per qp. X, z: (..., 15) geometry / displacement
+    jets; h, E, nu, wq: (...). The plain version of K1's density (the
+    same formula as csrc/shell_qp.cu:shell_density)."""
+    A1, A2 = X[..., 0:3], X[..., 3:6]
+    A3 = _cross(A1, A2)
+    J = torch.sqrt(_dot(A3, A3))
+    A3 = A3 / J[..., None]
+    a = (_dot(A1, A1), _dot(A1, A2), _dot(A2, A2))
+    b = (_dot(X[..., 6:9], A3), _dot(X[..., 9:12], A3),
+         _dot(X[..., 12:15], A3))
+    x = X + z
+    a3 = _cross(x[..., 0:3], x[..., 3:6])
+    a3 = a3 / torch.sqrt(_dot(a3, a3))[..., None]
+    ac = (_dot(x[..., 0:3], x[..., 0:3]), _dot(x[..., 0:3], x[..., 3:6]),
+          _dot(x[..., 3:6], x[..., 3:6]))
+    bc = (_dot(x[..., 6:9], a3), _dot(x[..., 9:12], a3),
+          _dot(x[..., 12:15], a3))
+    eps = tuple(0.5 * (ac[i] - a[i]) for i in range(3))
+    kap = tuple(b[i] - bc[i] for i in range(3))
+    det = a[0] * a[2] - a[1] * a[1]
+    Aup = (a[2] / det, -a[1] / det, a[0] / det)
+    c = E / (1.0 - nu * nu)
+    psi = (0.5 * h) * _quad_form(Aup, eps, c, nu) \
+        + ((h * h * h) / 24.0) * _quad_form(Aup, kap, c, nu)
+    return psi * J * wq
+
+
+def _qp_params(stack, E, nu):
+    shp = stack.wq.shape
+    return (E[:, None, None].expand(shp), nu[:, None, None].expand(shp),
+            stack.wq)
+
+
+# ------------------------------------------------------------ plain versions
+def _value_grad_plain(stack, d, cp, h, E, nu):
+    X, z, hq = jets(stack, cp), jets(stack, d), h_at_qps(stack, h)
+    Eq, nuq, wq = _qp_params(stack, E, nu)
+    vals, vjp = torch.func.vjp(
+        lambda zz, hh: shell_density(X, zz, hh, Eq, nuq, wq), z, hq)
+    gz, gh = vjp(torch.ones_like(vals))
+    C = d.shape[1]
+    return vals.sum(-1), _scatter_jets(stack, gz, C), _scatter_h(stack, gh, C)
+
+
+def _hessians_plain(stack, d, cp, h, E, nu):
+    X, z, hq = jets(stack, cp), jets(stack, d), h_at_qps(stack, h)
+    Eq, nuq, wq = _qp_params(stack, E, nu)
+    shp = hq.shape
+    H = torch.func.vmap(torch.func.hessian(shell_density, argnums=1))(
+        X.reshape(-1, NJ), z.reshape(-1, NJ), hq.reshape(-1),
+        Eq.reshape(-1), nuq.reshape(-1), wq.reshape(-1))
+    return H.reshape(shp + (NJ, NJ))
+
+
+def _adjoint_plain(stack, d, cp, h, E, nu, lam):
+    X, z, hq = jets(stack, cp), jets(stack, d), h_at_qps(stack, h)
+    lz = jets(stack, lam)
+    Eq, nuq, wq = _qp_params(stack, E, nu)
+
+    def lam_dot_grad(XX, hh):
+        gz = torch.func.grad(
+            lambda zz: shell_density(XX, zz, hh, Eq, nuq, wq).sum())(z)
+        return (gz * lz).sum()
+
+    gX, gh = torch.func.grad(lam_dot_grad, argnums=(0, 1))(X, hq)
+    C = d.shape[1]
+    return -_scatter_jets(stack, gX, C), -_scatter_h(stack, gh, C)
+
+
+# ------------------------------------------------------------ K1 wrappers
+def _check_inputs(stack, d, cp, h, E, nu, lam=None):
+    P, Ne, Q, L = stack.R00.shape
+    C = d.shape[1]
+    dev = d.device
+    for name in ("R00", "R10", "R01", "R20", "R11", "R02"):
+        _cuda.check(getattr(stack, name), name, DTYPE, (P, Ne, Q, L), dev)
+    _cuda.check(stack.conn, "conn", INDEX_DTYPE, (P, Ne, L), dev)
+    _cuda.check(stack.wq, "wq", DTYPE, (P, Ne, Q), dev)
+    _cuda.check(d, "d", DTYPE, (P, C, 3), dev)
+    _cuda.check(cp, "cp", DTYPE, (P, C, 3), dev)
+    _cuda.check(h, "h", DTYPE, (P, C), dev)
+    _cuda.check(E, "E", DTYPE, (P,), dev)
+    _cuda.check(nu, "nu", DTYPE, (P,), dev)
+    if lam is not None:
+        _cuda.check(lam, "lam", DTYPE, (P, C, 3), dev)
+    return P, Ne, Q, L, C
+
+
+def _launch(mode, counter, stack, d, cp, h, E, nu, lam, out_w, out_f, out_h,
+            dims):
+    p = _cuda.ptr
+    _cuda.launch(counter, "gf_shell_qp", mode,
+                 p(stack.R00), p(stack.R10), p(stack.R01), p(stack.R20),
+                 p(stack.R11), p(stack.R02), p(stack.conn), p(stack.wq),
+                 p(d), p(cp), p(h), p(E), p(nu), p(lam),
+                 p(out_w), p(out_f), p(out_h), *dims)
+
+
+def shell_value_grad(stack: PatchStack, d, cp, h, E, nu):
+    """K1 mode (a): (W_e (P, E) per-element energy, r_shell (P, C, 3) =
+    dW/dd, dW/dh (P, C)). Sum W_e with torch.sum for a deterministic W."""
+    dims = _check_inputs(stack, d, cp, h, E, nu)
+    if not _cuda.on_cuda(d):
+        return _value_grad_plain(stack, d, cp, h, E, nu)
+    P, Ne, Q, L, C = dims
+    W = torch.empty(P, Ne, dtype=DTYPE, device=d.device)
+    r = torch.zeros(P, C, 3, dtype=DTYPE, device=d.device)
+    dh = torch.zeros(P, C, dtype=DTYPE, device=d.device)
+    _launch(0, "shell_qp/value_grad", stack, d, cp, h, E, nu, None, W, r, dh,
+            dims)
+    return W, r, dh
+
+
+def shell_hessians(stack: PatchStack, d, cp, h, E, nu):
+    """K1 mode (b): per-qp jet Hessians H_q (P, E, Q, 15, 15)."""
+    dims = _check_inputs(stack, d, cp, h, E, nu)
+    if not _cuda.on_cuda(d):
+        return _hessians_plain(stack, d, cp, h, E, nu)
+    P, Ne, Q, L, C = dims
+    H = torch.empty(P, Ne, Q, NJ, NJ, dtype=DTYPE, device=d.device)
+    _launch(1, "shell_qp/hess", stack, d, cp, h, E, nu, None, None, H, None,
+            dims)
+    return H
+
+
+def shell_adjoint(stack: PatchStack, d, cp, h, E, nu, lam):
+    """K1 mode (c): (dcp (P, C, 3), dh (P, C)) = -d/d(cp, h) of
+    lam^T r_shell (lam unmasked; the caller masks)."""
+    dims = _check_inputs(stack, d, cp, h, E, nu, lam)
+    if not _cuda.on_cuda(d):
+        return _adjoint_plain(stack, d, cp, h, E, nu, lam)
+    P, Ne, Q, L, C = dims
+    dcp = torch.zeros(P, C, 3, dtype=DTYPE, device=d.device)
+    dh = torch.zeros(P, C, dtype=DTYPE, device=d.device)
+    _launch(2, "shell_qp/adjoint", stack, d, cp, h, E, nu, lam, None, dcp,
+            dh, dims)
+    return dcp, dh
+
+
+# ------------------------------------------------------------ public API
+class _InternalEnergy(torch.autograd.Function):
+    """W(d, cp, h) with dW/dd and dW/dh from K1 mode (a)."""
+
+    @staticmethod
+    def forward(ctx, d, cp, h, stack, E, nu):
+        W, r, dh = shell_value_grad(stack, d.detach(), cp.detach(),
+                                    h.detach(), E, nu)
+        ctx.save_for_backward(r, dh)
+        return W.sum()
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.needs_input_grad[1]:
+            raise NotImplementedError(
+                "dW/dcp of internal_energy is not ported yet (shape "
+                "optimization, ROADMAP Queue A7)")
+        r, dh = ctx.saved_tensors
+        return g * r, None, g * dh, None, None, None
+
+
+def internal_energy(stack: PatchStack, d, cp, h_coef, E, nu):
+    """Total SVK KL-shell strain energy (scalar), differentiable in d and
+    h by torch autograd. d, cp: (P, C, 3); h_coef: (P, C); E, nu: (P,)."""
+    return _InternalEnergy.apply(d, cp, h_coef, stack, E, nu)
+
+
+def element_hessians(stack: PatchStack, d, cp, h_coef, E, nu,
+                     pressure=None):
+    """Exact per-element Hessian blocks (P, E, 3L, 3L) = sum_q B^T H_q B
+    (for tests and diagnostics; the solver assembles from H_q directly)."""
+    if pressure is not None:
+        raise NotImplementedError(
+            "follower-pressure stiffness (18-jet) is not ported yet "
+            "(ROADMAP Queue A7)")
+    H = shell_hessians(stack, d, cp, h_coef, E, nu)
+    P, Ne, Q, L = stack.R00.shape
+    H = H.reshape(P, Ne, Q, 5, 3, 5, 3)
+    Rs = torch.stack(_jet_tables(stack), dim=-2)          # (P, E, Q, 5, L)
+    tmp = torch.einsum("peqjxky,peqkm->peqjxmy", H, Rs)
+    Ke = torch.einsum("peqjxmy,peqjl->pelxmy", tmp, Rs)
+    return Ke.reshape(P, Ne, 3 * L, 3 * L)
+
+
+def _ref_area(stack: PatchStack, cp):
+    ce = gather(cp, stack.conn)
+    Xu = torch.einsum("peql,pelk->peqk", stack.R10, ce)
+    Xv = torch.einsum("peql,pelk->peqk", stack.R01, ce)
+    A3 = _cross(Xu, Xv)
+    return torch.sqrt(_dot(A3, A3)) * stack.wq
+
+
+def external_work_dead_load(stack: PatchStack, d, cp, f_areal):
+    """W_ext = sum_patches int f . u dA_ref (dead areal load, f: (P, 3))."""
+    u = torch.einsum("peql,pelk->peqk", stack.R00, gather(d, stack.conn))
+    fu = torch.einsum("pk,peqk->peq", f_areal, u)
+    return (fu * _ref_area(stack, cp)).sum()
+
+
+def dead_load_force(stack: PatchStack, cp, f_areal):
+    """dW_ext/dd (P, C, 3): constant in d (the dead load is linear)."""
+    w = torch.einsum("peql,peq->pel", stack.R00, _ref_area(stack, cp))
+    contrib = w[..., None] * f_areal[:, None, None, :]
+    return _index_add_nodes(stack.conn, contrib, cp.shape[0], cp.shape[1])

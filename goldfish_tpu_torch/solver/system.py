@@ -1,0 +1,368 @@
+"""The non-matching multi-patch shell system: energy, residual, tangent.
+
+Port of goldfish_tpu/solver/system.py. One object owns the stacked patch
+data, interface data, boundary conditions and the dead load, and exposes
+
+    total_potential(d, cp, h)     -> Pi
+    residual(d, cp, h)            -> (P, C, 3)   [= dPi/dd, BC-masked]
+    tangent_matvec(d, cp, h, v)   -> K(d) v      [BC-masked both sides]
+    assemble_K(d, cp, h)          -> (N, N) dense BC-reduced tangent
+
+The tangent is never differentiated numerically: the shell and penalty
+kernels (K1, K2) give per-qp jet Hessians H_q, and
+
+- `jet_assemble` (kernel K3, csrc/jet_assemble.cu) scatters
+  sum_q B_q^T H_q B_q into dense K,
+- `jet_matvec` (kernel K4, csrc/jet_matvec.cu) applies the same sum to a
+  vector without assembling K.
+
+Both run their CUDA kernel on CUDA tensors and their plain PyTorch
+version (einsum + index_add_) on CPU tensors.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from goldfish_tpu_torch import _cuda
+from goldfish_tpu_torch.config import DTYPE, INDEX_DTYPE, as_device, tensor
+from goldfish_tpu_torch.geometry.nurbs import NURBS
+from goldfish_tpu_torch.geometry.patch_stack import (
+    PatchStack,
+    build_patch_stack,
+    side_dofs,
+    stack_control_points,
+)
+from goldfish_tpu_torch.physics import coupling, kl_shell
+from goldfish_tpu_torch.physics.coupling import InterfaceSpec, InterfaceStack
+from goldfish_tpu_torch.physics.loads import external_work, external_force
+
+__all__ = ["SystemData", "NonMatchingSystem", "JetTables", "jet_tables",
+           "jet_hessians", "jet_assemble", "jet_matvec", "assemble_K_from",
+           "tangent_matvec_from", "potential_and_residual", "residual_vjp",
+           "total_potential", "residual", "tangent_matvec", "assemble_K",
+           "element_global_dofs"]
+
+
+class SystemData(NamedTuple):
+    """Problem tensors (the same fields as the JAX package's SystemData).
+    Only the dead load is ported; the other loads and contact must be
+    None."""
+
+    stack: PatchStack
+    ifs: InterfaceStack | None
+    free: torch.Tensor       # (P, C, 3) 1.0 = free dof
+    E: torch.Tensor          # (P,)
+    nu: torch.Tensor         # (P,)
+    f_areal: torch.Tensor | None   # (P, 3) dead load or None
+    point_loads: object = None
+    pressure: object = None
+    edge_loads: object = None
+    f_field: object = None
+    contact: object = None
+
+
+def _check_ported(data: SystemData):
+    for name in ("point_loads", "pressure", "edge_loads", "f_field",
+                 "contact"):
+        if getattr(data, name) is not None:
+            raise NotImplementedError(
+                f"SystemData.{name} is not ported yet (ROADMAP Queue A7/A10)")
+
+
+# ------------------------------------------------------------ energy
+def potential_and_residual(data: SystemData, d, cp, h):
+    """(Pi, r): the potential (summed deterministically from per-element
+    and per-interface energies) and the BC-masked residual dPi/dd, from
+    one K1 and one K2 launch."""
+    _check_ported(data)
+    W, r, _ = kl_shell.shell_value_grad(data.stack, d, cp, h, data.E,
+                                        data.nu)
+    Pi = W.sum()
+    if data.ifs is not None:
+        Wi, ri, _ = coupling.penalty_value_grad(data.ifs, d, cp, h, data.E)
+        Pi = Pi + Wi.sum()
+        r = r + ri
+    Pi = Pi - external_work(data.stack, d, cp, data.f_areal)
+    r = r - external_force(data.stack, cp, data.f_areal)
+    return Pi, r * data.free
+
+
+def total_potential(data: SystemData, d, cp, h):
+    """Pi = W_int + W_penalty - W_ext."""
+    return potential_and_residual(data, d, cp, h)[0]
+
+
+def residual(data: SystemData, d, cp, h):
+    """R = dPi/dd with fixed/padding dofs masked to zero."""
+    return potential_and_residual(data, d, cp, h)[1]
+
+
+def residual_vjp(data: SystemData, d, cp, h, lam):
+    """(dcp, dh) = -lam^T dR/d(cp, h): the adjoint's design gradient (K1
+    and K2 in adjoint mode, plus the dead load's cp-dependence)."""
+    _check_ported(data)
+    lam = lam * data.free
+    dcp, dh = kl_shell.shell_adjoint(data.stack, d, cp, h, data.E, data.nu,
+                                     lam)
+    if data.ifs is not None:
+        dcp_i, dh_i = coupling.penalty_adjoint(data.ifs, d, cp, h, data.E,
+                                               lam)
+        dcp = dcp + dcp_i
+        dh = dh + dh_i
+    if data.f_areal is not None:
+        # W_ext is linear in d, so lam . dW_ext/dd = W_ext(lam)
+        with torch.enable_grad():
+            cpv = cp.detach().requires_grad_(True)
+            w = external_work(data.stack, lam, cpv, data.f_areal)
+            dcp = dcp + torch.autograd.grad(w, cpv)[0]
+    return dcp, dh
+
+
+# ------------------------------------------------------------ dof maps
+def element_global_dofs(stack: PatchStack):
+    """Global dof index of each element-local dof: (P, E, 3L) int32."""
+    P, E, L = stack.conn.shape
+    C = stack.max_cp
+    p_ids = torch.arange(P, dtype=INDEX_DTYPE,
+                         device=stack.conn.device)[:, None, None]
+    base = (p_ids * C + stack.conn) * 3
+    gi = base[..., None] + torch.arange(3, dtype=INDEX_DTYPE,
+                                        device=base.device)
+    return gi.reshape(P, E, 3 * L)
+
+
+def _interface_global_dofs(ifs: InterfaceStack, C: int):
+    """Global dofs of each interface qp's stacked [A; B] locals:
+    (I, N, 6L) int32."""
+    L = ifs.connA.shape[-1]
+
+    def side(conn, pair):
+        base = (pair[:, None, None] * C + conn) * 3
+        gi = base[..., None] + torch.arange(3, dtype=INDEX_DTYPE,
+                                            device=base.device)
+        return gi.reshape(conn.shape[0], conn.shape[1], 3 * L)
+
+    return torch.cat([side(ifs.connA, ifs.pairA),
+                      side(ifs.connB, ifs.pairB)], dim=-1)
+
+
+class JetTables(NamedTuple):
+    """Static tables of the jet assembly/matvec kernels. A "group" is an
+    element (nq = Q qps, 5 jets over L locals) or an interface qp (nq = 1,
+    6 jets over the 2L stacked locals)."""
+
+    R_e: torch.Tensor             # (P*E, Q, 5, L)
+    gi_e: torch.Tensor            # (P*E, 3L) int32
+    R_i: torch.Tensor | None      # (I*N, 1, 6, 2L)
+    gi_i: torch.Tensor | None     # (I*N, 6L) int32
+    free: torch.Tensor            # (P*C*3,)
+
+
+def jet_tables(data: SystemData) -> JetTables:
+    stack = data.stack
+    P, Ne, Q, L = stack.R00.shape
+    R_e = torch.stack(kl_shell._jet_tables(stack), dim=-2)
+    gi_e = element_global_dofs(stack)
+    R_i = gi_i = None
+    if data.ifs is not None:
+        I_, N, Li = data.ifs.RA00.shape
+        R_i = coupling.interface_rows(data.ifs).reshape(I_ * N, 1, 6,
+                                                         2 * Li)
+        gi_i = _interface_global_dofs(data.ifs, stack.max_cp).reshape(
+            I_ * N, 6 * Li)
+    return JetTables(
+        R_e=R_e.reshape(P * Ne, Q, 5, L).contiguous(),
+        gi_e=gi_e.reshape(P * Ne, 3 * L).contiguous(),
+        R_i=None if R_i is None else R_i.contiguous(),
+        gi_i=None if gi_i is None else gi_i.contiguous(),
+        free=data.free.reshape(-1).contiguous())
+
+
+def jet_hessians(data: SystemData, d, cp, h):
+    """Per-group jet Hessians at state d: (H_e (P*E, Q, 15, 15),
+    H_i (I*N, 1, 18, 18) or None) from K1 and K2 mode (b)."""
+    _check_ported(data)
+    stack = data.stack
+    P, Ne, Q, _ = stack.R00.shape
+    H_e = kl_shell.shell_hessians(stack, d, cp, h, data.E, data.nu)
+    H_i = None
+    if data.ifs is not None:
+        H_i = coupling.penalty_hessians(data.ifs, d, cp, h, data.E)
+        H_i = H_i.reshape(-1, 1, coupling.NZ, coupling.NZ)
+    return H_e.reshape(P * Ne, Q, kl_shell.NJ, kl_shell.NJ), H_i
+
+
+# ------------------------------------------------------------ K3 / K4
+def _check_jet_args(H, R, gi, free, *vecs):
+    G, nq, nj, nloc = R.shape
+    dev = H.device
+    nz = 3 * nj
+    _cuda.check(H, "H", DTYPE, (G, nq, nz, nz), dev)
+    _cuda.check(R, "R", DTYPE, (G, nq, nj, nloc), dev)
+    _cuda.check(gi, "gi", INDEX_DTYPE, (G, 3 * nloc), dev)
+    _cuda.check(free, "free", DTYPE, None, dev)
+    if free.dim() != 1:
+        raise ValueError("free: must be flat (N,)")
+    for name, t, shape in vecs:
+        _cuda.check(t, name, DTYPE, shape, dev)
+    return G, nq, nj, nloc
+
+
+def _assemble_plain(K, H, R, gi, free):
+    G, nq, nj, nloc = R.shape
+    Hr = H.reshape(G, nq, nj, 3, nj, 3)
+    tmp = torch.einsum("gqjxky,gqkm->gqjxmy", Hr, R)
+    Kg = torch.einsum("gqjxmy,gqjl->glxmy", tmp, R).reshape(
+        G, 3 * nloc, 3 * nloc)
+    gl = gi.long()
+    m = free[gl]
+    Kg = Kg * m[:, :, None] * m[:, None, :]
+    K.index_put_((gl[:, :, None].expand_as(Kg), gl[:, None, :].expand_as(Kg)),
+                 Kg, accumulate=True)
+
+
+def jet_assemble(K, H, R, gi, free):
+    """K3: K[gi_a, gi_b] += sum_q B_q^T H_q B_q for every group, over free
+    dofs only (in place). K: (N, N); H: (G, nq, 3nj, 3nj); R: (G, nq, nj,
+    nloc); gi: (G, 3 nloc) int32; free: (N,)."""
+    N = free.shape[0]
+    G, nq, nj, nloc = _check_jet_args(H, R, gi, free, ("K", K, (N, N)))
+    if not _cuda.on_cuda(H):
+        _assemble_plain(K, H, R, gi, free)
+        return K
+    p = _cuda.ptr
+    _cuda.launch("jet_assemble", "gf_jet_assemble", p(H), p(R), p(gi),
+                 p(free), p(K), G, nq, nj, nloc, N)
+    return K
+
+
+def _matvec_plain(y, H, R, gi, free, v):
+    G, nq, nj, nloc = R.shape
+    gl = gi.long()
+    vm = (v * free)[gl].reshape(G, nloc, 3)
+    z = torch.einsum("gqjl,glx->gqjx", R, vm).reshape(G, nq, 3 * nj)
+    w = torch.einsum("gqab,gqb->gqa", H, z).reshape(G, nq, nj, 3)
+    contrib = torch.einsum("gqjl,gqjx->glx", R, w).reshape(G, 3 * nloc)
+    y.index_add_(0, gl.reshape(-1), (contrib * free[gl]).reshape(-1))
+
+
+def jet_matvec(y, H, R, gi, free, v):
+    """K4: y += free * sum_q B_q^T H_q B_q (free * v) for every group (in
+    place). y, v, free: (N,); H, R, gi as for `jet_assemble`."""
+    N = free.shape[0]
+    G, nq, nj, nloc = _check_jet_args(H, R, gi, free, ("v", v, (N,)),
+                                      ("y", y, (N,)))
+    if not _cuda.on_cuda(H):
+        _matvec_plain(y, H, R, gi, free, v)
+        return y
+    p = _cuda.ptr
+    _cuda.launch("jet_matvec", "gf_jet_matvec", p(H), p(R), p(gi), p(free),
+                 p(v), p(y), G, nq, nj, nloc)
+    return y
+
+
+def assemble_K_from(tables: JetTables, Hs):
+    """Dense BC-reduced tangent from jet Hessians `Hs` (jet_hessians)."""
+    H_e, H_i = Hs
+    free = tables.free
+    N = free.shape[0]
+    K = torch.zeros(N, N, dtype=DTYPE, device=free.device)
+    jet_assemble(K, H_e, tables.R_e, tables.gi_e, free)
+    if H_i is not None:
+        jet_assemble(K, H_i, tables.R_i, tables.gi_i, free)
+    K.diagonal().add_(1.0 - free)
+    return K
+
+
+def tangent_matvec_from(tables: JetTables, Hs, v):
+    """K(d) v from jet Hessians at d, masked both sides; v: (P, C, 3)."""
+    H_e, H_i = Hs
+    free = tables.free
+    vf = v.reshape(-1).contiguous()
+    y = torch.zeros_like(vf)
+    jet_matvec(y, H_e, tables.R_e, tables.gi_e, free, vf)
+    if H_i is not None:
+        jet_matvec(y, H_i, tables.R_i, tables.gi_i, free, vf)
+    return y.reshape(v.shape)
+
+
+def tangent_matvec(data: SystemData, d, cp, h, v):
+    """Matrix-free K(d) v (exact; BC-masked both sides)."""
+    return tangent_matvec_from(jet_tables(data),
+                               jet_hessians(data, d, cp, h), v)
+
+
+def assemble_K(data: SystemData, d, cp, h):
+    """Dense BC-reduced tangent stiffness (N, N), N = P*C*3."""
+    return assemble_K_from(jet_tables(data), jet_hessians(data, d, cp, h))
+
+
+# ------------------------------------------------------------ facade
+class NonMatchingSystem:
+    """Host-side facade: build once from NURBS surfaces on `device`."""
+
+    def __init__(self, surfs: list[NURBS], E, nu, h_th,
+                 specs: list[InterfaceSpec] | None = None,
+                 penalty_coefficient: float = 1.0e3, device=None):
+        self.device = as_device(device)
+        self.surfs = surfs
+        self.num_splines = len(surfs)
+        self.stack, self.metas = build_patch_stack(surfs,
+                                                   device=self.device)
+        self.specs = specs or []
+        self.penalty_coefficient = penalty_coefficient
+        self.ifs = coupling.build_interfaces(
+            surfs, self.specs, penalty_coefficient, device=self.device)
+
+        P, C = self.stack.n_patches, self.stack.max_cp
+        self.E = tensor(np.broadcast_to(np.asarray(E, dtype=np.float64),
+                                        (P,)), self.device)
+        self.nu = tensor(np.broadcast_to(np.asarray(nu, dtype=np.float64),
+                                         (P,)), self.device)
+        h_arr = np.zeros((P, C))
+        h_in = np.asarray(h_th, dtype=np.float64)
+        for i, m in enumerate(self.metas):
+            h_arr[i, : m.n_cp] = h_in if h_in.ndim == 0 else h_in[i]
+        self.h_init = tensor(h_arr, self.device)
+        self.cp = stack_control_points(self.metas, device=self.device)
+        self._free = np.array(
+            self.stack.cp_mask.cpu().numpy()[..., None] * np.ones(3),
+            dtype=np.float64)
+        self.f_areal = None
+        self._data = None
+
+    def add_zero_dofs(self, patch: int, cp_indices, fields=(0, 1, 2)):
+        """Pin listed CP coefficients of `patch` to zero."""
+        for f in fields:
+            self._free[patch, np.asarray(cp_indices, dtype=np.int64), f] = 0.0
+        self._data = None
+
+    def add_side_bc(self, patch: int, direction: int, side: int,
+                    n_layers: int = 1, fields=(0, 1, 2)):
+        """Clamp a parametric side (tIGAr getSideDofs/addZeroDofs)."""
+        m = self.metas[patch]
+        dofs = side_dofs(m.n_u, m.n_v, direction, side, n_layers)
+        self.add_zero_dofs(patch, dofs, fields)
+
+    def set_dead_load(self, f_per_patch):
+        f = np.asarray(f_per_patch, dtype=np.float64)
+        if f.ndim == 1:
+            f = np.tile(f, (self.num_splines, 1))
+        self.f_areal = tensor(f, self.device)
+        self._data = None
+
+    @property
+    def data(self) -> SystemData:
+        if self._data is None:
+            self._data = SystemData(
+                stack=self.stack, ifs=self.ifs,
+                free=tensor(self._free, self.device),
+                E=self.E, nu=self.nu, f_areal=self.f_areal)
+        return self._data
+
+    def zero_displacement(self):
+        return torch.zeros_like(self.cp)

@@ -1,0 +1,99 @@
+"""Where the time of one wing20 optimization iteration goes, on the GPU.
+
+Runs the port's main path (bench.py's workload: 20-patch wing, 6600 dofs,
+ThicknessFFD (4,4,1), Newton rtol 1e-9 + adjoint) on one CUDA card: a
+cold iteration and two warm 1e-4 steps untimed, then one warm 1e-4
+iteration and one 1e-2 refactor iteration under torch.profiler. For each
+profiled iteration it prints the wall time, the device-busy time (union
+of kernel, memcpy and memset intervals), the idle share, and the top
+device operations by self time. Chrome traces go to
+<trace_dir>/profile_<tag>.json (a fresh temporary directory by default).
+
+    python scripts/profile_torch_iteration.py [trace_dir]
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+import tempfile
+import time
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+
+def device_busy_us(trace_path):
+    """Union of device activity intervals in a chrome trace (us)."""
+    with open(trace_path) as fh:
+        events = json.load(fh)["traceEvents"]
+    iv = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                if e.get("ph") == "X" and e.get("cat") in
+                ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy = 0.0
+    end = -1e300
+    for a, b in iv:
+        if a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy, len(iv)
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: this profile needs one GPU")
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import make_iteration
+    from goldfish_tpu_torch.design.pipeline import ThicknessFFD
+    from goldfish_tpu_torch.models import wing
+    from goldfish_tpu_torch.opt.warmstart import SecantWarmStart
+    from goldfish_tpu_torch.solver.implicit import build_solve_fn
+
+    out = sys.argv[1] if len(sys.argv) > 1 else tempfile.mkdtemp()
+    os.makedirs(out, exist_ok=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    sys_ = wing.build(num_el=6, p=3, device=dev)
+    th = ThicknessFFD(sys_, num_els=(4, 4, 1), p=(2, 2, 1))
+    solve = build_solve_fn(sys_.data, rtol=1e-9, max_it=30)
+    run = make_iteration(sys_, th, solve)
+    h0 = torch.tensor(th.init_h_ffd(wing.H_TH), dtype=torch.float64,
+                      device=dev)
+    ws = SecantWarmStart()
+    _, d, _, _ = run(h0, sys_.zero_displacement())
+    ws.update(h0, d)
+    for k in (1, 2):
+        hk = h0 * (1.0 + 1e-4 * k)
+        _, d, _, _ = run(hk, ws.predict(hk, d))
+        ws.update(hk, d)
+
+    for tag, hk in (("warm", h0 * (1.0 + 3e-4)), ("refactor", h0 * 1.01)):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _, d_new, _, _ = run(hk, ws.predict(hk, d))
+            wall = time.perf_counter() - t0
+        if tag == "warm":
+            d = d_new
+            ws.update(hk, d)
+        path = os.path.join(out, f"profile_{tag}.json")
+        prof.export_chrome_trace(path)
+        busy, n = device_busy_us(path)
+        print(f"[{tag}] wall {wall * 1e3:.3f} ms (profiled), device busy "
+              f"{busy / 1e3:.3f} ms over {n} device ops, idle share "
+              f"{1.0 - busy / (wall * 1e6):.3f}; newton its "
+              f"{solve.solver.last_its}, n_factor "
+              f"{solve.device_factor.n_factor}", flush=True)
+        print(prof.key_averages().table(sort_by="self_device_time_total",
+                                        row_limit=22), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,86 @@
+"""The port's copied host builders reproduce the JAX package's arrays bit
+for bit, and importing the port pulls in no JAX."""
+
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from _torch_port_common import FFD_SMALL, WING_SMALL, jax_wing
+
+
+@pytest.fixture(scope="module")
+def port_wing():
+    from goldfish_tpu_torch.models import wing
+
+    return wing.build(**WING_SMALL)
+
+
+def _same(a, b):
+    a = a.cpu().numpy() if hasattr(a, "cpu") else np.asarray(a)
+    b = np.asarray(b)
+    return a.shape == b.shape and np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("field", ["R00", "R10", "R01", "R20", "R11", "R02",
+                                   "conn", "wq", "cp_mask"])
+def test_patch_stack_bit_identical(port_wing, field):
+    assert _same(getattr(port_wing.stack, field),
+                 getattr(jax_wing().stack, field))
+
+
+def test_interface_stack_bit_identical(port_wing):
+    j = jax_wing().ifs
+    for field in j._fields:
+        assert _same(getattr(port_wing.ifs, field), getattr(j, field)), field
+
+
+def test_system_arrays_bit_identical(port_wing):
+    j = jax_wing()
+    for name in ("cp", "h_init", "E", "nu"):
+        assert _same(getattr(port_wing, name), getattr(j, name)), name
+    assert _same(port_wing.data.free, j.data.free)
+    assert _same(port_wing.data.f_areal, j.data.f_areal)
+
+
+def test_thickness_ffd_matrix_bit_identical(port_wing):
+    import torch
+
+    from goldfish_tpu.design.pipeline import ThicknessFFD as JaxTFFD
+    from goldfish_tpu_torch.design.pipeline import ThicknessFFD
+
+    jt = JaxTFFD(jax_wing(), **FFD_SMALL)
+    pt = ThicknessFFD(port_wing, **FFD_SMALL)
+    assert _same(pt.F, jt.F)
+    # the map itself is a matvec: equal to roundoff (different BLAS)
+    h = np.random.default_rng(3).normal(size=pt.n_ffd)
+    a, b = pt(torch.from_numpy(h)).numpy(), np.asarray(jt(h))
+    assert np.linalg.norm(a - b) <= 1e-14 * np.linalg.norm(b)
+
+
+def test_bridge_round_trip():
+    from goldfish_tpu_torch.bridge import from_numpy_tree
+    from goldfish_tpu_torch.solver.system import SystemData
+
+    j = jax_wing().data
+    p = from_numpy_tree(j)
+    assert isinstance(p, SystemData)
+    assert _same(p.stack.conn, j.stack.conn)
+    assert p.stack.conn.dtype.is_floating_point is False
+    assert _same(p.ifs.RB01, j.ifs.RB01)
+    assert p.point_loads is None and p.contact is None
+
+
+def test_port_imports_without_jax():
+    code = ("import sys; import goldfish_tpu_torch.solver.implicit, "
+            "goldfish_tpu_torch.models.wing, goldfish_tpu_torch.bridge, "
+            "goldfish_tpu_torch.design.pipeline, "
+            "goldfish_tpu_torch.opt.warmstart; "
+            "bad = [m for m in sys.modules if m == 'jax' "
+            "or m.startswith('jax.') or m == 'goldfish_tpu' "
+            "or m.startswith('goldfish_tpu.')]; "
+            "print(bad); sys.exit(1 if bad else 0)")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
