@@ -1,4 +1,4 @@
-"""GPU smoke run of the PyTorch port's main path (one NVIDIA card).
+"""GPU smoke run of the PyTorch port's main paths (one NVIDIA card).
 
     python3 chip_smoke.py
 
@@ -8,20 +8,41 @@ Phases (any failure raises: non-zero exit, no result line):
    (nvidia-smi) and turns TF32 off;
 2. build: nvcc-compiles goldfish_tpu_torch/csrc/*.cu into
    goldfish_tpu_torch/_build/ (first use) and prints the ptxas summary;
-3. kernels: at the full 20-patch wing (6600 dofs) on the card, at a seeded
-   nonzero d, every kernel (K1 shell_qp and K2 penalty_qp in their three
-   modes, K3 jet_assemble, K4 jet_matvec) against its plain PyTorch version
+3. wing kernels: at the full 20-patch wing (6600 dofs) on the card, at a
+   seeded nonzero d, K1 shell_qp and K2 penalty_qp in their three modes,
+   K3 jet_assemble and K4 jet_matvec against their plain PyTorch versions
    (relative error in norm <= 1e-11; f64 atomics sum in a run-dependent
    order), with both times;
-4. main path: one thickness-optimization iteration of bench.py's workload
-   (cold, with the adjoint gradient), checked against the JAX package's
-   CPU f64 numbers in tests/data/torch_port_wing20_reference.json (J 1e-8,
-   dJ/dh_ffd 1e-6), then 5 warm 1e-4 steps with the secant warm start and
-   one 1e-2 refactor step; launch counters prove the path went through
-   every kernel.
+4. wing main path: one thickness-optimization iteration of bench.py's
+   workload (cold, with the adjoint gradient), checked against the JAX
+   package's CPU f64 numbers in tests/data/torch_port_wing20_reference.json
+   (J 1e-8, dJ/dh_ffd 1e-6), then 5 warm 1e-4 steps with the secant warm
+   start and one 1e-2 refactor step;
+5. MI kernels: the moving-intersection T-beam of scripts/bench_mi.py at its
+   full size (N = 6072 dofs, one seam of 17 points) on the card, at a
+   seeded state (xi moved within its knot spans, d the linear response to
+   the tip load, lambda random): K5 traced_rows (also at the unperturbed
+   seam that lies on a knot), K6 mi_penalty_xi, K7 c2x_res_jac (both
+   modes; also at a seam along an edge of both patches, whose coincidence
+   rows take the edge-to-edge variant), K1's geometry-gradient mode, and
+   K1-K4 as the MI path runs them (d with seeded noise, as for the wing:
+   at the coupled response the seam's displacement jump cancels, and K2
+   mode a there is printed beside its own one-ulp sensitivity, not
+   gated): K1 and K2 in their three modes on the T-beam stack and on the
+   interface stack of K5's rows, K3 for the full MI tangent and through
+   the Woodbury seam-slot map, K4 - each against its plain version
+   (1e-11), with both times;
+6. MI main path: one shape iteration of bench_mi.py (cp(amp) -> xi ->
+   warm-started MI Newton with the Woodbury seam correction -> J -> dJ/damp
+   through both implicit solves), cold at amp = 0.05 from d = 0, checked
+   against tests/data/torch_port_mi_tbeam40_reference.json (J 1e-8,
+   dJ/damp 1e-6), then 5 warm steps amp = 0.05 (1 + 1e-3 k) with secant
+   warm starts for d, xi and (inside the solve) the adjoint.
 
-The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}. Imports nothing of JAX.
+Launch counters, reset just before each main path and read just after,
+prove that the path went through its kernels. The line before the last is
+the kernels' JSON record; the last line is {"ok": true, "device": {...}}.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -37,7 +58,13 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 REF = os.path.join(ROOT, "tests", "data", "torch_port_wing20_reference.json")
+REF_MI = os.path.join(ROOT, "tests", "data",
+                      "torch_port_mi_tbeam40_reference.json")
 KERNEL_TOL = 1e-11
+# NVIDIA H100 SXM data sheet: HBM3 bandwidth and f64 rate outside the
+# tensor cores (none of the kernels is a matrix product)
+PEAK_BYTES = 3.35e12
+PEAK_F64 = 34e12
 
 
 def say(msg):
@@ -64,6 +91,19 @@ def rel_err(a, b):
     den = float(torch.linalg.norm(b))
     return float(torch.linalg.norm(a - b)) / (den if den > 0 else 1.0), \
         float((a - b).abs().max())
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts
+               if isinstance(t, torch.Tensor))
+
+
+def bound(bytes_, flops):
+    """Least time (ms) for the work on the card: the larger of bytes over
+    the memory rate and f64 operations over the f64 rate."""
+    tb = bytes_ / PEAK_BYTES * 1e3
+    tf = flops / PEAK_F64 * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
 def phase_device():
@@ -104,6 +144,8 @@ KERNELS = [
      "goldfish_tpu/physics/kl_shell.py:198"),
     ("shell_qp/adjoint", "goldfish_tpu_torch/csrc/shell_qp.cu",
      "goldfish_tpu/solver/implicit.py:516"),
+    ("shell_qp/geom_grad", "goldfish_tpu_torch/csrc/shell_qp.cu",
+     "goldfish_tpu/physics/kl_shell.py:142"),
     ("penalty_qp/value_grad", "goldfish_tpu_torch/csrc/penalty_qp.cu",
      "goldfish_tpu/physics/coupling.py:270"),
     ("penalty_qp/hess", "goldfish_tpu_torch/csrc/penalty_qp.cu",
@@ -114,28 +156,38 @@ KERNELS = [
      "goldfish_tpu/solver/system.py:194"),
     ("jet_matvec", "goldfish_tpu_torch/csrc/jet_matvec.cu",
      "goldfish_tpu/solver/system.py:104"),
+    ("traced_rows", "goldfish_tpu_torch/csrc/traced_rows.cu",
+     "goldfish_tpu/ops/bspline_jax.py:124"),
+    ("mi_penalty_xi", "goldfish_tpu_torch/csrc/mi_penalty_xi.cu",
+     "goldfish_tpu/solver/system_mi.py:1038"),
+    ("c2x_res_jac/res_jac", "goldfish_tpu_torch/csrc/c2x_res_jac.cu",
+     "goldfish_tpu/geometry/cpiga2xi.py:202"),
+    ("c2x_res_jac/adjoint", "goldfish_tpu_torch/csrc/c2x_res_jac.cu",
+     "goldfish_tpu/geometry/cpiga2xi.py:356"),
 ]
+WING_KERNELS = ("shell_qp/value_grad", "shell_qp/hess", "shell_qp/adjoint",
+                "penalty_qp/value_grad", "penalty_qp/hess",
+                "penalty_qp/adjoint", "jet_assemble", "jet_matvec")
+MI_PATH_KERNELS = tuple(k[0] for k in KERNELS)
+
+# f64 operations of one density evaluation (counted from the sources); a
+# kernel mode's count is that times the dual components it carries
+DENS_SHELL, DENS_PEN = 200, 250
 
 
-def kernel_cases(sys_, seed=0):
-    """(name -> (kernel fn, plain fn)) on the card at a seeded state."""
+def fixed_cases(data, d, cp, h, lam, v):
+    """name -> (kernel fn, plain fn, flops, inputs) of K1-K4 on the card,
+    on a SystemData (its stack and interface stack) at state d."""
     from goldfish_tpu_torch.physics import coupling, kl_shell
     from goldfish_tpu_torch.solver import system
 
-    data = sys_.data
-    dev = sys_.cp.device
-    rng = np.random.default_rng(seed)
-    cp, h, st, ifs = sys_.cp, sys_.h_init, data.stack, data.ifs
-    scale = float(torch.linalg.norm(cp)) / np.sqrt(cp.numel())
-    T = lambda a: torch.tensor(a, dtype=torch.float64, device=dev)  # noqa
-    d = T(1e-3 * scale * rng.normal(size=tuple(cp.shape))) * data.free
-    lam = T(rng.normal(size=tuple(cp.shape)))
-    v = T(rng.normal(size=tuple(cp.shape)))
+    st, ifs = data.stack, data.ifs
     E, nu = data.E, data.nu
     tables = system.jet_tables(data)
     Hs = system.jet_hessians(data, d, cp, h)
     free = tables.free
     N = free.shape[0]
+    dev = free.device
 
     def assemble(fn):
         K = torch.zeros(N, N, dtype=torch.float64, device=dev)
@@ -150,56 +202,98 @@ def kernel_cases(sys_, seed=0):
         fn(y, Hs[1], tables.R_i, tables.gi_i, free, vf)
         return y
 
+    P, Ne, Q, L = st.R00.shape
+    nqp = P * Ne * Q
+    I_, Nq, Li = ifs.RA00.shape
+    nip = I_ * Nq
+    jets_s = 2 * 15 * L * 2 + 2 * L          # X, z jets + h per qp
+    jets_p = 2 * (9 * Li * 2 + 2 * Li) * 2    # both sides, X, z, h
+    g_e, g_i = tables.R_e.shape[0], tables.R_i.shape[0]
+    # K3: 9 FMAs per (local pair, qp, jet pair); K4: gather, H z, scatter
+    asm = 18 * (g_e * L * L * Q * 25 + g_i * (2 * Li) ** 2 * 36)
+    mv = g_e * Q * (12 * 5 * L + 450) + g_i * (12 * 6 * 2 * Li + 648)
+    base = [d, cp, h, E, nu, data.free]
+    shell_in = base + list(st)
+    pen_in = base + list(ifs)
+    jet_in = list(tables) + list(Hs)
     return {
         "shell_qp/value_grad": (
             lambda: kl_shell.shell_value_grad(st, d, cp, h, E, nu),
-            lambda: kl_shell._value_grad_plain(st, d, cp, h, E, nu)),
+            lambda: kl_shell._value_grad_plain(st, d, cp, h, E, nu),
+            nqp * (jets_s + 17 * DENS_SHELL), shell_in),
         "shell_qp/hess": (
             lambda: kl_shell.shell_hessians(st, d, cp, h, E, nu),
-            lambda: kl_shell._hessians_plain(st, d, cp, h, E, nu)),
+            lambda: kl_shell._hessians_plain(st, d, cp, h, E, nu),
+            nqp * 15 * (jets_s + 32 * DENS_SHELL), shell_in),
         "shell_qp/adjoint": (
             lambda: kl_shell.shell_adjoint(st, d, cp, h, E, nu, lam),
-            lambda: kl_shell._adjoint_plain(st, d, cp, h, E, nu, lam)),
+            lambda: kl_shell._adjoint_plain(st, d, cp, h, E, nu, lam),
+            nqp * (jets_s * 3 // 2 + 34 * DENS_SHELL), shell_in + [lam]),
         "penalty_qp/value_grad": (
             lambda: coupling.penalty_value_grad(ifs, d, cp, h, E),
-            lambda: coupling._value_grad_plain(ifs, d, cp, h, E)),
+            lambda: coupling._value_grad_plain(ifs, d, cp, h, E),
+            nip * (jets_p + 21 * DENS_PEN), pen_in),
         "penalty_qp/hess": (
             lambda: coupling.penalty_hessians(ifs, d, cp, h, E),
-            lambda: coupling._hessians_plain(ifs, d, cp, h, E)),
+            lambda: coupling._hessians_plain(ifs, d, cp, h, E),
+            nip * 18 * (jets_p + 38 * DENS_PEN), pen_in),
         "penalty_qp/adjoint": (
             lambda: coupling.penalty_adjoint(ifs, d, cp, h, E, lam),
-            lambda: coupling._adjoint_plain(ifs, d, cp, h, E, lam)),
+            lambda: coupling._adjoint_plain(ifs, d, cp, h, E, lam),
+            nip * (jets_p * 3 // 2 + 30 * DENS_PEN), pen_in + [lam]),
         "jet_assemble": (lambda: assemble(system.jet_assemble),
-                         lambda: assemble(system._assemble_plain)),
+                         lambda: assemble(system._assemble_plain), asm,
+                         jet_in),
         "jet_matvec": (lambda: matvec(system.jet_matvec),
-                       lambda: matvec(system._matvec_plain)),
+                       lambda: matvec(system._matvec_plain), mv,
+                       jet_in + [v]),
     }
 
 
-def phase_kernels(sys_, reps=5):
-    """Compare every kernel with its plain version; returns
-    {name: (rel_err, max_abs_err, ms, plain_ms)}."""
+def check_kernels(cases, tag, reps=5):
+    """Compare every kernel with its plain version; returns {name: dict}
+    with the relative and max abs error, both times and the bound."""
     out = {}
-    for name, (kern, plain) in kernel_cases(sys_).items():
+    for name, (kern, plain, flops, inputs) in cases.items():
         a, b = kern(), plain()
         torch.cuda.synchronize()
         a = a if isinstance(a, tuple) else (a,)
         b = b if isinstance(b, tuple) else (b,)
         rel = mx = 0.0
         for x, y in zip(a, b):
-            if not bool(torch.isfinite(x).all()):
+            if x is None:
+                continue
+            if not bool(torch.isfinite(x.double()).all()):
                 raise RuntimeError(f"{name}: non-finite kernel output")
             r, m = rel_err(x, y)
             rel, mx = max(rel, r), max(mx, m)
         ms = cuda_ms(kern, reps)
         plain_ms = cuda_ms(plain, max(1, reps // 2))
-        say(f"[kernel] {name:22s} rel {rel:.3e} max_abs {mx:.3e} "
-            f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms")
+        b_ms, b_by = bound(nbytes(*inputs, *a), flops)
+        say(f"[{tag}] {name:22s} rel {rel:.3e} max_abs {mx:.3e} "
+            f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
+            f"bound {b_ms:.4f} ms ({b_by})")
         if not rel <= KERNEL_TOL:
             raise RuntimeError(f"{name}: kernel vs plain rel err {rel:.3e} "
                                f"> {KERNEL_TOL:g}")
-        out[name] = (rel, mx, ms, plain_ms)
+        out[name] = dict(rel=rel, max_abs_err=mx, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by)
     return out
+
+
+def phase_kernels(sys_, reps=5, seed=0):
+    """K1-K4 against their plain versions at a seeded state of the wing:
+    d random at 1e-3 of the CP scale on free dofs, lam and v random."""
+    dev = sys_.cp.device
+    rng = np.random.default_rng(seed)
+    cp = sys_.cp
+    scale = float(torch.linalg.norm(cp)) / np.sqrt(cp.numel())
+    T = lambda a: torch.tensor(a, dtype=torch.float64, device=dev)  # noqa
+    d = T(1e-3 * scale * rng.normal(size=tuple(cp.shape))) * sys_.data.free
+    lam = T(rng.normal(size=tuple(cp.shape)))
+    v = T(rng.normal(size=tuple(cp.shape)))
+    return check_kernels(fixed_cases(sys_.data, d, cp, sys_.h_init, lam, v),
+                         "kernel", reps)
 
 
 def make_iteration(sys_, th, solve):
@@ -278,9 +372,311 @@ def phase_main_path(sys_, dev):
     say(f"[main] refactor_log {fac.refactor_log}")
     say(f"[main] cert_log tail {fac.cert_log[-16:]}")
     say(f"[main] launch counts {counts}")
-    missing = [k for k, n in counts.items() if n == 0]
+    missing = [k for k in WING_KERNELS if counts[k] == 0]
     if missing:
         raise RuntimeError(f"kernels never launched on the main path: "
+                           f"{missing}")
+    return counts
+
+
+# ------------------------------------------------------------ MI T-beam
+def mi_state(sys_, seed=1):
+    """A seeded MI state on the card: (cp, h, xi, d, lam). xi is the
+    initial seam moved by up to 1e-3 inside its knot spans (clipped to the
+    parametric domain), d the linear response to the tip load, lam
+    random on free dofs."""
+    from goldfish_tpu_torch.solver import system_mi
+
+    dev = sys_.cp.device
+    rng = np.random.default_rng(seed)
+    cp, h = sys_.cp, sys_.h_init
+    xi0 = sys_.c2x.xi0_flat
+    xi = (xi0 + torch.tensor(1e-3 * rng.uniform(-1, 1, size=xi0.shape),
+                             device=dev)).clamp(0.0, 1.0).contiguous()
+    zero = torch.zeros_like(cp)
+    K0 = system_mi.assemble_K_mi(*sys_.mi_args, zero, cp, h, xi)
+    r0 = system_mi.residual_mi(*sys_.mi_args, zero, cp, h, xi)
+    d = torch.linalg.solve(K0, -r0.reshape(-1)).reshape(cp.shape)
+    lam = torch.tensor(rng.normal(size=tuple(cp.shape)), device=dev) \
+        * sys_.data.free
+    return cp, h, xi, d, lam
+
+
+def edge_seam(dev):
+    """A CPIGA2Xi whose seam runs along an edge of both patches
+    (both_edges = 1), a stretched cp, a moved xi and a cotangent."""
+    from goldfish_tpu_torch.geometry.cpiga2xi import CPIGA2Xi
+    from goldfish_tpu_torch.geometry.patch_stack import (
+        build_patch_stack,
+        stack_control_points,
+    )
+    from goldfish_tpu_torch.models import tbeam
+    from goldfish_tpu_torch.physics.coupling import InterfaceSpec
+
+    L = tbeam.LENGTH
+    surfs = [tbeam.create_surf([[-1, 0, 0], [0, 0, 0], [-1, L, 0],
+                                [0, L, 0]], 2, 3, 3),
+             tbeam.create_surf([[0, 0, 0], [1, 0, 0], [0, L, 0],
+                                [1, L, 0]], 2, 4, 3)]
+    spec = InterfaceSpec(pair=(0, 1),
+                         xi_ends_A=np.array([[1.0, 0.0], [1.0, 1.0]]),
+                         xi_ends_B=np.array([[0.0, 0.0], [0.0, 1.0]]),
+                         n_mortar_el=6)
+    c2x = CPIGA2Xi(surfs, [spec], n_pts_list=[7], device=dev)
+    cp = stack_control_points(build_patch_stack(surfs, device=dev)[1],
+                              device=dev)
+    cp[..., 0] *= 1.02
+    x0 = c2x.xi0_flat
+    rng = np.random.default_rng(3)
+    x = (x0 + torch.tensor(1e-3 * rng.normal(size=tuple(x0.shape)),
+                           device=dev)).contiguous()
+    g = torch.tensor(rng.normal(size=tuple(x0.shape)), device=dev)
+    return c2x, cp, x, g
+
+
+def mi_kernel_cases(sys_):
+    """(name, case...) -> (kernel fn, plain fn, flops, inputs) at bench_mi's
+    size; the first case of each name is the one the MI path runs."""
+    from goldfish_tpu_torch.geometry import cpiga2xi
+    from goldfish_tpu_torch.ops import bspline_traced as bt
+    from goldfish_tpu_torch.physics import coupling_mi, kl_shell
+    from goldfish_tpu_torch.solver import system, system_mi
+
+    cp, h, xi, d, lam = mi_state(sys_)
+    mi, co, ss, p, q = sys_.mi, sys_.co, sys_.ss, sys_.pdeg, sys_.qdeg
+    data = sys_.data
+    I, N = mi.n_int, mi.n_max
+    L = (p + 1) * (q + 1)
+    xi4 = xi.reshape(I, N, 2, 2)
+
+    def pts_of(x):
+        x4 = x.reshape(I, N, 2, 2)
+        ip = torch.cat([mi.pairA[:, None].expand(I, N).reshape(-1),
+                        mi.pairB[:, None].expand(I, N).reshape(-1)])
+        return ip.contiguous(), \
+            x4.permute(2, 0, 1, 3).reshape(-1, 2).contiguous()
+
+    ip, pts = pts_of(xi)
+    ip0, pts0 = pts_of(sys_.c2x.xi0_flat)
+    M = ip.shape[0]
+
+    basis = 2 * 4 * 12 + 16 * 3          # two 1D recursions + the tensor
+    dA = coupling_mi._curve_tangents(xi4[:, :, 0], mi.n_pts).contiguous()
+    dB = coupling_mi._curve_tangents(xi4[:, :, 1], mi.n_pts).contiguous()
+    E = data.E
+    gx = torch.tensor(np.random.default_rng(2).normal(size=(I, 4 * N)),
+                      device=cp.device)
+    st = data.stack
+    P_, Ne, Q, Ls = st.R00.shape
+    sv = [ss.knots_u, ss.knots_v, ss.span_u_vals, ss.span_u_ids,
+          ss.span_v_vals, ss.span_v_ids, ss.w, ss.n_v]
+    mi_in = [mi.pairA, mi.pairB, mi.n_pts, mi.end_dir, mi.end_val, mi.xi0,
+             mi.both_edges, mi.epin_dir, mi.epin_val]
+    cases = {}
+    for tag, (ipx, ptx) in (("moved", (ip, pts)), ("on-knot", (ip0, pts0))):
+        cases[("traced_rows", tag)] = (
+            lambda ipx=ipx, ptx=ptx: bt.traced_rows(ss, p, q, ipx, ptx),
+            lambda ipx=ipx, ptx=ptx: bt._rows_plain(ss, p, q, ipx, ptx),
+            M * (basis * 3 + L * 6), sv + [ipx, ptx])
+    cases[("mi_penalty_xi",)] = (
+        lambda: coupling_mi.mi_penalty_xi(ss, p, q, mi, co, xi4, dA, dB, d,
+                                          cp, h, E, lam),
+        lambda: coupling_mi._xi_grad_plain(ss, p, q, mi, co, xi4, dA, dB, d,
+                                           cp, h, E, lam),
+        I * N * (2 * basis * 9 + 2 * L * 6 * 9 * 3 + 18 * DENS_PEN),
+        sv + [xi4, dA, dB, co.w_s, d, cp, h, lam])
+    cases[("c2x_res_jac/res_jac",)] = (
+        lambda: cpiga2xi.c2x_res_jac(ss, p, q, mi, cp, xi),
+        lambda: cpiga2xi._res_jac_plain(ss, p, q, mi, cp, xi, True),
+        I * N * (2 * (basis * 3 + L * 3 * 6) + 4 * 16 * 40),
+        sv + mi_in + [cp, xi])
+    cases[("c2x_res_jac/adjoint",)] = (
+        lambda: cpiga2xi.c2x_res_vjp(ss, p, q, mi, cp, xi, gx),
+        lambda: cpiga2xi._res_vjp_plain(ss, p, q, mi, cp, xi, gx),
+        I * N * (2 * (basis * 3 + L * 3 * 6) + 4 * 16 * 40),
+        sv + mi_in + [cp, xi, gx])
+    # K7's edge-to-edge variant, which the T-beam's seam does not take: two
+    # flat patches side by side, seam along A's u = 1 and B's u = 0 edges
+    ex, ecp, ex_x, eg = edge_seam(cp.device)
+    e_in = [ex.mi.pairA, ex.mi.pairB, ex.mi.n_pts, ex.mi.end_dir,
+            ex.mi.end_val, ex.mi.xi0, ex.mi.both_edges, ex.mi.epin_dir,
+            ex.mi.epin_val, ecp, ex_x]
+    cases[("c2x_res_jac/res_jac", "edge")] = (
+        lambda: cpiga2xi.c2x_res_jac(ex.ss, p, q, ex.mi, ecp, ex_x),
+        lambda: cpiga2xi._res_jac_plain(ex.ss, p, q, ex.mi, ecp, ex_x, True),
+        0, e_in)
+    cases[("c2x_res_jac/adjoint", "edge")] = (
+        lambda: cpiga2xi.c2x_res_vjp(ex.ss, p, q, ex.mi, ecp, ex_x, eg),
+        lambda: cpiga2xi._res_vjp_plain(ex.ss, p, q, ex.mi, ecp, ex_x, eg),
+        0, e_in + [eg])
+    cases[("shell_qp/geom_grad",)] = (
+        lambda: kl_shell.shell_geom_grad(st, d, cp, h, E, data.nu),
+        lambda: kl_shell._geom_grad_plain(st, d, cp, h, E, data.nu),
+        P_ * Ne * Q * (2 * 15 * Ls * 2 + 2 * Ls + 16 * DENS_SHELL),
+        list(st) + [d, cp, h])
+    # K1-K4 as the MI path runs them: the T-beam stack, the interface stack
+    # of K5's rows at xi, the full MI tangent. At the coupled response d
+    # the displacement jump across the seam nearly cancels and K2's value
+    # and gradient are ill-conditioned in d (`seam_conditioning`), so, as
+    # for the wing, d gets seeded noise (1e-3 of its largest entry)
+    dx = system_mi.data_at(data, mi, co, ss, p, q, xi)
+    rng = np.random.default_rng(4)
+    T = lambda a: torch.tensor(a, device=cp.device)  # noqa
+    dn = d + T(1e-3 * float(d.abs().max())
+               * rng.normal(size=tuple(cp.shape))) * data.free
+    v = T(rng.normal(size=tuple(cp.shape)))
+    for name, case in fixed_cases(dx, dn, cp, h, lam, v).items():
+        cases[(name, "mi")] = case
+    # K3 through the Woodbury seam-slot map: every dof outside the seam
+    # subspace lands in one padding slot whose free entry is 0
+    fac = system_mi.PersistentDeviceFactorMI(*sys_.mi_args)
+    fac.ensure(cp, h, xi, d, force=True, why="smoke")
+    H_i, tab = fac._interface_hessians((cp, h, xi, d))
+    cases[("jet_assemble", "seam-slots")] = (
+        lambda: fac._compact_K(H_i, tab),
+        lambda: fac._compact_K(H_i, tab, system._assemble_plain),
+        18 * tab.R_i.shape[0] * tab.R_i.shape[-1] ** 2 * 36,
+        [H_i, tab.R_i, tab.gi_i, fac._free_m])
+    return cases
+
+
+def seam_conditioning(sys_):
+    """Printed, not gated: K2 mode a at the coupled response d, kernel vs
+    plain, beside the plain version's own change when d moves by one ulp
+    (relative). The displacement jump across the seam nearly cancels
+    there, so two correct f64 evaluations differ by about the latter."""
+    from goldfish_tpu_torch.physics import coupling
+    from goldfish_tpu_torch.solver import system_mi
+
+    cp, h, xi, d, _ = mi_state(sys_)
+    ifs = system_mi.data_at(*sys_.mi_args, xi).ifs
+    E = sys_.data.E
+    ulp = 1.0 + 2.2e-16 * torch.tensor(
+        np.random.default_rng(5).choice([-1.0, 1.0], size=tuple(d.shape)),
+        device=d.device)
+    plain = coupling._value_grad_plain(ifs, d, cp, h, E)
+
+    def worst(a):
+        return max(rel_err(x, y)[0] for x, y in zip(a, plain)
+                   if x is not None)
+
+    k = worst(coupling.penalty_value_grad(ifs, d, cp, h, E))
+    u = worst(coupling._value_grad_plain(ifs, d * ulp, cp, h, E))
+    say(f"[mi-kernel coupled-d] penalty_qp/value_grad kernel vs plain rel "
+        f"{k:.3e}; plain vs plain at d moved by one ulp rel {u:.3e} "
+        f"(not gated)")
+
+
+def phase_mi_kernels(sys_, checks, reps=5):
+    """Check every MI case and merge it into `checks` (the wing's): a
+    kernel keeps the worst error over its cases and the times of its first
+    case; the MI path's case of K1-K4 adds its times as *_mi."""
+    seam_conditioning(sys_)
+    for key, case in mi_kernel_cases(sys_).items():
+        name = key[0]
+        got = check_kernels({name: case}, "mi-kernel " + "/".join(
+            str(k) for k in key[1:]), reps)[name]
+        prev = checks.get(name)
+        if prev is None:
+            checks[name] = got
+            continue
+        prev["rel"] = max(got["rel"], prev["rel"])
+        prev["max_abs_err"] = max(got["max_abs_err"], prev["max_abs_err"])
+        if key[1:] == ("mi",):
+            prev.update({k + "_mi": got[k]
+                         for k in ("ms", "plain_ms", "bound_ms")})
+    return checks
+
+
+def make_mi_iteration(sys_, dev):
+    """bench_mi.py's opt_iteration on the port: returns (iteration,
+    forward); iteration(amp, d0, xi_seed) -> (J, dJ/damp, d, xi, wall)."""
+    from goldfish_tpu_torch.physics import kl_shell
+
+    m = sys_.metas[1]
+    gv = sys_.surfs[1].greville_points(1)
+    bend = torch.tensor(np.tile(np.sin(np.pi * gv)[None, :],
+                                (m.n_u, 1)).ravel(), device=dev)
+    forward = sys_.build_forward(rtol=1e-9, max_it=30)
+    h = sys_.h_init
+    xi_start = sys_.c2x.xi0_flat
+
+    def iteration(amp_v, d0, xi_seed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        amp = torch.tensor(amp_v, dtype=torch.float64, device=dev,
+                           requires_grad=True)
+        cp = sys_.cp.clone()
+        cp[1, : m.n_cp, 0] = cp[1, : m.n_cp, 0] + amp * bend
+        d, xi = forward(cp, h, d0, xi_seed)
+        J = kl_shell.internal_energy(sys_.stack, d, cp, h, sys_.E, sys_.nu)
+        J.backward()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        J, g = float(J.detach()), float(amp.grad)
+        d, xi = d.detach(), xi.detach()
+        if not (np.isfinite(J) and np.isfinite(g)
+                and bool(torch.isfinite(d).all())
+                and bool(torch.isfinite(xi).all())
+                and d.shape == sys_.cp.shape and xi.shape == xi_start.shape):
+            raise RuntimeError("non-finite or misshapen MI iteration output")
+        return J, g, d, xi, dt
+
+    return iteration, forward
+
+
+def phase_mi_main(sys_, dev):
+    """bench_mi.py's iteration: cold at amp = 0.05, then 5 warm steps."""
+    from goldfish_tpu_torch import _cuda
+    from goldfish_tpu_torch.opt.warmstart import SecantWarmStart
+
+    with open(REF_MI) as fh:
+        ref = json.load(fh)
+    iteration, forward = make_mi_iteration(sys_, dev)
+    fac = forward.solve_d.device_factor
+    xi_start = sys_.c2x.xi0_flat
+    _cuda.reset_launch_counts()
+    J, g, d, xi, t_cold = iteration(0.05, sys_.zero_displacement(), None)
+    eJ = abs(J - ref["J"]) / abs(ref["J"])
+    eg = abs(g - ref["dJ_damp"]) / abs(ref["dJ_damp"])
+    say(f"[mi] cold iteration {t_cold:.3f} s  J={J!r} (ref {ref['J']!r}, "
+        f"rel {eJ:.2e})  dJ/damp={g!r} (ref {ref['dJ_damp']!r}, rel "
+        f"{eg:.2e})  |d|={float(torch.linalg.norm(d))!r} (ref "
+        f"{ref['d_norm']!r})  |xi-xi0|="
+        f"{float(torch.linalg.norm(xi - xi_start))!r} (ref "
+        f"{ref['xi_shift_norm']!r})  newton its "
+        f"{forward.solve_d.solver.last_its}, xi-newton its "
+        f"{sys_.c2x.last_its}")
+    if not (eJ <= 1e-8 and eg <= 1e-6):
+        raise RuntimeError(f"MI cold iteration disagrees with the JAX CPU "
+                           f"reference: J rel {eJ:.2e}, dJ/damp rel "
+                           f"{eg:.2e}")
+    ws_d, ws_xi = SecantWarmStart(), SecantWarmStart()
+    a0 = torch.tensor(0.05, dtype=torch.float64)
+    ws_d.update(a0, d)
+    ws_xi.update(a0, xi)
+    warm = []
+    for k in range(1, 6):
+        amp = 0.05 * (1.0 + 1e-3 * k)
+        ak = torch.tensor(amp, dtype=torch.float64)
+        seed = ws_xi.predict(ak, xi).clamp(0.0, 1.0)
+        J, g, d, xi, dt = iteration(amp, ws_d.predict(ak, d), seed)
+        ws_d.update(ak, d)
+        ws_xi.update(ak, xi)
+        warm.append(dt)
+        say(f"[mi] warm iteration {k}/5 {dt:.3f} s J={J!r} dJ/damp={g!r} "
+            f"newton its {forward.solve_d.solver.last_its} xi-newton its "
+            f"{sys_.c2x.last_its}")
+    counts = dict(_cuda.launch_counts)
+    say(f"[mi] warm median {float(np.median(warm)):.3f} s; n_factor "
+        f"{fac.n_factor} (failed {fac.n_factor_failed}); seam subspace M "
+        f"{fac._M}")
+    say(f"[mi] refactor_log {fac.refactor_log}")
+    say(f"[mi] cert_log tail {fac.cert_log[-16:]}")
+    say(f"[mi] launch counts {counts}")
+    missing = [k for k in MI_PATH_KERNELS if counts[k] == 0]
+    if missing:
+        raise RuntimeError(f"kernels never launched on the MI path: "
                            f"{missing}")
     return counts
 
@@ -288,7 +684,7 @@ def phase_main_path(sys_, dev):
 def main():
     dev = phase_device()
     phase_build()
-    from goldfish_tpu_torch.models import wing
+    from goldfish_tpu_torch.models import tbeam, wing
 
     t0 = time.perf_counter()
     sys_ = wing.build(num_el=6, p=3, device=dev)
@@ -298,10 +694,29 @@ def main():
         f"ifs {tuple(sys_.ifs.RA00.shape)}")
     checks = phase_kernels(sys_)
     counts = phase_main_path(sys_, dev)
+    del sys_
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    mi_sys = tbeam.build_mi(num_el=40, p=3, n_pts=17, device=dev)
+    P, C = mi_sys.stack.n_patches, mi_sys.stack.max_cp
+    say(f"[setup] MI T-beam built in {time.perf_counter() - t0:.1f} s: "
+        f"P={P} C={C} N={P * C * 3} stack {tuple(mi_sys.stack.R00.shape)} "
+        f"seam (I, N)=({mi_sys.mi.n_int}, {mi_sys.mi.n_max})")
+    phase_mi_kernels(mi_sys, checks)
+    counts_mi = phase_mi_main(mi_sys, dev)
+
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": counts[name], "max_abs_err": checks[name][1],
-         "ms": checks[name][2], "plain_ms": checks[name][3]}
+         "launches": counts.get(name, 0) * (name in WING_KERNELS)
+         + counts_mi[name],
+         "launches_wing": counts.get(name, 0) * (name in WING_KERNELS),
+         "launches_mi": counts_mi[name],
+         "max_abs_err": checks[name]["max_abs_err"],
+         "ms": checks[name]["ms"], "plain_ms": checks[name]["plain_ms"],
+         "bound_ms": checks[name]["bound_ms"],
+         "bound_by": checks[name]["bound_by"], "library_ms": None,
+         **{k: v for k, v in checks[name].items() if k.endswith("_mi")}}
         for name, src, rep in KERNELS]}
     say(json.dumps(record))
     say(json.dumps({"ok": True, "device": {

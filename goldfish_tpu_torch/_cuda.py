@@ -36,8 +36,11 @@ _BUILD = os.path.join(_PKG, "_build")
 
 # kernel wrapper name -> launches since the last reset
 COUNTERS = ("shell_qp/value_grad", "shell_qp/hess", "shell_qp/adjoint",
+            "shell_qp/geom_grad",
             "penalty_qp/value_grad", "penalty_qp/hess", "penalty_qp/adjoint",
-            "jet_assemble", "jet_matvec")
+            "jet_assemble", "jet_matvec",
+            "traced_rows", "mi_penalty_xi",
+            "c2x_res_jac/res_jac", "c2x_res_jac/adjoint")
 launch_counts: dict[str, int] = {k: 0 for k in COUNTERS}
 _lib = None
 build_info: dict = {}
@@ -49,6 +52,9 @@ _SIGNATURES = {
     "gf_penalty_qp": [_I] + [_P] * 23 + [_I] * 4 + [_P],
     "gf_jet_assemble": [_P] * 5 + [_I] * 4 + [ctypes.c_longlong, _P],
     "gf_jet_matvec": [_P] * 6 + [_I] * 4 + [_P],
+    "gf_traced_rows": [_P] * 12 + [_I] * 8 + [_P],
+    "gf_mi_penalty_xi": [_P] * 22 + [_I] * 9 + [_P],
+    "gf_c2x_res_jac": [_I] + [_P] * 23 + [_I] * 9 + [_P],
 }
 
 

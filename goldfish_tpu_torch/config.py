@@ -4,6 +4,10 @@ The port works in float64 throughout: KL-shell tangents have condition
 numbers of 1e10-1e12 even after equilibration, so no lower precision is
 usable in the solves. The dtype is passed explicitly everywhere; nothing
 here changes torch's global defaults.
+
+Every entry point resolves its `device` argument through `as_device`: the
+port runs on the current CUDA device unless the caller asks for another
+one (`device="cpu"` for the plain PyTorch path the CPU tests use).
 """
 
 from __future__ import annotations
@@ -16,9 +20,16 @@ INDEX_DTYPE = torch.int32  # connectivity and dof maps
 
 
 def as_device(device=None) -> torch.device:
-    """Normalize a device argument (None means CPU; nothing moves to CUDA
-    unless the caller asks for it)."""
-    return torch.device("cpu") if device is None else torch.device(device)
+    """Normalize a device argument. None means the current CUDA device; it
+    raises when CUDA is absent (no silent CPU fallback)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "goldfish_tpu_torch runs on a CUDA device by default and none "
+            "is available; pass device=\"cpu\" to run the plain PyTorch "
+            "path on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 def tensor(x, device=None, dtype=DTYPE) -> torch.Tensor:

@@ -22,7 +22,10 @@
 //     element's qps), r_shell = dW/dd (P,C,3) and dW/dh (P,C);
 //   1 hess: H_q = d2(psi J w)/dz2, (P,E,Q,15,15), column k by thread k;
 //   2 adjoint: given lambda (P,C,3), -d/d(cp,h) of lambda^T r_shell into
-//     (P,C,3) and (P,C).
+//     (P,C,3) and (P,C);
+//   3 geometry gradient: dW/dcp (P,C,3), the energy's direct dependence on
+//     the control points (shape optimization; kl_shell.internal_energy's
+//     gradient w.r.t. cp in the JAX package).
 //
 // What bounds it on the H100: register pressure. A Dual<Dual<double,15>,1>
 // scalar is 32 doubles, so the density's temporaries spill to local memory
@@ -135,7 +138,7 @@ __device__ double gather_h(const Args& a, int p, int ei, int qi) {
   return s;
 }
 
-// out_f[node] += sign * B^T gz ; out_h[node] += sign * R00 gh
+// out_f[node] += sign * B^T gz ; out_h[node] += sign * R00 gh (if out_h)
 __device__ void scatter(const Args& a, int p, int ei, int qi, const double* gz,
                         double gh, double sign, double* out_f, double* out_h) {
   for (int l = 0; l < a.L; ++l) {
@@ -151,7 +154,7 @@ __device__ void scatter(const Args& a, int p, int ei, int qi, const double* gz,
     atomicAdd(out_f + node * 3, sign * acc[0]);
     atomicAdd(out_f + node * 3 + 1, sign * acc[1]);
     atomicAdd(out_f + node * 3 + 2, sign * acc[2]);
-    atomicAdd(out_h + node, sign * a.R[0][size_t(qi) * a.L + l] * gh);
+    if (out_h) atomicAdd(out_h + node, sign * a.R[0][size_t(qi) * a.L + l] * gh);
   }
 }
 
@@ -252,6 +255,28 @@ __global__ void shell_adjoint(Args a, double* dcp, double* dh) {
   scatter(a, p, ei, int(qi), gX, f.g[NJ].g[0], -1.0, dcp, dh);
 }
 
+// mode 3: one thread per qp
+__global__ void shell_geom_grad(Args a, double* dcp) {
+  size_t qi = size_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (qi >= size_t(a.P) * a.Ne * a.Q) return;
+  int ei = int(qi / a.Q);
+  int p = ei / a.Ne;
+  typedef Dual<double, NJ> S;
+  double X[NJ], z[NJ];
+  gather_jets(a, a.cp, p, ei, int(qi), X);
+  gather_jets(a, a.d, p, ei, int(qi), z);
+  double hq = gather_h(a, p, ei, int(qi));
+  S Xs[NJ], zs[NJ];
+#pragma unroll
+  for (int i = 0; i < NJ; ++i) {
+    Xs[i] = S(X[i]);
+    Xs[i].g[i] = 1.0;
+    zs[i] = S(z[i]);
+  }
+  S f = shell_density(Xs, zs, S(hq), a.E[p], a.nu[p], a.wq[qi]);
+  scatter(a, p, ei, int(qi), f.g, 0.0, 1.0, dcp, nullptr);
+}
+
 }  // namespace
 }  // namespace gf
 
@@ -281,6 +306,8 @@ extern "C" int gf_shell_qp(int mode, const double* R00, const double* R10,
     shell_hess<<<unsigned((n + 127) / 128), 128, 0, s>>>(a, out_f);
   } else if (mode == 2) {
     shell_adjoint<<<unsigned((nqp + 127) / 128), 128, 0, s>>>(a, out_f, out_h);
+  } else if (mode == 3) {
+    shell_geom_grad<<<unsigned((nqp + 127) / 128), 128, 0, s>>>(a, out_f);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from goldfish_tpu_torch.config import tensor
+from goldfish_tpu_torch.config import as_device, tensor
 from goldfish_tpu_torch.design.ffd import FFDBlock, create_3D_block
 from goldfish_tpu_torch.geometry.patch_stack import PatchMeta
 
@@ -23,6 +23,7 @@ class CPLayout:
     concatenated, real CPs only) and padded (P, C) tensors."""
 
     def __init__(self, metas: list[PatchMeta], max_cp: int, device=None):
+        device = as_device(device)
         self.n_per_patch = [m.n_cp for m in metas]
         self.offsets = np.cumsum([0] + self.n_per_patch)
         self.n_flat = int(self.offsets[-1])

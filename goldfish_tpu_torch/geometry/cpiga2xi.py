@@ -1,0 +1,364 @@
+"""Implicit control-points -> intersection-coordinates map (CPIGA2Xi).
+
+Port of goldfish_tpu/geometry/cpiga2xi.py. Given the patches' control
+points, find the parametric coordinates xi of n sample points along each
+patch-patch intersection, on both sides. Unknowns per intersection, padded
+to N points: x = xi (N, 2, 2) flattened (4N). Residual slots (4N):
+
+  block1 (3N): S_A(xiA_k) - S_B(xiB_k)            [coincidence]
+  block2 (N-2): |dS_A|^2_{k+1} - |dS_A|^2_k       [uniform spacing]
+  block3 (2):  xiA[0/n-1, end_dir] - end_val      [ends slide on edges]
+
+Padded points k >= n are pinned to their initial values through the
+padded slots of blocks 1-2; intersections whose curves run along
+parametric edges on both sides use the edge-to-edge variant of block 1.
+
+Residual, Jacobian and the control-point adjoint come from kernel K7
+`c2x_res_jac` (csrc/c2x_res_jac.cu) on CUDA tensors and from its plain
+PyTorch version (the residual on ops/bspline_traced's plain rows,
+differentiated by autograd) on CPU tensors. Both the Newton step and the
+adjoint solve the small per-intersection systems with batched f64
+`torch.linalg.solve` (cond 1e3-1e5); the reference's f32-LU + IR path
+exists only because the TPU has no batched f64 LU, and does not cross.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from goldfish_tpu_torch import _cuda
+from goldfish_tpu_torch.config import DTYPE, INDEX_DTYPE, as_device, tensor
+from goldfish_tpu_torch.ops.bspline_traced import (
+    SurfSet,
+    _rows_plain,
+    _surf_set_args,
+    _surf_set_dims,
+    make_surf_set,
+)
+
+__all__ = ["MovingIntersections", "build_moving_intersections",
+           "c2x_res_jac", "c2x_res_vjp", "c2x_newton", "c2x_adjoint",
+           "CPIGA2Xi"]
+
+
+class MovingIntersections(NamedTuple):
+    """Padded tensors; I intersections, N max points each."""
+
+    pairA: torch.Tensor    # (I,) int32
+    pairB: torch.Tensor    # (I,)
+    n_pts: torch.Tensor    # (I,) int32 real points
+    mask: torch.Tensor     # (I, N) 1.0 for real points
+    end_dir: torch.Tensor  # (I, 2) int32: pinned coordinate at each end (A)
+    end_val: torch.Tensor  # (I, 2)
+    xi0: torch.Tensor      # (I, N, 2, 2) initial [.., 0, :]=xiA, [.., 1, :]=xiB
+    both_edges: torch.Tensor  # (I,) 1.0 when both sides are edge curves
+    epin_dir: torch.Tensor    # (I, 2) int32: pinned coord on side A / B
+    epin_val: torch.Tensor    # (I, 2)
+
+    @property
+    def n_int(self):
+        return self.pairA.shape[0]
+
+    @property
+    def n_max(self):
+        return self.mask.shape[1]
+
+
+def build_moving_intersections(specs, n_pts_list, device=None):
+    """specs: InterfaceSpec-like objects (straight segments or parametric
+    polylines); n_pts_list: points per intersection (>= 3). End pinning
+    follows each end segment's dominant parametric direction on side A.
+    The reference's NumPy builder, ending in tensors on `device`."""
+    from goldfish_tpu_torch.physics.coupling import (
+        polyline_interp,
+        spec_polylines,
+    )
+
+    device = as_device(device)
+    I = len(specs)
+    N = max(n_pts_list)
+    pairA = np.zeros(I, dtype=np.int32)
+    pairB = np.zeros(I, dtype=np.int32)
+    n_pts = np.asarray(n_pts_list, dtype=np.int32)
+    mask = np.zeros((I, N))
+    end_dir = np.zeros((I, 2), dtype=np.int32)
+    end_val = np.zeros((I, 2))
+    xi0 = np.zeros((I, N, 2, 2))
+    both_edges = np.zeros(I)
+    epin_dir = np.zeros((I, 2), dtype=np.int32)
+    epin_val = np.zeros((I, 2))
+    edge_side = np.zeros((I, 2), dtype=bool)
+    for i, spec in enumerate(specs):
+        pairA[i], pairB[i] = spec.pair
+        n = int(n_pts[i])
+        if n < 3:
+            raise ValueError("an intersection needs at least 3 points")
+        mask[i, :n] = 1.0
+        plA, plB = spec_polylines(spec)
+        s = np.linspace(0.0, 1.0, n)
+        xi0[i, :n, 0, :], _ = polyline_interp(plA, s)
+        xi0[i, :n, 1, :], _ = polyline_interp(plB, s)
+        d0 = np.abs(plA[1] - plA[0])
+        d1 = np.abs(plA[-1] - plA[-2])
+        end_dir[i] = (int(np.argmax(d0)), int(np.argmax(d1)))
+        end_val[i] = (plA[0, end_dir[i, 0]], plA[-1, end_dir[i, 1]])
+        xi0[i, n:] = xi0[i, n - 1]  # padded points sit at the last real one
+        for side, pl in ((0, plA), (1, plB)):
+            for c in range(2):
+                col = pl[:, c]
+                if np.all(np.abs(col - col[0]) < 1e-9) and \
+                        (abs(col[0]) < 1e-9 or abs(col[0] - 1) < 1e-9):
+                    epin_dir[i, side] = c
+                    epin_val[i, side] = col[0]
+                    edge_side[i, side] = True
+                    break
+        both_edges[i] = float(edge_side[i, 0] and edge_side[i, 1])
+
+    def t(a, dtype=DTYPE):
+        return tensor(a, device, dtype)
+
+    return MovingIntersections(
+        pairA=t(pairA, INDEX_DTYPE), pairB=t(pairB, INDEX_DTYPE),
+        n_pts=t(n_pts, INDEX_DTYPE), mask=t(mask),
+        end_dir=t(end_dir, INDEX_DTYPE), end_val=t(end_val), xi0=t(xi0),
+        both_edges=t(both_edges), epin_dir=t(epin_dir, INDEX_DTYPE),
+        epin_val=t(epin_val))
+
+
+# ------------------------------------------------------------ plain version
+def _side_points(ss, p, q, pair, cp, xi_side):
+    """S(xi) (I, N, 3) of one side from the plain rows (autograd in xi
+    and cp)."""
+    I, N = xi_side.shape[:2]
+    ip = pair[:, None].expand(I, N).reshape(-1)
+    conn, R = _rows_plain(ss, p, q, ip, xi_side.reshape(-1, 2))
+    c = cp[ip.long()[:, None], conn.long()]
+    return torch.einsum("ml,mlk->mk", R[0], c).reshape(I, N, 3)
+
+
+def _residual_plain(ss: SurfSet, p, q, mi: MovingIntersections, cp, x):
+    """_residual_one of the reference, batched over intersections:
+    (I, 4N)."""
+    I, N = mi.n_int, mi.n_max
+    xi = x.reshape(I, N, 2, 2)
+    xiA, xiB = xi[:, :, 0, :], xi[:, :, 1, :]
+    ptsA = _side_points(ss, p, q, mi.pairA, cp, xiA)
+    ptsB = _side_points(ss, p, q, mi.pairB, cp, xiB)
+    k = torch.arange(N, device=x.device)
+    real = mi.mask > 0.5
+    ii = torch.arange(I, device=x.device)
+    last = mi.n_pts.long() - 1
+
+    coin = ptsA - ptsB
+    tan = torch.roll(ptsA, -1, 1) - torch.roll(ptsA, 1, 1)
+    tan = torch.cat([(ptsA[:, 1] - ptsA[:, 0])[:, None], tan[:, 1:]], 1)
+    tan_last = ptsA[ii, last] - ptsA[ii, (last - 1).clamp(min=0)]
+    tan = torch.where((k[None, :] >= last[:, None])[..., None],
+                      tan_last[:, None, :], tan)
+    that = tan / (torch.linalg.norm(tan, dim=-1, keepdim=True) + 1e-300)
+    ed = mi.epin_dir.long()
+    coin_edge = torch.stack([
+        xiA.gather(2, ed[:, 0, None, None].expand(I, N, 1))[..., 0]
+        - mi.epin_val[:, 0, None],
+        xiB.gather(2, ed[:, 1, None, None].expand(I, N, 1))[..., 0]
+        - mi.epin_val[:, 1, None],
+        (coin * that).sum(-1)], -1)
+    coin = torch.where((mi.both_edges > 0.5)[:, None, None], coin_edge, coin)
+    xi0 = mi.xi0
+    pin1 = torch.stack([xi[..., 0, 0] - xi0[..., 0, 0],
+                        xi[..., 0, 1] - xi0[..., 0, 1],
+                        xi[..., 1, 0] - xi0[..., 1, 0]], -1)
+    b1 = torch.where(real[..., None], coin, pin1).reshape(I, 3 * N)
+
+    seg = ((ptsA[:, 1:] - ptsA[:, :-1]) ** 2).sum(-1)
+    sp = seg[:, 1:] - seg[:, :-1]
+    pin2 = xi[:, 2:, 1, 1] - xi0[:, 2:, 1, 1]
+    b2 = torch.where(real[:, 2:], sp, pin2)
+
+    edir = mi.end_dir.long()
+    b3 = torch.stack([xiA[ii, 0, edir[:, 0]] - mi.end_val[:, 0],
+                      xiA[ii, last, edir[:, 1]] - mi.end_val[:, 1]], -1)
+    return torch.cat([b1, b2, b3], -1)
+
+
+def _res_jac_plain(ss, p, q, mi, cp, x, jac):
+    r = _residual_plain(ss, p, q, mi, cp, x)
+    if not jac:
+        return r, None
+    I = x.shape[0]
+    Jf = torch.autograd.functional.jacobian(
+        lambda xx: _residual_plain(ss, p, q, mi, cp, xx), x, vectorize=True)
+    ii = torch.arange(I, device=x.device)
+    return r, Jf[ii, :, ii, :]
+
+
+def _res_vjp_plain(ss, p, q, mi, cp, x, lam):
+    with torch.enable_grad():
+        cpv = cp.detach().requires_grad_(True)
+        r = _residual_plain(ss, p, q, mi, cpv, x.detach())
+        return torch.autograd.grad(r, cpv, grad_outputs=-lam)[0]
+
+
+# ------------------------------------------------------------ K7 wrappers
+_MI_INT = ("pairA", "pairB", "n_pts")
+
+
+def _check_inputs(ss, mi, cp, x, lam=None):
+    I, N = mi.n_int, mi.n_max
+    dev = x.device
+    for name in _MI_INT:
+        _cuda.check(getattr(mi, name), name, INDEX_DTYPE, (I,), dev)
+    _cuda.check(mi.end_dir, "end_dir", INDEX_DTYPE, (I, 2), dev)
+    _cuda.check(mi.epin_dir, "epin_dir", INDEX_DTYPE, (I, 2), dev)
+    _cuda.check(mi.end_val, "end_val", DTYPE, (I, 2), dev)
+    _cuda.check(mi.epin_val, "epin_val", DTYPE, (I, 2), dev)
+    _cuda.check(mi.both_edges, "both_edges", DTYPE, (I,), dev)
+    _cuda.check(mi.xi0, "xi0", DTYPE, (I, N, 2, 2), dev)
+    _cuda.check(mi.mask, "mask", DTYPE, (I, N), dev)
+    _cuda.check(cp, "cp", DTYPE, (ss.w.shape[0], ss.w.shape[1], 3), dev)
+    _cuda.check(x, "x", DTYPE, (I, 4 * N), dev)
+    if lam is not None:
+        _cuda.check(lam, "lam", DTYPE, (I, 4 * N), dev)
+    return I, N
+
+
+def _launch(mode, counter, ss, p, q, mi, cp, x, lam, res, J, dcp):
+    P = _cuda.ptr
+    _cuda.launch(counter, "gf_c2x_res_jac", mode, *_surf_set_args(ss),
+                 P(mi.pairA), P(mi.pairB), P(mi.n_pts), P(mi.end_dir),
+                 P(mi.end_val), P(mi.xi0), P(mi.both_edges), P(mi.epin_dir),
+                 P(mi.epin_val), P(cp), P(x), P(lam), P(res), P(J), P(dcp),
+                 *_surf_set_dims(ss, p, q), mi.n_int, mi.n_max)
+
+
+def c2x_res_jac(ss: SurfSet, p: int, q: int, mi: MovingIntersections, cp,
+                x, jac: bool = True):
+    """K7 mode 0: the residual (I, 4N) and, with `jac`, the dense Jacobian
+    dR/dx (I, 4N, 4N) (else None)."""
+    I, N = _check_inputs(ss, mi, cp, x)
+    if not _cuda.on_cuda(x):
+        return _res_jac_plain(ss, p, q, mi, cp, x, jac)
+    res = torch.empty(I, 4 * N, dtype=DTYPE, device=x.device)
+    J = torch.zeros(I, 4 * N, 4 * N, dtype=DTYPE, device=x.device) \
+        if jac else None
+    _launch(0, "c2x_res_jac/res_jac", ss, p, q, mi, cp, x, None, res, J,
+            None)
+    return res, J
+
+
+def c2x_res_vjp(ss: SurfSet, p: int, q: int, mi: MovingIntersections, cp,
+                x, lam):
+    """K7 mode 1: -lam^T dR/dcp (P, C, 3)."""
+    _check_inputs(ss, mi, cp, x, lam)
+    if not _cuda.on_cuda(x):
+        return _res_vjp_plain(ss, p, q, mi, cp, x, lam)
+    dcp = torch.zeros_like(cp)
+    _launch(1, "c2x_res_jac/adjoint", ss, p, q, mi, cp, x, lam, None, None,
+            dcp)
+    return dcp
+
+
+# ------------------------------------------------------------ solves
+def _rnorm(r):
+    """Max per-intersection residual norm (the reference's convergence
+    measure: an aggregate norm can hide one badly converged seam)."""
+    return float(torch.linalg.norm(r, dim=-1).max())
+
+
+def c2x_newton(ss, p, q, mi, cp, x0, rtol=1e-12, max_it=20):
+    """Batched Newton over intersections (the reference's host loop,
+    `_c2x_newton_host`): the full step is accepted on sufficient decrease
+    of the max per-intersection norm, otherwise a backtracking step is
+    taken. Returns (x, iterations, residual norm)."""
+    x = x0
+    r, J = c2x_res_jac(ss, p, q, mi, cp, x)
+    rn = _rnorm(r)
+    for it in range(max_it):
+        if rn <= rtol:
+            return x, it, rn
+        dx = torch.linalg.solve(J, -r[..., None])[..., 0]
+        r_new, J_new = c2x_res_jac(ss, p, q, mi, cp, x + dx)
+        rn_new = _rnorm(r_new)
+        if rn_new <= (1 - 1e-4) * rn:
+            x, r, J, rn = x + dx, r_new, J_new, rn_new
+            if rn <= rtol:
+                return x, it + 1, rn
+            continue
+        # the full step did not contract (a cold or pathological state):
+        # backtrack on the batched residual norm
+        alpha = 1.0
+        for _ in range(20):
+            rt, _ = c2x_res_jac(ss, p, q, mi, cp, x + alpha * dx, jac=False)
+            if _rnorm(rt) <= (1 - 1e-4 * alpha) * rn:
+                break
+            alpha *= 0.5
+        x = x + alpha * dx
+        r, J = c2x_res_jac(ss, p, q, mi, cp, x)
+        rn = _rnorm(r)
+    return x, max_it, rn
+
+
+def c2x_adjoint(ss, p, q, mi, cp, x, g):
+    """Implicit-function backward: dR/dx^T lam = g, dcp = -lam^T dR/dcp
+    (the reference's `_c2x_adjoint_direct`)."""
+    _, J = c2x_res_jac(ss, p, q, mi, cp, x)
+    lam = torch.linalg.solve(J.transpose(-1, -2), g[..., None])[..., 0]
+    return c2x_res_vjp(ss, p, q, mi, cp, x, lam.contiguous())
+
+
+class _SolveXi(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, c2x, cp, x0):
+        cp = cp.detach()
+        x, its, _ = c2x_newton(c2x.ss, c2x.p, c2x.q, c2x.mi, cp,
+                                x0.detach().clone(), rtol=c2x.rtol,
+                                max_it=c2x.max_it)
+        c2x.last_its = its
+        ctx.c2x = c2x
+        ctx.save_for_backward(cp, x)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        cp, x = ctx.saved_tensors
+        c2x = ctx.c2x
+        dcp = c2x_adjoint(c2x.ss, c2x.p, c2x.q, c2x.mi, cp, x,
+                          g.contiguous())
+        return None, dcp, None
+
+
+class CPIGA2Xi:
+    """Differentiable xi(cp): batched Newton forward, implicit-function
+    adjoint backward (a `torch.autograd.Function`)."""
+
+    def __init__(self, surfs, specs, n_pts_list=None, rtol=1e-12,
+                 max_it=20, device=None):
+        self.device = as_device(device)
+        self.surfs = surfs
+        self.ss, (self.p, self.q) = make_surf_set(surfs, device=self.device)
+        if n_pts_list is None:
+            n_pts_list = [max(int(s.n_mortar_el) + 1, 3) for s in specs]
+        self.mi = build_moving_intersections(specs, n_pts_list,
+                                             device=self.device)
+        self.rtol = rtol
+        self.max_it = max_it
+        self.last_its = None   # Newton iterations of the last solve
+
+    @property
+    def xi0_flat(self):
+        I, N = self.mi.n_int, self.mi.n_max
+        return self.mi.xi0.reshape(I, 4 * N)
+
+    def solve(self, cp, x0=None):
+        """Differentiable xi(cp): (I, 4N) flattened coordinates."""
+        x0 = self.xi0_flat if x0 is None else x0
+        return _SolveXi.apply(self, cp, x0)
+
+    def residual_norm(self, cp, x):
+        r, _ = c2x_res_jac(self.ss, self.p, self.q, self.mi, cp, x,
+                           jac=False)
+        return _rnorm(r)

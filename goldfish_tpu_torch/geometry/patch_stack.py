@@ -19,7 +19,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from goldfish_tpu_torch.config import DTYPE, INDEX_DTYPE, tensor
+from goldfish_tpu_torch.config import DTYPE, INDEX_DTYPE, as_device, tensor
 from goldfish_tpu_torch.geometry.nurbs import NURBS
 from goldfish_tpu_torch.ops.quadrature import (
     PatchQuadrature,
@@ -83,6 +83,7 @@ def build_patch_stack(surfs: list[NURBS], nq: int | None = None,
 
     nq: Gauss points per direction (default degree+1 per patch).
     Trimmed patches are not ported yet and raise."""
+    device = as_device(device)
     if trims is not None:
         raise NotImplementedError(
             "trimmed patches are not ported yet (ROADMAP Queue A7)")
@@ -138,6 +139,7 @@ def build_patch_stack(surfs: list[NURBS], nq: int | None = None,
 
 def stack_control_points(metas: list[PatchMeta], device=None):
     """Padded (P, C, 3) physical CP tensor from patch metadata."""
+    device = as_device(device)
     max_cp = max(m.n_cp for m in metas)
     out = np.zeros((len(metas), max_cp, 3))
     for i, m in enumerate(metas):

@@ -68,7 +68,8 @@ def build(n_chord: int = 4, n_span: int = 5, num_el: int = 6, p: int = 3,
           penalty_coefficient: float = 1.0e3, load_scale: float = 1.0,
           device=None):
     """n_chord * n_span patches (default 20 — the BASELINE.md scale),
-    with every tensor on `device` (CPU when None)."""
+    with every tensor on `device` (the current CUDA device when None;
+    pass device="cpu" for the plain CPU path)."""
     surfs = []
     nes = {}
     for j in range(n_span):

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from goldfish_tpu_torch import _cuda
-from goldfish_tpu_torch.config import DTYPE, INDEX_DTYPE, tensor
+from goldfish_tpu_torch.config import DTYPE, INDEX_DTYPE, as_device, tensor
 from goldfish_tpu_torch.geometry.nurbs import NURBS
 from goldfish_tpu_torch.ops.bspline import rational_basis_2d
 from goldfish_tpu_torch.ops.quadrature import gauss_points_1d
@@ -122,6 +122,7 @@ def build_interfaces(surfs: list[NURBS], specs: list[InterfaceSpec],
 
     alpha_d = c E h / h_m, alpha_r = c E h^3 / (12 h_m) with h_m the mortar
     element size; E and h are evaluated on the fly at the interface."""
+    device = as_device(device)
     if not specs:
         return None
     per = []

@@ -15,9 +15,11 @@ basis rows:
 
 - `shell_value_grad`: per-element energy, r_shell = dW/dd, dW/dh;
 - `shell_hessians`: the per-qp 15x15 jet Hessian H_q (K = sum B^T H_q B);
-- `shell_adjoint`: -d/d(cp, h) of lambda^T r_shell.
+- `shell_adjoint`: -d/d(cp, h) of lambda^T r_shell;
+- `shell_geom_grad`: dW/dcp, the energy's direct control-point gradient
+  (shape optimization).
 
-Each of the three runs the CUDA kernel K1 `shell_qp`
+Each of the four runs the CUDA kernel K1 `shell_qp`
 (csrc/shell_qp.cu) on CUDA tensors and its plain PyTorch version
 (torch.func on `shell_density`) on CPU tensors.
 """
@@ -31,7 +33,7 @@ from goldfish_tpu_torch.config import DTYPE, INDEX_DTYPE
 from goldfish_tpu_torch.geometry.patch_stack import PatchStack
 
 __all__ = ["gather", "shell_density", "shell_value_grad", "shell_hessians",
-           "shell_adjoint", "internal_energy", "element_hessians",
+           "shell_adjoint", "shell_geom_grad", "internal_energy", "element_hessians",
            "external_work_dead_load", "dead_load_force"]
 
 NJ = 15  # displacement / geometry jet size
@@ -178,6 +180,14 @@ def _adjoint_plain(stack, d, cp, h, E, nu, lam):
     return -_scatter_jets(stack, gX, C), -_scatter_h(stack, gh, C)
 
 
+def _geom_grad_plain(stack, d, cp, h, E, nu):
+    X, z, hq = jets(stack, cp), jets(stack, d), h_at_qps(stack, h)
+    Eq, nuq, wq = _qp_params(stack, E, nu)
+    gX = torch.func.grad(
+        lambda XX: shell_density(XX, z, hq, Eq, nuq, wq).sum())(X)
+    return _scatter_jets(stack, gX, d.shape[1])
+
+
 # ------------------------------------------------------------ K1 wrappers
 def _check_inputs(stack, d, cp, h, E, nu, lam=None):
     P, Ne, Q, L = stack.R00.shape
@@ -248,25 +258,37 @@ def shell_adjoint(stack: PatchStack, d, cp, h, E, nu, lam):
     return dcp, dh
 
 
+def shell_geom_grad(stack: PatchStack, d, cp, h, E, nu):
+    """K1 mode (d): dW/dcp (P, C, 3) at fixed d and h."""
+    dims = _check_inputs(stack, d, cp, h, E, nu)
+    if not _cuda.on_cuda(d):
+        return _geom_grad_plain(stack, d, cp, h, E, nu)
+    dcp = torch.zeros_like(d)
+    _launch(3, "shell_qp/geom_grad", stack, d, cp, h, E, nu, None, None, dcp,
+            None, dims)
+    return dcp
+
+
 # ------------------------------------------------------------ public API
 class _InternalEnergy(torch.autograd.Function):
-    """W(d, cp, h) with dW/dd and dW/dh from K1 mode (a)."""
+    """W(d, cp, h) with dW/dd and dW/dh from K1 mode (a) and dW/dcp from
+    K1 mode (d)."""
 
     @staticmethod
     def forward(ctx, d, cp, h, stack, E, nu):
-        W, r, dh = shell_value_grad(stack, d.detach(), cp.detach(),
-                                    h.detach(), E, nu)
-        ctx.save_for_backward(r, dh)
+        d, cp, h = d.detach(), cp.detach(), h.detach()
+        W, r, dh = shell_value_grad(stack, d, cp, h, E, nu)
+        ctx.save_for_backward(r, dh, d, cp, h)
+        ctx.stack, ctx.E, ctx.nu = stack, E, nu
         return W.sum()
 
     @staticmethod
     def backward(ctx, g):
+        r, dh, d, cp, h = ctx.saved_tensors
+        gcp = None
         if ctx.needs_input_grad[1]:
-            raise NotImplementedError(
-                "dW/dcp of internal_energy is not ported yet (shape "
-                "optimization, ROADMAP Queue A7)")
-        r, dh = ctx.saved_tensors
-        return g * r, None, g * dh, None, None, None
+            gcp = g * shell_geom_grad(ctx.stack, d, cp, h, ctx.E, ctx.nu)
+        return g * r, gcp, g * dh, None, None, None
 
 
 def internal_energy(stack: PatchStack, d, cp, h_coef, E, nu):

@@ -9,12 +9,22 @@ Port of goldfish_tpu/solver/devicechol.py (`PersistentDeviceFactor`):
   3. substitutions with `torch.cholesky_solve`; iterative refinement
      x += K_fac^-1 (b - K(d) x) whose matvec is the EXACT tangent product
      at the current state (kernel K4 on jet Hessians recomputed once per
-     solve), so a design- or state-stale factor still solves exactly.
+     solve), so a design- or state-stale factor still solves exactly. A
+     solve may start from a seed x0 (the secant-extrapolated previous
+     adjoint): one sweep fewer for the same certificate, and a bad seed
+     only fails the certificate.
 
 The factor is amortized across Newton and optimizer iterations; the
 certificate |dx_n| / |x| of every refinement solve drives the policy that
 decides when to add sweeps or refactor (the reference's ρ policy, with the
 sweep count as a plain runtime loop bound).
+
+The policy is written once over an opaque solver state (a tuple whose last
+entry is the displacement d); the problem enters only through the hooks
+`_assemble`, `_operator`, `_drift`, `_subst` and `_after_factor`.
+`PersistentDeviceFactor` is the fixed-intersection problem with state
+(cp, h, d); solver/system_mi.PersistentDeviceFactorMI is the
+moving-intersection one with state (cp, h, xi, d).
 
 An indefinite K (possible at a cold or trial state) makes `cholesky_ex`
 report info != 0. The factor is then filled with NaN, so every solve
@@ -49,7 +59,8 @@ class PersistentDeviceFactor:
       its Armijo slope (inexact, safe under the energy line search);
     - `newton_direction(cp, h, d, r)`: certificate-validated IR-exact
       direction (forcing tolerance 1e-3);
-    - `exact_solve(cp, h, d, b)`: self-validating IR solve (1e-6);
+    - `exact_solve(cp, h, d, b, x0=None)`: self-validating IR solve (1e-6),
+      optionally seeded;
     - `ensure(cp, h, d)`: refactor only when the state drifted more than
       `stale_tol` since the last factorization.
     """
@@ -68,7 +79,7 @@ class PersistentDeviceFactor:
         self.data = data
         self.tables = jet_tables(data)
         self.rho_est = self._RHO0
-        self._ref = None         # (cp, h, d) at factor time
+        self._ref = None         # solver state at factor time
         self._L = None
         self._dscale = None
         self.factor_ok = False
@@ -79,12 +90,25 @@ class PersistentDeviceFactor:
         self.refactor_log = []   # (why, drift) per factorization
         self.cert_log = []       # (tag, n_ir, ratio) per IR attempt
 
-    # ------------------------------------------------------------ factor
+    # ------------------------------------------------------------ hooks
+    def _assemble(self, s):
+        """Dense BC-reduced tangent at state s."""
+        cp, h, d = s
+        return assemble_K_from(self.tables, jet_hessians(self.data, d, cp, h))
+
+    def _operator(self, s):
+        """The exact tangent product v -> K(d) v at state s (jet Hessians
+        computed once)."""
+        cp, h, d = s
+        Hs = jet_hessians(self.data, d, cp, h)
+        return lambda v: tangent_matvec_from(self.tables, Hs, v)
+
     @staticmethod
-    def _drift(cp, h, d, cp0, h0, d0):
+    def _drift(s, ref):
         """Relative state drift since the factorization, each field
         normalized by its own scale; the tiny floor on the d-scale makes
         any first step from d0 = 0 register as full drift."""
+        (cp, h, d), (cp0, h0, d0) = s, ref
         dcp = torch.linalg.norm(cp - cp0) / (torch.linalg.norm(cp0) + 1e-300)
         dh = torch.linalg.norm(h - h0) / (torch.linalg.norm(h0) + 1e-300)
         d_scale = torch.linalg.norm(d0) + 1e-6 * torch.linalg.norm(cp0) \
@@ -92,14 +116,30 @@ class PersistentDeviceFactor:
         dd = torch.linalg.norm(d - d0) / d_scale
         return torch.maximum(torch.maximum(dcp, dh), dd)
 
-    def ensure(self, cp, h, d, force=False, why=""):
-        """Refactor if stale (or forced); True when a factorization ran."""
+    def _after_factor(self, s):
+        """Called after every factorization at state s."""
+
+    def _chol_solve(self, B):
+        """K_fac^-1 B for B (N, k) through the equilibrated Cholesky
+        factor."""
+        dsc = self._dscale[:, None]
+        return dsc * torch.cholesky_solve(dsc * B, self._L)
+
+    def _subst(self, b):
+        """K_fac^-1 b (the preconditioner of every refinement sweep)."""
+        return self._chol_solve(b.reshape(-1, 1))[:, 0].reshape(b.shape)
+
+    # ------------------------------------------------------------ factor
+    def _ensure(self, s, force=False, why="", stale_tol=None):
+        """Refactor at state s if it drifted more than `stale_tol`
+        (default the instance's) or when forced; True when a factorization
+        ran."""
         drift = -1.0
         if self._ref is not None and not force:
-            drift = float(self._drift(cp, h, d, *self._ref))
-            if drift <= self.stale_tol:
+            drift = float(self._drift(s, self._ref))
+            if drift <= (self.stale_tol if stale_tol is None else stale_tol):
                 return False
-        K = assemble_K_from(self.tables, jet_hessians(self.data, d, cp, h))
+        K = self._assemble(s)
         dsc = torch.rsqrt(K.diagonal().abs() + 1e-300)
         K.mul_(dsc[:, None]).mul_(dsc[None, :])   # equilibrate in place
         L, info = torch.linalg.cholesky_ex(K)
@@ -111,23 +151,24 @@ class PersistentDeviceFactor:
             self.n_factor_failed += 1
             why += "/indefinite"
         self._L, self._dscale = L, dsc
-        self._ref = (cp, h, d)
+        self._ref = s
         self.n_factor += 1
         self.rho_est = self._RHO0
         self.refactor_log.append((why, drift))
+        self._after_factor(s)
         return True
+
+    def ensure(self, cp, h, d, force=False, why=""):
+        """Refactor if stale (or forced); True when a factorization ran."""
+        return self._ensure((cp, h, d), force, why)
+
+    def _drift_now(self, s):
+        return None if self._ref is None else self._drift(s, self._ref)
 
     def drift_scalar(self, cp, h, d):
         """State drift vs the factor reference (0-dim tensor), or None
         when no factor exists yet."""
-        if self._ref is None:
-            return None
-        return self._drift(cp, h, d, *self._ref)
-
-    def _subst(self, b):
-        y = torch.cholesky_solve((self._dscale * b.reshape(-1))[:, None],
-                                 self._L)[:, 0]
-        return (self._dscale * y).reshape(b.shape)
+        return self._drift_now((cp, h, d))
 
     def direction_slope(self, r):
         """Substitution-only direction for -r (free-masked) and the Armijo
@@ -136,37 +177,41 @@ class PersistentDeviceFactor:
         return delta, torch.sum(r * delta)
 
     # ------------------------------------------------------------ IR solves
-    def _ir_solve(self, cp, h, d, b, n_ir: int):
-        """Substitution + n_ir refinement sweeps against K(d) (K4 on the jet
-        Hessians at d, computed once). Returns (x, ratio, rho_last) with
-        ratio = |dx_n| / |x| the certificate and rho_last = |dx_n| /
-        |dx_{n-1}| the last sweep's contraction."""
-        Hs = jet_hessians(self.data, d, cp, h)
+    def _ir_solve(self, s, b, n_ir: int, x0=None):
+        """n_ir refinement sweeps against K(d) at state s (the matvec's jet
+        Hessians computed once), from the substitution of b or from the
+        seed x0. Returns (x, ratio, rho_last) with ratio = |dx_n| / |x| the
+        certificate and rho_last = |dx_n| / |dx_{n-1}| the last sweep's
+        contraction."""
+        matvec = self._operator(s)
         free = self.data.free
-        x = self._subst(b)
+        x = self._subst(b) if x0 is None else x0
         last = prev = torch.linalg.norm(x)
         for _ in range(n_ir):
-            res = (b - tangent_matvec_from(self.tables, Hs, x)) * free
+            res = (b - matvec(x)) * free
             dx = self._subst(res)
             x = x + dx
             prev, last = last, torch.linalg.norm(dx)
         ratio = last / (torch.linalg.norm(x) + 1e-300)
         return x, ratio, last / (prev + 1e-300)
 
-    def _ir_dir(self, cp, h, d, r, n_ir: int):
+    def _ir_dir(self, s, r, n_ir: int):
         """IR-exact direction for -r: (delta, ratio, slope, rho_last)."""
-        x, ratio, rho_last = self._ir_solve(cp, h, d, -r, n_ir)
+        x, ratio, rho_last = self._ir_solve(s, -r, n_ir)
         delta = x * self.data.free
         return delta, ratio, torch.sum(r * delta), rho_last
 
     # ------------------------------------------------------------ ρ policy
-    def _n_for(self, tol, rho):
+    def _n_for(self, tol, rho, seeded=False):
         """Sweeps for a certificate below tol at contraction rho (a plain
-        runtime count in 1.._MAX_SWEEPS)."""
+        runtime count in 1.._MAX_SWEEPS); a good seed's entry error is
+        already small, so a seeded solve takes one sweep fewer."""
         if not math.isfinite(rho):
             rho = 0.9
         rho = min(max(rho, 1e-4), 0.9)
         n = math.ceil(math.log(tol) / math.log(rho)) + 1
+        if seeded:
+            n -= 1
         return min(max(n, 1), self._MAX_SWEEPS)
 
     @staticmethod
@@ -191,28 +236,25 @@ class PersistentDeviceFactor:
             return min(max(min(float(rho_last), base), 1e-4), 0.9)
         return base
 
-    def _rho_entry_refresh(self, cp, h, d):
+    def _rho_entry_refresh(self, s):
         """Refresh a persistently mediocre factor (rho_est above
         rho_refresh) at the current state when it has drifted; never at a
         non-finite state."""
         if self._ref is None or self.rho_est <= self.rho_refresh:
             return
-        drift = float(self._drift(cp, h, d, *self._ref))
-        if drift > self.stale_tol and self._inputs_finite(cp, h, d):
-            self.ensure(cp, h, d, force=True, why="rho-refresh")
+        drift = float(self._drift(s, self._ref))
+        if drift > self.stale_tol and self._inputs_finite(*s):
+            self._ensure(s, force=True, why="rho-refresh")
 
-    def newton_direction(self, cp, h, d, r):
-        """Certificate-validated IR-exact Newton direction for -r;
-        returns (delta, slope). The certificate must reach the forcing
-        tolerance _DIR_TOL; a retry within 10x of it is accepted (near
-        miss)."""
-        tol = self._DIR_TOL
-        self._rho_entry_refresh(cp, h, d)
+    def _newton_direction(self, s, r, tol=None):
+        tol = self._DIR_TOL if tol is None else tol
+        d = s[-1]
+        self._rho_entry_refresh(s)
         rho_entry = self.rho_est
         refactored = False
         for attempt in range(5):
             n_ir = self._n_for(tol, self.rho_est)
-            delta, ratio, slope, rho_last_ = self._ir_dir(cp, h, d, r, n_ir)
+            delta, ratio, slope, rho_last_ = self._ir_dir(s, r, n_ir)
             self.last_ratio = float(ratio)
             rho_last = float(rho_last_)
             self.cert_log.append(("dir", n_ir, self.last_ratio))
@@ -232,26 +274,45 @@ class PersistentDeviceFactor:
             self.rho_est = self._rho_meas(n_ir, rho_last)
             if not refactored and (self.rho_est > 0.5 or attempt >= 3
                                    or n_ir >= self._MAX_SWEEPS):
-                self.ensure(cp, h, d, force=True, why="dir-cert")
+                self._ensure(s, force=True, why="dir-cert")
                 refactored = True
         return delta, float(slope)
+
+    def newton_direction(self, cp, h, d, r):
+        """Certificate-validated IR-exact Newton direction for -r;
+        returns (delta, slope). The certificate must reach the forcing
+        tolerance _DIR_TOL; a retry within 10x of it is accepted (near
+        miss)."""
+        return self._newton_direction((cp, h, d), r)
 
     def ir_solve_async_dir(self, cp, h, d, b):
         """Adjoint-grade solve of K x = b through the direction solve
         (r = -b). Returns (x, ratio, n, rho_last); `finish_ir` books the
         certificate."""
-        self._rho_entry_refresh(cp, h, d)
+        s = (cp, h, d)
+        self._rho_entry_refresh(s)
         n = self._n_for(self._ADJOINT_TOL, self.rho_est)
-        x, ratio, _, rho_last = self._ir_dir(cp, h, d, -b, n)
+        x, ratio, _, rho_last = self._ir_dir(s, -b, n)
         return x, ratio, n, rho_last
 
-    def finish_ir(self, n, ratio, rho_last):
-        """Certificate bookkeeping for an `ir_solve_async_dir` solve: True
+    def _solve_once(self, s, b, x0=None, tol=None):
+        """One IR solve of K x = b sized from the measured contraction
+        (seeded from x0 when given): (x, ratio, n, rho_last)."""
+        tol = self._ADJOINT_TOL if tol is None else tol
+        self._rho_entry_refresh(s)
+        n = self._n_for(tol, self.rho_est, seeded=x0 is not None)
+        x, ratio, rho_last = self._ir_solve(s, b, n, x0)
+        return x, ratio, n, rho_last
+
+    def finish_ir(self, n, ratio, rho_last=None, tol=None, tag="dir-pipe"):
+        """Certificate bookkeeping for a solve of `_solve_once` /
+        `ir_solve_async_dir` against `tol` (default the adjoint gate): True
         when it passed. A non-finite certificate is left to `exact_solve`
         to triage."""
+        tol = self._ADJOINT_TOL if tol is None else tol
         self.last_ratio = float(ratio)
-        self.cert_log.append(("dir-pipe", n, self.last_ratio))
-        if self.last_ratio <= self._ADJOINT_TOL:
+        self.cert_log.append((tag, n, self.last_ratio))
+        if self.last_ratio <= tol:
             self.rho_est = max(self._rho_meas(n, rho_last), self._RHO0)
             return True
         if not math.isfinite(self.last_ratio):
@@ -259,19 +320,26 @@ class PersistentDeviceFactor:
         self.rho_est = self._rho_meas(n, rho_last)
         return False
 
-    def exact_solve(self, cp, h, d, b):
-        """K(d) x = b by IR to the adjoint gate, self-validating: grow the
-        sweep count from the measured contraction or refactor at the
-        current state and redo. If the certificate still fails after a
-        fresh factor, warn and set `nonconverged` rather than return
-        silently."""
+    def _exact_solve(self, s, b, x0=None):
         tol = self._ADJOINT_TOL
-        self._rho_entry_refresh(cp, h, d)
+        d = s[-1]
+        self._rho_entry_refresh(s)
+        if x0 is not None:
+            n = self._n_for(tol, self.rho_est, seeded=True)
+            x, ratio, rho_last = self._ir_solve(s, b, n, x0)
+            r = float(ratio)
+            self.cert_log.append(("exact-x0", n, r))
+            if r <= tol:
+                self.last_ratio = r
+                self.rho_est = max(self._rho_meas(n, float(rho_last)),
+                                   self._RHO0)
+                return x
+            # bad seed or stale factor: fall through unseeded
         rho_entry = self.rho_est
         refactored = False
         for attempt in range(5):
             n = self._n_for(tol, self.rho_est)
-            x, ratio, rho_last_ = self._ir_solve(cp, h, d, b, n)
+            x, ratio, rho_last_ = self._ir_solve(s, b, n)
             self.last_ratio = float(ratio)
             rho_last = float(rho_last_)
             self.cert_log.append(("exact", n, self.last_ratio))
@@ -287,13 +355,23 @@ class PersistentDeviceFactor:
             self.rho_est = self._rho_meas(n, rho_last)
             if not refactored and (self.rho_est > 0.5 or attempt >= 3
                                    or n >= self._MAX_SWEEPS):
-                self.ensure(cp, h, d, force=True, why="exact-cert")
+                self._ensure(s, force=True, why="exact-cert")
                 refactored = True
         self.nonconverged = True
         warnings.warn(
-            "PersistentDeviceFactor.exact_solve: IR certificate did not "
+            f"{type(self).__name__}.exact_solve: IR certificate did not "
             f"contract (last correction ratio {self.last_ratio:.3e} > tol "
             f"{tol:.1e}) even after a fresh factorization; the returned "
             "solve (and any gradient built on it) may be inaccurate.",
-            RuntimeWarning, stacklevel=2)
+            RuntimeWarning, stacklevel=3)
         return x
+
+    def exact_solve(self, cp, h, d, b, x0=None):
+        """K(d) x = b by IR to the adjoint gate, self-validating: grow the
+        sweep count from the measured contraction or refactor at the
+        current state and redo. A seed x0 (the reference's seeded IR solve)
+        is tried first with one sweep fewer; a bad seed only fails its
+        certificate and the solve falls through unseeded. If the
+        certificate still fails after a fresh factor, warn and set
+        `nonconverged` rather than return silently."""
+        return self._exact_solve((cp, h, d), b, x0)

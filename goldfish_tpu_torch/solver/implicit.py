@@ -34,7 +34,8 @@ from goldfish_tpu_torch.solver.system import (
     residual_vjp,
 )
 
-__all__ = ["newton_solve_host", "adjoint_solve", "build_solve_fn"]
+__all__ = ["damped_newton", "newton_solve_host", "adjoint_solve",
+           "build_solve_fn"]
 
 
 def _entry(data: SystemData, cp, h, d0):
@@ -52,16 +53,18 @@ def _trial(data: SystemData, cp, h, d, delta, alpha):
     return d_new, r, torch.linalg.norm(r), Pi
 
 
-def newton_solve_host(data: SystemData, fac: PersistentDeviceFactor, cp, h,
-                      d0, rtol=1e-10, atol=1e-14, max_it=30, shared=None):
-    """Damped Newton on one persistent factor. Returns (d, its, |r|).
+def damped_newton(data: SystemData, cp, h, d0, direction, refactor,
+                  rtol=1e-10, atol=1e-14, max_it=30, shared=None):
+    """The damped Newton iteration of every persistent-factor solve: the
+    residual-bounded energy line search, its bisection caps and the floor
+    and stall stops. Returns (d, its, |r|).
 
-    Directions are substitutions against the (possibly stale) factor
-    while it is fresh, and certificate-validated IR-exact directions once
-    it is design-stale or the contraction slows. The energy line search
-    guarantees descent. `shared` (optional dict) caches the load-scale
-    reference |r(0)| across the solves of a warm optimizer loop
-    (refreshed every 32 solves)."""
+    `direction(d, r, slow) -> (delta, slope)` gives the step for -r and its
+    slope (a float); `slow` turns True, and stays so, once a step has
+    contracted the residual by less than 4x. `refactor(d)` refreshes the
+    factor at d when the line search found no descent. `shared` (optional
+    dict) caches the load-scale reference |r(0)| across the solves of a
+    warm optimizer loop (refreshed every 32 solves)."""
     if (shared is not None and "r_ref" in shared
             and shared.get("r_ref_age", 0) < 32):
         r_ref = shared["r_ref"]
@@ -82,24 +85,9 @@ def newton_solve_host(data: SystemData, fac: PersistentDeviceFactor, cp, h,
     pinned = 0
     it = 0
     refactored_on_stall = False
-    use_ir = False
+    slow = False
     while it < max_it and rn > atol and rn > rtol * r_ref:
-        if not use_ir:
-            if fac._ref is None:
-                fac.ensure(cp, h, d)
-            drift = float(fac.drift_scalar(cp, h, d))
-            if drift > 0.2:
-                # grossly stale (cold transient): refresh at this state
-                fac.ensure(cp, h, d, force=True, why="drift")
-            elif drift > fac.stale_tol:
-                # design-stale by an optimizer-sized step: ride the IR
-                # certificate instead of refactoring
-                use_ir = True
-        if use_ir:
-            delta, slope = fac.newton_direction(cp, h, d, r)
-        else:
-            delta, slope_ = fac.direction_slope(r)
-            slope = float(slope_)
+        delta, slope = direction(d, r, slow)
         # 64x-eps margin: below it the Armijo test is roundoff
         slope_tiny = abs(slope) <= 64.0 * eps * abs(Pi0) + 1e-300
 
@@ -135,7 +123,7 @@ def newton_solve_host(data: SystemData, fac: PersistentDeviceFactor, cp, h,
         if ls_fail and not refactored_on_stall:
             # stale direction not a descent direction: refresh the factor
             # at the current state and retry this iteration
-            fac.ensure(cp, h, d, force=True, why="stall")
+            refactor(d)
             refactored_on_stall = True
             continue
         if not ls_fail:
@@ -153,10 +141,8 @@ def newton_solve_host(data: SystemData, fac: PersistentDeviceFactor, cp, h,
                 break
         else:
             pinned = 0
-        # slow contraction: the factor is too stale; switch to IR-exact
-        # directions rather than crawl or refactor
         if rn > 0.25 * rn_prev and rn > rtol * r_ref:
-            use_ir = True
+            slow = True
         if slope_tiny and res_stalled:
             break
         if (Pi_new >= Pi0 - 64 * eps * abs(Pi0)) and res_stalled:
@@ -167,6 +153,43 @@ def newton_solve_host(data: SystemData, fac: PersistentDeviceFactor, cp, h,
             stall = 0
         Pi0 = Pi_new
     return d, it, rn
+
+
+def newton_solve_host(data: SystemData, fac: PersistentDeviceFactor, cp, h,
+                      d0, rtol=1e-10, atol=1e-14, max_it=30, shared=None):
+    """Damped Newton on one persistent factor. Returns (d, its, |r|).
+
+    Directions are substitutions against the (possibly stale) factor
+    while it is fresh, and certificate-validated IR-exact directions once
+    it is design-stale or the contraction slows. The energy line search
+    guarantees descent (`damped_newton`)."""
+    use_ir = False
+
+    def direction(d, r, slow):
+        nonlocal use_ir
+        # slow contraction: the factor is too stale; switch to IR-exact
+        # directions rather than crawl or refactor
+        use_ir = use_ir or slow
+        if not use_ir:
+            if fac._ref is None:
+                fac.ensure(cp, h, d)
+            drift = float(fac.drift_scalar(cp, h, d))
+            if drift > 0.2:
+                # grossly stale (cold transient): refresh at this state
+                fac.ensure(cp, h, d, force=True, why="drift")
+            elif drift > fac.stale_tol:
+                # design-stale by an optimizer-sized step: ride the IR
+                # certificate instead of refactoring
+                use_ir = True
+        if use_ir:
+            return fac.newton_direction(cp, h, d, r)
+        delta, slope = fac.direction_slope(r)
+        return delta, float(slope)
+
+    return damped_newton(
+        data, cp, h, d0, direction,
+        lambda d: fac.ensure(cp, h, d, force=True, why="stall"),
+        rtol=rtol, atol=atol, max_it=max_it, shared=shared)
 
 
 def adjoint_solve(data: SystemData, fac: PersistentDeviceFactor, d, cp, h,

@@ -38,9 +38,15 @@ from goldfish_tpu_torch.geometry.patch_stack import (
 )
 from goldfish_tpu_torch.physics import coupling, kl_shell
 from goldfish_tpu_torch.physics.coupling import InterfaceSpec, InterfaceStack
-from goldfish_tpu_torch.physics.loads import external_work, external_force
+from goldfish_tpu_torch.physics.loads import (
+    PointLoads,
+    build_point_loads,
+    external_force,
+    external_work,
+)
 
 __all__ = ["SystemData", "NonMatchingSystem", "JetTables", "jet_tables",
+           "interface_tables",
            "jet_hessians", "jet_assemble", "jet_matvec", "assemble_K_from",
            "tangent_matvec_from", "potential_and_residual", "residual_vjp",
            "total_potential", "residual", "tangent_matvec", "assemble_K",
@@ -49,8 +55,8 @@ __all__ = ["SystemData", "NonMatchingSystem", "JetTables", "jet_tables",
 
 class SystemData(NamedTuple):
     """Problem tensors (the same fields as the JAX package's SystemData).
-    Only the dead load is ported; the other loads and contact must be
-    None."""
+    The dead and point loads are ported; the other loads and contact must
+    be None."""
 
     stack: PatchStack
     ifs: InterfaceStack | None
@@ -58,7 +64,7 @@ class SystemData(NamedTuple):
     E: torch.Tensor          # (P,)
     nu: torch.Tensor         # (P,)
     f_areal: torch.Tensor | None   # (P, 3) dead load or None
-    point_loads: object = None
+    point_loads: PointLoads | None = None
     pressure: object = None
     edge_loads: object = None
     f_field: object = None
@@ -66,8 +72,7 @@ class SystemData(NamedTuple):
 
 
 def _check_ported(data: SystemData):
-    for name in ("point_loads", "pressure", "edge_loads", "f_field",
-                 "contact"):
+    for name in ("pressure", "edge_loads", "f_field", "contact"):
         if getattr(data, name) is not None:
             raise NotImplementedError(
                 f"SystemData.{name} is not ported yet (ROADMAP Queue A7/A10)")
@@ -86,8 +91,9 @@ def potential_and_residual(data: SystemData, d, cp, h):
         Wi, ri, _ = coupling.penalty_value_grad(data.ifs, d, cp, h, data.E)
         Pi = Pi + Wi.sum()
         r = r + ri
-    Pi = Pi - external_work(data.stack, d, cp, data.f_areal)
-    r = r - external_force(data.stack, cp, data.f_areal)
+    Pi = Pi - external_work(data.stack, d, cp, data.f_areal,
+                            data.point_loads)
+    r = r - external_force(data.stack, cp, data.f_areal, data.point_loads)
     return Pi, r * data.free
 
 
@@ -162,6 +168,15 @@ class JetTables(NamedTuple):
     free: torch.Tensor            # (P*C*3,)
 
 
+def interface_tables(ifs: InterfaceStack, C: int):
+    """(R_i (I*N, 1, 6, 2L), gi_i (I*N, 6L) int32): the interface groups
+    of the jet assembly/matvec kernels."""
+    I_, N, Li = ifs.RA00.shape
+    R_i = coupling.interface_rows(ifs).reshape(I_ * N, 1, 6, 2 * Li)
+    gi_i = _interface_global_dofs(ifs, C).reshape(I_ * N, 6 * Li)
+    return R_i.contiguous(), gi_i.contiguous()
+
+
 def jet_tables(data: SystemData) -> JetTables:
     stack = data.stack
     P, Ne, Q, L = stack.R00.shape
@@ -169,17 +184,11 @@ def jet_tables(data: SystemData) -> JetTables:
     gi_e = element_global_dofs(stack)
     R_i = gi_i = None
     if data.ifs is not None:
-        I_, N, Li = data.ifs.RA00.shape
-        R_i = coupling.interface_rows(data.ifs).reshape(I_ * N, 1, 6,
-                                                         2 * Li)
-        gi_i = _interface_global_dofs(data.ifs, stack.max_cp).reshape(
-            I_ * N, 6 * Li)
+        R_i, gi_i = interface_tables(data.ifs, stack.max_cp)
     return JetTables(
         R_e=R_e.reshape(P * Ne, Q, 5, L).contiguous(),
         gi_e=gi_e.reshape(P * Ne, 3 * L).contiguous(),
-        R_i=None if R_i is None else R_i.contiguous(),
-        gi_i=None if gi_i is None else gi_i.contiguous(),
-        free=data.free.reshape(-1).contiguous())
+        R_i=R_i, gi_i=gi_i, free=data.free.reshape(-1).contiguous())
 
 
 def jet_hessians(data: SystemData, d, cp, h):
@@ -333,6 +342,7 @@ class NonMatchingSystem:
             self.stack.cp_mask.cpu().numpy()[..., None] * np.ones(3),
             dtype=np.float64)
         self.f_areal = None
+        self.point_load_entries = []
         self._data = None
 
     def add_zero_dofs(self, patch: int, cp_indices, fields=(0, 1, 2)):
@@ -355,13 +365,22 @@ class NonMatchingSystem:
         self.f_areal = tensor(f, self.device)
         self._data = None
 
+    def add_point_load(self, patch: int, xi, force):
+        """Dead point load `force` (3,) at parametric point `xi` (2,)."""
+        self.point_load_entries.append((patch, np.asarray(xi),
+                                        np.asarray(force)))
+        self._data = None
+
     @property
     def data(self) -> SystemData:
         if self._data is None:
             self._data = SystemData(
                 stack=self.stack, ifs=self.ifs,
                 free=tensor(self._free, self.device),
-                E=self.E, nu=self.nu, f_areal=self.f_areal)
+                E=self.E, nu=self.nu, f_areal=self.f_areal,
+                point_loads=build_point_loads(
+                    self.surfs, self.point_load_entries,
+                    max_loc=self.stack.conn.shape[-1], device=self.device))
         return self._data
 
     def zero_displacement(self):

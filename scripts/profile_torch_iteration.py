@@ -1,15 +1,22 @@
-"""Where the time of one wing20 optimization iteration goes, on the GPU.
+"""Where the time of one optimization iteration goes, on the GPU.
 
-Runs the port's main path (bench.py's workload: 20-patch wing, 6600 dofs,
-ThicknessFFD (4,4,1), Newton rtol 1e-9 + adjoint) on one CUDA card: a
-cold iteration and two warm 1e-4 steps untimed, then one warm 1e-4
-iteration and one 1e-2 refactor iteration under torch.profiler. For each
-profiled iteration it prints the wall time, the device-busy time (union
-of kernel, memcpy and memset intervals), the idle share, and the top
-device operations by self time. Chrome traces go to
+Wing (default): the port's first main path (bench.py's workload: 20-patch
+wing, 6600 dofs, ThicknessFFD (4,4,1), Newton rtol 1e-9 + adjoint) on one
+CUDA card: a cold iteration and two warm 1e-4 steps untimed, then one warm
+1e-4 iteration and one 1e-2 refactor iteration under torch.profiler.
+
+--mi: the moving-intersection T-beam iteration of scripts/bench_mi.py
+(N = 6072 dofs; CP -> xi solve, MI Newton with the Woodbury seam
+correction, adjoint through both implicit solves): a cold iteration at
+amp = 0.05 and two warm 1e-3 steps untimed, then one warm 1e-3 step and
+one 1e-2 step under torch.profiler.
+
+For each profiled iteration it prints the wall time, the device-busy time
+(union of kernel, memcpy and memset intervals), the idle share, and the
+top device operations by self time. Chrome traces go to
 <trace_dir>/profile_<tag>.json (a fresh temporary directory by default).
 
-    python scripts/profile_torch_iteration.py [trace_dir]
+    python scripts/profile_torch_iteration.py [trace_dir] [--mi]
 """
 
 from __future__ import annotations
@@ -45,10 +52,65 @@ def device_busy_us(trace_path):
     return busy, len(iv)
 
 
+def report(tag, prof, wall, out, extra):
+    path = os.path.join(out, f"profile_{tag}.json")
+    prof.export_chrome_trace(path)
+    busy, n = device_busy_us(path)
+    print(f"[{tag}] wall {wall * 1e3:.3f} ms (profiled), device busy "
+          f"{busy / 1e3:.3f} ms over {n} device ops, idle share "
+          f"{1.0 - busy / (wall * 1e6):.3f}; {extra}", flush=True)
+    print(prof.key_averages().table(sort_by="self_device_time_total",
+                                    row_limit=22), flush=True)
+
+
+def main_mi(out):
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import make_mi_iteration
+    from goldfish_tpu_torch.models import tbeam
+    from goldfish_tpu_torch.opt.warmstart import SecantWarmStart
+
+    dev = torch.device("cuda", 0)
+    sys_ = tbeam.build_mi(num_el=40, p=3, n_pts=17, device=dev)
+    run, forward = make_mi_iteration(sys_, dev)
+    fac = forward.solve_d.device_factor
+    ws_d, ws_xi = SecantWarmStart(), SecantWarmStart()
+    d, xi = sys_.zero_displacement(), None
+
+    def step(amp):
+        nonlocal d, xi
+        a = torch.tensor(amp, dtype=torch.float64)
+        seed = None if xi is None else ws_xi.predict(a, xi).clamp(0.0, 1.0)
+        _, _, d, xi, dt = run(amp, ws_d.predict(a, d), seed)
+        ws_d.update(a, d)
+        ws_xi.update(a, xi)
+        return dt
+
+    for k in (0, 1, 2):
+        step(0.05 * (1.0 + 1e-3 * k))
+    for tag, amp in (("mi_warm", 0.05 * 1.003), ("mi_step1e-2",
+                                                   0.05 * 1.013)):
+        nf = fac.n_factor
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall = step(amp)
+        report(tag, prof, wall, out,
+               f"newton its {forward.solve_d.solver.last_its}, xi-newton "
+               f"its {sys_.c2x.last_its}, factorizations "
+               f"{fac.n_factor - nf}")
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: this profile needs one GPU")
     from torch.profiler import ProfilerActivity, profile
+
+    args = [a for a in sys.argv[1:] if a != "--mi"]
+    out = args[0] if args else tempfile.mkdtemp()
+    os.makedirs(out, exist_ok=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if "--mi" in sys.argv[1:]:
+        return main_mi(out)
 
     from chip_smoke import make_iteration
     from goldfish_tpu_torch.design.pipeline import ThicknessFFD
@@ -56,9 +118,6 @@ def main():
     from goldfish_tpu_torch.opt.warmstart import SecantWarmStart
     from goldfish_tpu_torch.solver.implicit import build_solve_fn
 
-    out = sys.argv[1] if len(sys.argv) > 1 else tempfile.mkdtemp()
-    os.makedirs(out, exist_ok=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     sys_ = wing.build(num_el=6, p=3, device=dev)
     th = ThicknessFFD(sys_, num_els=(4, 4, 1), p=(2, 2, 1))
@@ -83,16 +142,9 @@ def main():
         if tag == "warm":
             d = d_new
             ws.update(hk, d)
-        path = os.path.join(out, f"profile_{tag}.json")
-        prof.export_chrome_trace(path)
-        busy, n = device_busy_us(path)
-        print(f"[{tag}] wall {wall * 1e3:.3f} ms (profiled), device busy "
-              f"{busy / 1e3:.3f} ms over {n} device ops, idle share "
-              f"{1.0 - busy / (wall * 1e6):.3f}; newton its "
-              f"{solve.solver.last_its}, n_factor "
-              f"{solve.device_factor.n_factor}", flush=True)
-        print(prof.key_averages().table(sort_by="self_device_time_total",
-                                        row_limit=22), flush=True)
+        report(tag, prof, wall, out,
+               f"newton its {solve.solver.last_its}, n_factor "
+               f"{solve.device_factor.n_factor}")
 
 
 if __name__ == "__main__":

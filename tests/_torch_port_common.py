@@ -5,6 +5,12 @@ patches, 20 (padded) elements each, N = 672 dofs. Both packages build it
 from the same host code; `from_numpy_tree` hands the JAX package's arrays
 to the port bit for bit. Seeded states come from numpy, so both packages
 see identical inputs.
+
+The small moving-intersection T-beam: tests/test_system_mi.py's
+`_mi_tbeam(num_el=4, p=3, n_pts=17)` in the JAX package and
+`tbeam.build_mi(num_el=4, p=3, n_pts=17, device="cpu")` in the port
+(2 patches, C = 40, N = 240 dofs, one seam of 17 points). The design map
+is scripts/bench_mi.py's: cp(amp) = cp0 + amp * bend on the web's x.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ def jax_wing():
 def port_data():
     from goldfish_tpu_torch.bridge import from_numpy_tree
 
-    return from_numpy_tree(jax_wing().data)
+    return from_numpy_tree(jax_wing().data, device="cpu")
 
 
 def seeded_state(seed=0, system=None):
@@ -58,3 +64,72 @@ def rel(a, b):
                    dtype=np.float64)
     b = np.asarray(b, dtype=np.float64)
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+MI_SMALL = dict(num_el=4, p=3, n_pts=17)
+
+
+@functools.lru_cache(maxsize=1)
+def jax_mi_tbeam():
+    from goldfish_tpu.models import tbeam
+    from goldfish_tpu.physics.coupling import InterfaceSpec
+    from goldfish_tpu.solver.system_mi import MINonMatchingSystem
+
+    num_el, p, n_pts = MI_SMALL["num_el"], MI_SMALL["p"], MI_SMALL["n_pts"]
+    w2 = tbeam.WIDTH / 2
+    pts0 = [[-w2, 0, 0], [w2, 0, 0], [-w2, tbeam.LENGTH, 0],
+            [w2, tbeam.LENGTH, 0]]
+    pts1 = [[0, 0, 0], [0, 0, -tbeam.DEPTH], [0, tbeam.LENGTH, 0],
+            [0, tbeam.LENGTH, -tbeam.DEPTH]]
+    srf0 = tbeam.create_surf(pts0, max(num_el // 2, 1), num_el, p)
+    srf1 = tbeam.create_surf(pts1, max((num_el + 1) // 2, 1), num_el + 1, p)
+    specs = [InterfaceSpec(
+        pair=(0, 1),
+        xi_ends_A=np.array([[0.5, 0.0], [0.5, 1.0]]),
+        xi_ends_B=np.array([[0.0, 0.0], [0.0, 1.0]]),
+        n_mortar_el=n_pts - 1)]
+    s = MINonMatchingSystem([srf0, srf1], tbeam.E, tbeam.NU, tbeam.H_TH,
+                            specs=specs, n_pts_list=[n_pts])
+    s.add_side_bc(0, direction=1, side=0, n_layers=1)
+    s.add_side_bc(1, direction=1, side=0, n_layers=1)
+    s.add_point_load(0, [1.0, 1.0], [0.0, 0.0, 10.0])
+    return s
+
+
+def port_mi_tbeam():
+    """A fresh port system (its solve functions keep state)."""
+    from goldfish_tpu_torch.models import tbeam
+
+    return tbeam.build_mi(**MI_SMALL, device="cpu")
+
+
+def mi_bend(system):
+    """bench_mi's design direction: sin(pi v) on the web's x (numpy)."""
+    m = system.metas[1]
+    gv = system.surfs[1].greville_points(1)
+    return np.tile(np.sin(np.pi * gv)[None, :], (m.n_u, 1)).ravel()
+
+
+def mi_cp(system, amp):
+    """cp(amp) as numpy."""
+    cp = np.array(system.cp, dtype=np.float64)
+    m = system.metas[1]
+    cp[1, : m.n_cp, 0] += amp * mi_bend(system)
+    return cp
+
+
+def mi_state(seed=0, amp=0.05):
+    """(cp, h, xi, d, lam) as numpy on the small JAX T-beam: cp at amp, xi
+    the initial seam moved by up to 1e-3 (clipped to [0, 1]), d ~ 1e-3
+    |cp| on free dofs, lam standard normal."""
+    s = jax_mi_tbeam()
+    rng = np.random.default_rng(seed)
+    cp = mi_cp(s, amp)
+    h = np.array(s.h_init)
+    free = np.asarray(s.data.free)
+    xi0 = np.asarray(s.c2x.xi0_flat)
+    xi = np.clip(xi0 + 1e-3 * rng.uniform(-1, 1, size=xi0.shape), 0.0, 1.0)
+    scale = np.linalg.norm(cp) / np.sqrt(cp.size)
+    d = 1e-3 * scale * rng.normal(size=cp.shape) * free
+    lam = rng.normal(size=cp.shape)
+    return cp, h, xi, d, lam

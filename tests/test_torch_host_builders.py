@@ -14,7 +14,7 @@ from _torch_port_common import FFD_SMALL, WING_SMALL, jax_wing
 def port_wing():
     from goldfish_tpu_torch.models import wing
 
-    return wing.build(**WING_SMALL)
+    return wing.build(**WING_SMALL, device="cpu")
 
 
 def _same(a, b):
@@ -64,7 +64,7 @@ def test_bridge_round_trip():
     from goldfish_tpu_torch.solver.system import SystemData
 
     j = jax_wing().data
-    p = from_numpy_tree(j)
+    p = from_numpy_tree(j, device="cpu")
     assert isinstance(p, SystemData)
     assert _same(p.stack.conn, j.stack.conn)
     assert p.stack.conn.dtype.is_floating_point is False
@@ -76,7 +76,12 @@ def test_port_imports_without_jax():
     code = ("import sys; import goldfish_tpu_torch.solver.implicit, "
             "goldfish_tpu_torch.models.wing, goldfish_tpu_torch.bridge, "
             "goldfish_tpu_torch.design.pipeline, "
-            "goldfish_tpu_torch.opt.warmstart; "
+            "goldfish_tpu_torch.opt.warmstart, "
+            "goldfish_tpu_torch.models.tbeam, "
+            "goldfish_tpu_torch.ops.bspline_traced, "
+            "goldfish_tpu_torch.geometry.cpiga2xi, "
+            "goldfish_tpu_torch.physics.coupling_mi, "
+            "goldfish_tpu_torch.solver.system_mi; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'goldfish_tpu' "
             "or m.startswith('goldfish_tpu.')]; "

@@ -61,10 +61,15 @@ def test_autograd_of_internal_energy(state):
                                    data.nu)
     assert rel(dt.grad, r.numpy()) == 0.0
     assert rel(ht.grad, dh.numpy()) == 0.0
+    # dW/dcp (K1's geometry-gradient mode) against the JAX package's AD
+    from goldfish_tpu.physics import kl_shell as jk
+
+    st, E, nu = _jax_args()
     cpt = t(cp).requires_grad_(True)
     W = tk.internal_energy(data.stack, t(d), cpt, t(h), data.E, data.nu)
-    with pytest.raises(NotImplementedError):
-        W.backward()
+    W.backward()
+    g_ref = jax.grad(jk.internal_energy, argnums=2)(st, d, cp, h, E, nu)
+    assert rel(cpt.grad, g_ref) <= 1e-12
 
 
 def test_element_hessians(state):

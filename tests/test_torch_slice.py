@@ -58,7 +58,7 @@ def port_iterations():
     from goldfish_tpu_torch.physics import kl_shell
     from goldfish_tpu_torch.solver.implicit import build_solve_fn
 
-    s = wing.build(**WING_SMALL)
+    s = wing.build(**WING_SMALL, device="cpu")
     th = ThicknessFFD(s, **FFD_SMALL)
     solve = build_solve_fn(s.data, rtol=1e-9, max_it=30)
 
