@@ -37,7 +37,25 @@ Phases (any failure raises: non-zero exit, no result line):
    through both implicit solves), cold at amp = 0.05 from d = 0, checked
    against tests/data/torch_port_mi_tbeam40_reference.json (J 1e-8,
    dJ/damp 1e-6), then 5 warm steps amp = 0.05 (1 + 1e-3 k) with secant
-   warm starts for d, xi and (inside the solve) the adjoint.
+   warm starts for d, xi and (inside the solve) the adjoint;
+7. tube kernels: the pressurized tube at the size and follower pressure of
+   tests/data/torch_port_tube16_reference.json (num_el=16, p=3: 4 patches,
+   degree (3, 2), 12 qps, N = 8436) on the card, at d = the pressure's linear
+   response plus seeded noise, lambda random: K8 pressure_qp in its three
+   modes and K1-K4 (K3/K4 with the pressure group) on the fixed-seam
+   elliptic tube; K5-K7 and K1-K4 (K3 also through the seam-slot map) on
+   the moving-seam tube (four edge seams of 35 points, xi moved inside its
+   edges); each against its plain version (1e-11), with both times;
+8. fixed-seam tube path (goldfish_tpu_torch/demos/tube_shape_opt.py): J
+   and dJ/dp at p0 from d = 0 against tests/data/
+   torch_port_tube16_reference.json (J 1e-8, gradient 1e-6), then
+   OptProblem.run_slsqp(maxiter=3): it must lower J and keep the pin
+   residual <= 1e-10;
+9. moving-seam tube path (goldfish_tpu_torch/demos/
+   draft_tube_shopt_mi_wffd.py): the same at p_start;
+10. library calls: cholesky_ex, cholesky_solve, the Woodbury capacitance
+   linalg.solve and the batched xi linalg.solve at each path's size, timed
+   with CUDA events beside their bounds.
 
 Launch counters, reset just before each main path and read just after,
 prove that the path went through its kernels. The line before the last is
@@ -60,11 +78,15 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 REF = os.path.join(ROOT, "tests", "data", "torch_port_wing20_reference.json")
 REF_MI = os.path.join(ROOT, "tests", "data",
                       "torch_port_mi_tbeam40_reference.json")
+REF_TUBE = os.path.join(ROOT, "tests", "data",
+                        "torch_port_tube16_reference.json")
 KERNEL_TOL = 1e-11
-# NVIDIA H100 SXM data sheet: HBM3 bandwidth and f64 rate outside the
-# tensor cores (none of the kernels is a matrix product)
+# NVIDIA H100 SXM data sheet: HBM3 bandwidth, the f64 rate outside the
+# tensor cores (none of the kernels is a matrix product) and the f64
+# tensor-core rate (the bound of the dense factorizations)
 PEAK_BYTES = 3.35e12
 PEAK_F64 = 34e12
+PEAK_F64_TC = 67e12
 
 
 def say(msg):
@@ -164,11 +186,21 @@ KERNELS = [
      "goldfish_tpu/geometry/cpiga2xi.py:202"),
     ("c2x_res_jac/adjoint", "goldfish_tpu_torch/csrc/c2x_res_jac.cu",
      "goldfish_tpu/geometry/cpiga2xi.py:356"),
+    ("pressure_qp/value_grad", "goldfish_tpu_torch/csrc/pressure_qp.cu",
+     "goldfish_tpu/physics/loads.py:146"),
+    ("pressure_qp/hess", "goldfish_tpu_torch/csrc/pressure_qp.cu",
+     "goldfish_tpu/physics/kl_shell.py:198"),
+    ("pressure_qp/adjoint", "goldfish_tpu_torch/csrc/pressure_qp.cu",
+     "goldfish_tpu/solver/implicit.py:516"),
 ]
 WING_KERNELS = ("shell_qp/value_grad", "shell_qp/hess", "shell_qp/adjoint",
                 "penalty_qp/value_grad", "penalty_qp/hess",
                 "penalty_qp/adjoint", "jet_assemble", "jet_matvec")
-MI_PATH_KERNELS = tuple(k[0] for k in KERNELS)
+MI_PATH_KERNELS = tuple(k[0] for k in KERNELS[:13])
+PRESSURE_KERNELS = ("pressure_qp/value_grad", "pressure_qp/hess",
+                    "pressure_qp/adjoint")
+TUBE_KERNELS = WING_KERNELS + ("shell_qp/geom_grad",) + PRESSURE_KERNELS
+TUBE_MI_KERNELS = MI_PATH_KERNELS + PRESSURE_KERNELS
 
 # f64 operations of one density evaluation (counted from the sources); a
 # kernel mode's count is that times the dual components it carries
@@ -189,17 +221,22 @@ def fixed_cases(data, d, cp, h, lam, v):
     N = free.shape[0]
     dev = free.device
 
+    groups = [(Hs[0], tables.R_e, tables.gi_e),
+              (Hs[1], tables.R_i, tables.gi_i)]
+    if Hs[2] is not None:   # the follower pressure's group
+        groups.append((Hs[2], tables.R_p, tables.gi_e))
+
     def assemble(fn):
         K = torch.zeros(N, N, dtype=torch.float64, device=dev)
-        fn(K, Hs[0], tables.R_e, tables.gi_e, free)
-        fn(K, Hs[1], tables.R_i, tables.gi_i, free)
+        for H, R, gi in groups:
+            fn(K, H, R, gi, free)
         return K
 
     def matvec(fn):
         y = torch.zeros(N, dtype=torch.float64, device=dev)
         vf = v.reshape(-1)
-        fn(y, Hs[0], tables.R_e, tables.gi_e, free, vf)
-        fn(y, Hs[1], tables.R_i, tables.gi_i, free, vf)
+        for H, R, gi in groups:
+            fn(y, H, R, gi, free, vf)
         return y
 
     P, Ne, Q, L = st.R00.shape
@@ -212,6 +249,9 @@ def fixed_cases(data, d, cp, h, lam, v):
     # K3: 9 FMAs per (local pair, qp, jet pair); K4: gather, H z, scatter
     asm = 18 * (g_e * L * L * Q * 25 + g_i * (2 * Li) ** 2 * 36)
     mv = g_e * Q * (12 * 5 * L + 450) + g_i * (12 * 6 * 2 * Li + 648)
+    if Hs[2] is not None:
+        asm += 18 * g_e * L * L * Q * 9
+        mv += g_e * Q * (12 * 3 * L + 162)
     base = [d, cp, h, E, nu, data.free]
     shell_in = base + list(st)
     pen_in = base + list(ifs)
@@ -247,6 +287,34 @@ def fixed_cases(data, d, cp, h, lam, v):
         "jet_matvec": (lambda: matvec(system.jet_matvec),
                        lambda: matvec(system._matvec_plain), mv,
                        jet_in + [v]),
+    }
+
+
+def pressure_cases(data, d, cp, lam):
+    """K8 in its three modes on the stack of `data` (which has a follower
+    pressure): name -> (kernel fn, plain fn, flops, inputs)."""
+    from goldfish_tpu_torch.physics import loads
+
+    st, pr = data.stack, data.pressure
+    P, Ne, Q, L = st.R00.shape
+    nqp = P * Ne * Q
+    ins = [st.R00, st.R10, st.R01, st.conn, st.wq, d, cp, pr]
+    # per qp: 9-jet gathers (36 flops per local and field), the triple
+    # products and cross products (~70), the scatter (18 per local); the
+    # Hessian applies 9 directional derivatives (~72 each)
+    return {
+        "pressure_qp/value_grad": (
+            lambda: loads.pressure_value_grad(st, d, cp, pr),
+            lambda: loads._pressure_value_grad_plain(st, d, cp, pr),
+            nqp * (54 * L + 70), ins),
+        "pressure_qp/hess": (
+            lambda: loads.pressure_hessians(st, d, cp, pr),
+            lambda: loads._pressure_hessians_plain(st, d, cp, pr),
+            nqp * (36 * L + 9 * 72), ins),
+        "pressure_qp/adjoint": (
+            lambda: loads.pressure_adjoint(st, d, cp, pr, lam),
+            lambda: loads._pressure_adjoint_plain(st, d, cp, pr, lam),
+            nqp * (72 * L + 72), ins + [lam]),
     }
 
 
@@ -376,7 +444,7 @@ def phase_main_path(sys_, dev):
     if missing:
         raise RuntimeError(f"kernels never launched on the main path: "
                            f"{missing}")
-    return counts
+    return counts, fac
 
 
 # ------------------------------------------------------------ MI T-beam
@@ -434,9 +502,11 @@ def edge_seam(dev):
     return c2x, cp, x, g
 
 
-def mi_kernel_cases(sys_):
-    """(name, case...) -> (kernel fn, plain fn, flops, inputs) at bench_mi's
-    size; the first case of each name is the one the MI path runs."""
+def mi_kernel_cases(sys_, edge=True):
+    """(name, case...) -> (kernel fn, plain fn, flops, inputs) of an MI
+    system; the first case of each name is the one the MI path runs.
+    `edge` adds K7's edge-to-edge variant on a synthetic seam (for a system
+    whose own seams do not take it)."""
     from goldfish_tpu_torch.geometry import cpiga2xi
     from goldfish_tpu_torch.ops import bspline_traced as bt
     from goldfish_tpu_torch.physics import coupling_mi, kl_shell
@@ -495,20 +565,23 @@ def mi_kernel_cases(sys_):
         lambda: cpiga2xi._res_vjp_plain(ss, p, q, mi, cp, xi, gx),
         I * N * (2 * (basis * 3 + L * 3 * 6) + 4 * 16 * 40),
         sv + mi_in + [cp, xi, gx])
-    # K7's edge-to-edge variant, which the T-beam's seam does not take: two
-    # flat patches side by side, seam along A's u = 1 and B's u = 0 edges
-    ex, ecp, ex_x, eg = edge_seam(cp.device)
-    e_in = [ex.mi.pairA, ex.mi.pairB, ex.mi.n_pts, ex.mi.end_dir,
-            ex.mi.end_val, ex.mi.xi0, ex.mi.both_edges, ex.mi.epin_dir,
-            ex.mi.epin_val, ecp, ex_x]
-    cases[("c2x_res_jac/res_jac", "edge")] = (
-        lambda: cpiga2xi.c2x_res_jac(ex.ss, p, q, ex.mi, ecp, ex_x),
-        lambda: cpiga2xi._res_jac_plain(ex.ss, p, q, ex.mi, ecp, ex_x, True),
-        0, e_in)
-    cases[("c2x_res_jac/adjoint", "edge")] = (
-        lambda: cpiga2xi.c2x_res_vjp(ex.ss, p, q, ex.mi, ecp, ex_x, eg),
-        lambda: cpiga2xi._res_vjp_plain(ex.ss, p, q, ex.mi, ecp, ex_x, eg),
-        0, e_in + [eg])
+    if edge:
+        # K7's edge-to-edge variant, which the T-beam's seam does not take:
+        # two flat patches side by side, seam along A's u = 1 and B's u = 0
+        ex, ecp, ex_x, eg = edge_seam(cp.device)
+        e_in = [ex.mi.pairA, ex.mi.pairB, ex.mi.n_pts, ex.mi.end_dir,
+                ex.mi.end_val, ex.mi.xi0, ex.mi.both_edges, ex.mi.epin_dir,
+                ex.mi.epin_val, ecp, ex_x]
+        cases[("c2x_res_jac/res_jac", "edge")] = (
+            lambda: cpiga2xi.c2x_res_jac(ex.ss, p, q, ex.mi, ecp, ex_x),
+            lambda: cpiga2xi._res_jac_plain(ex.ss, p, q, ex.mi, ecp, ex_x,
+                                            True),
+            0, e_in)
+        cases[("c2x_res_jac/adjoint", "edge")] = (
+            lambda: cpiga2xi.c2x_res_vjp(ex.ss, p, q, ex.mi, ecp, ex_x, eg),
+            lambda: cpiga2xi._res_vjp_plain(ex.ss, p, q, ex.mi, ecp, ex_x,
+                                            eg),
+            0, e_in + [eg])
     cases[("shell_qp/geom_grad",)] = (
         lambda: kl_shell.shell_geom_grad(st, d, cp, h, E, data.nu),
         lambda: kl_shell._geom_grad_plain(st, d, cp, h, E, data.nu),
@@ -567,24 +640,37 @@ def seam_conditioning(sys_):
         f"(not gated)")
 
 
-def phase_mi_kernels(sys_, checks, reps=5):
-    """Check every MI case and merge it into `checks` (the wing's): a
-    kernel keeps the worst error over its cases and the times of its first
-    case; the MI path's case of K1-K4 adds its times as *_mi."""
+def merge(checks, name, got, suffix=None):
+    """Merge one checked case into `checks`: a kernel keeps the worst error
+    over its cases and the times of its first case; a case with a suffix
+    adds its times as <key>_<suffix>."""
+    prev = checks.get(name)
+    if prev is None:
+        checks[name] = got
+        return
+    prev["rel"] = max(got["rel"], prev["rel"])
+    prev["max_abs_err"] = max(got["max_abs_err"], prev["max_abs_err"])
+    if suffix:
+        prev.update({f"{k}_{suffix}": got[k]
+                     for k in ("ms", "plain_ms", "bound_ms")})
+
+
+def phase_mi_kernels(sys_, checks, reps=5, tube=False):
+    """Check every MI case of `sys_` and merge it into `checks`. On the
+    T-beam the MI path's case of K1-K4 adds its times as *_mi; on the tube
+    (`tube`) those add *_tube_mi and K5-K7's own cases *_tube."""
     seam_conditioning(sys_)
-    for key, case in mi_kernel_cases(sys_).items():
+    tag = "tube-mi-kernel" if tube else "mi-kernel"
+    for key, case in mi_kernel_cases(sys_, edge=not tube).items():
         name = key[0]
-        got = check_kernels({name: case}, "mi-kernel " + "/".join(
+        got = check_kernels({name: case}, tag + " " + "/".join(
             str(k) for k in key[1:]), reps)[name]
-        prev = checks.get(name)
-        if prev is None:
-            checks[name] = got
-            continue
-        prev["rel"] = max(got["rel"], prev["rel"])
-        prev["max_abs_err"] = max(got["max_abs_err"], prev["max_abs_err"])
+        suffix = None
         if key[1:] == ("mi",):
-            prev.update({k + "_mi": got[k]
-                         for k in ("ms", "plain_ms", "bound_ms")})
+            suffix = "tube_mi" if tube else "mi"
+        elif tube and key[1:] in ((), ("moved",)):
+            suffix = "tube"
+        merge(checks, name, got, suffix)
     return checks
 
 
@@ -678,7 +764,223 @@ def phase_mi_main(sys_, dev):
     if missing:
         raise RuntimeError(f"kernels never launched on the MI path: "
                            f"{missing}")
-    return counts
+    return counts, fac
+
+
+# ------------------------------------------------------------ tube
+def tube_state(sys_, seed=6):
+    """A seeded state of a pressurized tube on the card: (cp, h, d, lam, v)
+    with d the linear response to the pressure plus seeded noise (1e-3 of
+    its largest entry) on free dofs, lam and v random."""
+    from goldfish_tpu_torch.solver import system
+
+    data = sys_.data
+    dev = sys_.cp.device
+    rng = np.random.default_rng(seed)
+    cp, h = sys_.cp, sys_.h_init
+    zero = torch.zeros_like(cp)
+    K0 = system.assemble_K(data, zero, cp, h)
+    r0 = system.residual(data, zero, cp, h)
+    d = torch.linalg.solve(K0, -r0.reshape(-1)).reshape(cp.shape)
+    del K0
+    T = lambda a: torch.tensor(a, device=dev)  # noqa: E731
+    d = d + T(1e-3 * float(d.abs().max())
+              * rng.normal(size=tuple(cp.shape))) * data.free
+    lam = T(rng.normal(size=tuple(cp.shape))) * data.free
+    v = T(rng.normal(size=tuple(cp.shape)))
+    return cp, h, d, lam, v
+
+
+def time_library(tag, fac, c2x=None, reps=3):
+    """The library calls of a path at its size, with CUDA events: potrf
+    (`cholesky_ex` of the equilibrated K at the factor's reference state),
+    one-RHS `cholesky_solve`, and on an MI path the Woodbury capacitance
+    `linalg.solve` (M x M, M right-hand sides) and the batched xi
+    `linalg.solve` (I systems of 4N). Bounds: potrf N^3/3 and LU 2M^3/3 +
+    2M^3 (M right-hand sides) f64 operations over the f64 tensor-core rate;
+    the substitution two passes over the factor, N^2 8 bytes each, over the
+    memory rate; the xi solves the larger of their operations and bytes."""
+    K = fac._assemble(fac._ref)
+    dsc = torch.rsqrt(K.diagonal().abs() + 1e-300)
+    K.mul_(dsc[:, None]).mul_(dsc[None, :])
+    N = K.shape[0]
+    L, info = torch.linalg.cholesky_ex(K)
+    rows = [dict(name="cholesky_ex", path=tag, n=N, info=int(info),
+                 ms=cuda_ms(lambda: torch.linalg.cholesky_ex(K), reps),
+                 bound_ms=N ** 3 / 3 / PEAK_F64_TC * 1e3,
+                 bound_by="operations")]
+    del K
+    b = torch.randn(N, 1, dtype=torch.float64, device=L.device)
+    rows.append(dict(name="cholesky_solve", path=tag, n=N,
+                     ms=cuda_ms(lambda: torch.cholesky_solve(b, L), 10),
+                     bound_ms=2 * N * N * 8 / PEAK_BYTES * 1e3,
+                     bound_by="bytes"))
+    del L
+    M = getattr(fac, "_M", None)
+    if M:
+        g = torch.Generator(device="cpu").manual_seed(7)
+        Cm = (torch.eye(M, dtype=torch.float64) + 0.01 * torch.randn(
+            M, M, dtype=torch.float64, generator=g) / M ** 0.5).to(b.device)
+        B = torch.randn(M, M, dtype=torch.float64, generator=g).to(b.device)
+        rows.append(dict(name="capacitance linalg.solve", path=tag, n=M,
+                         ms=cuda_ms(lambda: torch.linalg.solve(Cm, B), reps),
+                         bound_ms=(2 * M ** 3 / 3 + 2 * M ** 3) / PEAK_F64_TC
+                         * 1e3, bound_by="operations"))
+    if c2x is not None:
+        from goldfish_tpu_torch.geometry import cpiga2xi
+
+        r, J = cpiga2xi.c2x_res_jac(c2x.ss, c2x.p, c2x.q, c2x.mi, fac._ref[0],
+                                    c2x.xi0_flat)
+        I_, n = J.shape[0], J.shape[-1]
+        bb, by = bound(I_ * (n * n + 2 * n) * 8,
+                       I_ * (2 * n ** 3 / 3 + 2 * n * n))
+        rows.append(dict(name="xi batched linalg.solve", path=tag,
+                         n=f"{I_}x{n}",
+                         ms=cuda_ms(lambda: torch.linalg.solve(
+                             J, -r[..., None]), 10),
+                         bound_ms=bb, bound_by=by))
+    for row in rows:
+        say(f"[library] {json.dumps(row)}")
+    return rows
+
+
+def cold_gradient(obj, name, x0, sys_, dev):
+    """J and dJ/dx of a demo objective at x0 from d = 0 (one host-timed
+    evaluation ending in a synchronize)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x = torch.tensor(x0, dtype=torch.float64, device=dev, requires_grad=True)
+    J, d = obj({name: x}, sys_.zero_displacement())
+    J.backward()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    J, g = float(J.detach()), x.grad.detach().cpu()
+    if not (np.isfinite(J) and bool(torch.isfinite(g).all())
+            and bool(torch.isfinite(d).all()) and g.shape == x.shape):
+        raise RuntimeError("non-finite or misshapen tube evaluation")
+    return J, g, dt
+
+
+def check_cold(tag, J, g, dt, ref):
+    eJ = abs(J - ref["J"]) / abs(ref["J"])
+    eg = rel_err(g, torch.tensor(ref["dJ_dp"], dtype=torch.float64))[0]
+    say(f"[{tag}] cold evaluation {dt:.3f} s  J={J!r} (ref {ref['J']!r}, "
+        f"rel {eJ:.2e})  |dJ/dp| rel {eg:.2e}")
+    if not (eJ <= 1e-8 and eg <= 1e-6):
+        raise RuntimeError(f"{tag} cold evaluation disagrees with the JAX "
+                           f"CPU reference: J rel {eJ:.2e}, grad rel "
+                           f"{eg:.2e}")
+
+
+def report_slsqp(tag, prob, res, fac, J_start, A_pin, p0, x):
+    """Print the SLSQP run; raise unless it lowered J and held the pin."""
+    wf, wj = prob.eval_wall["fun"], prob.eval_wall["jac"]
+    pin = float(np.abs(A_pin @ x - A_pin @ p0).max())
+    say(f"[{tag}] slsqp nit {res.nit} nfev {res.nfev} njev {res.njev} "
+        f"J per iteration {res.history} final {res.fun!r} (start "
+        f"{J_start!r}); {res.message}")
+    say(f"[{tag}] wall per fun median {float(np.median(wf)):.3f} s "
+        f"(n {len(wf)}, max {max(wf):.3f}); per jac median "
+        f"{float(np.median(wj)):.3f} s (n {len(wj)}, max {max(wj):.3f})")
+    say(f"[{tag}] n_factor {fac.n_factor} (failed {fac.n_factor_failed}, "
+        f"cholesky_ex info {fac.failed_info}); refactor_log "
+        f"{fac.refactor_log}")
+    say(f"[{tag}] pin residual {pin:.3e}")
+    if not (np.isfinite(res.fun) and res.fun < J_start and res.nit >= 1
+            and pin <= 1e-10):
+        raise RuntimeError(f"{tag}: SLSQP did not lower J ({res.fun!r} vs "
+                           f"{J_start!r}) or broke the pin ({pin:.3e})")
+
+
+def check_counts(tag, counts, needed):
+    say(f"[{tag}] launch counts {counts}")
+    missing = [k for k in needed if counts[k] == 0]
+    if missing:
+        raise RuntimeError(f"kernels never launched on the {tag} path: "
+                           f"{missing}")
+
+
+def phase_tube_fixed(dev, checks, ref):
+    """K8 and K1-K4 at the fixed-seam tube's shapes, then its optimization:
+    cold J and dJ/dp at p0, then run_slsqp(maxiter=3)."""
+    from goldfish_tpu_torch import _cuda
+    from goldfish_tpu_torch.demos import tube_shape_opt as demo
+    from goldfish_tpu_torch.physics import kl_shell
+
+    t0 = time.perf_counter()
+    ns = demo.setup(num_el=ref["num_el"], p=ref["p"], device=dev,
+                    pressure=ref["pressure"])
+    s = ns.sys
+    P, C = s.stack.n_patches, s.stack.max_cp
+    say(f"[setup] fixed-seam tube built in {time.perf_counter() - t0:.1f} s:"
+        f" P={P} C={C} N={P * C * 3} stack {tuple(s.stack.R00.shape)} ifs "
+        f"{tuple(s.ifs.RA00.shape)} design {ns.p0.size}")
+    cp, h, d, lam, v = tube_state(s)
+    for name, got in check_kernels(pressure_cases(s.data, d, cp, lam),
+                                   "tube-kernel").items():
+        merge(checks, name, got)
+    cases = fixed_cases(s.data, d, cp, h, lam, v)
+    cases["shell_qp/geom_grad"] = (
+        lambda: kl_shell.shell_geom_grad(s.stack, d, cp, h, s.E, s.nu),
+        lambda: kl_shell._geom_grad_plain(s.stack, d, cp, h, s.E, s.nu),
+        P * s.stack.R00.shape[1] * s.stack.R00.shape[2]
+        * (2 * 15 * s.stack.R00.shape[3] * 2 + 16 * DENS_SHELL),
+        list(s.stack) + [d, cp, h])
+    for name, got in check_kernels(cases, "tube-kernel").items():
+        merge(checks, name, got, "tube")
+    del cp, h, d, lam, v, cases
+    torch.cuda.empty_cache()
+
+    fac = ns.solve.device_factor
+    _cuda.reset_launch_counts()
+    J0, g0, dt = cold_gradient(ns.obj, "p_xy", ns.p0, s, dev)
+    check_cold("tube", J0, g0, dt, ref["fixed"])
+    res = ns.prob.run_slsqp(maxiter=3, tol=1e-14)
+    counts = dict(_cuda.launch_counts)
+    x = res.x["p_xy"]
+    report_slsqp("tube", ns.prob, res, fac, J0, ns.P, ns.p0, x)
+    slack = float((ns.D @ x).min() - 1e-3)
+    say(f"[tube] min regu slack {slack:.3e}; newton its of the last solve "
+        f"{ns.solve.solver.last_its}")
+    if slack < -1e-8:
+        raise RuntimeError(f"tube: regu constraint broken ({slack:.3e})")
+    check_counts("tube", counts, TUBE_KERNELS)
+    return counts, fac
+
+
+def phase_tube_mi(dev, checks, ref):
+    """K5-K7 and K1-K4 at the moving-seam tube's shapes, then its
+    optimization: cold J and dJ/dp at p_start, then run_slsqp(maxiter=3)."""
+    from goldfish_tpu_torch import _cuda
+    from goldfish_tpu_torch.demos import draft_tube_shopt_mi_wffd as demo
+
+    t0 = time.perf_counter()
+    ns = demo.setup(num_el=ref["num_el"], p=ref["p"], device=dev,
+                    pressure=ref["pressure"])
+    s = ns.sys
+    P, C = s.stack.n_patches, s.stack.max_cp
+    say(f"[setup] moving-seam tube built in {time.perf_counter() - t0:.1f} "
+        f"s: P={P} C={C} N={P * C * 3} stack {tuple(s.stack.R00.shape)} "
+        f"seams (I, N)=({s.mi.n_int}, {s.mi.n_max}) degree "
+        f"({s.pdeg}, {s.qdeg}) design {ns.p0.size}")
+    phase_mi_kernels(s, checks, tube=True)
+    torch.cuda.empty_cache()
+
+    fac = ns.forward.solve_d.device_factor
+    _cuda.reset_launch_counts()
+    J0, g0, dt = cold_gradient(ns.obj, "p_ffd", ns.p_start, s, dev)
+    check_cold("tube-mi", J0, g0, dt, ref["mi"])
+    say(f"[tube-mi] xi-newton its {s.c2x.last_its}; seam subspace M "
+        f"{fac._M}")
+    res = ns.prob.run_slsqp(maxiter=3, tol=1e-12)
+    counts = dict(_cuda.launch_counts)
+    report_slsqp("tube-mi", ns.prob, res, fac, J0, ns.A_pin2, ns.p0,
+                 res.x["p_ffd"])
+    say(f"[tube-mi] xi-newton its of the last solve {s.c2x.last_its}; "
+        f"seam subspace M {fac._M}; newton its "
+        f"{ns.forward.solve_d.solver.last_its}")
+    check_counts("tube-mi", counts, TUBE_MI_KERNELS)
+    return counts, fac, s.c2x
 
 
 def main():
@@ -686,6 +988,8 @@ def main():
     phase_build()
     from goldfish_tpu_torch.models import tbeam, wing
 
+    with open(REF_TUBE) as fh:
+        ref_tube = json.load(fh)
     t0 = time.perf_counter()
     sys_ = wing.build(num_el=6, p=3, device=dev)
     P, C = sys_.stack.n_patches, sys_.stack.max_cp
@@ -693,8 +997,9 @@ def main():
         f"P={P} C={C} N={P * C * 3} stack {tuple(sys_.stack.R00.shape)} "
         f"ifs {tuple(sys_.ifs.RA00.shape)}")
     checks = phase_kernels(sys_)
-    counts = phase_main_path(sys_, dev)
-    del sys_
+    counts, fac = phase_main_path(sys_, dev)
+    library = time_library("wing20", fac)
+    del sys_, fac
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -704,20 +1009,36 @@ def main():
         f"P={P} C={C} N={P * C * 3} stack {tuple(mi_sys.stack.R00.shape)} "
         f"seam (I, N)=({mi_sys.mi.n_int}, {mi_sys.mi.n_max})")
     phase_mi_kernels(mi_sys, checks)
-    counts_mi = phase_mi_main(mi_sys, dev)
+    counts_mi, fac = phase_mi_main(mi_sys, dev)
+    library += time_library("mi_tbeam40", fac, mi_sys.c2x)
+    del mi_sys, fac
+    torch.cuda.empty_cache()
 
-    record = {"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": counts.get(name, 0) * (name in WING_KERNELS)
-         + counts_mi[name],
-         "launches_wing": counts.get(name, 0) * (name in WING_KERNELS),
-         "launches_mi": counts_mi[name],
-         "max_abs_err": checks[name]["max_abs_err"],
-         "ms": checks[name]["ms"], "plain_ms": checks[name]["plain_ms"],
-         "bound_ms": checks[name]["bound_ms"],
-         "bound_by": checks[name]["bound_by"], "library_ms": None,
-         **{k: v for k, v in checks[name].items() if k.endswith("_mi")}}
-        for name, src, rep in KERNELS]}
+    counts_tf, fac = phase_tube_fixed(dev, checks, ref_tube)
+    library += time_library("tube16", fac)
+    del fac
+    torch.cuda.empty_cache()
+    counts_tm, fac, c2x = phase_tube_mi(dev, checks, ref_tube)
+    library += time_library("tube16_mi", fac, c2x)
+    del fac, c2x
+
+    paths = {"wing": (counts, WING_KERNELS), "mi": (counts_mi, None),
+             "tube": (counts_tf, None), "tube_mi": (counts_tm, None)}
+    record = {"kernels": []}
+    for name, src, rep in KERNELS:
+        per = {f"launches_{p}": (c.get(name, 0) if keep is None
+                                 or name in keep else 0)
+               for p, (c, keep) in paths.items()}
+        record["kernels"].append(
+            {"name": name, "route": "cuda", "source": src, "replaces": rep,
+             "launches": sum(per.values()), **per,
+             "max_abs_err": checks[name]["max_abs_err"],
+             "ms": checks[name]["ms"], "plain_ms": checks[name]["plain_ms"],
+             "bound_ms": checks[name]["bound_ms"],
+             "bound_by": checks[name]["bound_by"], "library_ms": None,
+             **{k: v for k, v in checks[name].items()
+                if k.startswith(("ms_", "plain_ms_", "bound_ms_"))}})
+    say(json.dumps({"library": library}))
     say(json.dumps(record))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -40,7 +40,9 @@ COUNTERS = ("shell_qp/value_grad", "shell_qp/hess", "shell_qp/adjoint",
             "penalty_qp/value_grad", "penalty_qp/hess", "penalty_qp/adjoint",
             "jet_assemble", "jet_matvec",
             "traced_rows", "mi_penalty_xi",
-            "c2x_res_jac/res_jac", "c2x_res_jac/adjoint")
+            "c2x_res_jac/res_jac", "c2x_res_jac/adjoint",
+            "pressure_qp/value_grad", "pressure_qp/hess",
+            "pressure_qp/adjoint")
 launch_counts: dict[str, int] = {k: 0 for k in COUNTERS}
 _lib = None
 build_info: dict = {}
@@ -55,6 +57,7 @@ _SIGNATURES = {
     "gf_traced_rows": [_P] * 12 + [_I] * 8 + [_P],
     "gf_mi_penalty_xi": [_P] * 22 + [_I] * 9 + [_P],
     "gf_c2x_res_jac": [_I] + [_P] * 23 + [_I] * 9 + [_P],
+    "gf_pressure_qp": [_I] + [_P] * 11 + [_I] * 5 + [_P],
 }
 
 

@@ -1,7 +1,8 @@
 """Turn the JAX package's problem pytrees into the port's tensors.
 
-`from_numpy_tree` maps `PatchStack`, `InterfaceStack`, `PointLoads` and
-`SystemData` (any NamedTuple with one of those names) field by field onto
+`from_numpy_tree` maps `PatchStack`, `InterfaceStack`, `PointLoads`,
+`EdgeLoads` and `SystemData` (any NamedTuple with one of those names; the
+follower `pressure` is a plain array leaf) field by field onto
 the port's classes of the same name; every array leaf goes through
 `np.asarray`, so the values arrive bit for bit and nothing of the JAX
 package is imported here. Tests use it to hand both packages identical
@@ -16,13 +17,13 @@ import torch
 from goldfish_tpu_torch.config import as_device
 from goldfish_tpu_torch.geometry.patch_stack import PatchStack
 from goldfish_tpu_torch.physics.coupling import InterfaceStack
-from goldfish_tpu_torch.physics.loads import PointLoads
+from goldfish_tpu_torch.physics.loads import EdgeLoads, PointLoads
 from goldfish_tpu_torch.solver.system import SystemData
 
 __all__ = ["from_numpy_tree"]
 
 _PORT_TYPES = {cls.__name__: cls
-               for cls in (PatchStack, InterfaceStack, PointLoads,
+               for cls in (PatchStack, InterfaceStack, PointLoads, EdgeLoads,
                            SystemData)}
 
 

@@ -33,5 +33,8 @@ def as_device(device=None) -> torch.device:
 
 
 def tensor(x, device=None, dtype=DTYPE) -> torch.Tensor:
-    """Host array -> tensor on `device` with an exact copy of the values."""
-    return torch.tensor(np.asarray(x), dtype=dtype, device=as_device(device))
+    """Host array -> contiguous tensor on `device` with an exact copy of the
+    values (the kernels index raw pointers; torch.tensor would keep a
+    Fortran-ordered array's strides)."""
+    return torch.tensor(np.asarray(x, order="C"), dtype=dtype,
+                        device=as_device(device))

@@ -35,7 +35,7 @@
 // one source of truth for every derivative. The structured Hessian of the
 // JAX package (6 forward-over-reverse passes plus an analytic bending block)
 // and splitting the dual directions across a warp are the later fixes.
-#include "dual.cuh"
+#include "shell_jets.cuh"
 
 namespace gf {
 namespace {
@@ -115,19 +115,7 @@ struct Args {
 // jets of a (P, C, 3) field at qp `qi` = (p*Ne + e)*Q + q
 __device__ void gather_jets(const Args& a, const double* f, int p, int ei,
                             int qi, double* out) {
-#pragma unroll
-  for (int i = 0; i < NJ; ++i) out[i] = 0.0;
-  for (int l = 0; l < a.L; ++l) {
-    const double* c = f + (size_t(p) * a.C + a.conn[size_t(ei) * a.L + l]) * 3;
-    double c0 = c[0], c1 = c[1], c2 = c[2];
-#pragma unroll
-    for (int j = 0; j < 5; ++j) {
-      double r = a.R[j + 1][size_t(qi) * a.L + l];
-      out[3 * j] += r * c0;
-      out[3 * j + 1] += r * c1;
-      out[3 * j + 2] += r * c2;
-    }
-  }
+  gather_rows<5>(a.R + 1, a.conn, f, p, ei, qi, a.L, a.C, out);
 }
 
 __device__ double gather_h(const Args& a, int p, int ei, int qi) {

@@ -34,7 +34,7 @@ from goldfish_tpu_torch.geometry.patch_stack import PatchStack
 
 __all__ = ["gather", "shell_density", "shell_value_grad", "shell_hessians",
            "shell_adjoint", "shell_geom_grad", "internal_energy", "element_hessians",
-           "external_work_dead_load", "dead_load_force"]
+           "volume", "external_work_dead_load", "dead_load_force"]
 
 NJ = 15  # displacement / geometry jet size
 
@@ -297,21 +297,39 @@ def internal_energy(stack: PatchStack, d, cp, h_coef, E, nu):
     return _InternalEnergy.apply(d, cp, h_coef, stack, E, nu)
 
 
-def element_hessians(stack: PatchStack, d, cp, h_coef, E, nu,
-                     pressure=None):
-    """Exact per-element Hessian blocks (P, E, 3L, 3L) = sum_q B^T H_q B
-    (for tests and diagnostics; the solver assembles from H_q directly)."""
-    if pressure is not None:
-        raise NotImplementedError(
-            "follower-pressure stiffness (18-jet) is not ported yet "
-            "(ROADMAP Queue A7)")
-    H = shell_hessians(stack, d, cp, h_coef, E, nu)
-    P, Ne, Q, L = stack.R00.shape
-    H = H.reshape(P, Ne, Q, 5, 3, 5, 3)
-    Rs = torch.stack(_jet_tables(stack), dim=-2)          # (P, E, Q, 5, L)
+def _blocks(H, Rs):
+    """sum_q B^T H_q B per element: H (P, E, Q, 3nj, 3nj), Rs (P, E, Q, nj,
+    L) -> (P, E, 3L, 3L)."""
+    P, Ne, Q, nj, L = Rs.shape
+    H = H.reshape(P, Ne, Q, nj, 3, nj, 3)
     tmp = torch.einsum("peqjxky,peqkm->peqjxmy", H, Rs)
     Ke = torch.einsum("peqjxmy,peqjl->pelxmy", tmp, Rs)
     return Ke.reshape(P, Ne, 3 * L, 3 * L)
+
+
+def element_hessians(stack: PatchStack, d, cp, h_coef, E, nu,
+                     pressure=None):
+    """Exact per-element POTENTIAL Hessian blocks (P, E, 3L, 3L) = sum_q
+    B^T H_q B (for tests and diagnostics; the solver assembles from H_q
+    directly). With `pressure` (P,), the follower pressure's load stiffness
+    -d2W_p/dd2 is included: the JAX package's 18-jet blocks are K1's 15-jet
+    term over (R10, R01, R20, R11, R02) plus K8's 9-jet term over (R00,
+    R10, R01)."""
+    Ke = _blocks(shell_hessians(stack, d, cp, h_coef, E, nu),
+                 torch.stack(_jet_tables(stack), dim=-2))
+    if pressure is not None:
+        from goldfish_tpu_torch.physics import loads
+
+        Ke = Ke + _blocks(
+            loads.pressure_hessians(stack, d, cp, pressure),
+            torch.stack(loads._pressure_tables(stack), dim=-2))
+    return Ke
+
+
+def volume(stack: PatchStack, cp, h_coef):
+    """Material volume sum int h dA (0-dim), differentiable in cp and h by
+    autograd (plain torch)."""
+    return (h_at_qps(stack, h_coef) * _ref_area(stack, cp)).sum()
 
 
 def _ref_area(stack: PatchStack, cp):

@@ -88,6 +88,7 @@ class PersistentDeviceFactor:
         self.last_ratio = 0.0    # certificate of the last IR solve
         self.nonconverged = False
         self.refactor_log = []   # (why, drift) per factorization
+        self.failed_info = []    # cholesky_ex info of each failed one
         self.cert_log = []       # (tag, n_ir, ratio) per IR attempt
 
     # ------------------------------------------------------------ hooks
@@ -149,6 +150,7 @@ class PersistentDeviceFactor:
         if not self.factor_ok:
             L.fill_(float("nan"))
             self.n_factor_failed += 1
+            self.failed_info.append(int(info))
             why += "/indefinite"
         self._L, self._dscale = L, dsc
         self._ref = s

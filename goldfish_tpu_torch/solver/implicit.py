@@ -59,12 +59,27 @@ def damped_newton(data: SystemData, cp, h, d0, direction, refactor,
     residual-bounded energy line search, its bisection caps and the floor
     and stall stops. Returns (d, its, |r|).
 
+    A warm-started solve that ends outside the Newton basin (|r| > 1e-2
+    |r(0)|) is run once more from d = 0: at an optimizer trial design far
+    from the last state the tangent at the warm state can be indefinite
+    (its Cholesky fails) while the one at d = 0 is not.
+
     `direction(d, r, slow) -> (delta, slope)` gives the step for -r and its
     slope (a float); `slow` turns True, and stays so, once a step has
     contracted the residual by less than 4x. `refactor(d)` refreshes the
     factor at d when the line search found no descent. `shared` (optional
     dict) caches the load-scale reference |r(0)| across the solves of a
     warm optimizer loop (refreshed every 32 solves)."""
+    args = (data, cp, h, direction, refactor, rtol, atol, max_it, shared)
+    d, it, rn, r_ref = _newton_loop(d0, *args)
+    if rn > 1e-2 * r_ref and bool(d0.any()):
+        d, it, rn, _ = _newton_loop(torch.zeros_like(d0), *args)
+    return d, it, rn
+
+
+def _newton_loop(d0, data, cp, h, direction, refactor, rtol, atol, max_it,
+                 shared):
+    """One damped Newton run from d0: (d, its, |r|, |r(0)|)."""
     if (shared is not None and "r_ref" in shared
             and shared.get("r_ref_age", 0) < 32):
         r_ref = shared["r_ref"]
@@ -152,7 +167,7 @@ def damped_newton(data: SystemData, cp, h, d0, direction, refactor,
         else:
             stall = 0
         Pi0 = Pi_new
-    return d, it, rn
+    return d, it, rn, r_ref
 
 
 def newton_solve_host(data: SystemData, fac: PersistentDeviceFactor, cp, h,
@@ -240,7 +255,9 @@ class _ImplicitSolve(torch.autograd.Function):
             atol=max(solver.atol, solver.floor_hint), max_it=solver.max_it,
             shared=solver.shared)
         solver.last_its = its
-        if its < solver.max_it:  # converged/floored, not truncated
+        if its < solver.max_it and rn <= 1e-2 * solver.shared["r_ref"]:
+            # converged or floored in the Newton basin (not truncated, not
+            # failed: a failed solve's |r| would stop every later solve)
             solver.floor_hint = max(solver.atol, 1.5 * rn)
         ctx.solver = solver
         ctx.save_for_backward(d, cp, h)

@@ -1,15 +1,17 @@
 """The non-matching multi-patch shell system: energy, residual, tangent.
 
 Port of goldfish_tpu/solver/system.py. One object owns the stacked patch
-data, interface data, boundary conditions and the dead load, and exposes
+data, interface data, boundary conditions and the loads, and exposes
 
     total_potential(d, cp, h)     -> Pi
     residual(d, cp, h)            -> (P, C, 3)   [= dPi/dd, BC-masked]
     tangent_matvec(d, cp, h, v)   -> K(d) v      [BC-masked both sides]
     assemble_K(d, cp, h)          -> (N, N) dense BC-reduced tangent
 
-The tangent is never differentiated numerically: the shell and penalty
-kernels (K1, K2) give per-qp jet Hessians H_q, and
+The tangent is never differentiated numerically: the shell, penalty and
+follower-pressure kernels (K1, K2, K8) give per-qp jet Hessians H_q of
+three groups (elements over 5 jets, interface qps over 6, elements over
+the pressure's 3 jets), and
 
 - `jet_assemble` (kernel K3, csrc/jet_assemble.cu) scatters
   sum_q B_q^T H_q B_q into dense K,
@@ -36,13 +38,18 @@ from goldfish_tpu_torch.geometry.patch_stack import (
     side_dofs,
     stack_control_points,
 )
+from goldfish_tpu_torch.ops.bspline import rational_basis_2d
 from goldfish_tpu_torch.physics import coupling, kl_shell
 from goldfish_tpu_torch.physics.coupling import InterfaceSpec, InterfaceStack
 from goldfish_tpu_torch.physics.loads import (
+    EdgeLoads,
     PointLoads,
+    build_edge_loads,
     build_point_loads,
-    external_force,
-    external_work,
+    edge_load_work,
+    external_work_and_force,
+    pressure_adjoint,
+    pressure_hessians,
 )
 
 __all__ = ["SystemData", "NonMatchingSystem", "JetTables", "jet_tables",
@@ -55,8 +62,8 @@ __all__ = ["SystemData", "NonMatchingSystem", "JetTables", "jet_tables",
 
 class SystemData(NamedTuple):
     """Problem tensors (the same fields as the JAX package's SystemData).
-    The dead and point loads are ported; the other loads and contact must
-    be None."""
+    The dead, point, edge and follower-pressure loads are ported; the
+    areal field load and contact must be None."""
 
     stack: PatchStack
     ifs: InterfaceStack | None
@@ -65,24 +72,25 @@ class SystemData(NamedTuple):
     nu: torch.Tensor         # (P,)
     f_areal: torch.Tensor | None   # (P, 3) dead load or None
     point_loads: PointLoads | None = None
-    pressure: object = None
-    edge_loads: object = None
+    pressure: torch.Tensor | None = None   # (P,) follower pressure or None
+    edge_loads: EdgeLoads | None = None
     f_field: object = None
     contact: object = None
 
 
 def _check_ported(data: SystemData):
-    for name in ("pressure", "edge_loads", "f_field", "contact"):
+    for name in ("f_field", "contact"):
         if getattr(data, name) is not None:
             raise NotImplementedError(
-                f"SystemData.{name} is not ported yet (ROADMAP Queue A7/A10)")
+                f"SystemData.{name} is not ported yet (ROADMAP Queue "
+                "A10/B17)")
 
 
 # ------------------------------------------------------------ energy
 def potential_and_residual(data: SystemData, d, cp, h):
     """(Pi, r): the potential (summed deterministically from per-element
     and per-interface energies) and the BC-masked residual dPi/dd, from
-    one K1 and one K2 launch."""
+    one K1, one K2 and (with a follower pressure) one K8 launch."""
     _check_ported(data)
     W, r, _ = kl_shell.shell_value_grad(data.stack, d, cp, h, data.E,
                                         data.nu)
@@ -91,10 +99,10 @@ def potential_and_residual(data: SystemData, d, cp, h):
         Wi, ri, _ = coupling.penalty_value_grad(data.ifs, d, cp, h, data.E)
         Pi = Pi + Wi.sum()
         r = r + ri
-    Pi = Pi - external_work(data.stack, d, cp, data.f_areal,
-                            data.point_loads)
-    r = r - external_force(data.stack, cp, data.f_areal, data.point_loads)
-    return Pi, r * data.free
+    W_ext, f_ext = external_work_and_force(
+        data.stack, d, cp, data.f_areal, data.point_loads, data.pressure,
+        data.edge_loads)
+    return Pi - W_ext, (r - f_ext) * data.free
 
 
 def total_potential(data: SystemData, d, cp, h):
@@ -108,8 +116,9 @@ def residual(data: SystemData, d, cp, h):
 
 
 def residual_vjp(data: SystemData, d, cp, h, lam):
-    """(dcp, dh) = -lam^T dR/d(cp, h): the adjoint's design gradient (K1
-    and K2 in adjoint mode, plus the dead load's cp-dependence)."""
+    """(dcp, dh) = -lam^T dR/d(cp, h): the adjoint's design gradient (K1,
+    K2 and K8 in adjoint mode, plus the dead and edge loads'
+    cp-dependence). The loads do not depend on h."""
     _check_ported(data)
     lam = lam * data.free
     dcp, dh = kl_shell.shell_adjoint(data.stack, d, cp, h, data.E, data.nu,
@@ -119,11 +128,19 @@ def residual_vjp(data: SystemData, d, cp, h, lam):
                                                lam)
         dcp = dcp + dcp_i
         dh = dh + dh_i
-    if data.f_areal is not None:
-        # W_ext is linear in d, so lam . dW_ext/dd = W_ext(lam)
+    if data.pressure is not None:
+        dcp = dcp + pressure_adjoint(data.stack, d, cp, data.pressure, lam)
+    if data.f_areal is not None or data.edge_loads is not None:
+        # the dead and edge loads are linear in d, so lam . dW_ext/dd =
+        # W_ext(lam); its cp-gradient by autograd
         with torch.enable_grad():
             cpv = cp.detach().requires_grad_(True)
-            w = external_work(data.stack, lam, cpv, data.f_areal)
+            w = torch.zeros((), dtype=cp.dtype, device=cp.device)
+            if data.f_areal is not None:
+                w = w + kl_shell.external_work_dead_load(data.stack, lam, cpv,
+                                                         data.f_areal)
+            if data.edge_loads is not None:
+                w = w + edge_load_work(data.edge_loads, lam, cpv)
             dcp = dcp + torch.autograd.grad(w, cpv)[0]
     return dcp, dh
 
@@ -158,14 +175,17 @@ def _interface_global_dofs(ifs: InterfaceStack, C: int):
 
 class JetTables(NamedTuple):
     """Static tables of the jet assembly/matvec kernels. A "group" is an
-    element (nq = Q qps, 5 jets over L locals) or an interface qp (nq = 1,
-    6 jets over the 2L stacked locals)."""
+    element (nq = Q qps, 5 jets over L locals), an interface qp (nq = 1,
+    6 jets over the 2L stacked locals) or, with a follower pressure, an
+    element of the pressure group (nq = Q, 3 jets over L locals, the
+    element dofs gi_e)."""
 
     R_e: torch.Tensor             # (P*E, Q, 5, L)
     gi_e: torch.Tensor            # (P*E, 3L) int32
     R_i: torch.Tensor | None      # (I*N, 1, 6, 2L)
     gi_i: torch.Tensor | None     # (I*N, 6L) int32
     free: torch.Tensor            # (P*C*3,)
+    R_p: torch.Tensor | None = None   # (P*E, Q, 3, L)
 
 
 def interface_tables(ifs: InterfaceStack, C: int):
@@ -182,27 +202,35 @@ def jet_tables(data: SystemData) -> JetTables:
     P, Ne, Q, L = stack.R00.shape
     R_e = torch.stack(kl_shell._jet_tables(stack), dim=-2)
     gi_e = element_global_dofs(stack)
-    R_i = gi_i = None
+    R_i = gi_i = R_p = None
     if data.ifs is not None:
         R_i, gi_i = interface_tables(data.ifs, stack.max_cp)
+    if data.pressure is not None:
+        R_p = torch.stack((stack.R00, stack.R10, stack.R01), dim=-2).reshape(
+            P * Ne, Q, 3, L).contiguous()
     return JetTables(
         R_e=R_e.reshape(P * Ne, Q, 5, L).contiguous(),
         gi_e=gi_e.reshape(P * Ne, 3 * L).contiguous(),
-        R_i=R_i, gi_i=gi_i, free=data.free.reshape(-1).contiguous())
+        R_i=R_i, gi_i=gi_i, free=data.free.reshape(-1).contiguous(),
+        R_p=R_p)
 
 
 def jet_hessians(data: SystemData, d, cp, h):
     """Per-group jet Hessians at state d: (H_e (P*E, Q, 15, 15),
-    H_i (I*N, 1, 18, 18) or None) from K1 and K2 mode (b)."""
+    H_i (I*N, 1, 18, 18) or None, H_p (P*E, Q, 9, 9) or None) from K1, K2
+    and K8 mode (b)."""
     _check_ported(data)
     stack = data.stack
     P, Ne, Q, _ = stack.R00.shape
     H_e = kl_shell.shell_hessians(stack, d, cp, h, data.E, data.nu)
-    H_i = None
+    H_i = H_p = None
     if data.ifs is not None:
         H_i = coupling.penalty_hessians(data.ifs, d, cp, h, data.E)
         H_i = H_i.reshape(-1, 1, coupling.NZ, coupling.NZ)
-    return H_e.reshape(P * Ne, Q, kl_shell.NJ, kl_shell.NJ), H_i
+    if data.pressure is not None:
+        H_p = pressure_hessians(stack, d, cp, data.pressure).reshape(
+            P * Ne, Q, 9, 9)
+    return H_e.reshape(P * Ne, Q, kl_shell.NJ, kl_shell.NJ), H_i, H_p
 
 
 # ------------------------------------------------------------ K3 / K4
@@ -276,26 +304,30 @@ def jet_matvec(y, H, R, gi, free, v):
 
 def assemble_K_from(tables: JetTables, Hs):
     """Dense BC-reduced tangent from jet Hessians `Hs` (jet_hessians)."""
-    H_e, H_i = Hs
+    H_e, H_i, H_p = Hs
     free = tables.free
     N = free.shape[0]
     K = torch.zeros(N, N, dtype=DTYPE, device=free.device)
     jet_assemble(K, H_e, tables.R_e, tables.gi_e, free)
     if H_i is not None:
         jet_assemble(K, H_i, tables.R_i, tables.gi_i, free)
+    if H_p is not None:
+        jet_assemble(K, H_p, tables.R_p, tables.gi_e, free)
     K.diagonal().add_(1.0 - free)
     return K
 
 
 def tangent_matvec_from(tables: JetTables, Hs, v):
     """K(d) v from jet Hessians at d, masked both sides; v: (P, C, 3)."""
-    H_e, H_i = Hs
+    H_e, H_i, H_p = Hs
     free = tables.free
     vf = v.reshape(-1).contiguous()
     y = torch.zeros_like(vf)
     jet_matvec(y, H_e, tables.R_e, tables.gi_e, free, vf)
     if H_i is not None:
         jet_matvec(y, H_i, tables.R_i, tables.gi_i, free, vf)
+    if H_p is not None:
+        jet_matvec(y, H_p, tables.R_p, tables.gi_e, free, vf)
     return y.reshape(v.shape)
 
 
@@ -343,6 +375,8 @@ class NonMatchingSystem:
             dtype=np.float64)
         self.f_areal = None
         self.point_load_entries = []
+        self.edge_load_entries = []
+        self.pressure = None
         self._data = None
 
     def add_zero_dofs(self, patch: int, cp_indices, fields=(0, 1, 2)):
@@ -371,17 +405,78 @@ class NonMatchingSystem:
                                         np.asarray(force)))
         self._data = None
 
+    def add_edge_load(self, patch: int, direction: int, side: int, force):
+        """Dead line load `force` (3,) per unit length on a whole parametric
+        edge (the tIGAr side convention of `add_side_bc`)."""
+        self.edge_load_entries.append(
+            (patch, direction, side, np.asarray(force)))
+        self._data = None
+
+    def set_pressure(self, p_per_patch):
+        """Uniform follower (normal) pressure per patch (scalar or (P,))."""
+        self.pressure = tensor(np.broadcast_to(
+            np.asarray(p_per_patch, dtype=np.float64),
+            (self.num_splines,)), self.device)
+        self._data = None
+
     @property
     def data(self) -> SystemData:
         if self._data is None:
+            max_loc = self.stack.conn.shape[-1]
             self._data = SystemData(
                 stack=self.stack, ifs=self.ifs,
                 free=tensor(self._free, self.device),
                 E=self.E, nu=self.nu, f_areal=self.f_areal,
                 point_loads=build_point_loads(
-                    self.surfs, self.point_load_entries,
-                    max_loc=self.stack.conn.shape[-1], device=self.device))
+                    self.surfs, self.point_load_entries, max_loc=max_loc,
+                    device=self.device),
+                pressure=self.pressure,
+                edge_loads=build_edge_loads(
+                    self.surfs, self.edge_load_entries, max_loc=max_loc,
+                    device=self.device))
         return self._data
 
     def zero_displacement(self):
         return torch.zeros_like(self.cp)
+
+    # -------------------------------------------------- solves
+    def solve_nonlinear(self, cp=None, h=None, d0=None, rtol=1e-10,
+                        atol=0.0, max_it=30, verbose=False):
+        """Damped-Newton solve for displacements on a persistent factor
+        (`implicit.newton_solve_host`)."""
+        from goldfish_tpu_torch.solver.devicechol import (
+            PersistentDeviceFactor,
+        )
+        from goldfish_tpu_torch.solver.implicit import newton_solve_host
+
+        cp = self.cp if cp is None else cp
+        h = self.h_init if h is None else h
+        d = self.zero_displacement() if d0 is None else d0
+        d, it, rn = newton_solve_host(self.data,
+                                      PersistentDeviceFactor(self.data), cp,
+                                      h, d, rtol=rtol, atol=atol,
+                                      max_it=max_it)
+        if verbose:
+            print(f"  newton: {int(it)} its, |r| = {float(rn):.3e}")
+        return d
+
+    # -------------------------------------------------- objectives
+    def internal_energy(self, d, cp=None, h=None):
+        cp = self.cp if cp is None else cp
+        h = self.h_init if h is None else h
+        return kl_shell.internal_energy(self.stack, d, cp, h, self.E, self.nu)
+
+    def volume(self, cp=None, h=None):
+        cp = self.cp if cp is None else cp
+        h = self.h_init if h is None else h
+        return kl_shell.volume(self.stack, cp, h)
+
+    def evaluate_displacement(self, d, patch: int, xi):
+        """u(xi) (3,) numpy on one patch (host helper for QoI checks)."""
+        s = self.surfs[patch]
+        p, q = s.degree
+        conn, tab = rational_basis_2d(
+            s.knots[0], s.knots[1], p, q, s.weights,
+            np.asarray(xi, dtype=np.float64)[None, :], nd=0)
+        dloc = d[patch].detach().cpu().numpy()[conn[0]]
+        return tab[(0, 0)][0] @ dloc

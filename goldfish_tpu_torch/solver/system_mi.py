@@ -256,7 +256,9 @@ class PersistentDeviceFactorMI(PersistentDeviceFactor):
         dKm = self._compact_K(H_i, tab) - self._Km_ref
         Cm = torch.eye(self._M, dtype=DTYPE, device=dKm.device) \
             + dKm @ self._G
-        self._V = self._W @ torch.linalg.solve(Cm, dKm)
+        # solve_ex: a failed (NaN) base factor gives a NaN correction and a
+        # non-finite certificate, as on every other solve against it
+        self._V = self._W @ torch.linalg.solve_ex(Cm, dKm)[0]
         self._prep_key = key
         return True
 
@@ -399,7 +401,7 @@ class _ImplicitSolveMI(torch.autograd.Function):
             atol=max(solver.atol, solver.floor_hint), max_it=solver.max_it,
             device_fac=solver.factor, shared=solver.shared)
         solver.last_its = its
-        if its < solver.max_it:
+        if its < solver.max_it and rn <= 1e-2 * solver.shared["r_ref"]:
             solver.floor_hint = max(solver.atol, 1.5 * rn)
         ctx.solver = solver
         # the very (cp, xi) objects of the forward: the factor's Woodbury

@@ -11,12 +11,19 @@ correction, adjoint through both implicit solves): a cold iteration at
 amp = 0.05 and two warm 1e-3 steps untimed, then one warm 1e-3 step and
 one 1e-2 step under torch.profiler.
 
+--tube: one warm SLSQP evaluation of each tube shape optimization
+(goldfish_tpu_torch/demos/tube_shape_opt.py and draft_tube_shopt_mi_wffd.py
+at the size and pressure of tests/data/torch_port_tube16_reference.json):
+the optimizer's fun and jac at the start untimed, then fun (forward only)
+and jac (forward + adjoint) at a design moved by 1e-4 relative, each under
+torch.profiler.
+
 For each profiled iteration it prints the wall time, the device-busy time
 (union of kernel, memcpy and memset intervals), the idle share, and the
 top device operations by self time. Chrome traces go to
 <trace_dir>/profile_<tag>.json (a fresh temporary directory by default).
 
-    python scripts/profile_torch_iteration.py [trace_dir] [--mi]
+    python scripts/profile_torch_iteration.py [trace_dir] [--mi | --tube]
 """
 
 from __future__ import annotations
@@ -100,17 +107,54 @@ def main_mi(out):
                f"{fac.n_factor - nf}")
 
 
+def main_tube(out):
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from goldfish_tpu_torch.demos import draft_tube_shopt_mi_wffd as mi_demo
+    from goldfish_tpu_torch.demos import tube_shape_opt as fixed_demo
+
+    with open(os.path.join(ROOT, "tests", "data",
+                           "torch_port_tube16_reference.json")) as fh:
+        ref = json.load(fh)
+    dev = torch.device("cuda", 0)
+    kw = dict(num_el=ref["num_el"], p=ref["p"], device=dev,
+              pressure=ref["pressure"])
+    for tag, demo in (("tube", fixed_demo), ("tube_mi", mi_demo)):
+        ns = demo.setup(**kw)
+        fun, jac, _ = ns.prob._build_callables()
+        x0 = ns.prob._x0()
+        fun(x0)
+        jac(x0)
+        x1 = x0 * (1.0 + 1e-4 * np.random.default_rng(0).normal(
+            size=x0.size))
+        solve = ns.solve if tag == "tube" else ns.forward.solve_d
+        for what, fn in (("fun", fun), ("jac", jac)):
+            nf = solve.device_factor.n_factor
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn(x1)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            report(f"{tag}_{what}", prof, wall, out,
+                   f"newton its {solve.solver.last_its}, factorizations "
+                   f"{solve.device_factor.n_factor - nf}")
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: this profile needs one GPU")
     from torch.profiler import ProfilerActivity, profile
 
-    args = [a for a in sys.argv[1:] if a != "--mi"]
+    args = [a for a in sys.argv[1:] if a not in ("--mi", "--tube")]
     out = args[0] if args else tempfile.mkdtemp()
     os.makedirs(out, exist_ok=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     if "--mi" in sys.argv[1:]:
         return main_mi(out)
+    if "--tube" in sys.argv[1:]:
+        return main_tube(out)
 
     from chip_smoke import make_iteration
     from goldfish_tpu_torch.design.pipeline import ThicknessFFD

@@ -133,3 +133,73 @@ def mi_state(seed=0, amp=0.05):
     d = 1e-3 * scale * rng.normal(size=cp.shape) * free
     lam = rng.normal(size=cp.shape)
     return cp, h, xi, d, lam
+
+
+# The small pressurized tube: `tube.build(num_el=3, p=3, pressure=2e4)` in
+# both packages (4 patches of degree (3, 2), 12 qps, C = 66, N = 792 dofs,
+# four fixed seams); the demos' systems at num_el=3 for the two shape
+# optimizations, under SLICE_PRESSURE: at the demos' 2e4 SLSQP's first
+# steps reach designs whose tangent is indefinite, where the port's
+# Cholesky factor fails and the JAX package's LU does not, so the two
+# optimizations part ways; at 5e2 every tangent on the way is positive
+# definite.
+TUBE_SMALL = dict(num_el=3, p=3)
+PRESSURE = 2.0e4
+SLICE_PRESSURE = 5.0e2
+
+
+@functools.lru_cache(maxsize=2)
+def jax_tube(tip_force=None):
+    """The JAX package's small tube: pressurized, or with a tip force
+    (a tuple) as edge loads instead."""
+    from goldfish_tpu.models import tube
+
+    if tip_force is None:
+        return tube.build(**TUBE_SMALL, pressure=PRESSURE)
+    return tube.build(**TUBE_SMALL, tip_force=np.asarray(tip_force))
+
+
+@functools.lru_cache(maxsize=1)
+def jax_fixed_tube():
+    """demos/tube_shape_opt.py's objective at num_el=3 under
+    SLICE_PRESSURE: (system, ShapeFFD, obj(p, d0) -> (J, d), p0)."""
+    from demos import tube_shape_opt as demo
+    from goldfish_tpu.design.pipeline import ShapeFFD
+    from goldfish_tpu.models import tube
+    from goldfish_tpu.physics import kl_shell
+    from goldfish_tpu.solver.implicit import build_solve_fn
+
+    s = demo.build(**TUBE_SMALL, pressure=SLICE_PRESSURE)
+    m = 1.05 * max(demo.SCALE_X, demo.SCALE_Y) * tube.RADIUS
+    ffd = ShapeFFD(s, num_els=(2, 2, 1), p=(3, 3, 1),
+                   lims=np.array([[-m, m], [-m, m],
+                                  [-1e-3, tube.LENGTH + 1e-3]]),
+                   opt_fields=(0, 1))
+    solve = build_solve_fn(s.data, rtol=1e-9, max_it=40)
+
+    def obj(p, d0):
+        cp = ffd(p)
+        d = solve(cp, s.h_init, d0)
+        return kl_shell.internal_energy(s.stack, d, cp, s.h_init, s.E,
+                                        s.nu), d
+
+    return s, ffd, obj, ffd.init_p_ffd()
+
+
+@functools.lru_cache(maxsize=1)
+def jax_mi_tube():
+    """demos/draft_tube_shopt_mi_wffd.py's objective pieces at num_el=3
+    under SLICE_PRESSURE: (system, ShapeFFD, p0, p_start)."""
+    from demos import draft_tube_shopt_mi_wffd as demo
+    from goldfish_tpu.design.pipeline import ShapeFFD
+
+    s = demo.build_mi_tube(**TUBE_SMALL, pressure=SLICE_PRESSURE)
+    sh = ShapeFFD(s, num_els=(2, 2, 2), p=2, opt_fields=(0, 1))
+    p0 = sh.init_p_ffd()
+    n = sh.n_ffd
+    nx, ny, _ = sh.shape
+    free_z = ((np.arange(n) // (nx * ny)) > 0).astype(float)
+    p_start = p0.copy()
+    p_start[:n] *= 1.0 + 0.08 * free_z
+    p_start[n:] *= 1.0 - 0.07 * free_z
+    return s, sh, p0, p_start

@@ -60,11 +60,17 @@ def _mi_inputs(s, to):
     return to(d), to(cp), to(s.h_init.cpu().numpy()), to(lam)
 
 
+def _pressure(st, d):
+    return torch.full((st.R00.shape[0],), 2.0e4, dtype=d.dtype,
+                      device=d.device)
+
+
 def _calls(data, d, cp, h, lam, v):
-    from goldfish_tpu_torch.physics import coupling, kl_shell
+    from goldfish_tpu_torch.physics import coupling, kl_shell, loads
     from goldfish_tpu_torch.solver import system
 
     st, ifs = data.stack, data.ifs
+    pr = _pressure(st, d)
     return {
         "shell_qp/value_grad": lambda: kl_shell.shell_value_grad(
             st, d, cp, h, data.E, data.nu),
@@ -80,6 +86,11 @@ def _calls(data, d, cp, h, lam, v):
             ifs, d, cp, h, data.E, lam),
         "jet_assemble": lambda: system.assemble_K(data, d, cp, h),
         "jet_matvec": lambda: system.tangent_matvec(data, d, cp, h, v),
+        "pressure_qp/value_grad": lambda: loads.pressure_value_grad(
+            st, d, cp, pr),
+        "pressure_qp/hess": lambda: loads.pressure_hessians(st, d, cp, pr),
+        "pressure_qp/adjoint": lambda: loads.pressure_adjoint(
+            st, d, cp, pr, lam),
     }
 
 
@@ -101,7 +112,7 @@ def test_cpu_tensors_take_the_plain_path():
 
 @pytest.mark.parametrize("bad", ["dtype", "shape"])
 def test_wrong_inputs_raise(bad):
-    from goldfish_tpu_torch.physics import coupling, kl_shell
+    from goldfish_tpu_torch.physics import coupling, kl_shell, loads
     from goldfish_tpu_torch.solver import system
 
     cp, h, d, lam, v = seeded_state(4)
@@ -115,6 +126,9 @@ def test_wrong_inputs_raise(bad):
                                   data.nu)
     with pytest.raises(err):
         coupling.penalty_hessians(data.ifs, dd, t(cp), t(h), data.E)
+    with pytest.raises(err):
+        loads.pressure_hessians(data.stack, dd, t(cp),
+                                _pressure(data.stack, t(d)))
     tables = system.jet_tables(data)
     Hs = system.jet_hessians(data, t(d), t(cp), t(h))
     N = tables.free.numel()
@@ -134,7 +148,8 @@ def test_entry_points_default_to_cuda_or_raise(monkeypatch):
     point raises and names device="cpu" (no silent CPU fallback)."""
     from goldfish_tpu_torch import config
     from goldfish_tpu_torch.bridge import from_numpy_tree
-    from goldfish_tpu_torch.models import tbeam, wing
+    from goldfish_tpu_torch.models import tbeam, tube, wing
+    from goldfish_tpu_torch.opt.problem import OptProblem
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
@@ -142,6 +157,8 @@ def test_entry_points_default_to_cuda_or_raise(monkeypatch):
     assert config.as_device("cpu") == torch.device("cpu")
     for build in (lambda: wing.build(**WING_SMALL),
                   lambda: tbeam.build_mi(**MI_SMALL),
+                  lambda: tube.build(num_el=2, pressure=1.0),
+                  lambda: OptProblem(),
                   lambda: from_numpy_tree(port_data())):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             build()

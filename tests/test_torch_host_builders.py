@@ -7,7 +7,16 @@ import sys
 import numpy as np
 import pytest
 
-from _torch_port_common import FFD_SMALL, WING_SMALL, jax_wing
+from _torch_port_common import (
+    FFD_SMALL,
+    PRESSURE,
+    TUBE_SMALL,
+    WING_SMALL,
+    jax_tube,
+    jax_wing,
+)
+
+TIP = (0.0, 0.0, 50.0)
 
 
 @pytest.fixture(scope="module")
@@ -59,6 +68,67 @@ def test_thickness_ffd_matrix_bit_identical(port_wing):
     assert np.linalg.norm(a - b) <= 1e-14 * np.linalg.norm(b)
 
 
+def test_tube_arrays_bit_identical():
+    """models/tube.py's copy: the rational (3, 2) stack, the four seams,
+    the clamp, the pressure and the tip force's edge loads."""
+    from goldfish_tpu_torch.models import tube
+
+    j = jax_tube(TIP)
+    p = tube.build(**TUBE_SMALL, tip_force=TIP, device="cpu")
+    for field in j.stack._fields:
+        if hasattr(p.stack, field):
+            assert _same(getattr(p.stack, field), getattr(j.stack, field)), \
+                field
+    for field in j.ifs._fields:
+        assert _same(getattr(p.ifs, field), getattr(j.ifs, field)), field
+    for field in j.data.edge_loads._fields:
+        assert _same(getattr(p.data.edge_loads, field),
+                     getattr(j.data.edge_loads, field)), field
+    assert _same(p.cp, j.cp) and _same(p.data.free, j.data.free)
+    pp = tube.build(**TUBE_SMALL, pressure=PRESSURE, device="cpu")
+    assert _same(pp.data.pressure, jax_tube().data.pressure)
+
+
+@pytest.mark.parametrize("which", ["pin", "regu", "align", "align2"])
+def test_constraint_operators_identical(which):
+    from goldfish_tpu.design import constraints as jc
+    from goldfish_tpu_torch.design import constraints as pc
+
+    shape = (4, 3, 2)
+    if which == "pin":
+        args = (shape, [(i, j, 0) for i in range(4) for j in range(3)]
+                + [5, 7])
+    elif which == "regu":
+        args = (shape, 1)
+    elif which == "align":
+        args = (shape, 2)
+    else:
+        args = (shape, (0, 2))
+    name = "align_operator" if which.startswith("align") \
+        else f"{which}_operator"
+    assert _same(getattr(pc, name)(*args), getattr(jc, name)(*args))
+    assert pc.grid_dof(1, 2, 1, 4, 3) == jc.grid_dof(1, 2, 1, 4, 3)
+
+
+def test_shape_ffd_matches_jax():
+    import torch
+
+    from goldfish_tpu.design.pipeline import ShapeFFD as JaxShapeFFD
+    from goldfish_tpu_torch.design.pipeline import ShapeFFD
+    from goldfish_tpu_torch.models import tube
+
+    kw = dict(num_els=(2, 2, 1), p=(3, 3, 1), opt_fields=(0, 1))
+    js = JaxShapeFFD(jax_tube(), **kw)
+    ps = ShapeFFD(tube.build(**TUBE_SMALL, pressure=PRESSURE, device="cpu"),
+                  **kw)
+    assert _same(ps.F, js.F) and ps.shape == js.shape
+    assert np.array_equal(ps.init_p_ffd(), js.init_p_ffd())
+    x = js.init_p_ffd() * (1.0 + 0.01 * np.random.default_rng(2).normal(
+        size=ps.init_p_ffd().size))
+    a, b = ps(torch.from_numpy(x)).numpy(), np.asarray(js(x))
+    assert np.linalg.norm(a - b) <= 1e-14 * np.linalg.norm(b)
+
+
 def test_bridge_round_trip():
     from goldfish_tpu_torch.bridge import from_numpy_tree
     from goldfish_tpu_torch.solver.system import SystemData
@@ -81,7 +151,13 @@ def test_port_imports_without_jax():
             "goldfish_tpu_torch.ops.bspline_traced, "
             "goldfish_tpu_torch.geometry.cpiga2xi, "
             "goldfish_tpu_torch.physics.coupling_mi, "
-            "goldfish_tpu_torch.solver.system_mi; "
+            "goldfish_tpu_torch.solver.system_mi, "
+            "goldfish_tpu_torch.physics.loads, "
+            "goldfish_tpu_torch.models.tube, "
+            "goldfish_tpu_torch.design.constraints, "
+            "goldfish_tpu_torch.opt.problem, "
+            "goldfish_tpu_torch.demos.tube_shape_opt, "
+            "goldfish_tpu_torch.demos.draft_tube_shopt_mi_wffd; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'goldfish_tpu' "
             "or m.startswith('goldfish_tpu.')]; "
