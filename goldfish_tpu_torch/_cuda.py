@@ -2,10 +2,12 @@
 
 The kernels are compiled at first use with nvcc into one shared library
 with a plain C interface (no PyTorch headers, so the build takes seconds
-rather than minutes) and loaded with ctypes:
+rather than minutes) and loaded with ctypes. Each source compiles in its
+own nvcc process, all started together, then one link:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o _build/libgoldfish_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -Xptxas -v -c -o <src>.o csrc/<src>.cu   (each)
+    nvcc ... -shared -o _build/libgoldfish_kernels_<hash>.so *.o
 
 The build directory `goldfish_tpu_torch/_build/` is keyed by a hash of the
 sources, so an edited source rebuilds. Nothing here runs at import time.
@@ -42,7 +44,8 @@ COUNTERS = ("shell_qp/value_grad", "shell_qp/hess", "shell_qp/adjoint",
             "traced_rows", "mi_penalty_xi",
             "c2x_res_jac/res_jac", "c2x_res_jac/adjoint",
             "pressure_qp/value_grad", "pressure_qp/hess",
-            "pressure_qp/adjoint")
+            "pressure_qp/adjoint",
+            "vm_stress_qp/value", "vm_stress_qp/vjp")
 launch_counts: dict[str, int] = {k: 0 for k in COUNTERS}
 _lib = None
 build_info: dict = {}
@@ -58,6 +61,7 @@ _SIGNATURES = {
     "gf_mi_penalty_xi": [_P] * 22 + [_I] * 9 + [_P],
     "gf_c2x_res_jac": [_I] + [_P] * 23 + [_I] * 9 + [_P],
     "gf_pressure_qp": [_I] + [_P] * 11 + [_I] * 5 + [_P],
+    "gf_vm_stress_qp": [_I] + [_P] * 17 + [ctypes.c_double] + [_I] * 5 + [_P],
 }
 
 
@@ -77,6 +81,43 @@ def _nvcc():
     return found
 
 
+def _compile(sources, so, log):
+    """One nvcc per source, all started together, then one link into `so`;
+    the ptxas log of every source goes to `log`."""
+    nvcc = _nvcc()
+    os.makedirs(_BUILD, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.d"
+    os.makedirs(tmp, exist_ok=True)
+    arch = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+            "-Xcompiler", "-fPIC"]
+    objs, procs = [], []
+    for src in sources:
+        obj = os.path.join(tmp, os.path.basename(src) + ".o")
+        cmd = [nvcc, *arch, "-Xptxas", "-v", "-c", "-o", obj, src]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    text, failed = [], []
+    for cmd, proc in procs:
+        out = proc.communicate()[0]
+        text.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(out)
+    if not failed:
+        cmd = [nvcc, *arch, "-shared", "-o", so + ".tmp", *objs]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        text.append(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append(res.stdout + res.stderr)
+    with open(log, "w") as fh:
+        fh.write("\n".join(text))
+    shutil.rmtree(tmp, ignore_errors=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed; log in {log}:\n"
+                           + "\n".join(failed)[-4000:])
+    os.replace(so + ".tmp", so)
+
+
 def library():
     """The loaded kernel library, building it first if needed."""
     global _lib
@@ -94,19 +135,7 @@ def library():
     t0 = time.perf_counter()
     built = False
     if not os.path.exists(so):
-        os.makedirs(_BUILD, exist_ok=True)
-        tmp = so + f".{os.getpid()}.tmp"
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-o", tmp] + sources
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        with open(log, "w") as fh:
-            fh.write(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (rc {res.returncode}); log in {log}:\n"
-                + res.stderr[-4000:])
-        os.replace(tmp, so)
+        _compile(sources, so, log)
         built = True
     lib = ctypes.CDLL(so)
     for name, argtypes in _SIGNATURES.items():

@@ -32,11 +32,20 @@ class CPLayout:
         for i, m in enumerate(metas):
             idx[i, : m.n_cp] = self.offsets[i] + np.arange(m.n_cp)
         self._idx = tensor(idx, device, torch.int64)
+        keep = idx.ravel() < self.n_flat
+        inv = np.empty(self.n_flat, dtype=np.int64)
+        inv[idx.ravel()[keep]] = np.nonzero(keep)[0]
+        self._inv = tensor(inv, device, torch.int64)
 
     def to_padded(self, flat):
         """(n_flat, ...) -> (P, C, ...); padding entries become 0."""
         ext = torch.cat([flat, flat.new_zeros((1,) + flat.shape[1:])], 0)
         return ext[self._idx]
+
+    def to_flat(self, padded):
+        """(P, C, ...) -> (n_flat, ...), dropping padding."""
+        P, C = padded.shape[:2]
+        return padded.reshape((P * C,) + padded.shape[2:])[self._inv]
 
 
 class ThicknessFFD:

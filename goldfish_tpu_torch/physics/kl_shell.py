@@ -22,6 +22,11 @@ basis rows:
 Each of the four runs the CUDA kernel K1 `shell_qp`
 (csrc/shell_qp.cu) on CUDA tensors and its plain PyTorch version
 (torch.func on `shell_density`) on CPU tensors.
+
+The von Mises stress at the qps (`qp_stress_vm`, the stress constraint's
+field) is K9 `vm_stress_qp` (csrc/vm_stress_qp.cu) on CUDA tensors: mode 0
+the value, mode 1 its VJP in (d, cp, h); `stress_density` with autograd
+on CPU tensors.
 """
 
 from __future__ import annotations
@@ -34,7 +39,9 @@ from goldfish_tpu_torch.geometry.patch_stack import PatchStack
 
 __all__ = ["gather", "shell_density", "shell_value_grad", "shell_hessians",
            "shell_adjoint", "shell_geom_grad", "internal_energy", "element_hessians",
-           "volume", "external_work_dead_load", "dead_load_force"]
+           "stress_density", "vm_stress_value", "vm_stress_vjp",
+           "qp_stress_vm", "volume", "external_work_dead_load",
+           "dead_load_force"]
 
 NJ = 15  # displacement / geometry jet size
 
@@ -324,6 +331,139 @@ def element_hessians(stack: PatchStack, d, cp, h_coef, E, nu,
             loads.pressure_hessians(stack, d, cp, pressure),
             torch.stack(loads._pressure_tables(stack), dim=-2))
     return Ke
+
+
+# ------------------------------------------------------------ stress (K9)
+ZETA = {"top": 0.5, "mid": 0.0, "bottom": -0.5}
+
+
+def stress_density(X, z, h, E, nu, zfrac):
+    """Von Mises stress per qp at the fiber zfrac * h (zfrac = 1/2 top, 0
+    mid, -1/2 bottom) from the geometry / displacement jets X, z (..., 15)
+    and the thickness h (...): plane-stress SVK in the local Cartesian
+    frame (e1 along A1, e2 by Gram-Schmidt). The plain version of K9 (the
+    same formula as csrc/vm_stress_qp.cu:vm_stress). sqrt(max(v, 0)) has no
+    derivative at v = 0; there the pullback is zero, as in K9."""
+    A1, A2 = X[..., 0:3], X[..., 3:6]
+    A3 = _cross(A1, A2)
+    A3 = A3 / torch.sqrt(_dot(A3, A3))[..., None]
+    a = (_dot(A1, A1), _dot(A1, A2), _dot(A2, A2))
+    b = (_dot(X[..., 6:9], A3), _dot(X[..., 9:12], A3),
+         _dot(X[..., 12:15], A3))
+    x = X + z
+    a3 = _cross(x[..., 0:3], x[..., 3:6])
+    a3 = a3 / torch.sqrt(_dot(a3, a3))[..., None]
+    ac = (_dot(x[..., 0:3], x[..., 0:3]), _dot(x[..., 0:3], x[..., 3:6]),
+          _dot(x[..., 3:6], x[..., 3:6]))
+    bc = (_dot(x[..., 6:9], a3), _dot(x[..., 9:12], a3),
+          _dot(x[..., 12:15], a3))
+    zh = zfrac * h
+    s = tuple(0.5 * (ac[i] - a[i]) + zh * (b[i] - bc[i]) for i in range(3))
+    det = a[0] * a[2] - a[1] * a[1]
+    Au = (a[2] / det, -a[1] / det, a[0] / det)
+    c = E / (1.0 - nu * nu)
+    tr = Au[0] * s[0] + Au[1] * s[1] + Au[1] * s[1] + Au[2] * s[2]
+    m11 = Au[0] * s[0] + Au[1] * s[1]
+    m12 = Au[0] * s[1] + Au[1] * s[2]
+    m21 = Au[1] * s[0] + Au[2] * s[1]
+    m22 = Au[1] * s[1] + Au[2] * s[2]
+    S11 = c * (nu * tr * Au[0] + (1.0 - nu) * (m11 * Au[0] + m12 * Au[1]))
+    S12 = c * (nu * tr * Au[1] + (1.0 - nu) * (m11 * Au[1] + m12 * Au[2]))
+    S21 = c * (nu * tr * Au[1] + (1.0 - nu) * (m21 * Au[0] + m22 * Au[1]))
+    S22 = c * (nu * tr * Au[2] + (1.0 - nu) * (m21 * Au[1] + m22 * Au[2]))
+    e1 = A1 / torch.sqrt(_dot(A1, A1))[..., None]
+    e2 = A2 - _dot(A2, e1)[..., None] * e1
+    e2 = e2 / torch.sqrt(_dot(e2, e2))[..., None]
+    T11, T12 = _dot(A1, e1), _dot(A1, e2)
+    T21, T22 = _dot(A2, e1), _dot(A2, e2)
+    s11 = (S11 * T11 + S21 * T21) * T11 + (S12 * T11 + S22 * T21) * T21
+    s22 = (S11 * T12 + S21 * T22) * T12 + (S12 * T12 + S22 * T22) * T22
+    s12 = (S11 * T11 + S21 * T21) * T12 + (S12 * T11 + S22 * T21) * T22
+    v = s11 * s11 + s22 * s22 - s11 * s22 + 3.0 * (s12 * s12)
+    pos = v > 0.0
+    return torch.where(pos, torch.sqrt(torch.where(pos, v, 1.0)), 0.0)
+
+
+def _stress_plain(stack, d, cp, h, E, nu, zeta):
+    Eq, nuq, _ = _qp_params(stack, E, nu)
+    return stress_density(jets(stack, cp), jets(stack, d), h_at_qps(stack, h),
+                          Eq, nuq, zeta)
+
+
+def _stress_vjp_plain(stack, d, cp, h, E, nu, zeta, gbar):
+    with torch.enable_grad():
+        args = tuple(t.detach().requires_grad_(True) for t in (d, cp, h))
+        s = _stress_plain(stack, *args, E, nu, zeta)
+        return torch.autograd.grad(s, args, gbar)
+
+
+def _check_stress(stack, d, cp, h, E, nu, gbar=None):
+    dims = _check_inputs(stack, d, cp, h, E, nu)
+    if gbar is not None:
+        _cuda.check(gbar, "gbar", DTYPE, stack.wq.shape, d.device)
+    return dims
+
+
+def _launch_stress(mode, counter, stack, d, cp, h, E, nu, zeta, gbar, out_s,
+                   out_dd, out_dcp, out_dh, dims):
+    p = _cuda.ptr
+    _cuda.launch(counter, "gf_vm_stress_qp", mode,
+                 p(stack.R00), p(stack.R10), p(stack.R01), p(stack.R20),
+                 p(stack.R11), p(stack.R02), p(stack.conn), p(d), p(cp), p(h),
+                 p(E), p(nu), p(gbar), p(out_s), p(out_dd), p(out_dcp),
+                 p(out_dh), float(zeta), *dims)
+
+
+def vm_stress_value(stack: PatchStack, d, cp, h, E, nu, zeta):
+    """K9 mode 0: von Mises stress (P, E, Q) at the fiber zeta * h."""
+    dims = _check_stress(stack, d, cp, h, E, nu)
+    if not _cuda.on_cuda(d):
+        return _stress_plain(stack, d, cp, h, E, nu, zeta)
+    P, Ne, Q, _, _ = dims
+    s = torch.empty(P, Ne, Q, dtype=DTYPE, device=d.device)
+    _launch_stress(0, "vm_stress_qp/value", stack, d, cp, h, E, nu, zeta,
+                   None, s, None, None, None, dims)
+    return s
+
+
+def vm_stress_vjp(stack: PatchStack, d, cp, h, E, nu, zeta, gbar):
+    """K9 mode 1: gbar . dsigma/d(d, cp, h) -> ((P, C, 3), (P, C, 3),
+    (P, C)) for the cotangent gbar (P, E, Q)."""
+    dims = _check_stress(stack, d, cp, h, E, nu, gbar)
+    if not _cuda.on_cuda(d):
+        return _stress_vjp_plain(stack, d, cp, h, E, nu, zeta, gbar)
+    dd = torch.zeros_like(d)
+    dcp = torch.zeros_like(cp)
+    dh = torch.zeros_like(h)
+    _launch_stress(1, "vm_stress_qp/vjp", stack, d, cp, h, E, nu, zeta, gbar,
+                   None, dd, dcp, dh, dims)
+    return dd, dcp, dh
+
+
+class _VMStress(torch.autograd.Function):
+    """sigma_vM (P, E, Q) from K9 mode 0, its VJP in (d, cp, h) from K9
+    mode 1."""
+
+    @staticmethod
+    def forward(ctx, d, cp, h, stack, E, nu, zeta):
+        d, cp, h = d.detach(), cp.detach(), h.detach()
+        ctx.save_for_backward(d, cp, h)
+        ctx.stack, ctx.E, ctx.nu, ctx.zeta = stack, E, nu, zeta
+        return vm_stress_value(stack, d, cp, h, E, nu, zeta)
+
+    @staticmethod
+    def backward(ctx, g):
+        d, cp, h = ctx.saved_tensors
+        dd, dcp, dh = vm_stress_vjp(ctx.stack, d, cp, h, ctx.E, ctx.nu,
+                                    ctx.zeta, g.contiguous())
+        return dd, dcp, dh, None, None, None, None
+
+
+def qp_stress_vm(stack: PatchStack, d, cp, h_coef, E, nu, through="top"):
+    """Von Mises stress (P, E, Q) at every qp through `through` ('top' z =
+    +h/2, 'mid', 'bottom' -h/2), differentiable in d, cp and h by autograd
+    (K9 on CUDA tensors, `stress_density` on CPU tensors)."""
+    return _VMStress.apply(d, cp, h_coef, stack, E, nu, ZETA[through])
 
 
 def volume(stack: PatchStack, cp, h_coef):

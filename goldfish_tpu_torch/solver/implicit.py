@@ -34,8 +34,8 @@ from goldfish_tpu_torch.solver.system import (
     residual_vjp,
 )
 
-__all__ = ["damped_newton", "newton_solve_host", "adjoint_solve",
-           "build_solve_fn"]
+__all__ = ["damped_newton", "newton_solve_host", "adjoint_lambda",
+           "adjoint_solve", "build_solve_fn"]
 
 
 def _entry(data: SystemData, cp, h, d0):
@@ -207,10 +207,10 @@ def newton_solve_host(data: SystemData, fac: PersistentDeviceFactor, cp, h,
         rtol=rtol, atol=atol, max_it=max_it, shared=shared)
 
 
-def adjoint_solve(data: SystemData, fac: PersistentDeviceFactor, d, cp, h,
-                  g):
-    """Implicit-function adjoint on the persistent factor: K(d) lam = g by
-    certificate-gated IR (tol 1e-6), then (dcp, dh) = -lam^T dR/d(cp, h).
+def adjoint_lambda(data: SystemData, fac: PersistentDeviceFactor, d, cp, h,
+                   g):
+    """K(d) lam = g on the free dofs (lam masked) by certificate-gated IR
+    (tol 1e-6) on the persistent factor.
 
     The first attempt sizes its sweeps from the measured contraction; a
     failed certificate refactors when the factor is grossly stale and
@@ -220,13 +220,20 @@ def adjoint_solve(data: SystemData, fac: PersistentDeviceFactor, d, cp, h,
         drift = float(fac.drift_scalar(cp, h, d))
         x, ratio, n, rho_last = fac.ir_solve_async_dir(cp, h, d, b)
         if fac.finish_ir(n, ratio, float(rho_last)):
-            return residual_vjp(data, d, cp, h, x * data.free)
+            return x * data.free
         if drift > 0.2:
             fac.ensure(cp, h, d, force=True, why="adjoint-drift")
     else:
         fac.ensure(cp, h, d, why="adjoint")
-    lam = fac.exact_solve(cp, h, d, b) * data.free
-    return residual_vjp(data, d, cp, h, lam)
+    return fac.exact_solve(cp, h, d, b) * data.free
+
+
+def adjoint_solve(data: SystemData, fac: PersistentDeviceFactor, d, cp, h,
+                  g):
+    """Implicit-function adjoint on the persistent factor: lam =
+    `adjoint_lambda`, then (dcp, dh) = -lam^T dR/d(cp, h)."""
+    return residual_vjp(data, d, cp, h,
+                        adjoint_lambda(data, fac, d, cp, h, g))
 
 
 class _Solver:
@@ -245,20 +252,26 @@ class _Solver:
         self.shared = {}
         self.last_its = None
 
+    def solve(self, cp, h, d0):
+        """Newton solve from d0 on the persistent factor (`newton_solve_host`)
+        with the floor hint; returns d."""
+        d, its, rn = newton_solve_host(
+            self.data, self.factor, cp, h, d0, rtol=self.rtol,
+            atol=max(self.atol, self.floor_hint), max_it=self.max_it,
+            shared=self.shared)
+        self.last_its = its
+        if its < self.max_it and rn <= 1e-2 * self.shared["r_ref"]:
+            # converged or floored in the Newton basin (not truncated, not
+            # failed: a failed solve's |r| would stop every later solve)
+            self.floor_hint = max(self.atol, 1.5 * rn)
+        return d
+
 
 class _ImplicitSolve(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, solver: _Solver, cp, h, d0):
-        d, its, rn = newton_solve_host(
-            solver.data, solver.factor, cp, h, d0, rtol=solver.rtol,
-            atol=max(solver.atol, solver.floor_hint), max_it=solver.max_it,
-            shared=solver.shared)
-        solver.last_its = its
-        if its < solver.max_it and rn <= 1e-2 * solver.shared["r_ref"]:
-            # converged or floored in the Newton basin (not truncated, not
-            # failed: a failed solve's |r| would stop every later solve)
-            solver.floor_hint = max(solver.atol, 1.5 * rn)
+        d = solver.solve(cp, h, d0)
         ctx.solver = solver
         ctx.save_for_backward(d, cp, h)
         return d

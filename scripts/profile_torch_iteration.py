@@ -18,12 +18,20 @@ the optimizer's fun and jac at the start untimed, then fun (forward only)
 and jac (forward + adjoint) at a design moved by 1e-4 relative, each under
 torch.profiler.
 
+--plate: one warm SLSQP evaluation of the stress-constrained plate sizing
+(goldfish_tpu_torch/demos/plate_var_th_opt_stress.py at num_el=32, N =
+7140, through its OpenMDAO graph on the port's om_shim): run_model and the
+driver's totals at the start untimed, then fun (run_model) and jac
+(linearize + compute_totals of the objective and constraints) at a thickness
+design moved by 1e-4 relative, each under torch.profiler.
+
 For each profiled iteration it prints the wall time, the device-busy time
 (union of kernel, memcpy and memset intervals), the idle share, and the
 top device operations by self time. Chrome traces go to
 <trace_dir>/profile_<tag>.json (a fresh temporary directory by default).
 
-    python scripts/profile_torch_iteration.py [trace_dir] [--mi | --tube]
+    python scripts/profile_torch_iteration.py [trace_dir]
+        [--mi | --tube | --plate]
 """
 
 from __future__ import annotations
@@ -142,12 +150,48 @@ def main_tube(out):
                    f"{solve.device_factor.n_factor - nf}")
 
 
+def main_plate(out):
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from goldfish_tpu_torch.demos import plate_var_th_opt_stress as demo
+
+    dev = torch.device("cuda", 0)
+    prob, sys_, th, _, _ = demo.build_problem(num_el=32, device=dev)
+    model = prob.model
+    of = [model._objective[0]] + list(model._constraints)
+    fac = model._subs["disp_states_comp"].op.factor
+
+    def fun():
+        prob.run_model()
+
+    def jac():
+        prob.compute_totals(of, [demo.FFD], jacs=prob._linearize_all())
+
+    fun()
+    jac()
+    x0 = np.asarray(prob[demo.FFD]).copy()
+    prob[demo.FFD] = x0 * (1.0 + 1e-4 * np.random.default_rng(0).normal(
+        size=x0.size))
+    for what, fn in (("fun", fun), ("jac", jac)):
+        nf = fac.n_factor
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        report(f"plate_{what}", prof, wall, out,
+               f"factorizations {fac.n_factor - nf}")
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: this profile needs one GPU")
     from torch.profiler import ProfilerActivity, profile
 
-    args = [a for a in sys.argv[1:] if a not in ("--mi", "--tube")]
+    args = [a for a in sys.argv[1:] if a not in ("--mi", "--tube",
+                                                   "--plate")]
     out = args[0] if args else tempfile.mkdtemp()
     os.makedirs(out, exist_ok=True)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -155,6 +199,8 @@ def main():
         return main_mi(out)
     if "--tube" in sys.argv[1:]:
         return main_tube(out)
+    if "--plate" in sys.argv[1:]:
+        return main_plate(out)
 
     from chip_smoke import make_iteration
     from goldfish_tpu_torch.design.pipeline import ThicknessFFD

@@ -203,3 +203,44 @@ def jax_mi_tube():
     p_start[:n] *= 1.0 + 0.08 * free_z
     p_start[n:] *= 1.0 - 0.07 * free_z
     return s, sh, p0, p_start
+
+
+# The small plate: `plate.build(num_el=3, p=2, num_patches=2)` in both
+# packages, the stress demo's model at its own size (2 bilinear strips
+# elevated to degree 2, 5 x 6 and 6 x 5 CPs, C = 30, N = 180 dofs, 9 qps per
+# element, one interface). Seeded states are numpy, so both packages see
+# identical inputs; the solved state comes from the port (CPU), so no test
+# needs the JAX package's Newton solve for it.
+PLATE_SMALL = dict(num_el=3, p=2, num_patches=2)
+
+
+@functools.lru_cache(maxsize=1)
+def jax_plate():
+    from goldfish_tpu.models import plate
+
+    s = plate.build(**PLATE_SMALL)
+    # build the lazily cached SystemData now: built first inside a jax
+    # transformation, it would cache tracers for every later test
+    s.data
+    return s
+
+
+def port_plate():
+    """A fresh port plate on the CPU."""
+    from goldfish_tpu_torch.models import plate
+
+    return plate.build(**PLATE_SMALL, device="cpu")
+
+
+@functools.lru_cache(maxsize=1)
+def plate_state(seed=0):
+    """(cp, h, d, d_noisy, gbar) as numpy: d the port's Newton solution
+    (rtol 1e-12), d_noisy = d + seeded noise at 1e-3 of its largest entry
+    on free dofs, gbar a standard-normal qp cotangent (P, E, Q)."""
+    s = port_plate()
+    d = s.solve_nonlinear(rtol=1e-12).numpy()
+    rng = np.random.default_rng(seed)
+    free = s.data.free.numpy()
+    d_noisy = d + 1e-3 * np.abs(d).max() * rng.normal(size=d.shape) * free
+    gbar = rng.normal(size=tuple(s.stack.wq.shape))
+    return s.cp.numpy(), s.h_init.numpy(), d, d_noisy, gbar

@@ -91,6 +91,10 @@ def _calls(data, d, cp, h, lam, v):
         "pressure_qp/hess": lambda: loads.pressure_hessians(st, d, cp, pr),
         "pressure_qp/adjoint": lambda: loads.pressure_adjoint(
             st, d, cp, pr, lam),
+        "vm_stress_qp/value": lambda: kl_shell.vm_stress_value(
+            st, d, cp, h, data.E, data.nu, 0.5),
+        "vm_stress_qp/vjp": lambda: kl_shell.vm_stress_vjp(
+            st, d, cp, h, data.E, data.nu, -0.5, st.wq * 1e-3),
     }
 
 
@@ -148,7 +152,7 @@ def test_entry_points_default_to_cuda_or_raise(monkeypatch):
     point raises and names device="cpu" (no silent CPU fallback)."""
     from goldfish_tpu_torch import config
     from goldfish_tpu_torch.bridge import from_numpy_tree
-    from goldfish_tpu_torch.models import tbeam, tube, wing
+    from goldfish_tpu_torch.models import plate, tbeam, tube, wing
     from goldfish_tpu_torch.opt.problem import OptProblem
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -158,6 +162,7 @@ def test_entry_points_default_to_cuda_or_raise(monkeypatch):
     for build in (lambda: wing.build(**WING_SMALL),
                   lambda: tbeam.build_mi(**MI_SMALL),
                   lambda: tube.build(num_el=2, pressure=1.0),
+                  lambda: plate.build(num_el=2, p=2, num_patches=2),
                   lambda: OptProblem(),
                   lambda: from_numpy_tree(port_data())):
         with pytest.raises(RuntimeError, match='device="cpu"'):

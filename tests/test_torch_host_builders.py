@@ -12,8 +12,10 @@ from _torch_port_common import (
     PRESSURE,
     TUBE_SMALL,
     WING_SMALL,
+    jax_plate,
     jax_tube,
     jax_wing,
+    port_plate,
 )
 
 TIP = (0.0, 0.0, 50.0)
@@ -89,6 +91,37 @@ def test_tube_arrays_bit_identical():
     assert _same(pp.data.pressure, jax_tube().data.pressure)
 
 
+def test_plate_arrays_bit_identical():
+    """models/plate.py's copy: the two degree-2 strips, their interface,
+    the clamp and the edge load; the thickness FFD of the demos."""
+    import torch
+
+    from goldfish_tpu.design.pipeline import ThicknessFFD as JaxTFFD
+    from goldfish_tpu_torch.design.pipeline import ThicknessFFD
+
+    j = jax_plate()
+    p = port_plate()
+    for field in j.stack._fields:
+        if hasattr(p.stack, field):
+            assert _same(getattr(p.stack, field), getattr(j.stack, field)), \
+                field
+    for field in j.ifs._fields:
+        assert _same(getattr(p.ifs, field), getattr(j.ifs, field)), field
+    for field in j.data.edge_loads._fields:
+        assert _same(getattr(p.data.edge_loads, field),
+                     getattr(j.data.edge_loads, field)), field
+    assert _same(p.cp, j.cp) and _same(p.data.free, j.data.free)
+    assert _same(p.h_init, j.h_init)
+    kw = dict(num_els=(4, 2, 1), p=(2, 1, 1))
+    jt, pt = JaxTFFD(j, **kw), ThicknessFFD(p, **kw)
+    assert _same(pt.F, jt.F) and pt.shape == jt.shape
+    # CPLayout.to_flat inverts to_padded and drops the padding
+    x = np.random.default_rng(1).normal(size=(pt.layout.n_flat, 3))
+    pad = pt.layout.to_padded(torch.from_numpy(x))
+    assert np.array_equal(pt.layout.to_flat(pad).numpy(), x)
+    assert _same(pt.layout.to_flat(pad), jt.layout.to_flat(np.asarray(pad)))
+
+
 @pytest.mark.parametrize("which", ["pin", "regu", "align", "align2"])
 def test_constraint_operators_identical(which):
     from goldfish_tpu.design import constraints as jc
@@ -157,7 +190,16 @@ def test_port_imports_without_jax():
             "goldfish_tpu_torch.design.constraints, "
             "goldfish_tpu_torch.opt.problem, "
             "goldfish_tpu_torch.demos.tube_shape_opt, "
-            "goldfish_tpu_torch.demos.draft_tube_shopt_mi_wffd; "
+            "goldfish_tpu_torch.demos.draft_tube_shopt_mi_wffd, "
+            "goldfish_tpu_torch.models.plate, "
+            "goldfish_tpu_torch.physics.objectives, "
+            "goldfish_tpu_torch.operations, "
+            "goldfish_tpu_torch.operations.custom_exop, "
+            "goldfish_tpu_torch.om_shim, "
+            "goldfish_tpu_torch.om_comps.components, "
+            "goldfish_tpu_torch.nonmatching_opt_om, "
+            "goldfish_tpu_torch.demos.om_plate_var_th_opt_wint, "
+            "goldfish_tpu_torch.demos.plate_var_th_opt_stress; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'goldfish_tpu' "
             "or m.startswith('goldfish_tpu.')]; "
