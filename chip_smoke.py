@@ -71,11 +71,34 @@ Phases (any failure raises: non-zero exit, no result line):
    totals against the reference's sibling numbers;
 12. library calls: cholesky_ex, cholesky_solve, the Woodbury capacitance
    linalg.solve and the batched xi linalg.solve at each path's size, timed
-   with CUDA events beside their bounds.
+   with CUDA events beside their bounds;
+13. pegasus kernels: the full box wing of goldfish_tpu_torch/demos/
+   pegasus_thickness_opt.py (91 patches, 216 interfaces, C = 42, N =
+   11466, L = 16) at a seeded d: K10 pair_assemble into the (216, 252, 252)
+   pair blocks and the (91, 126, 126) patch blocks, and K1-K4, each against
+   its plain version (1e-11), with both times;
+14. pegasus dense route (the persistent Cholesky factor): cold W_int and
+   dW_int/dh_ffd at the start from d = 0 against tests/data/
+   torch_port_pegasus91_reference.json (J 1e-8, gradient 1e-6), then 3 warm
+   1e-4 steps;
+15. pegasus Newton-Krylov route (the demo's `route="krylov"`: GMRES-IR
+   forward and adjoint): first a probe, counted apart from the main path
+   (K10's only launches: no main path converges with its preconditioners),
+   one GMRES-IR pass on the cold Newton system with each preconditioner
+   (pair-Schwarz and patch blocks through K10, capped at 4 restart cycles;
+   the dense f64 LU), printed with its residual; then the main path, the
+   demo on the dense-LU preconditioner: cold W_int and gradient against
+   the same reference (J 1e-10, gradient 1e-5: 100x the first run's worst,
+   4.3e-13 and 9.7e-8, rounded up), the same for the per-patch thickness
+   variant, then run_slsqp(maxiter=3): it must lower W_int and hold the
+   volume to 1e-9; then the batched pair LU, its solves, the dense LU and
+   its solve, timed beside their bounds.
 
 Launch counters, reset just before each main path and read just after,
 prove that the path went through its kernels. The line before the last is
-the kernels' JSON record; the last line is {"ok": true, "device": {...}}.
+the kernels' JSON record (`launches` sums the main paths; the probe's
+launches stand apart under `launches_pegasus_probe`); the last line is
+{"ok": true, "device": {...}}.
 Imports nothing of JAX.
 """
 
@@ -98,11 +121,14 @@ REF_TUBE = os.path.join(ROOT, "tests", "data",
                         "torch_port_tube16_reference.json")
 REF_PLATE = os.path.join(ROOT, "tests", "data",
                          "torch_port_plate32_reference.json")
+REF_PEG = os.path.join(ROOT, "tests", "data",
+                       "torch_port_pegasus91_reference.json")
+PEG = dict(n_sections=18, num_el=3, p=3)   # the reference's full box wing
 KERNEL_TOL = 1e-11
 STRESS_TOL = {"vm_stress_qp/value": 1e-12, "vm_stress_qp/vjp": 1e-11}
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, the f64 rate outside the
-# tensor cores (none of the kernels is a matrix product) and the f64
-# tensor-core rate (the bound of the dense factorizations)
+# tensor cores and the f64 tensor-core (DMMA) rate: the bound of the dense
+# factorizations and of K10, whose per-group B^T H B is a block product
 PEAK_BYTES = 3.35e12
 PEAK_F64 = 34e12
 PEAK_F64_TC = 67e12
@@ -139,11 +165,11 @@ def nbytes(*ts):
                if isinstance(t, torch.Tensor))
 
 
-def bound(bytes_, flops):
+def bound(bytes_, flops, peak=PEAK_F64):
     """Least time (ms) for the work on the card: the larger of bytes over
-    the memory rate and f64 operations over the f64 rate."""
+    the memory rate and f64 operations over the f64 rate `peak`."""
     tb = bytes_ / PEAK_BYTES * 1e3
-    tf = flops / PEAK_F64 * 1e3
+    tf = flops / peak * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -215,6 +241,10 @@ KERNELS = [
      "goldfish_tpu/physics/kl_shell.py:339"),
     ("vm_stress_qp/vjp", "goldfish_tpu_torch/csrc/vm_stress_qp.cu",
      "goldfish_tpu/physics/objectives.py:97"),
+    ("pair_assemble/pairs", "goldfish_tpu_torch/csrc/pair_assemble.cu",
+     "goldfish_tpu/solver/krylov.py:177"),
+    ("pair_assemble/patches", "goldfish_tpu_torch/csrc/pair_assemble.cu",
+     "goldfish_tpu/solver/krylov.py:59"),
 ]
 WING_KERNELS = ("shell_qp/value_grad", "shell_qp/hess", "shell_qp/adjoint",
                 "penalty_qp/value_grad", "penalty_qp/hess",
@@ -225,6 +255,8 @@ PRESSURE_KERNELS = ("pressure_qp/value_grad", "pressure_qp/hess",
 TUBE_KERNELS = WING_KERNELS + ("shell_qp/geom_grad",) + PRESSURE_KERNELS
 TUBE_MI_KERNELS = MI_PATH_KERNELS + PRESSURE_KERNELS
 PLATE_KERNELS = WING_KERNELS + ("vm_stress_qp/value", "vm_stress_qp/vjp")
+PEG_PROBE_KERNELS = ("pair_assemble/pairs", "pair_assemble/patches",
+                     "jet_assemble", "jet_matvec")
 
 # f64 operations of one density evaluation (counted from the sources); a
 # kernel mode's count is that times the dual components it carries
@@ -345,9 +377,10 @@ def pressure_cases(data, d, cp, lam):
 def check_kernels(cases, tag, reps=5, tol=None):
     """Compare every kernel with its plain version (relative error in norm
     <= tol[name], default KERNEL_TOL); returns {name: dict} with the
-    relative and max abs error, both times and the bound."""
+    relative and max abs error, both times and the bound. A case may add
+    the f64 rate of its bound as a fifth entry (default PEAK_F64)."""
     out = {}
-    for name, (kern, plain, flops, inputs) in cases.items():
+    for name, (kern, plain, flops, inputs, *peak) in cases.items():
         a, b = kern(), plain()
         torch.cuda.synchronize()
         a = a if isinstance(a, tuple) else (a,)
@@ -362,7 +395,7 @@ def check_kernels(cases, tag, reps=5, tol=None):
             rel, mx = max(rel, r), max(mx, m)
         ms = cuda_ms(kern, reps)
         plain_ms = cuda_ms(plain, max(1, reps // 2))
-        b_ms, b_by = bound(nbytes(*inputs, *a), flops)
+        b_ms, b_by = bound(nbytes(*inputs, *a), flops, *peak)
         say(f"[{tag}] {name:22s} rel {rel:.3e} max_abs {mx:.3e} "
             f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
             f"bound {b_ms:.4f} ms ({b_by})")
@@ -873,26 +906,36 @@ def time_library(tag, fac, c2x=None, reps=3):
 def cold_gradient(obj, name, x0, sys_, dev):
     """J and dJ/dx of a demo objective at x0 from d = 0 (one host-timed
     evaluation ending in a synchronize)."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    x = torch.tensor(x0, dtype=torch.float64, device=dev, requires_grad=True)
-    J, d = obj({name: x}, sys_.zero_displacement())
-    J.backward()
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    J, g = float(J.detach()), x.grad.detach().cpu()
-    if not (np.isfinite(J) and bool(torch.isfinite(g).all())
-            and bool(torch.isfinite(d).all()) and g.shape == x.shape):
-        raise RuntimeError("non-finite or misshapen tube evaluation")
+    J, g, _, dt = evaluate(obj, name, x0, sys_.zero_displacement(), dev)
     return J, g, dt
 
 
-def check_cold(tag, J, g, dt, ref):
+def evaluate(obj, name, x, d0, dev):
+    """J, dJ/dx (CPU) and d of a demo objective at design x from d0,
+    host-timed to a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xt = torch.tensor(x, dtype=torch.float64, device=dev, requires_grad=True)
+    J, d = obj({name: xt}, d0)
+    J.backward()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    J, g, d = float(J.detach()), xt.grad.detach().cpu(), d.detach()
+    if not (np.isfinite(J) and bool(torch.isfinite(g).all())
+            and bool(torch.isfinite(d).all()) and g.shape == xt.shape):
+        raise RuntimeError("non-finite or misshapen evaluation")
+    return J, g, d, dt
+
+
+def check_cold(tag, J, g, dt, ref, tol_J=1e-8, tol_g=1e-6, key="dJ_dp"):
+    """Raise unless J and the gradient agree with the reference `ref`
+    (keys "J" and `key`) to tol_J and tol_g (relative)."""
     eJ = abs(J - ref["J"]) / abs(ref["J"])
-    eg = rel_err(g, torch.tensor(ref["dJ_dp"], dtype=torch.float64))[0]
+    eg = rel_err(g, torch.tensor(ref[key], dtype=torch.float64))[0]
     say(f"[{tag}] cold evaluation {dt:.3f} s  J={J!r} (ref {ref['J']!r}, "
-        f"rel {eJ:.2e})  |dJ/dp| rel {eg:.2e}")
-    if not (eJ <= 1e-8 and eg <= 1e-6):
+        f"rel {eJ:.2e}, gate {tol_J:g})  |dJ/dx| rel {eg:.2e} (gate "
+        f"{tol_g:g})")
+    if not (eJ <= tol_J and eg <= tol_g):
         raise RuntimeError(f"{tag} cold evaluation disagrees with the JAX "
                            f"CPU reference: J rel {eJ:.2e}, grad rel "
                            f"{eg:.2e}")
@@ -1192,6 +1235,277 @@ def phase_plate_sibling(dev, ref):
               ref["dvolume_dh_ffd"], 1e-6)
 
 
+# ------------------------------------------------------------ pegasus-91
+def pair_cases(data, d, cp, h):
+    """K10 into the pair blocks and the patch blocks of `data` at state d:
+    name -> (kernel fn, plain fn, flops, inputs, f64 rate). Flops and bytes
+    count the groups that have destination slots (real elements and
+    interface qps), per local pair the jet pairs whose basis rows are
+    nonzero, and per interface qp only the local pairs its blocks need."""
+    from goldfish_tpu_torch.solver import krylov, system
+
+    ps = krylov.PairSchwarz(data)
+    P, C = data.stack.n_patches, data.stack.max_cp
+    patches = krylov._block_tables(data, krylov._patch_blocks_of(P), P,
+                                   3 * C)
+    tables = ps.tables
+    Hs = system.jet_hessians(data, d, cp, h)
+    _, Q, _, L = tables.R_e.shape
+    Li2 = tables.R_i.shape[-1]
+    dev = cp.device
+
+    def run(bt, counter, plain):
+        def fn():
+            out = torch.zeros(bt.n_blocks, bt.nb, bt.nb, dtype=torch.float64,
+                              device=dev)
+            for H, R, tab in ((Hs[0], tables.R_e, bt.elem),
+                              (Hs[1], tables.R_i, bt.iface)):
+                if plain:
+                    krylov._pair_assemble_plain(out, H, R, tab)
+                else:
+                    krylov.pair_assemble(out, H, R, tab, counter)
+            return out
+        return fn
+
+    cases = {}
+    for name, bt in (("pair_assemble/pairs", ps.blocks),
+                     ("pair_assemble/patches", patches)):
+        ge = torch.nonzero(bt.elem.ptr[1:] > bt.elem.ptr[:-1])[:, 0]
+        gi = torch.nonzero(bt.iface.ptr[1:] > bt.iface.ptr[:-1])[:, 0]
+        # per local pair: 25 element jet pairs over Q qps; an interface
+        # qp's rows are zero on the other side, leaving 9 jet pairs. A pair
+        # block takes the whole (2L)^2 interface block, a patch block only
+        # the two L x L own-side quadrants
+        ipairs = Li2 * Li2 if name.endswith("pairs") else Li2 * Li2 // 2
+        flops = 18 * (len(ge) * L * L * Q * 25 + len(gi) * ipairs * 9)
+        ins = [Hs[0][ge], tables.R_e[ge], Hs[1][gi], tables.R_i[gi],
+               *bt.elem[:3], *bt.iface[:3]]
+        cases[name] = (run(bt, name, False), run(bt, name, True), flops,
+                       ins, PEAK_F64_TC)
+    return cases, ps
+
+
+def phase_pegasus_kernels(s, checks, seed=9):
+    """K10 (pairs, patches) and K1-K4 at the full box wing's shapes, d at
+    1e-3 of the CP scale on free dofs (seeded), lam and v random."""
+    dev = s.cp.device
+    rng = np.random.default_rng(seed)
+    cp, h = s.cp, s.h_init
+    scale = float(torch.linalg.norm(cp)) / np.sqrt(cp.numel())
+    T = lambda a: torch.tensor(a, dtype=torch.float64, device=dev)  # noqa
+    d = T(1e-3 * scale * rng.normal(size=tuple(cp.shape))) * s.data.free
+    lam = T(rng.normal(size=tuple(cp.shape))) * s.data.free
+    v = T(rng.normal(size=tuple(cp.shape)))
+    cases, ps = pair_cases(s.data, d, cp, h)
+    say(f"[pegasus-kernel] pair-Schwarz: {ps.I} pairs in {len(ps.colors)} "
+        f"colours {[len(c) for c in ps.colors]}; element slots "
+        f"{ps.blocks.elem.block.numel()}, interface slots "
+        f"{ps.blocks.iface.block.numel()}")
+    for name, got in check_kernels(cases, "pegasus-kernel").items():
+        merge(checks, name, got)
+    for name, got in check_kernels(fixed_cases(s.data, d, cp, h, lam, v),
+                                   "pegasus-kernel").items():
+        merge(checks, name, got, "pegasus")
+
+
+def phase_pegasus_dense(dev, ref):
+    """The demo's problem on the persistent Cholesky factor: cold J and
+    gradient from d = 0, then 3 warm 1e-4 steps (secant warm start)."""
+    from goldfish_tpu_torch import _cuda
+    from goldfish_tpu_torch.demos import pegasus_thickness_opt as demo
+    from goldfish_tpu_torch.opt.warmstart import SecantWarmStart
+
+    ns = demo.setup(**PEG, route="dense", device=dev)
+    s, fac = ns.sys, ns.solve.device_factor
+    _cuda.reset_launch_counts()
+    x0 = np.asarray(ns.x0)
+    J, g, d, dt = evaluate(ns.obj, "h_ffd", x0, s.zero_displacement(), dev)
+    check_cold("pegasus-dense", J, g, dt, ref["ffd"], key="grad")
+    ws = SecantWarmStart()
+    xt0 = torch.tensor(x0, dtype=torch.float64)
+    ws.update(xt0, d)
+    warm = []
+    for k in range(1, 4):
+        xk = xt0 * (1.0 + 1e-4 * k)
+        Jk, _, d, dtk = evaluate(ns.obj, "h_ffd", xk.numpy(),
+                                 ws.predict(xk, d), dev)
+        ws.update(xk, d)
+        warm.append(dtk)
+        say(f"[pegasus-dense] warm step {k}/3 {dtk:.3f} s J={Jk!r} newton "
+            f"its {ns.solve.solver.last_its}")
+    counts = dict(_cuda.launch_counts)
+    say(f"[pegasus-dense] warm median {float(np.median(warm)):.3f} s; "
+        f"n_factor {fac.n_factor} (failed {fac.n_factor_failed}); "
+        f"refactor_log {fac.refactor_log}")
+    check_counts("pegasus-dense", counts, WING_KERNELS)
+    return counts, fac
+
+
+def gmres_probe(ns, dev):
+    """One GMRES-IR pass (restart 32, rtol 1e-8) on the cold Newton system
+    K(0) x = -r(0) of the box wing with each preconditioner: pair-Schwarz
+    and patch blocks (K10; at most 4 restart cycles) and the dense f64 LU
+    (16). Prints the set-up and solve seconds, the cycles and the final
+    |K x + r| / |r|; returns the pair-Schwarz factors for the library
+    timings."""
+    from goldfish_tpu_torch.solver import krylov, system
+
+    s = ns.sys
+    data, cp, h = s.data, s.cp, s.h_init
+    d = s.zero_displacement()
+    ps = ns.solve.solver.schwarz or krylov.PairSchwarz(data)
+    tables = ps.tables
+    Hs = system.jet_hessians(data, d, cp, h)
+    _, r = system.potential_and_residual(data, d, cp, h)
+    op = lambda v: system.tangent_matvec_from(tables, Hs, v)  # noqa: E731
+    out = {}
+    for name, make, cap in (
+            ("pair_schwarz", lambda: (ps, ps.assemble(data, d, cp, h,
+                                                      Hs=Hs)), 4),
+            ("patch_block", lambda: krylov.patch_block_precond(
+                data, d, cp, h, tables=tables, Hs=Hs), 4),
+            ("full", lambda: krylov.full_precond(data, d, cp, h,
+                                                 tables=tables, Hs=Hs), 16)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pre = make()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        x, cyc = krylov._gmres_ir(op, krylov._mop(pre, op), -r, 1e-8, 32,
+                                  cap, 1)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        res = float(torch.linalg.norm(op(x) + r) / torch.linalg.norm(r))
+        if not np.isfinite(res):
+            raise RuntimeError(f"GMRES with {name}: non-finite residual")
+        say(f"[pegasus-gmres] {name:12s} set-up {t1 - t0:.3f} s, GMRES "
+            f"{t2 - t1:.3f} s over {cyc} restart cycles: |Kx + r|/|r| "
+            f"{res:.3e}")
+        out[name] = pre
+    out["Hs"] = Hs
+    say(f"[pegasus-gmres] pair-Schwarz apply: {len(ps.colors)} colours "
+        f"(pairs per colour {[len(c) for c in ps.colors]}), "
+        f"{len(ps.colors) - 1} K4 matvecs between them")
+    return out
+
+
+def time_library_pegasus(pre, n_dof, reps=3):
+    """The library calls of the matrix-free path, with CUDA events on the
+    cold state's matrices: the batched f64 LU of the equilibrated pair
+    blocks and the batched lu_solve of one colour
+    (bounds: the larger of moving the blocks once, and 2/3 n^3 per block
+    over the f64 tensor-core rate; the solve: its factors once over the
+    memory rate), the dense f64 LU of K (2/3 N^3) and its one-RHS solve (2
+    N^2 8 B), and the Arnoldi projection V v of a 33-vector basis."""
+    from goldfish_tpu_torch.solver import krylov, system
+
+    ps, fac = pre["pair_schwarz"]
+    lu, piv = fac[0], fac[1]
+    B, nb = lu.shape[0], lu.shape[1]
+
+    def equilibrated(K):
+        dsc = torch.rsqrt(K.diagonal(dim1=-2, dim2=-1).abs() + 1e-300)
+        return K.mul_(dsc[..., :, None]).mul_(dsc[..., None, :])
+
+    Kb = equilibrated(krylov.assemble_blocks(ps.blocks, ps.tables, pre["Hs"],
+                                             "pair_assemble/pairs"))
+    rows = []
+    tb = 2 * B * nb * nb * 8 / PEAK_BYTES * 1e3
+    tf = B * 2 * nb ** 3 / 3 / PEAK_F64_TC * 1e3
+    rows.append(dict(name="batched lu_factor_ex (pair blocks)",
+                     path="pegasus91", n=f"{B}x{nb}", ms=cuda_ms(
+                         lambda: torch.linalg.lu_factor_ex(Kb), reps),
+                     bound_ms=max(tb, tf),
+                     bound_by="bytes" if tb >= tf else "operations"))
+    k1 = len(ps.colors[0])
+    rhs = torch.randn(k1, nb, 1, dtype=torch.float64, device=lu.device)
+    rows.append(dict(name="batched lu_solve (one colour)", path="pegasus91",
+                     n=f"{k1}x{nb}", ms=cuda_ms(lambda: torch.linalg.lu_solve(
+                         lu[:k1], piv[:k1], rhs), 10),
+                     bound_ms=k1 * nb * nb * 8 / PEAK_BYTES * 1e3,
+                     bound_by="bytes"))
+    del Kb
+    flu, fpiv, _ = pre["full"][1]
+    Kf = equilibrated(system.assemble_K_from(ps.tables, pre["Hs"]))
+    rows.append(dict(name="lu_factor_ex (dense K)", path="pegasus91",
+                     n=n_dof, ms=cuda_ms(lambda: torch.linalg.lu_factor_ex(Kf),
+                                         reps),
+                     bound_ms=2 * n_dof ** 3 / 3 / PEAK_F64_TC * 1e3,
+                     bound_by="operations"))
+    del Kf
+    b = torch.randn(n_dof, 1, dtype=torch.float64, device=flu.device)
+    rows.append(dict(name="lu_solve (dense K, 1 RHS)", path="pegasus91",
+                     n=n_dof, ms=cuda_ms(lambda: torch.linalg.lu_solve(
+                         flu, fpiv, b), 10),
+                     bound_ms=2 * n_dof * n_dof * 8 / PEAK_BYTES * 1e3,
+                     bound_by="bytes"))
+    V = torch.randn(33, n_dof, dtype=torch.float64, device=flu.device)
+    v = torch.randn(n_dof, dtype=torch.float64, device=flu.device)
+    rows.append(dict(name="Arnoldi projection V @ v", path="pegasus91",
+                     n=f"33x{n_dof}", ms=cuda_ms(lambda: V @ v, 10),
+                     bound_ms=33 * n_dof * 8 / PEAK_BYTES * 1e3,
+                     bound_by="bytes"))
+    for row in rows:
+        say(f"[library] {json.dumps(row)}")
+    return rows
+
+
+def phase_pegasus_krylov(dev, ref):
+    """The demo's Newton-Krylov route: first the GMRES probe of the three
+    preconditioners, counted on its own (the only run that launches K10:
+    the route itself runs on the dense LU); then, with the counts reset,
+    the main path: the cold evaluation of both parametrizations against the
+    dense reference and run_slsqp(maxiter=3). Returns the main path's
+    counts, the probe's, the probe's factors and N."""
+    from goldfish_tpu_torch import _cuda
+    from goldfish_tpu_torch.demos import pegasus_thickness_opt as demo
+
+    ns = demo.setup(**PEG, route="krylov", device=dev)
+    s = ns.sys
+    sv = ns.solve.solver
+    _cuda.reset_launch_counts()
+    pre = gmres_probe(ns, dev)
+    probe = dict(_cuda.launch_counts)
+    check_counts("pegasus-probe", probe, PEG_PROBE_KERNELS)
+    _cuda.reset_launch_counts()
+    x0 = np.asarray(ns.x0)
+    J0, g, d, dt = evaluate(ns.obj, "h_ffd", x0, s.zero_displacement(), dev)
+    say(f"[pegasus-krylov] cold Newton (it, |r|, alpha, GMRES cycles) "
+        f"{sv.last_log}; adjoint cycles {sv.adjoint_cycles[-1]}")
+    check_cold("pegasus-krylov", J0, g, dt, ref["ffd"], 1e-10, 1e-5, "grad")
+    nc = demo.setup(**PEG, const_th=True, route="krylov", device=dev)
+    Jc, gc, _, dtc = evaluate(nc.obj, "h_ffd", np.asarray(nc.x0),
+                              s.zero_displacement(), dev)
+    check_cold("pegasus-krylov const-th", Jc, gc, dtc, ref["const_th"],
+               1e-10, 1e-5, "grad")
+    del nc
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = ns.prob.run_slsqp(maxiter=3, tol=1e-12)
+    wall = time.perf_counter() - t0
+    counts = dict(_cuda.launch_counts)
+    with torch.no_grad():
+        V1 = float(ns.vol({"h_ffd": torch.tensor(res.x["h_ffd"],
+                                                 dtype=torch.float64,
+                                                 device=dev)}))
+    eV = abs(V1 - ns.V0) / ns.V0
+    wf, wj = ns.prob.eval_wall["fun"], ns.prob.eval_wall["jac"]
+    say(f"[pegasus-krylov] slsqp {wall:.2f} s: nit {res.nit} nfev {res.nfev} "
+        f"njev {res.njev}; W_int per iteration {res.history} final "
+        f"{res.fun!r} (start {J0!r}); volume rel change {eV:.2e}; "
+        f"{res.message}")
+    say(f"[pegasus-krylov] wall per fun median {float(np.median(wf)):.3f} s "
+        f"(n {len(wf)}, max {max(wf):.3f}); per jac median "
+        f"{float(np.median(wj)):.3f} s (n {len(wj)}, max {max(wj):.3f}); "
+        f"last Newton {sv.last_log}; adjoint cycles {sv.adjoint_cycles}")
+    if not (np.isfinite(res.fun) and res.fun < J0 and res.nit >= 1
+            and eV <= 1e-9):
+        raise RuntimeError(f"pegasus SLSQP did not lower W_int ({res.fun!r} "
+                           f"vs {J0!r}) or broke the volume ({eV:.2e})")
+    check_counts("pegasus-krylov", counts, WING_KERNELS)
+    return counts, probe, pre, s.cp.numel()
+
+
 def main():
     t_start = time.perf_counter()
     dev = phase_device()
@@ -1243,10 +1557,38 @@ def main():
     phase_plate_sibling(dev, ref_plate["sibling"])
     say(f"[plate] phases 10-11 {time.perf_counter() - t0:.1f} s; script so "
         f"far {time.perf_counter() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+
+    from goldfish_tpu_torch.models import boxwing
+
+    with open(REF_PEG) as fh:
+        ref_peg = json.load(fh)
+    t0 = time.perf_counter()
+    s = boxwing.build(**PEG, device=dev)
+    P, C = s.stack.n_patches, s.stack.max_cp
+    say(f"[setup] pegasus-91 built in {time.perf_counter() - t0:.1f} s: P={P}"
+        f" C={C} N={P * C * 3} stack {tuple(s.stack.R00.shape)} ifs "
+        f"{tuple(s.ifs.RA00.shape)} (E_max, Q, L) = "
+        f"{tuple(s.stack.R00.shape[1:])}, interface qps Nq = "
+        f"{s.ifs.RA00.shape[1]}")
+    phase_pegasus_kernels(s, checks)
+    del s
+    torch.cuda.empty_cache()
+    counts_pd, fac = phase_pegasus_dense(dev, ref_peg["dense"])
+    library += time_library("pegasus91", fac)
+    del fac
+    torch.cuda.empty_cache()
+    counts_pk, counts_probe, pre, n_dof = phase_pegasus_krylov(
+        dev, ref_peg["dense"])
+    library += time_library_pegasus(pre, n_dof)
+    del pre
+    torch.cuda.empty_cache()
+    say(f"[pegasus] phases 13-15 {time.perf_counter() - t0:.1f} s")
 
     paths = {"wing": (counts, WING_KERNELS), "mi": (counts_mi, None),
              "tube": (counts_tf, None), "tube_mi": (counts_tm, None),
-             "plate": (counts_pl, None)}
+             "plate": (counts_pl, None), "pegasus_dense": (counts_pd, None),
+             "pegasus_krylov": (counts_pk, None)}
     record = {"kernels": []}
     for name, src, rep in KERNELS:
         per = {f"launches_{p}": (c.get(name, 0) if keep is None
@@ -1255,6 +1597,8 @@ def main():
         record["kernels"].append(
             {"name": name, "route": "cuda", "source": src, "replaces": rep,
              "launches": sum(per.values()), **per,
+             # not a main path: the GMRES probe of the preconditioners
+             "launches_pegasus_probe": counts_probe.get(name, 0),
              "max_abs_err": checks[name]["max_abs_err"],
              "ms": checks[name]["ms"], "plain_ms": checks[name]["plain_ms"],
              "bound_ms": checks[name]["bound_ms"],
@@ -1262,6 +1606,7 @@ def main():
              **{k: v for k, v in checks[name].items()
                 if k.startswith(("ms_", "plain_ms_", "bound_ms_"))}})
     say(json.dumps({"library": library}))
+    say(f"[smoke] total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps(record))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,7 @@
 """Design-variable pipelines: flat design vectors -> padded system tensors.
 
 Port of goldfish_tpu/design/pipeline.py (`CPLayout`, `ThicknessFFD`,
-`ShapeFFD`). The FFD basis evaluation is one
+`PatchConstantThickness`, `ShapeFFD`). The FFD basis evaluation is one
 constant dense matrix F built on the host (design/ffd.py, NumPy); the maps
 h_ffd -> F h_ffd -> padded (P, C) and p_ffd -> padded (P, C, 3) are
 matrix-vector products and index gathers, differentiable by autograd.
@@ -16,7 +16,8 @@ from goldfish_tpu_torch.config import as_device, tensor
 from goldfish_tpu_torch.design.ffd import FFDBlock, create_3D_block
 from goldfish_tpu_torch.geometry.patch_stack import PatchMeta
 
-__all__ = ["CPLayout", "ThicknessFFD", "ShapeFFD"]
+__all__ = ["CPLayout", "ThicknessFFD", "PatchConstantThickness",
+           "ShapeFFD"]
 
 
 class CPLayout:
@@ -68,6 +69,33 @@ class ThicknessFFD:
 
     def __call__(self, h_ffd):
         return self.layout.to_padded(self.F @ h_ffd)
+
+
+class PatchConstantThickness:
+    """h (n_patches,) -> padded thickness coefficients (P, C): one
+    constant thickness per patch.
+
+    The design map of the reference's const-thickness drivers, a block of
+    ones per patch (GOLDFISH/om_comps/ffd_comps/hth_map_comp.py:48-56, used
+    by demos_om/thickness_opt/pegasus/pegasus_const_th_opt_wint.py:46-56).
+    Padded CP slots are 0, as `CPLayout.to_padded` makes them."""
+
+    def __init__(self, system):
+        metas = system.metas
+        self.layout = CPLayout(metas, system.stack.max_cp, system.device)
+        reps = np.concatenate(
+            [np.full(m.n_cp, i) for i, m in enumerate(metas)])
+        self._patch_of = tensor(reps, system.device, torch.int64)
+        self.n = len(metas)
+
+    def init_h(self, h0) -> np.ndarray:
+        """Initial per-patch design vector (a scalar or one value per
+        patch)."""
+        return np.broadcast_to(np.asarray(h0, dtype=float),
+                               (self.n,)).copy()
+
+    def __call__(self, h):
+        return self.layout.to_padded(h[self._patch_of])
 
 
 def _block_around(metas, num_els, p, lims):

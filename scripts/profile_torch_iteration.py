@@ -25,13 +25,21 @@ driver's totals at the start untimed, then fun (run_model) and jac
 (linearize + compute_totals of the objective and constraints) at a thickness
 design moved by 1e-4 relative, each under torch.profiler.
 
+--pegasus: the pegasus-91 box-wing thickness optimization
+(goldfish_tpu_torch/demos/pegasus_thickness_opt.py at full size: 91
+patches, N = 11466): on its Newton-Krylov route (GMRES-IR forward and
+adjoint on the dense-LU preconditioner) the optimizer's fun and jac at the
+start untimed, then fun and jac at a design moved by 1e-4 relative; on the
+dense route (persistent Cholesky factor) a cold evaluation and one warm 1e-4
+step untimed, then one warm 1e-4 step; each under torch.profiler.
+
 For each profiled iteration it prints the wall time, the device-busy time
 (union of kernel, memcpy and memset intervals), the idle share, and the
 top device operations by self time. Chrome traces go to
 <trace_dir>/profile_<tag>.json (a fresh temporary directory by default).
 
     python scripts/profile_torch_iteration.py [trace_dir]
-        [--mi | --tube | --plate]
+        [--mi | --tube | --plate | --pegasus]
 """
 
 from __future__ import annotations
@@ -185,13 +193,51 @@ def main_plate(out):
                f"factorizations {fac.n_factor - nf}")
 
 
+def main_pegasus(out):
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from goldfish_tpu_torch.demos import pegasus_thickness_opt as demo
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(0)
+    for route in ("krylov", "dense"):
+        ns = demo.setup(route=route, device=dev)
+        fun, jac, _ = ns.prob._build_callables()
+        x0 = ns.prob._x0()
+        fun(x0)
+        jac(x0)
+        x1 = x0 * (1.0 + 1e-4 * rng.normal(size=x0.size))
+        if route == "dense":
+            jac(x1)
+            x1 = x1 * (1.0 + 1e-4 * rng.normal(size=x0.size))
+        for what, fn in ((("fun", fun), ("jac", jac)) if route == "krylov"
+                         else (("jac", jac),)):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn(x1)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            sv = ns.solve.solver
+            extra = f"newton its {sv.last_its}"
+            if route == "krylov":
+                extra += (f", (it, |r|, alpha, GMRES cycles) {sv.last_log}, "
+                          f"adjoint cycles {sv.adjoint_cycles[-1:]}")
+            else:
+                extra += f", n_factor {ns.solve.device_factor.n_factor}"
+            report(f"pegasus_{route}_{what}", prof, wall, out, extra)
+        del ns, fun, jac
+        torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: this profile needs one GPU")
     from torch.profiler import ProfilerActivity, profile
 
     args = [a for a in sys.argv[1:] if a not in ("--mi", "--tube",
-                                                   "--plate")]
+                                                   "--plate", "--pegasus")]
     out = args[0] if args else tempfile.mkdtemp()
     os.makedirs(out, exist_ok=True)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -201,6 +247,8 @@ def main():
         return main_tube(out)
     if "--plate" in sys.argv[1:]:
         return main_plate(out)
+    if "--pegasus" in sys.argv[1:]:
+        return main_pegasus(out)
 
     from chip_smoke import make_iteration
     from goldfish_tpu_torch.design.pipeline import ThicknessFFD

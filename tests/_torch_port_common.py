@@ -20,6 +20,14 @@ import functools
 import numpy as np
 import torch
 
+# One intra-op thread per test process: the suite runs in several xdist
+# workers on a few cores, and a torch thread pool per worker oversubscribes
+# them (the port's test files: 688 s on six workers and 8 cores with the
+# default pool, 250 s with one thread). Set here, at collection, before any
+# test runs: this torch build's MKL fails in its LU (DLASWP errors, then a
+# hang) once the count is changed after use.
+torch.set_num_threads(1)
+
 WING_SMALL = dict(n_chord=2, n_span=2, num_el=3, p=3)
 FFD_SMALL = dict(num_els=(2, 2, 1), p=(2, 2, 1))
 

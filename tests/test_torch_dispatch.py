@@ -65,6 +65,20 @@ def _pressure(st, d):
                       device=d.device)
 
 
+def _k10(data, d, cp, h, which):
+    """K10 into the pair blocks or the patch blocks of `data` at d."""
+    from goldfish_tpu_torch.solver import krylov, system
+
+    ps = krylov.PairSchwarz(data)
+    bt = ps.blocks
+    if which == "patches":
+        P, C = data.stack.n_patches, data.stack.max_cp
+        bt = krylov._block_tables(data, krylov._patch_blocks_of(P), P, 3 * C)
+    return krylov.assemble_blocks(bt, ps.tables,
+                                  system.jet_hessians(data, d, cp, h),
+                                  f"pair_assemble/{which}")
+
+
 def _calls(data, d, cp, h, lam, v):
     from goldfish_tpu_torch.physics import coupling, kl_shell, loads
     from goldfish_tpu_torch.solver import system
@@ -95,6 +109,8 @@ def _calls(data, d, cp, h, lam, v):
             st, d, cp, h, data.E, data.nu, 0.5),
         "vm_stress_qp/vjp": lambda: kl_shell.vm_stress_vjp(
             st, d, cp, h, data.E, data.nu, -0.5, st.wq * 1e-3),
+        "pair_assemble/pairs": lambda: _k10(data, d, cp, h, "pairs"),
+        "pair_assemble/patches": lambda: _k10(data, d, cp, h, "patches"),
     }
 
 
@@ -145,6 +161,14 @@ def test_wrong_inputs_raise(bad):
     with pytest.raises(err):
         system.jet_matvec(y, Hs[0], tables.R_e, tables.gi_e, tables.free,
                           dd.reshape(-1))
+    from goldfish_tpu_torch.solver import krylov
+
+    bt = krylov.PairSchwarz(data).blocks
+    out = torch.zeros(bt.n_blocks, bt.nb, bt.nb, dtype=torch.float64)
+    with pytest.raises((TypeError, ValueError)):
+        krylov.pair_assemble(out.float() if bad == "dtype" else out, Hs[0],
+                             tables.R_e if bad == "dtype" else tables.R_e[1:],
+                             bt.elem)
 
 
 def test_entry_points_default_to_cuda_or_raise(monkeypatch):
@@ -152,7 +176,7 @@ def test_entry_points_default_to_cuda_or_raise(monkeypatch):
     point raises and names device="cpu" (no silent CPU fallback)."""
     from goldfish_tpu_torch import config
     from goldfish_tpu_torch.bridge import from_numpy_tree
-    from goldfish_tpu_torch.models import plate, tbeam, tube, wing
+    from goldfish_tpu_torch.models import boxwing, plate, tbeam, tube, wing
     from goldfish_tpu_torch.opt.problem import OptProblem
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -163,6 +187,7 @@ def test_entry_points_default_to_cuda_or_raise(monkeypatch):
                   lambda: tbeam.build_mi(**MI_SMALL),
                   lambda: tube.build(num_el=2, pressure=1.0),
                   lambda: plate.build(num_el=2, p=2, num_patches=2),
+                  lambda: boxwing.build(n_sections=2, num_el=2, p=2),
                   lambda: OptProblem(),
                   lambda: from_numpy_tree(port_data())):
         with pytest.raises(RuntimeError, match='device="cpu"'):

@@ -199,7 +199,10 @@ def test_port_imports_without_jax():
             "goldfish_tpu_torch.om_comps.components, "
             "goldfish_tpu_torch.nonmatching_opt_om, "
             "goldfish_tpu_torch.demos.om_plate_var_th_opt_wint, "
-            "goldfish_tpu_torch.demos.plate_var_th_opt_stress; "
+            "goldfish_tpu_torch.demos.plate_var_th_opt_stress, "
+            "goldfish_tpu_torch.models.boxwing, "
+            "goldfish_tpu_torch.solver.krylov, "
+            "goldfish_tpu_torch.demos.pegasus_thickness_opt; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'goldfish_tpu' "
             "or m.startswith('goldfish_tpu.')]; "
