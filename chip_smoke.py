@@ -37,7 +37,9 @@ Phases (any failure raises: non-zero exit, no result line):
    through both implicit solves), cold at amp = 0.05 from d = 0, checked
    against tests/data/torch_port_mi_tbeam40_reference.json (J 1e-8,
    dJ/damp 1e-6), then 5 warm steps amp = 0.05 (1 + 1e-3 k) with secant
-   warm starts for d, xi and (inside the solve) the adjoint;
+   warm starts for d, xi and (inside the solve) the adjoint; then, outside
+   the counted path, the system's own `solve_nonlinear` at amp = 0.05
+   against `build_forward`'s coupled solve (1e-8: ROADMAP Queue C1);
 7. tube kernels: the pressurized tube at the size and follower pressure of
    tests/data/torch_port_tube16_reference.json (num_el=16, p=3: 4 patches,
    degree (3, 2), 12 qps, N = 8436) on the card, at d = the pressure's linear
@@ -92,7 +94,27 @@ Phases (any failure raises: non-zero exit, no result line):
    4.3e-13 and 9.7e-8, rounded up), the same for the per-patch thickness
    variant, then run_slsqp(maxiter=3): it must lower W_int and hold the
    volume to 1e-9; then the batched pair LU, its solves, the dense LU and
-   its solve, timed beside their bounds.
+   its solve, timed beside their bounds;
+16. VLM kernels: K11 vlm_aic (value 1e-12, VJP 1e-11 against its plain
+   version, compared in norm over the whole matrix: at the root the real
+   and mirrored trailing legs nearly cancel) on the full-width lattice (the
+   20-patch wing, N = 6600, under 16 x 64 panels) at the deformed corners
+   of a seeded d, and on the demo's 6 x 10 lattice, with both times;
+17. VLM demo path (goldfish_tpu_torch/demos/vlm_aeroelastic_wing.py's
+   `main` at its defaults: 2 x 3 patches, num_el=3, 6 x 10 panels, 4
+   fixed-point passes): W_int and lift (1e-8), tip displacement and
+   dW_int/dh (1e-6) against tests/data/torch_port_vlm_reference.json, and
+   the demo's central-difference check (< 1e-5);
+18. VLM at full width (the benchmark wing under the 16 x 64 lattice): the
+   cold coupled evaluation with its gradient against the same file (J,
+   lift 1e-8, tip, gradient 1e-6) and its FD check, then 3 warm
+   evaluations at h0 + k 1e-4 v, each from the previous d, with their
+   median wall, the Newton iterations per pass and the factorizations;
+   then the AIC's `torch.linalg.solve` (N = 1024) beside its bound;
+19. the Scordelis-Lo roof (goldfish_tpu_torch/models/slr.py) at num_el=6:
+   the linear-regime QoI against the published 0.3006 (5e-3) and the JAX
+   package's value in the same file (1e-8), and the displacement jump
+   across the patch 0 | 1 interface.
 
 Launch counters, reset just before each main path and read just after,
 prove that the path went through its kernels. The line before the last is
@@ -123,6 +145,11 @@ REF_PLATE = os.path.join(ROOT, "tests", "data",
                          "torch_port_plate32_reference.json")
 REF_PEG = os.path.join(ROOT, "tests", "data",
                        "torch_port_pegasus91_reference.json")
+REF_VLM = os.path.join(ROOT, "tests", "data",
+                       "torch_port_vlm_reference.json")
+VLM_WIDE = dict(n_chord=4, n_span=5, num_el=6, p=3, mc=16, ns=64)
+VLM_DEMO = dict(n_chord=2, n_span=3, num_el=3, p=3, mc=6, ns=10)
+VLM_TOL = {"vlm_aic/value": 1e-12, "vlm_aic/vjp": 1e-11}
 PEG = dict(n_sections=18, num_el=3, p=3)   # the reference's full box wing
 KERNEL_TOL = 1e-11
 STRESS_TOL = {"vm_stress_qp/value": 1e-12, "vm_stress_qp/vjp": 1e-11}
@@ -245,6 +272,10 @@ KERNELS = [
      "goldfish_tpu/solver/krylov.py:177"),
     ("pair_assemble/patches", "goldfish_tpu_torch/csrc/pair_assemble.cu",
      "goldfish_tpu/solver/krylov.py:59"),
+    ("vlm_aic/value", "goldfish_tpu_torch/csrc/vlm_aic.cu",
+     "goldfish_tpu/physics/vlm.py:126"),
+    ("vlm_aic/vjp", "goldfish_tpu_torch/csrc/vlm_aic.cu",
+     "goldfish_tpu/physics/vlm.py:162"),
 ]
 WING_KERNELS = ("shell_qp/value_grad", "shell_qp/hess", "shell_qp/adjoint",
                 "penalty_qp/value_grad", "penalty_qp/hess",
@@ -257,10 +288,17 @@ TUBE_MI_KERNELS = MI_PATH_KERNELS + PRESSURE_KERNELS
 PLATE_KERNELS = WING_KERNELS + ("vm_stress_qp/value", "vm_stress_qp/vjp")
 PEG_PROBE_KERNELS = ("pair_assemble/pairs", "pair_assemble/patches",
                      "jet_assemble", "jet_matvec")
+VLM_KERNELS = WING_KERNELS + ("traced_rows", "vlm_aic/value", "vlm_aic/vjp")
+# a cold solve on a fresh factor takes substitution directions only: no K4
+SLR_KERNELS = ("shell_qp/value_grad", "shell_qp/hess", "penalty_qp/value_grad",
+               "penalty_qp/hess", "jet_assemble")
 
 # f64 operations of one density evaluation (counted from the sources); a
 # kernel mode's count is that times the dual components it carries
 DENS_SHELL, DENS_PEN, DENS_VM = 200, 250, 300
+# f64 operations of one AIC entry: two horseshoes of a bound segment (~50)
+# and two semi-infinite legs (~36 each), and the dot with the normal
+AIC_OPS = 265
 
 
 def fixed_cases(data, d, cp, h, lam, v):
@@ -733,15 +771,45 @@ def phase_mi_kernels(sys_, checks, reps=5, tube=False):
     return checks
 
 
+def mi_bend(sys_, dev):
+    """bench_mi.py's design direction: sin(pi v) on the web's x."""
+    m = sys_.metas[1]
+    gv = sys_.surfs[1].greville_points(1)
+    return torch.tensor(np.tile(np.sin(np.pi * gv)[None, :],
+                                (m.n_u, 1)).ravel(), device=dev)
+
+
+def mi_solve_nonlinear_check(sys_, dev, amp=0.05):
+    """ROADMAP Queue C1: the MI system's own `solve_nonlinear` (xi =
+    c2x.solve(cp), then the MI Newton at xi) against `build_forward`'s
+    coupled solve at the same design (rel <= 1e-8), with u_z at the
+    loaded corner."""
+    m = sys_.metas[1]
+    cp = sys_.cp.clone()
+    cp[1, : m.n_cp, 0] += amp * mi_bend(sys_, dev)
+    t0 = time.perf_counter()
+    d_sn = sys_.solve_nonlinear(cp=cp, rtol=1e-10)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    with torch.no_grad():
+        d_fw, _ = sys_.build_forward(rtol=1e-10)(cp, sys_.h_init,
+                                                 sys_.zero_displacement())
+    e = rel_err(d_sn, d_fw)[0]
+    uz = sys_.evaluate_displacement(d_sn, 0, [1.0, 1.0])[2]
+    say(f"[mi C1] solve_nonlinear vs build_forward at amp={amp}: rel "
+        f"{e:.3e} (gate 1e-8), u_z(1, 1) = {uz!r}, {dt:.3f} s")
+    if not (e <= 1e-8 and abs(uz) > 0.0):
+        raise RuntimeError(f"MINonMatchingSystem.solve_nonlinear is not the "
+                           f"coupled MI solve: rel {e:.3e}, u_z {uz!r}")
+
+
 def make_mi_iteration(sys_, dev):
     """bench_mi.py's opt_iteration on the port: returns (iteration,
     forward); iteration(amp, d0, xi_seed) -> (J, dJ/damp, d, xi, wall)."""
     from goldfish_tpu_torch.physics import kl_shell
 
     m = sys_.metas[1]
-    gv = sys_.surfs[1].greville_points(1)
-    bend = torch.tensor(np.tile(np.sin(np.pi * gv)[None, :],
-                                (m.n_u, 1)).ravel(), device=dev)
+    bend = mi_bend(sys_, dev)
     forward = sys_.build_forward(rtol=1e-9, max_it=30)
     h = sys_.h_init
     xi_start = sys_.c2x.xi0_flat
@@ -823,6 +891,7 @@ def phase_mi_main(sys_, dev):
     if missing:
         raise RuntimeError(f"kernels never launched on the MI path: "
                            f"{missing}")
+    mi_solve_nonlinear_check(sys_, dev)
     return counts, fac
 
 
@@ -1506,6 +1575,178 @@ def phase_pegasus_krylov(dev, ref):
     return counts, probe, pre, s.cp.numel()
 
 
+# ------------------------------------------------------------ VLM, roof
+def vlm_cases(corners, seed):
+    """K11 in both modes on the panels of a corner grid: name -> (kernel
+    fn, plain fn, flops, inputs). Bounds: the value's AIC_OPS per pair;
+    the VJP's 4x that (reverse mode's cheap-gradient bound)."""
+    from goldfish_tpu_torch.physics import vlm
+
+    A, B, colloc, nhat, _ = vlm.panel_geometry(corners)
+    io = [colloc.contiguous(), nhat.contiguous(), A.contiguous(),
+          B.contiguous(), vlm.wake_direction(corners.device)]
+    N = colloc.shape[0]
+    g = torch.tensor(np.random.default_rng(seed).normal(size=(N, N)),
+                     device=corners.device)
+    return {
+        "vlm_aic/value": (lambda: vlm.aic_value(*io),
+                          lambda: vlm.aic_plain(*io), N * N * AIC_OPS, io),
+        "vlm_aic/vjp": (lambda: vlm.aic_vjp(*io, g),
+                        lambda: vlm.aic_vjp_plain(*io, g),
+                        4 * N * N * AIC_OPS, io + [g]),
+    }
+
+
+def phase_vlm_kernels(coupled, checks, seed=12):
+    """K11 on the full-width lattice and on the demo's, at the deformed
+    corners of a seeded d (1e-3 of the CP scale on free dofs)."""
+    for tag, (J_of_h, s, _) in coupled.items():
+        rng = np.random.default_rng(seed)
+        cp = s.cp
+        scale = float(torch.linalg.norm(cp)) / np.sqrt(cp.numel())
+        d = torch.tensor(1e-3 * scale * rng.normal(size=tuple(cp.shape)),
+                         device=cp.device) * s.data.free
+        corners = J_of_h.corners(d)
+        say(f"[vlm-kernel {tag}] lattice {tuple(corners.shape[:2])}, "
+            f"{(corners.shape[0] - 1) * (corners.shape[1] - 1)} panels")
+        got = check_kernels(vlm_cases(corners, seed), f"vlm-kernel {tag}",
+                            tol=VLM_TOL)
+        for name, case in got.items():
+            merge(checks, name, case, None if tag == "wing20" else tag)
+
+
+def check_vlm(tag, J, lift, tip, g, ref):
+    """Raise unless W_int and lift (1e-8), the tip displacement and
+    dW_int/dh (1e-6) agree with the reference `ref`. The tip is a
+    displacement: both Newton solves stop at |r| ~ 1e-9 |r(0)|, which
+    leaves it ~5e-8 apart at the demo's size (a CPU run of both), where the
+    energy-like W_int and lift agree to ~1e-12."""
+    eJ = abs(J - ref["J"]) / abs(ref["J"])
+    eL = abs(lift - ref["lift"]) / abs(ref["lift"])
+    eT = rel_err(torch.as_tensor(tip), torch.tensor(ref["tip"]))[0]
+    eg = rel_err(g.cpu(), torch.tensor(ref["dW_dh"]))[0]
+    say(f"[{tag}] W_int={J!r} (ref {ref['J']!r}, rel {eJ:.2e}) lift="
+        f"{lift!r} (rel {eL:.2e}) tip u_z={float(tip[2])!r} (tip rel "
+        f"{eT:.2e}) |dW_int/dh| rel {eg:.2e}")
+    if not (eJ <= 1e-8 and eL <= 1e-8 and eT <= 1e-6 and eg <= 1e-6):
+        raise RuntimeError(f"{tag} disagrees with the JAX CPU reference: J "
+                           f"{eJ:.2e}, lift {eL:.2e}, tip {eT:.2e}, "
+                           f"gradient {eg:.2e}")
+
+
+def phase_vlm_demo(dev, ref):
+    """The demo's `main` at its defaults: the cold coupled gradient and the
+    demo's own FD check (it asserts rel < 1e-5)."""
+    from goldfish_tpu_torch.demos import vlm_aeroelastic_wing as demo
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    J, lift, tip, g, fd_rel, _ = demo.main(**VLM_DEMO, n_fp=4, device=dev)
+    torch.cuda.synchronize()
+    say(f"[vlm-demo] main (cold gradient + FD) {time.perf_counter() - t0:.3f}"
+        f" s; FD rel {fd_rel:.2e} (ref's {ref['fd']['rel']:.2e})")
+    check_vlm("vlm-demo", J, lift, tip, g, ref)
+
+
+def phase_vlm_wide(coupled, ref):
+    """The coupled evaluation at full width: cold with its gradient and FD
+    check, then 3 warm evaluations at h0 + k 1e-4 v from the previous d."""
+    from goldfish_tpu_torch.demos import vlm_aeroelastic_wing as demo
+
+    J_of_h, s, h0 = coupled
+    its = J_of_h.solve.solver.its_log
+    fac = J_of_h.solve.device_factor
+    d0 = s.zero_displacement()
+
+    def evaluate(h, d):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        J, d, lift, g = demo.coupled_gradient(J_of_h, h, d)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if not (bool(torch.isfinite(J)) and bool(torch.isfinite(d).all())
+                and bool(torch.isfinite(g).all()) and g.shape == h0.shape
+                and d.shape == s.cp.shape):
+            raise RuntimeError("non-finite or misshapen coupled evaluation")
+        return float(J), d, float(lift), g, dt
+
+    J, d, lift, g, dt = evaluate(h0, d0)
+    tip = s.evaluate_displacement(d, s.num_splines - 1, [0.5, 1.0])
+    say(f"[vlm-wide] cold coupled evaluation {dt:.3f} s, newton its per pass"
+        f" {its}, n_factor {fac.n_factor}")
+    check_vlm("vlm-wide", J, lift, tip, g, ref)
+    t0 = time.perf_counter()
+    ad, fd, fd_rel = demo.fd_check(J_of_h, s, h0, d0, g)
+    say(f"[vlm-wide] FD check ad={ad!r} fd={fd!r} rel {fd_rel:.2e} (ref's "
+        f"{ref['fd']['rel']:.2e}), {time.perf_counter() - t0:.3f} s")
+    if not fd_rel < 1e-5:
+        raise RuntimeError(f"vlm-wide FD check: rel {fd_rel:.2e}")
+    v = demo.fd_direction(s, h0)
+    warm = []
+    for k in range(1, 4):
+        n0, nf = len(its), fac.n_factor
+        Jk, d, _, _, dt = evaluate(h0 + 1e-4 * k * v, d)
+        warm.append(dt)
+        say(f"[vlm-wide] warm evaluation {k}/3 {dt:.3f} s W_int={Jk!r} "
+            f"newton its per pass {its[n0:]}, factorizations "
+            f"{fac.n_factor - nf}")
+    say(f"[vlm-wide] warm median {float(np.median(warm)):.3f} s; n_factor "
+        f"{fac.n_factor} (failed {fac.n_factor_failed}); refactor_log "
+        f"{fac.refactor_log}")
+    return d
+
+
+def time_aic_solve(J_of_h, d, reps=10):
+    """The library call of the VLM path: Gamma = linalg.solve(AIC, rhs) at
+    the state d, with CUDA events; bound 2N^3/3 f64 operations over the f64
+    tensor-core rate."""
+    from goldfish_tpu_torch.physics import vlm
+
+    A, B, colloc, nhat, _ = vlm.panel_geometry(J_of_h.corners(d))
+    with torch.no_grad():
+        M = vlm.aic(colloc, nhat, A, B, vlm.wake_direction(d.device))
+    rhs = -nhat[:, 2].contiguous()
+    N = M.shape[0]
+    row = dict(name="AIC linalg.solve", path="vlm_wing20", n=N,
+               ms=cuda_ms(lambda: torch.linalg.solve(M, rhs), reps),
+               bound_ms=2 * N ** 3 / 3 / PEAK_F64_TC * 1e3,
+               bound_by="operations")
+    say(f"[library] {json.dumps(row)}")
+    return [row]
+
+
+def phase_slr(dev, ref):
+    """The Scordelis-Lo roof at num_el=6: the linear-regime QoI and the
+    interface continuity of the reference's test_slr.py."""
+    from goldfish_tpu_torch import _cuda
+    from goldfish_tpu_torch.models import slr
+
+    _cuda.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qoi, d, s = slr.solve_qoi(num_el=ref["num_el"],
+                              load_scale=ref["load_scale"], device=dev)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(_cuda.launch_counts)
+    e_pub = abs(qoi - slr.QOI_REF) / slr.QOI_REF
+    e_ref = abs(qoi - ref["qoi"]) / ref["qoi"]
+    scale = ref["load_scale"]
+    uA = s.evaluate_displacement(d, 0, [1.0, 0.7]) / scale
+    uB = s.evaluate_displacement(d, 1, [0.0, 0.7]) / scale
+    jump = float(np.linalg.norm(uA - uB) / max(np.linalg.norm(uA), 1e-12))
+    P, C = s.stack.n_patches, s.stack.max_cp
+    say(f"[slr] num_el={ref['num_el']} P={P} C={C} N={P * C * 3}: QoI "
+        f"{qoi!r} (published {slr.QOI_REF}, rel {e_pub:.2e}, gate 5e-3; JAX "
+        f"{ref['qoi']!r}, rel {e_ref:.2e}, gate 1e-8), interface jump "
+        f"{jump:.2e} (gate 1e-5), {dt:.3f} s")
+    if not (e_pub < 5e-3 and e_ref <= 1e-8 and jump < 1e-5):
+        raise RuntimeError(f"slr: QoI {qoi!r} or interface jump {jump:.2e} "
+                           f"out of its gate")
+    check_counts("slr", counts, SLR_KERNELS)
+    return counts
+
+
 def main():
     t_start = time.perf_counter()
     dev = phase_device()
@@ -1585,10 +1826,31 @@ def main():
     torch.cuda.empty_cache()
     say(f"[pegasus] phases 13-15 {time.perf_counter() - t0:.1f} s")
 
+    from goldfish_tpu_torch import _cuda
+    from goldfish_tpu_torch.demos import vlm_aeroelastic_wing as demo
+
+    with open(REF_VLM) as fh:
+        ref_vlm = json.load(fh)
+    t0 = time.perf_counter()
+    coupled = {"wing20": demo.build_coupled(**VLM_WIDE, device=dev),
+               "demo": demo.build_coupled(**VLM_DEMO, device=dev)}
+    phase_vlm_kernels(coupled, checks)
+    _cuda.reset_launch_counts()
+    phase_vlm_demo(dev, ref_vlm["demo"])
+    d_wide = phase_vlm_wide(coupled["wing20"], ref_vlm["wing20"])
+    counts_vlm = dict(_cuda.launch_counts)
+    check_counts("vlm", counts_vlm, VLM_KERNELS)
+    library += time_aic_solve(coupled["wing20"][0], d_wide)
+    del coupled, d_wide
+    torch.cuda.empty_cache()
+    counts_slr = phase_slr(dev, ref_vlm["slr"])
+    say(f"[vlm] phases 16-19 {time.perf_counter() - t0:.1f} s")
+
     paths = {"wing": (counts, WING_KERNELS), "mi": (counts_mi, None),
              "tube": (counts_tf, None), "tube_mi": (counts_tm, None),
              "plate": (counts_pl, None), "pegasus_dense": (counts_pd, None),
-             "pegasus_krylov": (counts_pk, None)}
+             "pegasus_krylov": (counts_pk, None), "vlm": (counts_vlm, None),
+             "slr": (counts_slr, None)}
     record = {"kernels": []}
     for name, src, rep in KERNELS:
         per = {f"launches_{p}": (c.get(name, 0) if keep is None

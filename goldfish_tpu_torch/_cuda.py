@@ -46,7 +46,8 @@ COUNTERS = ("shell_qp/value_grad", "shell_qp/hess", "shell_qp/adjoint",
             "pressure_qp/value_grad", "pressure_qp/hess",
             "pressure_qp/adjoint",
             "vm_stress_qp/value", "vm_stress_qp/vjp",
-            "pair_assemble/pairs", "pair_assemble/patches")
+            "pair_assemble/pairs", "pair_assemble/patches",
+            "vlm_aic/value", "vlm_aic/vjp")
 launch_counts: dict[str, int] = {k: 0 for k in COUNTERS}
 _lib = None
 build_info: dict = {}
@@ -64,6 +65,7 @@ _SIGNATURES = {
     "gf_pressure_qp": [_I] + [_P] * 11 + [_I] * 5 + [_P],
     "gf_vm_stress_qp": [_I] + [_P] * 17 + [ctypes.c_double] + [_I] * 5 + [_P],
     "gf_pair_assemble": [_P] * 6 + [_I] * 5 + [_P],
+    "gf_vlm_aic": [_I] + [_P] * 11 + [_I] * 2 + [_P],
 }
 
 

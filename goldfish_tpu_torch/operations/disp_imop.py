@@ -48,7 +48,7 @@ __all__ = ["DispImOperation"]
 
 
 def _potential_plain(data, d, cp, h):
-    """Pi(d, cp, h) in plain torch (shell + penalty - dead/point/edge
+    """Pi(d, cp, h) in plain torch (shell + penalty - dead/point/edge/field
     work): the CPU path of the design tangent."""
     if data.pressure is not None:
         raise NotImplementedError(
@@ -64,7 +64,7 @@ def _potential_plain(data, d, cp, h):
         W = W + coupling.penalty_density(X, z, hA, hB, ifs.dxiA, ifs.dxiB,
                                          Ei, ad, ar, ifs.w).sum()
     return W - external_work(st, d, cp, data.f_areal, data.point_loads, None,
-                             data.edge_loads)
+                             data.edge_loads, data.f_field)
 
 
 def _design_jvp_plain(data, d, cp, h, tcp, th):

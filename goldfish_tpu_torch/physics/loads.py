@@ -37,6 +37,7 @@ from goldfish_tpu_torch.physics.kl_shell import (
     _cross,
     _dot,
     _index_add_nodes,
+    _ref_area,
     dead_load_force,
     external_work_dead_load,
     gather,
@@ -46,6 +47,7 @@ __all__ = ["PointLoads", "build_point_loads", "point_load_work",
            "EdgeLoads", "build_edge_loads", "edge_load_work",
            "pressure_density", "pressure_value_grad", "pressure_hessians",
            "pressure_adjoint", "follower_pressure_work",
+           "areal_field_work", "areal_field_force",
            "external_work_and_force", "external_work"]
 
 NP = 9  # follower-pressure jet size: (value, d/du, d/dv) x 3
@@ -331,20 +333,37 @@ def follower_pressure_work(stack: PatchStack, d, cp, pressure):
     return pressure_value_grad(stack, d, cp, pressure)[0].sum()
 
 
+# ------------------------------------------------------------ areal field
+def _values_at_qps(stack: PatchStack, coef):
+    """(P, C, 3) coefficient field -> its values (P, E, Q, 3) at the qps."""
+    return torch.einsum("peql,pelk->peqk", stack.R00, gather(coef, stack.conn))
+
+
+def areal_field_work(stack: PatchStack, d, cp, f_coef):
+    """Work of a distributed dead load given as a coefficient FIELD f_coef
+    (P, C, 3) (force density per reference area, interpolated with the
+    displacement basis): sum over qps of (f . u) J w (0-dim).
+    Differentiable by autograd in d, cp and f_coef."""
+    fu = _dot(_values_at_qps(stack, f_coef), _values_at_qps(stack, d))
+    return (fu * _ref_area(stack, cp)).sum()
+
+
+def areal_field_force(stack: PatchStack, cp, f_coef):
+    """dW_f/dd (P, C, 3): constant in d (the field load is linear in d).
+    W_f is symmetric in d and f, so areal_field_force(stack, cp, lam) is
+    also dW_f(lam)/df, the field's pullback of lam . dW_f/dd."""
+    vals = _values_at_qps(stack, f_coef) * _ref_area(stack, cp)[..., None]
+    contrib = torch.einsum("peql,peqk->pelk", stack.R00, vals)
+    return _index_add_nodes(stack.conn, contrib, cp.shape[0], cp.shape[1])
+
+
 # ------------------------------------------------------------ totals
-def _only_ported(f_field):
-    if f_field is not None:
-        raise NotImplementedError(
-            "f_field is not ported yet (ROADMAP Queue A10)")
-
-
 def external_work_and_force(stack: PatchStack, d, cp, f_areal=None,
                             point_loads=None, pressure=None, edge_loads=None,
                             f_field=None):
-    """(W_ext (0-dim), dW_ext/dd (P, C, 3)). The dead, point and edge loads
-    are linear in d; the follower pressure's value and force come from one
-    K8 launch."""
-    _only_ported(f_field)
+    """(W_ext (0-dim), dW_ext/dd (P, C, 3)). The dead, point, edge and
+    field loads are linear in d; the follower pressure's value and force
+    come from one K8 launch."""
     P, C = cp.shape[0], cp.shape[1]
     W = torch.zeros((), dtype=d.dtype, device=d.device)
     f = torch.zeros_like(cp)
@@ -361,14 +380,17 @@ def external_work_and_force(stack: PatchStack, d, cp, f_areal=None,
     if edge_loads is not None:
         W = W + edge_load_work(edge_loads, d, cp)
         f = f + edge_load_force(edge_loads, cp)
+    if f_field is not None:
+        ff = areal_field_force(stack, cp, f_field)
+        W = W + (ff * d).sum()
+        f = f + ff
     return W, f
 
 
 def external_work(stack: PatchStack, d, cp, f_areal=None, point_loads=None,
                   pressure=None, edge_loads=None, f_field=None):
     """W_ext (0-dim tensor). Differentiable by autograd in d and cp for the
-    dead, point and edge loads."""
-    _only_ported(f_field)
+    dead, point, edge and field loads (and in the field itself)."""
     W = torch.zeros((), dtype=d.dtype, device=d.device)
     if f_areal is not None:
         W = W + external_work_dead_load(stack, d, cp, f_areal)
@@ -378,4 +400,6 @@ def external_work(stack: PatchStack, d, cp, f_areal=None, point_loads=None,
         W = W + follower_pressure_work(stack, d, cp, pressure)
     if edge_loads is not None:
         W = W + edge_load_work(edge_loads, d, cp)
+    if f_field is not None:
+        W = W + areal_field_work(stack, d, cp, f_field)
     return W

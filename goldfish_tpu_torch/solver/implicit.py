@@ -32,10 +32,11 @@ from goldfish_tpu_torch.solver.system import (
     SystemData,
     potential_and_residual,
     residual_vjp,
+    residual_vjp_field,
 )
 
 __all__ = ["damped_newton", "newton_solve_host", "adjoint_lambda",
-           "adjoint_solve", "build_solve_fn"]
+           "adjoint_solve", "build_solve_fn", "build_field_solve_fn"]
 
 
 def _entry(data: SystemData, cp, h, d0):
@@ -115,11 +116,14 @@ def _newton_loop(d0, data, cp, h, direction, refactor, rtol, atol, max_it,
         # floor-basin bisection cap: deep in the Newton basin 8 halvings
         # are plenty; cold solves keep 30
         n_bisect = 30 if rn > 1e-2 * r_ref else 8
+        full = None
         for _ in range(0 if ls_fail else (1 if slope_tiny else n_bisect)):
             d_try, r_try, rn_try_, Pi_try_ = _trial(data, cp, h, d, delta,
                                                     alpha)
             Pi_try = float(Pi_try_)
             rn_try = None
+            if full is None:
+                full = (d_try, r_try, rn_try_, Pi_try)
             if slope_tiny or Pi_try <= (Pi0 + 1e-4 * alpha * slope
                                         + 16 * eps * abs(Pi0)):
                 break
@@ -128,6 +132,16 @@ def _newton_loop(d0, data, cp, h, direction, refactor, rtol, atol, max_it,
             ls_fail = True
         if rn_try is None:
             rn_try = float(rn_try_)
+        if ls_fail and full is not None and rn <= 1e-2 * r_ref:
+            rn_full = float(full[2])
+            if rn_full <= 0.5 * rn:
+                # in the Newton basin the energy's roundoff (~1e-13 |Pi|,
+                # the membrane strains cancel) can hide the decrease of a
+                # step that the residual shows: take the full step rather
+                # than stop at a floor it has not reached (ROADMAP Queue C,
+                # a deliberate difference from the reference)
+                d_try, r_try, _, Pi_try = full
+                rn_try, alpha, ls_fail = rn_full, 1.0, False
         if ls_fail and rn <= 1e-2 * r_ref and math.isfinite(slope) \
                 and slope < 0.0:
             # line search exhausted in the Newton basin with a descent
@@ -252,15 +266,19 @@ class _Solver:
         self.shared = {}
         self.last_its = None
 
-    def solve(self, cp, h, d0):
+    def solve(self, cp, h, d0, data=None):
         """Newton solve from d0 on the persistent factor (`newton_solve_host`)
-        with the floor hint; returns d."""
+        with the floor hint; returns d. `data` (default: the solver's own)
+        may differ from the factor's by a load that leaves the tangent
+        unchanged (the areal field load); the cached |r(0)| is then taken
+        afresh, since it is the scale of that load."""
+        shared = self.shared if data is None else {}
         d, its, rn = newton_solve_host(
-            self.data, self.factor, cp, h, d0, rtol=self.rtol,
-            atol=max(self.atol, self.floor_hint), max_it=self.max_it,
-            shared=self.shared)
+            self.data if data is None else data, self.factor, cp, h, d0,
+            rtol=self.rtol, atol=max(self.atol, self.floor_hint),
+            max_it=self.max_it, shared=shared)
         self.last_its = its
-        if its < self.max_it and rn <= 1e-2 * self.shared["r_ref"]:
+        if its < self.max_it and rn <= 1e-2 * shared["r_ref"]:
             # converged or floored in the Newton basin (not truncated, not
             # failed: a failed solve's |r| would stop every later solve)
             self.floor_hint = max(self.atol, 1.5 * rn)
@@ -294,6 +312,53 @@ def build_solve_fn(data: SystemData, rtol=1e-10, atol=1e-14, max_it=30):
 
     def solve(cp, h, d0):
         return _ImplicitSolve.apply(solver, cp, h, d0)
+
+    solve.device_factor = solver.factor
+    solve.solver = solver
+    return solve
+
+
+class _FieldSolve(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, solver: _Solver, cp, h, f, d0):
+        data_f = solver.data._replace(f_field=f)
+        d = solver.solve(cp, h, d0, data=data_f)
+        solver.its_log.append(solver.last_its)
+        ctx.solver = solver
+        ctx.data_f = data_f
+        ctx.save_for_backward(d, cp, h)
+        return d
+
+    @staticmethod
+    def backward(ctx, g):
+        d, cp, h = ctx.saved_tensors
+        s = ctx.solver
+        # the factor's tangent is the one of `s.data`, without f: the
+        # field load is dead and linear in d, so K does not depend on it
+        lam = adjoint_lambda(ctx.data_f, s.factor, d, cp, h, g)
+        dcp, dh, df = residual_vjp_field(ctx.data_f, d, cp, h, lam)
+        # no cotangent for d0: the coupled gradient reaches the previous
+        # state through f only
+        return None, dcp, dh, df, None
+
+
+def build_field_solve_fn(data: SystemData, rtol=1e-9, atol=1e-14, max_it=30):
+    """Differentiable `solve(cp, h, f, d0) -> d` with the distributed force
+    field f (P, C, 3) as an adjoint input (port of the reference's
+    build_field_solve_fn): dJ/df comes out of the same implicit adjoint as
+    dJ/d(cp, h). One persistent factor and floor hint serve every call;
+    the Newton scale |r(0)| is taken afresh on every call, because each
+    call may bring another f (each pass of a fixed-point loop does).
+    `solve.solver.its_log` lists the Newton iterations of every call."""
+    if data.f_field is not None:
+        raise ValueError("build_field_solve_fn takes f as an argument: "
+                         "data.f_field must be None")
+    solver = _Solver(data, rtol, atol, max_it)
+    solver.its_log = []
+
+    def solve(cp, h, f, d0):
+        return _FieldSolve.apply(solver, cp, h, f, d0)
 
     solve.device_factor = solver.factor
     solve.solver = solver

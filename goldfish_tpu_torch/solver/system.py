@@ -44,6 +44,8 @@ from goldfish_tpu_torch.physics.coupling import InterfaceSpec, InterfaceStack
 from goldfish_tpu_torch.physics.loads import (
     EdgeLoads,
     PointLoads,
+    areal_field_force,
+    areal_field_work,
     build_edge_loads,
     build_point_loads,
     edge_load_work,
@@ -56,14 +58,15 @@ __all__ = ["SystemData", "NonMatchingSystem", "JetTables", "jet_tables",
            "interface_tables",
            "jet_hessians", "jet_assemble", "jet_matvec", "assemble_K_from",
            "tangent_matvec_from", "potential_and_residual", "residual_vjp",
+           "residual_vjp_field",
            "total_potential", "residual", "tangent_matvec", "assemble_K",
            "element_global_dofs"]
 
 
 class SystemData(NamedTuple):
     """Problem tensors (the same fields as the JAX package's SystemData).
-    The dead, point, edge and follower-pressure loads are ported; the
-    areal field load and contact must be None."""
+    The dead, point, edge, follower-pressure and areal field loads are
+    ported; contact must be None."""
 
     stack: PatchStack
     ifs: InterfaceStack | None
@@ -74,16 +77,14 @@ class SystemData(NamedTuple):
     point_loads: PointLoads | None = None
     pressure: torch.Tensor | None = None   # (P,) follower pressure or None
     edge_loads: EdgeLoads | None = None
-    f_field: object = None
+    f_field: torch.Tensor | None = None   # (P, C, 3) field load or None
     contact: object = None
 
 
 def _check_ported(data: SystemData):
-    for name in ("f_field", "contact"):
-        if getattr(data, name) is not None:
-            raise NotImplementedError(
-                f"SystemData.{name} is not ported yet (ROADMAP Queue "
-                "A10/B17)")
+    if data.contact is not None:
+        raise NotImplementedError(
+            "SystemData.contact is not ported yet (ROADMAP Queue A10/B17)")
 
 
 # ------------------------------------------------------------ energy
@@ -101,7 +102,7 @@ def potential_and_residual(data: SystemData, d, cp, h):
         r = r + ri
     W_ext, f_ext = external_work_and_force(
         data.stack, d, cp, data.f_areal, data.point_loads, data.pressure,
-        data.edge_loads)
+        data.edge_loads, data.f_field)
     return Pi - W_ext, (r - f_ext) * data.free
 
 
@@ -117,7 +118,7 @@ def residual(data: SystemData, d, cp, h):
 
 def residual_vjp(data: SystemData, d, cp, h, lam):
     """(dcp, dh) = -lam^T dR/d(cp, h): the adjoint's design gradient (K1,
-    K2 and K8 in adjoint mode, plus the dead and edge loads'
+    K2 and K8 in adjoint mode, plus the dead, edge and field loads'
     cp-dependence). The loads do not depend on h."""
     _check_ported(data)
     lam = lam * data.free
@@ -130,9 +131,10 @@ def residual_vjp(data: SystemData, d, cp, h, lam):
         dh = dh + dh_i
     if data.pressure is not None:
         dcp = dcp + pressure_adjoint(data.stack, d, cp, data.pressure, lam)
-    if data.f_areal is not None or data.edge_loads is not None:
-        # the dead and edge loads are linear in d, so lam . dW_ext/dd =
-        # W_ext(lam); its cp-gradient by autograd
+    if (data.f_areal is not None or data.edge_loads is not None
+            or data.f_field is not None):
+        # the dead, edge and field loads are linear in d, so lam . dW_ext/dd
+        # = W_ext(lam); its cp-gradient by autograd
         with torch.enable_grad():
             cpv = cp.detach().requires_grad_(True)
             w = torch.zeros((), dtype=cp.dtype, device=cp.device)
@@ -141,8 +143,19 @@ def residual_vjp(data: SystemData, d, cp, h, lam):
                                                          data.f_areal)
             if data.edge_loads is not None:
                 w = w + edge_load_work(data.edge_loads, lam, cpv)
+            if data.f_field is not None:
+                w = w + areal_field_work(data.stack, lam, cpv, data.f_field)
             dcp = dcp + torch.autograd.grad(w, cpv)[0]
     return dcp, dh
+
+
+def residual_vjp_field(data: SystemData, d, cp, h, lam):
+    """(dcp, dh, df) = -lam^T dR/d(cp, h, f_field): `residual_vjp` and the
+    field load's pullback. R carries -dW_f/dd, so -lam^T dR/df = dW_f(lam)/df
+    (the field load is bilinear in d and f; the sign of the reference's
+    vjp(-lam))."""
+    dcp, dh = residual_vjp(data, d, cp, h, lam)
+    return dcp, dh, areal_field_force(data.stack, cp, lam * data.free)
 
 
 # ------------------------------------------------------------ dof maps
@@ -377,6 +390,7 @@ class NonMatchingSystem:
         self.point_load_entries = []
         self.edge_load_entries = []
         self.pressure = None
+        self.f_field = None
         self._data = None
 
     def add_zero_dofs(self, patch: int, cp_indices, fields=(0, 1, 2)):
@@ -412,6 +426,14 @@ class NonMatchingSystem:
             (patch, direction, side, np.asarray(force)))
         self._data = None
 
+    def set_areal_field(self, f_coef):
+        """Distributed dead load as a (P, C, 3) CP coefficient field (the
+        aero-coupling input; `implicit.build_field_solve_fn` takes it as a
+        differentiable argument instead)."""
+        self.f_field = torch.as_tensor(f_coef, dtype=DTYPE).to(
+            self.device).contiguous()
+        self._data = None
+
     def set_pressure(self, p_per_patch):
         """Uniform follower (normal) pressure per patch (scalar or (P,))."""
         self.pressure = tensor(np.broadcast_to(
@@ -433,7 +455,8 @@ class NonMatchingSystem:
                 pressure=self.pressure,
                 edge_loads=build_edge_loads(
                     self.surfs, self.edge_load_entries, max_loc=max_loc,
-                    device=self.device))
+                    device=self.device),
+                f_field=self.f_field)
         return self._data
 
     def zero_displacement(self):

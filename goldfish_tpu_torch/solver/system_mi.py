@@ -70,7 +70,13 @@ __all__ = ["MINonMatchingSystem", "data_at", "total_potential_mi",
 
 def data_at(data: SystemData, mi, co, ss, p, q, xi) -> SystemData:
     """The fixed-intersection SystemData of the MI system at xi (I, 4N):
-    its interface stack has K5's rows at xi."""
+    its interface stack has K5's rows at xi. The MI path's areal field load
+    (the reference's system_mi.py:50-52) is on no port path yet and raises
+    (ROADMAP Queue B)."""
+    if data.f_field is not None:
+        raise NotImplementedError(
+            "SystemData.f_field on the moving-intersection path is not "
+            "ported yet (ROADMAP Queue B)")
     return data._replace(ifs=interface_stack_mi(ss, p, q, mi, co, xi))
 
 
@@ -473,3 +479,21 @@ class MINonMatchingSystem(NonMatchingSystem):
 
         forward.solve_d = solve_d
         return forward
+
+    def solve_nonlinear(self, cp=None, h=None, d0=None, rtol=1e-10,
+                        atol=0.0, max_it=30, verbose=False):
+        """The coupled MI equilibrium at cp: xi = c2x.solve(cp), then the
+        MI Newton solve at xi (`newton_solve_mi_host`) on a fresh
+        persistent factor with the Woodbury seam correction. Returns d.
+        (The base class's solve knows no moving seam: its data carries no
+        interface terms.)"""
+        cp = self.cp if cp is None else cp
+        h = self.h_init if h is None else h
+        d = self.zero_displacement() if d0 is None else d0
+        xi = self.c2x.solve(cp).detach()
+        d, it, rn = newton_solve_mi_host(
+            *self.mi_args, cp, h, xi, d, rtol=rtol, atol=atol, max_it=max_it,
+            device_fac=PersistentDeviceFactorMI(*self.mi_args))
+        if verbose:
+            print(f"  newton(mi): {int(it)} its, |r| = {float(rn):.3e}")
+        return d

@@ -33,13 +33,22 @@ start untimed, then fun and jac at a design moved by 1e-4 relative; on the
 dense route (persistent Cholesky factor) a cold evaluation and one warm 1e-4
 step untimed, then one warm 1e-4 step; each under torch.profiler.
 
+--vlm: the VLM-coupled aeroelastic wing at full width
+(goldfish_tpu_torch/demos/vlm_aeroelastic_wing.py's build_coupled on the
+20-patch wing, N = 6600, under a 16 x 64 vortex lattice, 4 fixed-point
+passes): after an untimed evaluation at the demo's size (it loads the
+CUDA modules), one cold coupled evaluation with its gradient from d = 0
+(the factor is built inside it), then a warm one at
+h0 + 1e-4 v from the cold d untimed, then one at h0 + 2e-4 v; each of the
+two profiled under torch.profiler.
+
 For each profiled iteration it prints the wall time, the device-busy time
 (union of kernel, memcpy and memset intervals), the idle share, and the
 top device operations by self time. Chrome traces go to
 <trace_dir>/profile_<tag>.json (a fresh temporary directory by default).
 
     python scripts/profile_torch_iteration.py [trace_dir]
-        [--mi | --tube | --plate | --pegasus]
+        [--mi | --tube | --plate | --pegasus | --vlm]
 """
 
 from __future__ import annotations
@@ -231,13 +240,57 @@ def main_pegasus(out):
         torch.cuda.empty_cache()
 
 
+def main_vlm(out):
+    from torch.profiler import ProfilerActivity, profile
+
+    from goldfish_tpu_torch import _cuda
+    from goldfish_tpu_torch.demos import vlm_aeroelastic_wing as demo
+
+    dev = torch.device("cuda", 0)
+    # load the kernels and the libraries' modules (CUDA loads them lazily,
+    # at first use) with an untimed evaluation at the demo's size, so that
+    # the cold profile shows the evaluation and not the loading
+    _cuda.library()
+    J_small, s_small, h_small = demo.build_coupled(device=dev)
+    demo.coupled_gradient(J_small, h_small, s_small.zero_displacement())
+    del J_small, s_small, h_small
+    J_of_h, sys_, h0 = demo.build_coupled(n_chord=4, n_span=5, num_el=6,
+                                          p=3, mc=16, ns=64, device=dev)
+    v = demo.fd_direction(sys_, h0)
+    fac = J_of_h.solve.device_factor
+    its = J_of_h.solve.solver.its_log
+    d = sys_.zero_displacement()
+
+    def evaluate(h):
+        nonlocal d
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, d, _, _ = demo.coupled_gradient(J_of_h, h, d)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    for tag, k in (("vlm_cold", 0), ("vlm_warm_untimed", 1),
+                   ("vlm_warm", 2)):
+        nf, n0 = fac.n_factor, len(its)
+        if tag.endswith("untimed"):
+            evaluate(h0 + 1e-4 * k * v)
+            continue
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall = evaluate(h0 + 1e-4 * k * v)
+        report(tag, prof, wall, out,
+               f"newton its per pass {its[n0:]}, factorizations "
+               f"{fac.n_factor - nf}")
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: this profile needs one GPU")
     from torch.profiler import ProfilerActivity, profile
 
     args = [a for a in sys.argv[1:] if a not in ("--mi", "--tube",
-                                                   "--plate", "--pegasus")]
+                                                   "--plate", "--pegasus",
+                                                   "--vlm")]
     out = args[0] if args else tempfile.mkdtemp()
     os.makedirs(out, exist_ok=True)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -249,6 +302,8 @@ def main():
         return main_plate(out)
     if "--pegasus" in sys.argv[1:]:
         return main_pegasus(out)
+    if "--vlm" in sys.argv[1:]:
+        return main_vlm(out)
 
     from chip_smoke import make_iteration
     from goldfish_tpu_torch.design.pipeline import ThicknessFFD

@@ -79,6 +79,30 @@ def _k10(data, d, cp, h, which):
                                   f"pair_assemble/{which}")
 
 
+def _vlm_inputs(to):
+    """K11's inputs on a seeded, cambered 4 x 6 lattice: (colloc, nhat, A,
+    B, wake, gbar)."""
+    from goldfish_tpu_torch.physics import vlm
+
+    rng = np.random.default_rng(6)
+    X, Y = np.meshgrid(np.linspace(0, 1, 5), np.linspace(0, 2, 7),
+                       indexing="ij")
+    Z = 0.05 * np.sin(np.pi * X) + 1e-3 * rng.normal(size=X.shape)
+    A, B, colloc, nhat, _ = vlm.panel_geometry(to(np.stack([X, Y, Z], -1)))
+    gbar = to(rng.normal(size=(24, 24)))
+    return (colloc.contiguous(), nhat.contiguous(), A.contiguous(),
+            B.contiguous(), vlm.wake_direction(gbar.device), gbar)
+
+
+def _vlm_calls(colloc, nhat, A, B, wake, gbar):
+    from goldfish_tpu_torch.physics import vlm
+
+    return {
+        "vlm_aic/value": lambda: vlm.aic_value(colloc, nhat, A, B, wake),
+        "vlm_aic/vjp": lambda: vlm.aic_vjp(colloc, nhat, A, B, wake, gbar),
+    }
+
+
 def _calls(data, d, cp, h, lam, v):
     from goldfish_tpu_torch.physics import coupling, kl_shell, loads
     from goldfish_tpu_torch.solver import system
@@ -123,6 +147,7 @@ def test_cpu_tensors_take_the_plain_path():
     calls = _calls(port_data(), t(d), t(cp), t(h), t(lam), t(v))
     s = tbeam.build_mi(**MI_SMALL, device="cpu")
     calls.update(_mi_calls(s, *_mi_inputs(s, t)))
+    calls.update(_vlm_calls(*_vlm_inputs(t)))
     assert set(calls) == set(_cuda.COUNTERS)
     for fn in calls.values():
         fn()
@@ -169,6 +194,15 @@ def test_wrong_inputs_raise(bad):
         krylov.pair_assemble(out.float() if bad == "dtype" else out, Hs[0],
                              tables.R_e if bad == "dtype" else tables.R_e[1:],
                              bt.elem)
+    from goldfish_tpu_torch.physics import vlm
+
+    colloc, nhat, A, B, wake, gbar = _vlm_inputs(t)
+    with pytest.raises(err):
+        vlm.aic_value(colloc.float() if bad == "dtype" else colloc[:-1],
+                      nhat, A, B, wake)
+    with pytest.raises(err):
+        vlm.aic_vjp(colloc, nhat, A, B, wake,
+                    gbar.float() if bad == "dtype" else gbar[:, :-1])
 
 
 def test_entry_points_default_to_cuda_or_raise(monkeypatch):
@@ -176,8 +210,17 @@ def test_entry_points_default_to_cuda_or_raise(monkeypatch):
     point raises and names device="cpu" (no silent CPU fallback)."""
     from goldfish_tpu_torch import config
     from goldfish_tpu_torch.bridge import from_numpy_tree
-    from goldfish_tpu_torch.models import boxwing, plate, tbeam, tube, wing
+    from goldfish_tpu_torch.demos import vlm_aeroelastic_wing
+    from goldfish_tpu_torch.models import (
+        boxwing,
+        plate,
+        slr,
+        tbeam,
+        tube,
+        wing,
+    )
     from goldfish_tpu_torch.opt.problem import OptProblem
+    from goldfish_tpu_torch.physics import vlm
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
@@ -189,7 +232,11 @@ def test_entry_points_default_to_cuda_or_raise(monkeypatch):
                   lambda: plate.build(num_el=2, p=2, num_patches=2),
                   lambda: boxwing.build(n_sections=2, num_el=2, p=2),
                   lambda: OptProblem(),
-                  lambda: from_numpy_tree(port_data())):
+                  lambda: from_numpy_tree(port_data()),
+                  lambda: slr.build(num_el=4),
+                  lambda: vlm.build_lattice_param(2, 3, 5, 8),
+                  lambda: vlm_aeroelastic_wing.build_coupled(num_el=2, p=2),
+                  lambda: vlm_aeroelastic_wing.main(num_el=2, p=2)):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             build()
 
@@ -222,6 +269,8 @@ def test_cuda_kernels_match_plain_versions():
     s_cpu = tbeam.build_mi(**MI_SMALL, device="cpu")
     calls.update(_mi_calls(s_gpu, *_mi_inputs(s_cpu, g)))
     ref.update(_mi_calls(s_cpu, *_mi_inputs(s_cpu, t)))
+    calls.update(_vlm_calls(*_vlm_inputs(g)))
+    ref.update(_vlm_calls(*_vlm_inputs(t)))
     for name, fn in calls.items():
         a, b = fn(), ref[name]()
         a = a if isinstance(a, tuple) else (a,)

@@ -202,7 +202,10 @@ def test_port_imports_without_jax():
             "goldfish_tpu_torch.demos.plate_var_th_opt_stress, "
             "goldfish_tpu_torch.models.boxwing, "
             "goldfish_tpu_torch.solver.krylov, "
-            "goldfish_tpu_torch.demos.pegasus_thickness_opt; "
+            "goldfish_tpu_torch.demos.pegasus_thickness_opt, "
+            "goldfish_tpu_torch.physics.vlm, "
+            "goldfish_tpu_torch.models.slr, "
+            "goldfish_tpu_torch.demos.vlm_aeroelastic_wing; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'goldfish_tpu' "
             "or m.startswith('goldfish_tpu.')]; "

@@ -143,3 +143,23 @@ def test_seeded_solve_takes_no_more_sweeps(problem, stale_mi):
     assert tag == "exact-x0" and ratio <= 1e-6
     assert n_seeded <= n_unseeded
     assert bool(torch.isfinite(x).all())
+
+
+def test_solve_nonlinear_is_the_coupled_mi_solve():
+    """MINonMatchingSystem.solve_nonlinear solves xi = c2x.solve(cp), then
+    the MI Newton at xi: the same d as `build_forward`'s coupled solve
+    (1e-8), and within 2e-2 of the fixed-seam T-beam's u_z at the loaded
+    corner (the reference's test_system_mi.py:43-54)."""
+    from goldfish_tpu_torch.models import tbeam as pt
+
+    ps = pt.build_mi(num_el=4, p=3, n_pts=9, device="cpu")
+    d = ps.solve_nonlinear(rtol=1e-11)
+    d_fwd, _ = ps.build_forward(rtol=1e-11)(ps.cp, ps.h_init,
+                                            ps.zero_displacement())
+    assert rel(d, d_fwd.detach().numpy()) <= 1e-8
+    static = pt.build(num_el=4, p=3, device="cpu")
+    u_static = static.evaluate_displacement(
+        static.solve_nonlinear(rtol=1e-11), 0, [1.0, 1.0])
+    u_mi = ps.evaluate_displacement(d, 0, [1.0, 1.0])
+    assert abs(u_mi[2]) > 0.0
+    assert abs(u_mi[2] - u_static[2]) / abs(u_static[2]) < 2e-2
