@@ -114,7 +114,30 @@ Phases (any failure raises: non-zero exit, no result line):
 19. the Scordelis-Lo roof (goldfish_tpu_torch/models/slr.py) at num_el=6:
    the linear-regime QoI against the published 0.3006 (5e-3) and the JAX
    package's value in the same file (1e-8), and the displacement jump
-   across the patch 0 | 1 interface.
+   across the patch 0 | 1 interface;
+20. contact kernels: the two-plate press of tests/test_contact.py (two
+   clamped plates 0.12 apart, q = 120, k_pen = 1e7, r_max = 0.1; 2 patches,
+   p = 2, 9 qps) at num_el=16 (N = 1944, 2304 qps per plate) at its
+   continuation equilibrium plus seeded noise: K12 contact_pairs in its
+   three modes against their plain versions (the value 1e-12, the forces,
+   the hvp and the stiffness 1e-11), with both times, the bound (f64
+   operations of the pairs within r_max) and the share of tiles and
+   element pairs the cutoff skipped;
+21. the press at num_el=32 (C = 1156, N = 6936, 9216 qps per plate): the
+   counted path is `continuation_solve` (4 levels, rtol 1e-9) from d = 0,
+   then `build_solve_fn` warm at the equilibrium, J = W_int and dJ/dh by
+   the adjoint, and the central difference of dJ/dh along a seeded v; it
+   must meet tests/test_contact.py's criteria (|r|/|r(0)| < 1e-8, W_c > 0,
+   midspan deflection < -0.02, FD < 1e-5) and launch K12's three modes;
+   then K12 against its plain versions at this size, the same path at
+   num_el=6 against tests/data/torch_port_contact_reference.json (d and
+   W_c 1e-8, dJ/dh 1e-6), and cholesky_ex / cholesky_solve at N = 6936;
+22. Riks: tests/test_riks.py's shallow cylindrical panel (hinged, centre
+   point load) at num_el=24 (N = 2028): `riks_solve` with the test's
+   arguments must reach lam = 1 with |r| < 1e-5 |q|, trace the limit point
+   (lam_peak > lam_valley + 0.2) and end at more than 3x the pre-limit
+   |d|; the final d (1e-6) and lam_peak (1e-3) against the same file; then
+   `lu_factor_ex` at N = 2028 beside its bound.
 
 Launch counters, reset just before each main path and read just after,
 prove that the path went through its kernels. The line before the last is
@@ -147,6 +170,10 @@ REF_PEG = os.path.join(ROOT, "tests", "data",
                        "torch_port_pegasus91_reference.json")
 REF_VLM = os.path.join(ROOT, "tests", "data",
                        "torch_port_vlm_reference.json")
+REF_CONTACT = os.path.join(ROOT, "tests", "data",
+                           "torch_port_contact_reference.json")
+CONTACT_TOL = {"contact_pairs/value_grad": 1e-11, "contact_pairs/hvp": 1e-11,
+               "contact_pairs/hess": 1e-11}
 VLM_WIDE = dict(n_chord=4, n_span=5, num_el=6, p=3, mc=16, ns=64)
 VLM_DEMO = dict(n_chord=2, n_span=3, num_el=3, p=3, mc=6, ns=10)
 VLM_TOL = {"vlm_aic/value": 1e-12, "vlm_aic/vjp": 1e-11}
@@ -276,6 +303,12 @@ KERNELS = [
      "goldfish_tpu/physics/vlm.py:126"),
     ("vlm_aic/vjp", "goldfish_tpu_torch/csrc/vlm_aic.cu",
      "goldfish_tpu/physics/vlm.py:162"),
+    ("contact_pairs/value_grad", "goldfish_tpu_torch/csrc/contact_pairs.cu",
+     "goldfish_tpu/physics/contact.py:58"),
+    ("contact_pairs/hvp", "goldfish_tpu_torch/csrc/contact_pairs.cu",
+     "goldfish_tpu/solver/system.py:104"),
+    ("contact_pairs/hess", "goldfish_tpu_torch/csrc/contact_pairs.cu",
+     "goldfish_tpu/physics/contact.py:79"),
 ]
 WING_KERNELS = ("shell_qp/value_grad", "shell_qp/hess", "shell_qp/adjoint",
                 "penalty_qp/value_grad", "penalty_qp/hess",
@@ -292,6 +325,10 @@ VLM_KERNELS = WING_KERNELS + ("traced_rows", "vlm_aic/value", "vlm_aic/vjp")
 # a cold solve on a fresh factor takes substitution directions only: no K4
 SLR_KERNELS = ("shell_qp/value_grad", "shell_qp/hess", "penalty_qp/value_grad",
                "penalty_qp/hess", "jet_assemble")
+PRESS_KERNELS = ("shell_qp/value_grad", "shell_qp/hess", "shell_qp/adjoint",
+                 "jet_assemble", "jet_matvec", "contact_pairs/value_grad",
+                 "contact_pairs/hvp", "contact_pairs/hess")
+RIKS_KERNELS = ("shell_qp/value_grad", "shell_qp/hess", "jet_assemble")
 
 # f64 operations of one density evaluation (counted from the sources); a
 # kernel mode's count is that times the dual components it carries
@@ -299,6 +336,13 @@ DENS_SHELL, DENS_PEN, DENS_VM = 200, 250, 300
 # f64 operations of one AIC entry: two horseshoes of a bound segment (~50)
 # and two semi-infinite legs (~36 each), and the dot with the normal
 AIC_OPS = 265
+# f64 operations of one qp pair within r_max in K12 (counted from
+# csrc/contact_pairs.cu): the distance and cubic (~20), then the force and
+# the two weighted potentials (~12), the hvp's projection and 3-vector
+# (~35), the hess mode's 3x3 block (~30); a hess element pair adds the
+# product 2 * 9 Q L (Q + L) of its cross quadrant
+CONTACT_OPS = {"contact_pairs/value_grad": 32, "contact_pairs/hvp": 55,
+               "contact_pairs/hess": 50}
 
 
 def fixed_cases(data, d, cp, h, lam, v):
@@ -1747,6 +1791,309 @@ def phase_slr(dev, ref):
     return counts
 
 
+# ------------------------------------------------------------ press, Riks
+def press_problem(num_el, dev, p=2, q=120.0, k_pen=1e7):
+    """tests/test_contact.py's two-plate press (the JAX package has no model
+    for it): a plate at z = 0.12 under q pressed onto one at z = 0, both
+    clamped on two sides (two CP layers), contact (0, 1) with r_max 0.1."""
+    from goldfish_tpu_torch.geometry.cadkit import bilinear
+    from goldfish_tpu_torch.solver.system import NonMatchingSystem
+
+    def plate_at(z):
+        srf = bilinear([0, 0, z], [1, 0, z], [0, 1, z], [1, 1, z])
+        srf = srf.elevate(0, p - 1).elevate(1, p - 1)
+        nk = np.linspace(0, 1, num_el + 1)[1:-1]
+        return srf.refine(0, nk).refine(1, nk)
+
+    s = NonMatchingSystem([plate_at(0.12), plate_at(0.0)], E=1e7, nu=0.3,
+                          h_th=0.01, device=dev)
+    for side in (0, 1):
+        s.add_side_bc(0, direction=1, side=side, n_layers=2)
+        s.add_side_bc(1, direction=1, side=side, n_layers=2)
+    s.set_dead_load([[0, 0, -q], [0, 0, 0]])
+    s.set_contact([(0, 1)], k_pen=k_pen, r_max=0.1)
+    return s
+
+
+def riks_panel(num_el, dev, p=2):
+    """tests/test_riks.py's shallow cylindrical panel (R 2540, L 508, half
+    angle 0.1): straight edges hinged, a centre point load of 4000."""
+    from goldfish_tpu_torch.geometry.cadkit import circle, extrude
+    from goldfish_tpu_torch.solver.system import NonMatchingSystem
+
+    arc = circle(radius=2540.0, angle=(np.pi / 2 - 0.1, np.pi / 2 + 0.1))
+    srf = extrude(arc, (0.0, 0.0, 508.0)).elevate(0, p - 2).elevate(1, p - 1)
+    kn = np.linspace(0, 1, num_el + 1)[1:-1]
+    srf = srf.refine(0, kn).refine(1, kn)
+    s = NonMatchingSystem([srf], 3102.75, 0.3, 12.7, device=dev)
+    s.add_side_bc(0, direction=0, side=0, n_layers=1)
+    s.add_side_bc(0, direction=0, side=1, n_layers=1)
+    s.add_point_load(0, [0.5, 0.5], [0.0, -4000.0, 0.0])
+    return s
+
+
+def press_path(s):
+    """The press path of tests/test_contact.py: continuation (4 levels, rtol
+    1e-9, max_it 40) from d = 0 on one persistent factor, then
+    `build_solve_fn(rtol=1e-10, max_it=60)` warm at the equilibrium, J =
+    W_int with dJ/dh by the adjoint, and the central difference along the
+    test's seeded v (eps 1e-6)."""
+    from goldfish_tpu_torch.physics import kl_shell
+    from goldfish_tpu_torch.physics.contact import contact_energy
+    from goldfish_tpu_torch.solver.devicechol import PersistentDeviceFactor
+    from goldfish_tpu_torch.solver.implicit import (
+        build_solve_fn,
+        continuation_solve,
+    )
+    from goldfish_tpu_torch.solver.system import residual
+
+    data = s.data
+    fac = PersistentDeviceFactor(data)
+    levels = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d, _, rn = continuation_solve(data, s.cp, s.h_init, s.zero_displacement(),
+                                  n_steps=4, rtol=1e-9, max_it=40, fac=fac,
+                                  log=levels)
+    torch.cuda.synchronize()
+    t_cont = time.perf_counter() - t0
+    r0 = float(torch.linalg.norm(residual(data, torch.zeros_like(d), s.cp,
+                                          s.h_init)))
+    solve = build_solve_fn(data, rtol=1e-10, max_it=60)
+
+    def J_of_h(h):
+        dd = solve(s.cp, h, d)
+        return kl_shell.internal_energy(s.stack, dd, s.cp, h, s.E, s.nu)
+
+    h0 = s.h_init.clone().requires_grad_(True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    J = J_of_h(h0)
+    J.backward()
+    torch.cuda.synchronize()
+    t_adj = time.perf_counter() - t0
+    g = h0.grad.detach()
+    v = torch.tensor(np.random.default_rng(3).normal(size=tuple(g.shape)),
+                     device=g.device) * s.stack.cp_mask
+    with torch.no_grad():
+        Jp, Jm = (float(J_of_h(s.h_init + e * 1e-6 * v)) for e in (1.0, -1.0))
+    fd = (Jp - Jm) / 2e-6
+    ad = float((g * v).sum())
+    return dict(d=d, rn=float(rn), r0=r0, J=float(J.detach()), g=g.cpu(),
+                W_c=float(contact_energy(data.contact, s.stack, d, s.cp)),
+                mid=float(s.evaluate_displacement(d, 0, [0.5, 0.5])[2]),
+                fd_rel=abs(ad - fd) / abs(fd), t_cont=t_cont, t_adj=t_adj,
+                levels=levels, fac=fac)
+
+
+def contact_cases(s, d, seed):
+    """K12's three modes at the press s's state d: name -> (kernel fn, plain
+    fn, flops, inputs). The flops count the qp pairs within r_max (and, for
+    the hess mode, the element pairs holding one): the work this state
+    needs; the cutoff skips the rest."""
+    from goldfish_tpu_torch.physics import contact as pc
+    from goldfish_tpu_torch.solver import system
+
+    c = s.data.contact
+    x, w = (t.contiguous() for t in pc.contact_qps(s.stack, d, s.cp))
+    v = torch.tensor(np.random.default_rng(seed).normal(size=tuple(x.shape)),
+                     device=x.device)
+    tabs = system.jet_tables(s.data)
+    G, Q, _, L = tabs.R_c.shape
+    E = G // x.shape[0]
+    N = tabs.free.shape[0]
+    n_pairs = n_elem = 0
+    for *_, dphi, _, ww in pc._pairs(c, x, w, align=Q):
+        act = (dphi != 0) & (ww != 0)
+        n_pairs += int(act.sum())
+        n_elem += int(act.reshape(-1, Q, E, Q).any(3).any(1).sum())
+
+    def hess(fn):
+        K = torch.zeros(N, N, dtype=torch.float64, device=x.device)
+        S = fn(K, c, x, w, tabs.R_c, tabs.gi_e, tabs.free)
+        return S, K
+
+    ops = CONTACT_OPS
+    io = [x, w, c.pa, c.pb, c.k_pen, c.r_max]
+    cases = {
+        "contact_pairs/value_grad": (
+            lambda: pc.contact_value_grad(c, x, w),
+            lambda: pc._value_grad_plain(c, x, w),
+            n_pairs * ops["contact_pairs/value_grad"], io),
+        "contact_pairs/hvp": (
+            lambda: pc.contact_hvp(c, x, w, v),
+            lambda: pc._hvp_plain(c, x, w, v),
+            n_pairs * ops["contact_pairs/hvp"], io + [v]),
+        "contact_pairs/hess": (
+            lambda: hess(pc.contact_hess), lambda: hess(pc._hess_plain),
+            n_pairs * ops["contact_pairs/hess"]
+            + n_elem * 2 * 9 * Q * L * (Q + L),
+            io + [tabs.R_c, tabs.gi_e, tabs.free]),
+    }
+    # the blocks the cutoff did not skip, counted by the kernel
+    act = {}
+    for name, mode in (("contact_pairs/value_grad", "tile"),
+                       ("contact_pairs/hess", "element pair")):
+        n = torch.zeros(1, dtype=torch.int32, device=x.device)
+        if mode == "tile":
+            pc.contact_value_grad(c, x, w, active=n)
+            nt = -(-w.shape[1] // 16)
+            total = c.pa.numel() * nt * nt
+        else:
+            pc.contact_hess(torch.zeros(N, N, dtype=torch.float64,
+                                        device=x.device), c, x, w, tabs.R_c,
+                            tabs.gi_e, tabs.free, active=n)
+            total = c.pa.numel() * E * E
+        act[mode] = (int(n), total)
+    say(f"[contact-kernel] qp pairs within r_max {n_pairs} of "
+        f"{c.pa.numel() * w.shape[1] ** 2}, element pairs holding one "
+        f"{n_elem}; skipped by the cutoff: tiles "
+        f"{1 - act['tile'][0] / act['tile'][1]:.4f} ({act['tile'][0]} of "
+        f"{act['tile'][1]} run), element pairs "
+        f"{1 - act['element pair'][0] / act['element pair'][1]:.4f} "
+        f"({act['element pair'][0]} of {act['element pair'][1]} run)")
+    return cases, (x, w)
+
+
+def check_contact(s, d, tag, seed=20):
+    """K12 against its plain versions at state d + seeded noise (1e-3 of
+    max |d| on free dofs); W_c itself to 1e-12. Returns the checked
+    cases."""
+    from goldfish_tpu_torch.physics import contact as pc
+
+    rng = np.random.default_rng(seed)
+    dn = d + 1e-3 * float(d.abs().max()) * torch.tensor(
+        rng.normal(size=tuple(d.shape)), device=d.device) * s.data.free
+    cases, (x, w) = contact_cases(s, dn, seed)
+    got = check_kernels(cases, tag, reps=3, tol=CONTACT_TOL)
+    c = s.data.contact
+    W = float(pc.contact_value_grad(c, x, w)[0])
+    Wp = float(pc._value_grad_plain(c, x, w)[0])
+    eW = abs(W - Wp) / abs(Wp)
+    say(f"[{tag}] W_c {W!r} plain {Wp!r} rel {eW:.3e} (gate 1e-12)")
+    if not (Wp > 0 and eW <= 1e-12):
+        raise RuntimeError(f"{tag}: W_c {W!r} vs plain {Wp!r} (rel "
+                           f"{eW:.3e}) or not contact-active")
+    return got
+
+
+def phase_contact_kernels(dev):
+    """K12 at the num_el=16 press's continuation equilibrium plus noise;
+    returns the checked cases (merged after the main path's own)."""
+    from goldfish_tpu_torch.solver.implicit import continuation_solve
+
+    s = press_problem(16, dev)
+    P, C = s.stack.n_patches, s.stack.max_cp
+    d, _, _ = continuation_solve(s.data, s.cp, s.h_init,
+                                 s.zero_displacement(), n_steps=4, rtol=1e-9,
+                                 max_it=40)
+    say(f"[setup] press num_el=16: P={P} C={C} N={P * C * 3} stack "
+        f"{tuple(s.stack.R00.shape)}")
+    return check_contact(s, d, "contact-kernel press16")
+
+
+def phase_press(dev, checks, ref, got16):
+    """The counted press path at num_el=32, K12 at its shapes (the kernels
+    line's times; num_el=16's `got16` add theirs as *_press16), then the
+    same path at the reference's size against tests/data/
+    torch_port_contact_reference.json."""
+    from goldfish_tpu_torch import _cuda
+
+    s = press_problem(32, dev)
+    P, C = s.stack.n_patches, s.stack.max_cp
+    say(f"[setup] press num_el=32: P={P} C={C} N={P * C * 3} stack "
+        f"{tuple(s.stack.R00.shape)}")
+    _cuda.reset_launch_counts()
+    out = press_path(s)
+    counts = dict(_cuda.launch_counts)
+    fac = out["fac"]
+    say(f"[press32] continuation (cold, 4 levels) {out['t_cont']:.3f} s, "
+        f"Newton its and |r| per level {out['levels']}; n_factor "
+        f"{fac.n_factor} (failed {fac.n_factor_failed}, cholesky_ex info "
+        f"{fac.failed_info}); refactor_log {fac.refactor_log}")
+    say(f"[press32] |r|/|r(0)| {out['rn'] / out['r0']:.3e} (gate 1e-8), W_c "
+        f"{out['W_c']!r}, midspan u_z {out['mid']!r} (gate < -0.02); J = W_int "
+        f"{out['J']!r}, value and adjoint gradient {out['t_adj']:.3f} s; FD "
+        f"rel {out['fd_rel']:.3e} (gate 1e-5)")
+    if not (out["rn"] / out["r0"] < 1e-8 and out["W_c"] > 0.0
+            and out["mid"] < -0.02 and out["fd_rel"] < 1e-5
+            and bool(torch.isfinite(out["g"]).all())):
+        raise RuntimeError("press32 misses tests/test_contact.py's criteria")
+    check_counts("press", counts, PRESS_KERNELS)
+    library = time_library("press32", fac)
+    for name, case in check_contact(s, out["d"],
+                                    "contact-kernel press32").items():
+        merge(checks, name, case)
+        merge(checks, name, got16[name], "press16")
+    del s, out, fac
+    torch.cuda.empty_cache()
+
+    n = ref["num_el"]
+    out = press_path(press_problem(n, dev))
+    tag = f"press{n}"
+    say(f"[{tag}] continuation {out['t_cont']:.3f} s, levels "
+        f"{out['levels']}; J {out['J']!r} (ref {ref['J']!r}); FD rel "
+        f"{out['fd_rel']:.3e}")
+    check_rel(tag, "d", out["d"].cpu(), ref["d"], 1e-8)
+    check_rel(tag, "W_c", out["W_c"], ref["W_c"], 1e-8)
+    check_rel(tag, "dJ/dh", out["g"], ref["dJ_dh"], 1e-6)
+    return counts, library
+
+
+def phase_riks(dev, ref):
+    """Riks through the panel's snap-through at num_el=24 against the JAX
+    test's criteria and the reference."""
+    from goldfish_tpu_torch import _cuda
+    from goldfish_tpu_torch.solver.riks import riks_solve
+    from goldfish_tpu_torch.solver.system import residual, scale_loads
+
+    s = riks_panel(ref["num_el"], dev)
+    P, C = s.stack.n_patches, s.stack.max_cp
+    N = P * C * 3
+    d0 = s.zero_displacement()
+    stats = {}
+    _cuda.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d, lam, path = riks_solve(s.data, s.cp, s.h_init, d0, lam_target=1.0,
+                              dlam0=0.02, rtol=1e-6, dl_max=60.0,
+                              max_steps=150, stats=stats)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(_cuda.launch_counts)
+    lams = np.array([p[0] for p in path])
+    norms = np.array([p[1] for p in path])
+    i_peak = int(np.argmax(lams[: len(lams) // 2]))
+    peak, valley = lams[i_peak], lams[i_peak:].min()
+    pre = norms[: i_peak + 1].max()
+    data1 = scale_loads(s.data, 1.0)
+    rn = float(torch.linalg.norm(residual(data1, d, s.cp, s.h_init)))
+    q0 = float(torch.linalg.norm(residual(data1, d0, s.cp, s.h_init)))
+    say(f"[riks{ref['num_el']}] N={N}: {dt:.3f} s, {stats['steps']} steps, "
+        f"{len(path)} path points (ref {ref['n_points']}), {stats['n_lu']} "
+        f"LUs, corrector its {stats['its']}, polish its "
+        f"{stats.get('polish_its')}; lam {lam!r}, |r|/|q| {rn / q0:.3e} "
+        f"(gate 1e-5), lam_peak {peak!r} (ref {ref['lam_peak']!r}), "
+        f"lam_valley {valley!r}, |d| end {norms[-1]!r} vs pre-limit {pre!r}")
+    if not (lam == 1.0 and rn < 1e-5 * q0 and peak > valley + 0.2
+            and norms[-1] > 3.0 * pre and bool(torch.isfinite(d).all())):
+        raise RuntimeError("riks misses tests/test_riks.py's criteria")
+    check_rel(f"riks{ref['num_el']}", "final d", d.cpu(), ref["d"], 1e-6)
+    if not abs(peak - ref["lam_peak"]) <= 1e-3:
+        raise RuntimeError(f"riks lam_peak {peak!r} vs {ref['lam_peak']!r}")
+    check_counts("riks", counts, RIKS_KERNELS)
+    from goldfish_tpu_torch.solver.system import assemble_K
+
+    K = assemble_K(data1, d, s.cp, s.h_init)
+    row = dict(name="lu_factor_ex", path=f"riks{ref['num_el']}", n=N,
+               info=int(torch.linalg.lu_factor_ex(K)[2]),
+               ms=cuda_ms(lambda: torch.linalg.lu_factor_ex(K), 5),
+               bound_ms=2 * N ** 3 / 3 / PEAK_F64_TC * 1e3,
+               bound_by="operations")
+    say(f"[library] {json.dumps(row)}")
+    return counts, [row]
+
+
 def main():
     t_start = time.perf_counter()
     dev = phase_device()
@@ -1846,11 +2193,24 @@ def main():
     counts_slr = phase_slr(dev, ref_vlm["slr"])
     say(f"[vlm] phases 16-19 {time.perf_counter() - t0:.1f} s")
 
+    with open(REF_CONTACT) as fh:
+        ref_contact = json.load(fh)
+    t0 = time.perf_counter()
+    got16 = phase_contact_kernels(dev)
+    torch.cuda.empty_cache()
+    counts_press, rows = phase_press(dev, checks, ref_contact["press6"], got16)
+    library += rows
+    torch.cuda.empty_cache()
+    counts_riks, rows = phase_riks(dev, ref_contact["riks24"])
+    library += rows
+    say(f"[contact] phases 20-22 {time.perf_counter() - t0:.1f} s")
+
     paths = {"wing": (counts, WING_KERNELS), "mi": (counts_mi, None),
              "tube": (counts_tf, None), "tube_mi": (counts_tm, None),
              "plate": (counts_pl, None), "pegasus_dense": (counts_pd, None),
              "pegasus_krylov": (counts_pk, None), "vlm": (counts_vlm, None),
-             "slr": (counts_slr, None)}
+             "slr": (counts_slr, None), "press": (counts_press, None),
+             "riks": (counts_riks, None)}
     record = {"kernels": []}
     for name, src, rep in KERNELS:
         per = {f"launches_{p}": (c.get(name, 0) if keep is None

@@ -47,7 +47,9 @@ COUNTERS = ("shell_qp/value_grad", "shell_qp/hess", "shell_qp/adjoint",
             "pressure_qp/adjoint",
             "vm_stress_qp/value", "vm_stress_qp/vjp",
             "pair_assemble/pairs", "pair_assemble/patches",
-            "vlm_aic/value", "vlm_aic/vjp")
+            "vlm_aic/value", "vlm_aic/vjp",
+            "contact_pairs/value_grad", "contact_pairs/hvp",
+            "contact_pairs/hess")
 launch_counts: dict[str, int] = {k: 0 for k in COUNTERS}
 _lib = None
 build_info: dict = {}
@@ -66,6 +68,8 @@ _SIGNATURES = {
     "gf_vm_stress_qp": [_I] + [_P] * 17 + [ctypes.c_double] + [_I] * 5 + [_P],
     "gf_pair_assemble": [_P] * 6 + [_I] * 5 + [_P],
     "gf_vlm_aic": [_I] + [_P] * 11 + [_I] * 2 + [_P],
+    "gf_contact_pairs": [_I] + [_P] * 15 + [_I] * 4 + [ctypes.c_longlong,
+                                                       _P],
 }
 
 

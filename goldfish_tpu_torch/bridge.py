@@ -1,8 +1,9 @@
 """Turn the JAX package's problem pytrees into the port's tensors.
 
 `from_numpy_tree` maps `PatchStack`, `InterfaceStack`, `PointLoads`,
-`EdgeLoads` and `SystemData` (any NamedTuple with one of those names; the
-follower `pressure` is a plain array leaf) field by field onto
+`EdgeLoads`, `ContactPairs` and `SystemData` (any NamedTuple with one of
+those names; the follower `pressure` is a plain array leaf) field by field
+onto
 the port's classes of the same name; every array leaf goes through
 `np.asarray`, so the values arrive bit for bit and nothing of the JAX
 package is imported here. Tests use it to hand both packages identical
@@ -16,6 +17,7 @@ import torch
 
 from goldfish_tpu_torch.config import as_device
 from goldfish_tpu_torch.geometry.patch_stack import PatchStack
+from goldfish_tpu_torch.physics.contact import ContactPairs
 from goldfish_tpu_torch.physics.coupling import InterfaceStack
 from goldfish_tpu_torch.physics.loads import EdgeLoads, PointLoads
 from goldfish_tpu_torch.solver.system import SystemData
@@ -24,7 +26,7 @@ __all__ = ["from_numpy_tree"]
 
 _PORT_TYPES = {cls.__name__: cls
                for cls in (PatchStack, InterfaceStack, PointLoads, EdgeLoads,
-                           SystemData)}
+                           ContactPairs, SystemData)}
 
 
 def _leaf(x, device):
@@ -37,8 +39,8 @@ def _leaf(x, device):
 
 
 def from_numpy_tree(tree, device=None):
-    """Convert a (nested) PatchStack / InterfaceStack / SystemData or a
-    single array into tensors on `device`."""
+    """Convert a (nested) PatchStack / InterfaceStack / ContactPairs /
+    SystemData or a single array into tensors on `device`."""
     device = as_device(device)
     if tree is None:
         return None

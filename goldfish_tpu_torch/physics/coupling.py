@@ -321,7 +321,10 @@ def _hessians_plain(ifs, d, cp, h, E):
     def flat(t, k=None):
         return t.reshape(-1) if k is None else t.reshape(-1, k)
 
-    H = torch.func.vmap(torch.func.hessian(penalty_density, argnums=1))(
+    # reverse over reverse: in eager PyTorch ~4x faster than hessian's
+    # forward over reverse, the same values to rounding
+    H = torch.func.vmap(torch.func.jacrev(
+        torch.func.grad(penalty_density, argnums=1), argnums=1))(
         flat(X, 12), flat(z, NZ), flat(hA), flat(hB), flat(ifs.dxiA, 2),
         flat(ifs.dxiB, 2), flat(Ei), flat(ad), flat(ar), flat(ifs.w))
     return H.reshape(shp + (NZ, NZ))

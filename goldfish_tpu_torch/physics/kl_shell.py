@@ -166,7 +166,10 @@ def _hessians_plain(stack, d, cp, h, E, nu):
     X, z, hq = jets(stack, cp), jets(stack, d), h_at_qps(stack, h)
     Eq, nuq, wq = _qp_params(stack, E, nu)
     shp = hq.shape
-    H = torch.func.vmap(torch.func.hessian(shell_density, argnums=1))(
+    # reverse over reverse: in eager PyTorch ~4x faster than hessian's
+    # forward over reverse, the same values to rounding
+    H = torch.func.vmap(torch.func.jacrev(
+        torch.func.grad(shell_density, argnums=1), argnums=1))(
         X.reshape(-1, NJ), z.reshape(-1, NJ), hq.reshape(-1),
         Eq.reshape(-1), nuq.reshape(-1), wq.reshape(-1))
     return H.reshape(shp + (NJ, NJ))

@@ -1,12 +1,15 @@
-"""One persistent f64 Cholesky factor + refinement against the exact tangent.
+"""One persistent f64 factor (Cholesky or LU) + refinement against the exact
+tangent.
 
 Port of goldfish_tpu/solver/devicechol.py (`PersistentDeviceFactor`):
 
   1. the dense BC-reduced f64 tangent K(d) is assembled from the jet
      Hessians (kernels K1/K2 mode (b) + K3);
   2. Jacobi equilibration D K D, D = diag(K)^(-1/2), then
-     `torch.linalg.cholesky_ex` (cuSOLVER potrf on the card);
-  3. substitutions with `torch.cholesky_solve`; iterative refinement
+     `torch.linalg.cholesky_ex` (cuSOLVER potrf on the card), or, for a
+     factor made with kind="lu", `torch.linalg.lu_factor_ex` (getrf);
+  3. substitutions with `torch.cholesky_solve` (`lu_solve`); iterative
+     refinement
      x += K_fac^-1 (b - K(d) x) whose matvec is the EXACT tangent product
      at the current state (kernel K4 on jet Hessians recomputed once per
      solve), so a design- or state-stale factor still solves exactly. A
@@ -30,7 +33,11 @@ An indefinite K (possible at a cold or trial state) makes `cholesky_ex`
 report info != 0. The factor is then filled with NaN, so every solve
 against it returns a non-finite certificate and goes through the same
 policy as any non-finite certificate; the failure is also logged in
-`refactor_log` and counted in `n_factor_failed`.
+`refactor_log` and counted in `n_factor_failed`. The LU variant is for
+tangents that are indefinite by nature (past a limit point: solver/riks.py);
+it fails only on an exactly singular K (`lu_factor_ex` info != 0), with the
+same bookkeeping. A caller picks the variant by name; a failed Cholesky
+never turns into an LU by itself.
 """
 
 from __future__ import annotations
@@ -63,6 +70,8 @@ class PersistentDeviceFactor:
       optionally seeded;
     - `ensure(cp, h, d)`: refactor only when the state drifted more than
       `stale_tol` since the last factorization.
+
+    `kind` is "cholesky" (the default) or "lu".
     """
 
     _RHO0 = 1e-3        # optimistic initial contraction estimate
@@ -75,12 +84,15 @@ class PersistentDeviceFactor:
     # at rho ~0.26-0.6; healthy one-step-stale factors measure 0.07-0.18
     rho_refresh = 0.22
 
-    def __init__(self, data: SystemData):
+    def __init__(self, data: SystemData, kind: str = "cholesky"):
+        if kind not in ("cholesky", "lu"):
+            raise ValueError(f"kind: 'cholesky' or 'lu', not {kind!r}")
+        self.kind = kind
         self.data = data
         self.tables = jet_tables(data)
         self.rho_est = self._RHO0
         self._ref = None         # solver state at factor time
-        self._L = None
+        self._L = None           # Cholesky factor, or (LU, pivots)
         self._dscale = None
         self.factor_ok = False
         self.n_factor = 0
@@ -88,7 +100,8 @@ class PersistentDeviceFactor:
         self.last_ratio = 0.0    # certificate of the last IR solve
         self.nonconverged = False
         self.refactor_log = []   # (why, drift) per factorization
-        self.failed_info = []    # cholesky_ex info of each failed one
+        self.failed_info = []    # cholesky_ex / lu_factor_ex info of each
+                                 # failed one
         self.cert_log = []       # (tag, n_ir, ratio) per IR attempt
 
     # ------------------------------------------------------------ hooks
@@ -120,15 +133,16 @@ class PersistentDeviceFactor:
     def _after_factor(self, s):
         """Called after every factorization at state s."""
 
-    def _chol_solve(self, B):
-        """K_fac^-1 B for B (N, k) through the equilibrated Cholesky
-        factor."""
+    def _fac_solve(self, B):
+        """K_fac^-1 B for B (N, k) through the equilibrated factor."""
         dsc = self._dscale[:, None]
+        if self.kind == "lu":
+            return dsc * torch.linalg.lu_solve(*self._L, dsc * B)
         return dsc * torch.cholesky_solve(dsc * B, self._L)
 
     def _subst(self, b):
         """K_fac^-1 b (the preconditioner of every refinement sweep)."""
-        return self._chol_solve(b.reshape(-1, 1))[:, 0].reshape(b.shape)
+        return self._fac_solve(b.reshape(-1, 1))[:, 0].reshape(b.shape)
 
     # ------------------------------------------------------------ factor
     def _ensure(self, s, force=False, why="", stale_tol=None):
@@ -143,12 +157,17 @@ class PersistentDeviceFactor:
         K = self._assemble(s)
         dsc = torch.rsqrt(K.diagonal().abs() + 1e-300)
         K.mul_(dsc[:, None]).mul_(dsc[None, :])   # equilibrate in place
-        L, info = torch.linalg.cholesky_ex(K)
+        if self.kind == "lu":
+            LU, piv, info = torch.linalg.lu_factor_ex(K)
+            L = (LU, piv)
+        else:
+            L, info = torch.linalg.cholesky_ex(K)
+            LU = L
         del K
         self.factor_ok = int(info) == 0
         why = why or "drift"
         if not self.factor_ok:
-            L.fill_(float("nan"))
+            LU.fill_(float("nan"))
             self.n_factor_failed += 1
             self.failed_info.append(int(info))
             why += "/indefinite"

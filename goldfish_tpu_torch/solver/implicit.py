@@ -19,6 +19,10 @@ bisection caps, the floor and stall stops, the drift / `stale_tol` logic,
 and the certificate gates (direction forcing 1e-3 with near-miss
 acceptance, adjoint 1e-6). The reference's single-readback speculation is
 not carried over: every step reads its scalars when it needs them.
+
+`continuation_solve` ramps the loads in levels (`system.scale_loads`) on
+one persistent factor, each level's Newton warm-started from the last: the
+two-plate contact press needs it.
 """
 
 from __future__ import annotations
@@ -33,9 +37,11 @@ from goldfish_tpu_torch.solver.system import (
     potential_and_residual,
     residual_vjp,
     residual_vjp_field,
+    scale_loads,
 )
 
-__all__ = ["damped_newton", "newton_solve_host", "adjoint_lambda",
+__all__ = ["damped_newton", "newton_solve_host", "continuation_solve",
+           "adjoint_lambda",
            "adjoint_solve", "build_solve_fn", "build_field_solve_fn"]
 
 
@@ -55,15 +61,18 @@ def _trial(data: SystemData, cp, h, d, delta, alpha):
 
 
 def damped_newton(data: SystemData, cp, h, d0, direction, refactor,
-                  rtol=1e-10, atol=1e-14, max_it=30, shared=None):
+                  rtol=1e-10, atol=1e-14, max_it=30, shared=None,
+                  rerun_cold=True):
     """The damped Newton iteration of every persistent-factor solve: the
     residual-bounded energy line search, its bisection caps and the floor
     and stall stops. Returns (d, its, |r|).
 
     A warm-started solve that ends outside the Newton basin (|r| > 1e-2
-    |r(0)|) is run once more from d = 0: at an optimizer trial design far
-    from the last state the tangent at the warm state can be indefinite
-    (its Cholesky fails) while the one at d = 0 is not.
+    |r(0)|) is run once more from d = 0 (unless `rerun_cold` is False): at
+    an optimizer trial design far from the last state the tangent at the
+    warm state can be indefinite (its Cholesky fails) while the one at
+    d = 0 is not. Continuation levels turn it off: a rerun from d = 0 would
+    take the level's whole load at once, which is what the levels avoid.
 
     `direction(d, r, slow) -> (delta, slope)` gives the step for -r and its
     slope (a float); `slow` turns True, and stays so, once a step has
@@ -73,7 +82,7 @@ def damped_newton(data: SystemData, cp, h, d0, direction, refactor,
     warm optimizer loop (refreshed every 32 solves)."""
     args = (data, cp, h, direction, refactor, rtol, atol, max_it, shared)
     d, it, rn, r_ref = _newton_loop(d0, *args)
-    if rn > 1e-2 * r_ref and bool(d0.any()):
+    if rerun_cold and rn > 1e-2 * r_ref and bool(d0.any()):
         d, it, rn, _ = _newton_loop(torch.zeros_like(d0), *args)
     return d, it, rn
 
@@ -185,7 +194,8 @@ def _newton_loop(d0, data, cp, h, direction, refactor, rtol, atol, max_it,
 
 
 def newton_solve_host(data: SystemData, fac: PersistentDeviceFactor, cp, h,
-                      d0, rtol=1e-10, atol=1e-14, max_it=30, shared=None):
+                      d0, rtol=1e-10, atol=1e-14, max_it=30, shared=None,
+                      rerun_cold=True):
     """Damped Newton on one persistent factor. Returns (d, its, |r|).
 
     Directions are substitutions against the (possibly stale) factor
@@ -218,7 +228,30 @@ def newton_solve_host(data: SystemData, fac: PersistentDeviceFactor, cp, h,
     return damped_newton(
         data, cp, h, d0, direction,
         lambda d: fac.ensure(cp, h, d, force=True, why="stall"),
-        rtol=rtol, atol=atol, max_it=max_it, shared=shared)
+        rtol=rtol, atol=atol, max_it=max_it, shared=shared,
+        rerun_cold=rerun_cold)
+
+
+def continuation_solve(data: SystemData, cp, h, d0, n_steps=5, rtol=1e-10,
+                       atol=1e-14, max_it=30, fac=None, log=None):
+    """Load-stepped Newton (port of the reference's continuation_solve):
+    level k of n_steps solves at `scale_loads(data, k / n_steps)` from the
+    last level's d, all on ONE persistent factor (`fac`, default a fresh
+    Cholesky one). The factor's data follows the level, so its tangent is
+    the level's (a follower pressure's depends on the load); no level
+    reruns from d = 0. Returns (d, its_last, |r|_last); `log`, when given,
+    gets one (its, |r|) per level."""
+    fac = PersistentDeviceFactor(data) if fac is None else fac
+    d = d0
+    for k in range(1, n_steps + 1):
+        data_s = scale_loads(data, k / n_steps)
+        fac.data = data_s
+        d, it, rn = newton_solve_host(data_s, fac, cp, h, d, rtol=rtol,
+                                      atol=atol, max_it=max_it,
+                                      rerun_cold=False)
+        if log is not None:
+            log.append((it, rn))
+    return d, it, rn
 
 
 def adjoint_lambda(data: SystemData, fac: PersistentDeviceFactor, d, cp, h,

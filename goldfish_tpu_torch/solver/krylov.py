@@ -28,6 +28,9 @@ port factors in f64: GMRES iteration counts differ from the JAX package's,
 the solutions agree to the solver tolerances. GMRES reads the host once
 per restart cycle (its stop tests); the Arnoldi steps run without a host
 round trip.
+
+Contact (`SystemData.contact`) has no Krylov route in the JAX package's
+tests and none here: every entry point raises on it (ROADMAP Queue B).
 """
 
 from __future__ import annotations
@@ -171,6 +174,13 @@ def _local_maps(conn, free_p):
     return np.where(ok, dof, -1).reshape(conn.shape[0], -1)
 
 
+def _no_contact(data: SystemData):
+    if data.contact is not None:
+        raise NotImplementedError(
+            "contact on the Newton-Krylov route is not ported yet (ROADMAP "
+            "Queue B); use the persistent-factor solves of solver/implicit")
+
+
 def _block_tables(data: SystemData, blocks_of_patch, n_blocks, nb,
                   whole=None, patches=None):
     """BlockTables on the data's device. `blocks_of_patch[p]` lists the
@@ -179,6 +189,7 @@ def _block_tables(data: SystemData, blocks_of_patch, n_blocks, nb,
     which takes its qps' full 6L x 6L Hessian, every other block of a side
     only that side's quadrant. `patches` restricts the element groups to
     those patches."""
+    _no_contact(data)
     stack, ifs = data.stack, data.ifs
     P, E, Q, L = stack.R00.shape
     C = stack.max_cp
@@ -236,7 +247,7 @@ def _block_tables(data: SystemData, blocks_of_patch, n_blocks, nb,
 def assemble_blocks(bt: BlockTables, tables, Hs, counter):
     """(B, nb, nb) BC-masked blocks from jet Hessians `Hs` (`jet_hessians`)
     through K10, with the identity on fixed dofs."""
-    H_e, H_i, H_p = Hs
+    H_e, H_i, H_p = Hs[:3]
     out = torch.zeros(bt.n_blocks, bt.nb, bt.nb, dtype=DTYPE,
                       device=bt.free.device)
     pair_assemble(out, H_e, tables.R_e, bt.elem, counter)
@@ -293,6 +304,7 @@ def full_precond(data: SystemData, d, cp, h, tables=None, Hs=None):
     """Equilibrated f64 LU of the full dense tangent (K3 assembly). Replaces
     the reference's f32 variant (`full_f32_precond`), whose f32 assembly
     only saved TPU memory."""
+    _no_contact(data)
     tables = jet_tables(data) if tables is None else tables
     Hs = jet_hessians(data, d, cp, h) if Hs is None else Hs
     K = assemble_K_from(tables, Hs)
@@ -328,6 +340,7 @@ class PairSchwarz:
     """
 
     def __init__(self, data: SystemData):
+        _no_contact(data)
         assert data.ifs is not None and data.ifs.n_interfaces > 0
         self.P = data.stack.n_patches
         self.C = data.stack.max_cp
@@ -578,6 +591,7 @@ def gmres_solve(data: SystemData, d, cp, h, b, precond, rtol=1e-10,
     b - K x. `precond` is a patch-block factorization, a
     ("full", factor) tuple or a (PairSchwarz, factorization) tuple.
     Returns (x, total GMRES restart cycles)."""
+    _no_contact(data)
     tables = precond[0].tables if isinstance(precond[0], PairSchwarz) \
         else jet_tables(data)
     Hs = jet_hessians(data, d, cp, h)
@@ -592,6 +606,7 @@ class NewtonKrylovFailure(RuntimeError):
 
 def _newton_once(data, cp, h, d0, rtol, cg_rtol, max_newton, max_cg,
                  schwarz, tables, log):
+    _no_contact(data)
     free = data.free
     _, r_zero = potential_and_residual(data, torch.zeros_like(d0), cp, h)
     Pi, r = potential_and_residual(data, d0, cp, h)
@@ -774,6 +789,7 @@ def build_solve_fn_krylov(data: SystemData, rtol=1e-9, cg_rtol=1e-8,
     wings and box wings its GMRES stalls and the solve raises
     `NewtonKrylovFailure`). The solver state (`schwarz`, `last_its`,
     `last_log`, `adjoint_cycles`) is `solve.solver`."""
+    _no_contact(data)
     solver = _KrylovSolver(data, rtol, cg_rtol, max_newton, max_cg, precond)
 
     def solve(cp, h, d0):

@@ -20,6 +20,11 @@ the pressure's 3 jets), and
 
 Both run their CUDA kernel on CUDA tensors and their plain PyTorch
 version (einsum + index_add_) on CPU tensors.
+
+Shell-shell contact (`SystemData.contact`) adds its pair potential to Pi,
+its force to r, and its stiffness to K and K v through kernel K12
+(physics/contact.py): the qp positions and weights at d are the fourth
+entry of the jet Hessians.
 """
 
 from __future__ import annotations
@@ -39,7 +44,8 @@ from goldfish_tpu_torch.geometry.patch_stack import (
     stack_control_points,
 )
 from goldfish_tpu_torch.ops.bspline import rational_basis_2d
-from goldfish_tpu_torch.physics import coupling, kl_shell
+from goldfish_tpu_torch.physics import contact as contact_, coupling, \
+    kl_shell
 from goldfish_tpu_torch.physics.coupling import InterfaceSpec, InterfaceStack
 from goldfish_tpu_torch.physics.loads import (
     EdgeLoads,
@@ -54,8 +60,8 @@ from goldfish_tpu_torch.physics.loads import (
     pressure_hessians,
 )
 
-__all__ = ["SystemData", "NonMatchingSystem", "JetTables", "jet_tables",
-           "interface_tables",
+__all__ = ["SystemData", "NonMatchingSystem", "JetTables", "JetHessians",
+           "jet_tables", "interface_tables", "scale_loads",
            "jet_hessians", "jet_assemble", "jet_matvec", "assemble_K_from",
            "tangent_matvec_from", "potential_and_residual", "residual_vjp",
            "residual_vjp_field",
@@ -64,9 +70,9 @@ __all__ = ["SystemData", "NonMatchingSystem", "JetTables", "jet_tables",
 
 
 class SystemData(NamedTuple):
-    """Problem tensors (the same fields as the JAX package's SystemData).
-    The dead, point, edge, follower-pressure and areal field loads are
-    ported; contact must be None."""
+    """Problem tensors (the same fields as the JAX package's SystemData):
+    the dead, point, edge, follower-pressure and areal field loads, and
+    shell-shell contact."""
 
     stack: PatchStack
     ifs: InterfaceStack | None
@@ -78,21 +84,29 @@ class SystemData(NamedTuple):
     pressure: torch.Tensor | None = None   # (P,) follower pressure or None
     edge_loads: EdgeLoads | None = None
     f_field: torch.Tensor | None = None   # (P, C, 3) field load or None
-    contact: object = None
+    contact: contact_.ContactPairs | None = None
 
 
-def _check_ported(data: SystemData):
-    if data.contact is not None:
-        raise NotImplementedError(
-            "SystemData.contact is not ported yet (ROADMAP Queue A10/B17)")
+def scale_loads(data: SystemData, s):
+    """Every external load scaled by s (load stepping, continuation and the
+    arc-length load factor); contact and the tangent's structure unchanged.
+    Each load is linear in its scale, the follower pressure's too."""
+    return data._replace(
+        f_areal=None if data.f_areal is None else s * data.f_areal,
+        pressure=None if data.pressure is None else s * data.pressure,
+        f_field=None if data.f_field is None else s * data.f_field,
+        point_loads=None if data.point_loads is None
+        else data.point_loads._replace(F=s * data.point_loads.F),
+        edge_loads=None if data.edge_loads is None
+        else data.edge_loads._replace(F=s * data.edge_loads.F))
 
 
 # ------------------------------------------------------------ energy
 def potential_and_residual(data: SystemData, d, cp, h):
     """(Pi, r): the potential (summed deterministically from per-element
     and per-interface energies) and the BC-masked residual dPi/dd, from
-    one K1, one K2 and (with a follower pressure) one K8 launch."""
-    _check_ported(data)
+    one K1, one K2, (with a follower pressure) one K8 and (with contact)
+    one K12 launch."""
     W, r, _ = kl_shell.shell_value_grad(data.stack, d, cp, h, data.E,
                                         data.nu)
     Pi = W.sum()
@@ -100,6 +114,10 @@ def potential_and_residual(data: SystemData, d, cp, h):
         Wi, ri, _ = coupling.penalty_value_grad(data.ifs, d, cp, h, data.E)
         Pi = Pi + Wi.sum()
         r = r + ri
+    if data.contact is not None:
+        Wc, rc = contact_.contact_value_force(data.contact, data.stack, d, cp)
+        Pi = Pi + Wc
+        r = r + rc
     W_ext, f_ext = external_work_and_force(
         data.stack, d, cp, data.f_areal, data.point_loads, data.pressure,
         data.edge_loads, data.f_field)
@@ -107,7 +125,7 @@ def potential_and_residual(data: SystemData, d, cp, h):
 
 
 def total_potential(data: SystemData, d, cp, h):
-    """Pi = W_int + W_penalty - W_ext."""
+    """Pi = W_int + W_penalty + W_contact - W_ext."""
     return potential_and_residual(data, d, cp, h)[0]
 
 
@@ -118,9 +136,9 @@ def residual(data: SystemData, d, cp, h):
 
 def residual_vjp(data: SystemData, d, cp, h, lam):
     """(dcp, dh) = -lam^T dR/d(cp, h): the adjoint's design gradient (K1,
-    K2 and K8 in adjoint mode, plus the dead, edge and field loads'
-    cp-dependence). The loads do not depend on h."""
-    _check_ported(data)
+    K2 and K8 in adjoint mode, K12's hvp for contact, plus the dead, edge
+    and field loads' cp-dependence). The loads and contact do not depend on
+    h."""
     lam = lam * data.free
     dcp, dh = kl_shell.shell_adjoint(data.stack, d, cp, h, data.E, data.nu,
                                      lam)
@@ -131,6 +149,9 @@ def residual_vjp(data: SystemData, d, cp, h, lam):
         dh = dh + dh_i
     if data.pressure is not None:
         dcp = dcp + pressure_adjoint(data.stack, d, cp, data.pressure, lam)
+    if data.contact is not None:
+        dcp = dcp + contact_.contact_adjoint(data.contact, data.stack, d, cp,
+                                             lam)
     if (data.f_areal is not None or data.edge_loads is not None
             or data.f_field is not None):
         # the dead, edge and field loads are linear in d, so lam . dW_ext/dd
@@ -191,7 +212,9 @@ class JetTables(NamedTuple):
     element (nq = Q qps, 5 jets over L locals), an interface qp (nq = 1,
     6 jets over the 2L stacked locals) or, with a follower pressure, an
     element of the pressure group (nq = Q, 3 jets over L locals, the
-    element dofs gi_e)."""
+    element dofs gi_e). With contact, R_c are the R00 rows of the one-jet
+    group that carries K12's own-side sums (nq = Q, 1 jet over L locals,
+    the element dofs gi_e)."""
 
     R_e: torch.Tensor             # (P*E, Q, 5, L)
     gi_e: torch.Tensor            # (P*E, 3L) int32
@@ -199,6 +222,8 @@ class JetTables(NamedTuple):
     gi_i: torch.Tensor | None     # (I*N, 6L) int32
     free: torch.Tensor            # (P*C*3,)
     R_p: torch.Tensor | None = None   # (P*E, Q, 3, L)
+    R_c: torch.Tensor | None = None   # (P*E, Q, 1, L)
+    contact: contact_.ContactPairs | None = None
 
 
 def interface_tables(ifs: InterfaceStack, C: int):
@@ -215,24 +240,34 @@ def jet_tables(data: SystemData) -> JetTables:
     P, Ne, Q, L = stack.R00.shape
     R_e = torch.stack(kl_shell._jet_tables(stack), dim=-2)
     gi_e = element_global_dofs(stack)
-    R_i = gi_i = R_p = None
+    R_i = gi_i = R_p = R_c = None
     if data.ifs is not None:
         R_i, gi_i = interface_tables(data.ifs, stack.max_cp)
     if data.pressure is not None:
         R_p = torch.stack((stack.R00, stack.R10, stack.R01), dim=-2).reshape(
             P * Ne, Q, 3, L).contiguous()
+    if data.contact is not None:
+        R_c = stack.R00.reshape(P * Ne, Q, 1, L).contiguous()
     return JetTables(
         R_e=R_e.reshape(P * Ne, Q, 5, L).contiguous(),
         gi_e=gi_e.reshape(P * Ne, 3 * L).contiguous(),
         R_i=R_i, gi_i=gi_i, free=data.free.reshape(-1).contiguous(),
-        R_p=R_p)
+        R_p=R_p, R_c=R_c, contact=data.contact)
+
+
+class JetHessians(NamedTuple):
+    """The tangent's pieces at one state: per-group jet Hessians and, with
+    contact, the qp positions and weights K12 works on."""
+
+    H_e: torch.Tensor                 # (P*E, Q, 15, 15)
+    H_i: torch.Tensor | None          # (I*N, 1, 18, 18)
+    H_p: torch.Tensor | None          # (P*E, Q, 9, 9)
+    contact_xw: tuple | None = None   # ((P, E*Q, 3), (P, E*Q))
 
 
 def jet_hessians(data: SystemData, d, cp, h):
-    """Per-group jet Hessians at state d: (H_e (P*E, Q, 15, 15),
-    H_i (I*N, 1, 18, 18) or None, H_p (P*E, Q, 9, 9) or None) from K1, K2
-    and K8 mode (b)."""
-    _check_ported(data)
+    """The tangent's pieces at state d (`JetHessians`): jet Hessians from
+    K1, K2 and K8 mode (b); with contact the qp positions and weights."""
     stack = data.stack
     P, Ne, Q, _ = stack.R00.shape
     H_e = kl_shell.shell_hessians(stack, d, cp, h, data.E, data.nu)
@@ -243,7 +278,11 @@ def jet_hessians(data: SystemData, d, cp, h):
     if data.pressure is not None:
         H_p = pressure_hessians(stack, d, cp, data.pressure).reshape(
             P * Ne, Q, 9, 9)
-    return H_e.reshape(P * Ne, Q, kl_shell.NJ, kl_shell.NJ), H_i, H_p
+    xw = None
+    if data.contact is not None:
+        xw = tuple(t.contiguous() for t in contact_.contact_qps(stack, d, cp))
+    return JetHessians(H_e.reshape(P * Ne, Q, kl_shell.NJ, kl_shell.NJ),
+                       H_i, H_p, xw)
 
 
 # ------------------------------------------------------------ K3 / K4
@@ -316,8 +355,8 @@ def jet_matvec(y, H, R, gi, free, v):
 
 
 def assemble_K_from(tables: JetTables, Hs):
-    """Dense BC-reduced tangent from jet Hessians `Hs` (jet_hessians)."""
-    H_e, H_i, H_p = Hs
+    """Dense BC-reduced tangent from `Hs` (jet_hessians)."""
+    H_e, H_i, H_p, xw = Hs
     free = tables.free
     N = free.shape[0]
     K = torch.zeros(N, N, dtype=DTYPE, device=free.device)
@@ -326,13 +365,32 @@ def assemble_K_from(tables: JetTables, Hs):
         jet_assemble(K, H_i, tables.R_i, tables.gi_i, free)
     if H_p is not None:
         jet_assemble(K, H_p, tables.R_p, tables.gi_e, free)
+    if xw is not None:
+        contact_.contact_assemble(K, tables.contact, *xw, tables.R_c,
+                                  tables.gi_e, free)
     K.diagonal().add_(1.0 - free)
     return K
 
 
+def _contact_matvec(y, tables: JetTables, xw, vf):
+    """y += free * K_c (free * v): v to the qps on the R00 rows, K12's hvp,
+    back by R00^T."""
+    G, Q, _, L = tables.R_c.shape
+    free = tables.free
+    gl = tables.gi_e.long()
+    R = tables.R_c[:, :, 0]
+    vq = torch.einsum("gql,glk->gqk", R, (vf * free)[gl].reshape(G, L, 3))
+    x, w = xw
+    Y, _ = contact_.contact_hvp(tables.contact, x, w,
+                                vq.reshape(x.shape).contiguous())
+    contrib = torch.einsum("gql,gqk->glk", R, Y.reshape(G, Q, 3))
+    y.index_add_(0, gl.reshape(-1), (contrib.reshape(G, 3 * L)
+                                     * free[gl]).reshape(-1))
+
+
 def tangent_matvec_from(tables: JetTables, Hs, v):
-    """K(d) v from jet Hessians at d, masked both sides; v: (P, C, 3)."""
-    H_e, H_i, H_p = Hs
+    """K(d) v from `Hs` at d, masked both sides; v: (P, C, 3)."""
+    H_e, H_i, H_p, xw = Hs
     free = tables.free
     vf = v.reshape(-1).contiguous()
     y = torch.zeros_like(vf)
@@ -341,6 +399,8 @@ def tangent_matvec_from(tables: JetTables, Hs, v):
         jet_matvec(y, H_i, tables.R_i, tables.gi_i, free, vf)
     if H_p is not None:
         jet_matvec(y, H_p, tables.R_p, tables.gi_e, free, vf)
+    if xw is not None:
+        _contact_matvec(y, tables, xw, vf)
     return y.reshape(v.shape)
 
 
@@ -391,6 +451,7 @@ class NonMatchingSystem:
         self.edge_load_entries = []
         self.pressure = None
         self.f_field = None
+        self.contact = None
         self._data = None
 
     def add_zero_dofs(self, patch: int, cp_indices, fields=(0, 1, 2)):
@@ -434,6 +495,13 @@ class NonMatchingSystem:
             self.device).contiguous()
         self._data = None
 
+    def set_contact(self, pairs, k_pen, r_max):
+        """Enable shell-shell contact between patch pairs (the reference's
+        ShellContactContext hook; physics/contact.py)."""
+        self.contact = contact_.build_contact(pairs, k_pen, r_max,
+                                              device=self.device)
+        self._data = None
+
     def set_pressure(self, p_per_patch):
         """Uniform follower (normal) pressure per patch (scalar or (P,))."""
         self.pressure = tensor(np.broadcast_to(
@@ -456,7 +524,7 @@ class NonMatchingSystem:
                 edge_loads=build_edge_loads(
                     self.surfs, self.edge_load_entries, max_loc=max_loc,
                     device=self.device),
-                f_field=self.f_field)
+                f_field=self.f_field, contact=self.contact)
         return self._data
 
     def zero_displacement(self):

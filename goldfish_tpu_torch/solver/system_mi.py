@@ -71,11 +71,15 @@ __all__ = ["MINonMatchingSystem", "data_at", "total_potential_mi",
 def data_at(data: SystemData, mi, co, ss, p, q, xi) -> SystemData:
     """The fixed-intersection SystemData of the MI system at xi (I, 4N):
     its interface stack has K5's rows at xi. The MI path's areal field load
-    (the reference's system_mi.py:50-52) is on no port path yet and raises
-    (ROADMAP Queue B)."""
+    (the reference's system_mi.py:50-52) and contact are on no port path
+    yet and raise (ROADMAP Queue B)."""
     if data.f_field is not None:
         raise NotImplementedError(
             "SystemData.f_field on the moving-intersection path is not "
+            "ported yet (ROADMAP Queue B)")
+    if data.contact is not None:
+        raise NotImplementedError(
+            "SystemData.contact on the moving-intersection path is not "
             "ported yet (ROADMAP Queue B)")
     return data._replace(ifs=interface_stack_mi(ss, p, q, mi, co, xi))
 
@@ -176,7 +180,7 @@ class PersistentDeviceFactorMI(PersistentDeviceFactor):
         docstring); the policy's per-solve refresh is off."""
 
     def _subst(self, b):
-        s = self._chol_solve(b.reshape(-1, 1))[:, 0]
+        s = self._fac_solve(b.reshape(-1, 1))[:, 0]
         if self._V is not None:
             s = s - self._V @ s[self._urows]
         return s.reshape(b.shape)
@@ -232,7 +236,7 @@ class PersistentDeviceFactorMI(PersistentDeviceFactor):
         self._free_m[M] = 0.0
         U_T = torch.zeros(free.shape[0], M, dtype=DTYPE, device=dev)
         U_T[self._urows, torch.arange(M, device=dev)] = 1.0
-        self._W = self._chol_solve(U_T)
+        self._W = self._fac_solve(U_T)
         self._G = self._W[self._urows]
         self._Km_ref = self._compact_K(H_i, tab)
         self._V = None

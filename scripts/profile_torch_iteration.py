@@ -42,13 +42,21 @@ CUDA modules), one cold coupled evaluation with its gradient from d = 0
 h0 + 1e-4 v from the cold d untimed, then one at h0 + 2e-4 v; each of the
 two profiled under torch.profiler.
 
+--press: the two-plate contact press at num_el=32 (chip_smoke.py phase 21:
+N = 6936, contact through kernel K12): after an untimed run of the whole
+path at num_el=6 (it loads the CUDA modules), the cold continuation (4
+levels from d = 0, one persistent Cholesky factor), then, with
+`build_solve_fn` warm at the equilibrium, an untimed value and adjoint
+gradient of W_int at h0, then one at h0 + 1e-4 v; the continuation and
+the last evaluation each under torch.profiler.
+
 For each profiled iteration it prints the wall time, the device-busy time
 (union of kernel, memcpy and memset intervals), the idle share, and the
 top device operations by self time. Chrome traces go to
 <trace_dir>/profile_<tag>.json (a fresh temporary directory by default).
 
     python scripts/profile_torch_iteration.py [trace_dir]
-        [--mi | --tube | --plate | --pegasus | --vlm]
+        [--mi | --tube | --plate | --pegasus | --vlm | --press]
 """
 
 from __future__ import annotations
@@ -283,6 +291,61 @@ def main_vlm(out):
                f"{fac.n_factor - nf}")
 
 
+def main_press(out):
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import press_path, press_problem
+    from goldfish_tpu_torch import _cuda
+    from goldfish_tpu_torch.physics import kl_shell
+    from goldfish_tpu_torch.solver.devicechol import PersistentDeviceFactor
+    from goldfish_tpu_torch.solver.implicit import (
+        build_solve_fn,
+        continuation_solve,
+    )
+
+    dev = torch.device("cuda", 0)
+    _cuda.library()
+    press_path(press_problem(6, dev))
+    s = press_problem(32, dev)
+    data = s.data
+    fac = PersistentDeviceFactor(data)
+    log = []
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d, _, _ = continuation_solve(data, s.cp, s.h_init,
+                                     s.zero_displacement(), n_steps=4,
+                                     rtol=1e-9, max_it=40, fac=fac, log=log)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    report("press_continuation", prof, wall, out,
+           f"Newton its per level {[i for i, _ in log]}, factorizations "
+           f"{fac.n_factor} (failed {fac.n_factor_failed})")
+    solve = build_solve_fn(data, rtol=1e-10, max_it=60)
+    v = torch.tensor(np.random.default_rng(3).normal(
+        size=tuple(s.h_init.shape)), device=dev) * s.stack.cp_mask
+
+    def evaluate(h):
+        hh = h.clone().requires_grad_(True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kl_shell.internal_energy(s.stack, solve(s.cp, hh, d), s.cp, hh,
+                                 s.E, s.nu).backward()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    evaluate(s.h_init)
+    nf = solve.device_factor.n_factor
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall = evaluate(s.h_init + 1e-4 * v)
+    report("press_adjoint", prof, wall, out,
+           f"newton its {solve.solver.last_its}, factorizations "
+           f"{solve.device_factor.n_factor - nf}")
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: this profile needs one GPU")
@@ -290,7 +353,7 @@ def main():
 
     args = [a for a in sys.argv[1:] if a not in ("--mi", "--tube",
                                                    "--plate", "--pegasus",
-                                                   "--vlm")]
+                                                   "--vlm", "--press")]
     out = args[0] if args else tempfile.mkdtemp()
     os.makedirs(out, exist_ok=True)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -304,6 +367,8 @@ def main():
         return main_pegasus(out)
     if "--vlm" in sys.argv[1:]:
         return main_vlm(out)
+    if "--press" in sys.argv[1:]:
+        return main_press(out)
 
     from chip_smoke import make_iteration
     from goldfish_tpu_torch.design.pipeline import ThicknessFFD

@@ -252,3 +252,61 @@ def plate_state(seed=0):
     d_noisy = d + 1e-3 * np.abs(d).max() * rng.normal(size=d.shape) * free
     gbar = rng.normal(size=tuple(s.stack.wq.shape))
     return s.cp.numpy(), s.h_init.numpy(), d, d_noisy, gbar
+
+
+# The two-plate contact press of tests/test_contact.py (`_press_problem`: a
+# plate at z = 0.12 under q = 120 pressed onto one at z = 0, both clamped
+# on two sides, contact (0, 1) with k_pen = 1e7 and r_max = 0.1) and the
+# shallow cylindrical panel of tests/test_riks.py, built by the port from
+# its own cadkit (the JAX package has no model module for either).
+def port_press(num_el=4, p=2, q=120.0, k_pen=1e7, device="cpu"):
+    from goldfish_tpu_torch.geometry.cadkit import bilinear
+    from goldfish_tpu_torch.solver.system import NonMatchingSystem
+
+    def plate_at(z):
+        s = bilinear([0, 0, z], [1, 0, z], [0, 1, z], [1, 1, z])
+        s = s.elevate(0, p - 1).elevate(1, p - 1)
+        nk = np.linspace(0, 1, num_el + 1)[1:-1]
+        return s.refine(0, nk).refine(1, nk)
+
+    s = NonMatchingSystem([plate_at(0.12), plate_at(0.0)], E=1e7, nu=0.3,
+                          h_th=0.01, device=device)
+    for side in (0, 1):
+        s.add_side_bc(0, direction=1, side=side, n_layers=2)
+        s.add_side_bc(1, direction=1, side=side, n_layers=2)
+    s.set_dead_load([[0, 0, -q], [0, 0, 0]])
+    s.set_contact([(0, 1)], k_pen=k_pen, r_max=0.1)
+    return s
+
+
+def press_state(system, seed=0, drop=0.03):
+    """(cp, h, d, lam, v) as numpy on a press: d moves the upper plate down
+    by `drop` (into contact range) plus seeded noise at 1e-3 on free dofs;
+    lam and v standard normal."""
+    def host(a):
+        if isinstance(a, torch.Tensor):
+            a = a.detach().cpu()
+        return np.asarray(a, dtype=np.float64)
+
+    cp, free = host(system.cp), host(system.data.free)
+    rng = np.random.default_rng(seed)
+    d = np.zeros_like(cp)
+    d[0, :, 2] -= drop
+    d = d + 1e-3 * rng.normal(size=cp.shape) * free
+    return (cp, host(system.h_init), d, rng.normal(size=cp.shape),
+            rng.normal(size=cp.shape))
+
+
+def port_panel(num_el=6, p=2, device="cpu"):
+    from goldfish_tpu_torch.geometry.cadkit import circle, extrude
+    from goldfish_tpu_torch.solver.system import NonMatchingSystem
+
+    arc = circle(radius=2540.0, angle=(np.pi / 2 - 0.1, np.pi / 2 + 0.1))
+    surf = extrude(arc, (0.0, 0.0, 508.0)).elevate(0, p - 2).elevate(1, p - 1)
+    kn = np.linspace(0, 1, num_el + 1)[1:-1]
+    surf = surf.refine(0, kn).refine(1, kn)
+    s = NonMatchingSystem([surf], 3102.75, 0.3, 12.7, device=device)
+    s.add_side_bc(0, direction=0, side=0, n_layers=1)
+    s.add_side_bc(0, direction=0, side=1, n_layers=1)
+    s.add_point_load(0, [0.5, 0.5], [0.0, -4000.0, 0.0])
+    return s

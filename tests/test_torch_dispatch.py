@@ -12,6 +12,8 @@ from _torch_port_common import (
     MI_SMALL,
     WING_SMALL,
     port_data,
+    port_press,
+    press_state,
     rel,
     seeded_state,
     t,
@@ -103,6 +105,38 @@ def _vlm_calls(colloc, nhat, A, B, wake, gbar):
     }
 
 
+def _contact_calls(device):
+    """K12's three modes on the small press (num_el=3) at a contact-active
+    seeded state."""
+    from goldfish_tpu_torch.physics import contact
+    from goldfish_tpu_torch.solver import system
+
+    s = port_press(num_el=3, device=device)
+    cp, _, d, _, v = press_state(s, seed=7)
+
+    def to(a):
+        return t(a).to(device)
+
+    c = s.data.contact
+    x, w = (a.contiguous() for a in contact.contact_qps(s.stack, to(d),
+                                                        to(cp)))
+    vq = contact.qp_field(s.stack, to(v)).contiguous()
+    tabs = system.jet_tables(s.data)
+
+    def hess():
+        N = tabs.free.numel()
+        K = torch.zeros(N, N, dtype=torch.float64, device=device)
+        return (contact.contact_hess(K, c, x, w, tabs.R_c, tabs.gi_e,
+                                     tabs.free), K)
+
+    return {
+        "contact_pairs/value_grad": lambda: contact.contact_value_grad(c, x,
+                                                                       w),
+        "contact_pairs/hvp": lambda: contact.contact_hvp(c, x, w, vq),
+        "contact_pairs/hess": hess,
+    }
+
+
 def _calls(data, d, cp, h, lam, v):
     from goldfish_tpu_torch.physics import coupling, kl_shell, loads
     from goldfish_tpu_torch.solver import system
@@ -148,6 +182,7 @@ def test_cpu_tensors_take_the_plain_path():
     s = tbeam.build_mi(**MI_SMALL, device="cpu")
     calls.update(_mi_calls(s, *_mi_inputs(s, t)))
     calls.update(_vlm_calls(*_vlm_inputs(t)))
+    calls.update(_contact_calls("cpu"))
     assert set(calls) == set(_cuda.COUNTERS)
     for fn in calls.values():
         fn()
@@ -203,6 +238,14 @@ def test_wrong_inputs_raise(bad):
     with pytest.raises(err):
         vlm.aic_vjp(colloc, nhat, A, B, wake,
                     gbar.float() if bad == "dtype" else gbar[:, :-1])
+    from goldfish_tpu_torch.physics import contact
+
+    s = port_press(num_el=3)
+    cp_p, _, d_p, _, _ = press_state(s)
+    x, w = contact.contact_qps(s.stack, t(d_p), t(cp_p))
+    with pytest.raises(err):
+        contact.contact_hvp(s.data.contact, x, w,
+                            x.float() if bad == "dtype" else x[:, :-1])
 
 
 def test_entry_points_default_to_cuda_or_raise(monkeypatch):
@@ -271,6 +314,8 @@ def test_cuda_kernels_match_plain_versions():
     ref.update(_mi_calls(s_cpu, *_mi_inputs(s_cpu, t)))
     calls.update(_vlm_calls(*_vlm_inputs(g)))
     ref.update(_vlm_calls(*_vlm_inputs(t)))
+    calls.update(_contact_calls(dev))
+    ref.update(_contact_calls("cpu"))
     for name, fn in calls.items():
         a, b = fn(), ref[name]()
         a = a if isinstance(a, tuple) else (a,)

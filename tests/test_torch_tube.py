@@ -6,21 +6,33 @@ demos/tube_shape_opt.py (the moving-seam demo is test_torch_tube_mi.py's):
 - J and dJ/dp at p0 from d = 0 (J 1e-10, dJ/dp 1e-6, and the port's own
   central difference), then `run_slsqp(maxiter=2)` against the JAX
   `OptProblem` on the same problem (the JAX demo's constraints and
-  bounds): the same nit, nfev and njev, x 1e-6 and fun 1e-8;
+  bounds): the same nit, nfev and njev, x 1e-6 and fun 1e-8. The JAX
+  package's numbers are read from
+  tests/data/torch_port_tube_small_reference.json
+  (scripts/torch_port_tube_small_reference.py);
 - `OptProblem` on an analytic problem (quadratic objective, a linear
   equality, a nonlinear inequality, a threaded state): the same iterates,
   `nit`, `nfev` and `njev` as the JAX package's.
 
 CPU runs launch no kernel."""
 
-import jax
+import json
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from _torch_port_common import SLICE_PRESSURE, TUBE_SMALL, jax_fixed_tube, \
-    rel
+from _torch_port_common import SLICE_PRESSURE, TUBE_SMALL, rel
+
+REF = os.path.join(os.path.dirname(__file__), "data",
+                   "torch_port_tube_small_reference.json")
+
+
+def _ref(part):
+    with open(REF) as fh:
+        return json.load(fh)[part]
 
 
 def _port_value_and_grad(ns, name, x0):
@@ -34,10 +46,8 @@ def test_fixed_seam_objective_and_gradient_match_jax():
     from goldfish_tpu_torch import _cuda
     from goldfish_tpu_torch.demos import tube_shape_opt as demo
 
-    s, ffd, obj, p0 = jax_fixed_tube()
-    (J_ref, _), g_ref = jax.jit(jax.value_and_grad(
-        lambda p: obj(p, s.zero_displacement()), has_aux=True))(
-            jnp.asarray(p0))
+    ref = _ref("fixed")
+    p0, J_ref, g_ref = np.asarray(ref["p0"]), ref["J"], ref["dJ_dp"]
     _cuda.reset_launch_counts()
     ns = demo.setup(**TUBE_SMALL, device="cpu", pressure=SLICE_PRESSURE)
     assert np.array_equal(ns.p0, p0)
@@ -50,45 +60,25 @@ def test_fixed_seam_objective_and_gradient_match_jax():
     u /= np.linalg.norm(u)
     eps = 1e-5
     with torch.no_grad():
-        Jp, Jm = (float(ns.obj({"p_xy": torch.tensor(ns.p0 + s_ * eps * u)},
+        Jp, Jm = (float(ns.obj({"p_xy": torch.tensor(ns.p0 + k * eps * u)},
                                d)[0])
-                  for s_ in (1.0, -1.0))
+                  for k in (1.0, -1.0))
     fd = (Jp - Jm) / (2 * eps)
     assert abs(fd - g @ u) <= 1e-5 * np.linalg.norm(g)
     assert all(n == 0 for n in _cuda.launch_counts.values())
 
 
-def _jax_problem(ns):
-    """The JAX demo's OptProblem (demos/tube_shape_opt.py main) on the JAX
-    objective, with the port's constraint operators (which
-    test_torch_host_builders.py holds equal to the JAX package's)."""
-    from goldfish_tpu.opt.problem import OptProblem
-    from goldfish_tpu_torch.models import tube
-
-    s, _, obj, p0 = jax_fixed_tube()
-    R = tube.RADIUS
-    prob = OptProblem()
-    prob.add_design_var("p_xy", p0, lower=p0 - 0.45 * R, upper=p0 + 0.45 * R)
-    prob.set_objective(lambda dvs, d0: obj(dvs["p_xy"], d0), scaler=1.0,
-                       state0=s.zero_displacement())
-    prob.add_constraint("pin", lambda dvs: jnp.asarray(ns.P) @ dvs["p_xy"],
-                        equals=np.asarray(ns.P @ p0))
-    prob.add_constraint("regu", lambda dvs: jnp.asarray(ns.D) @ dvs["p_xy"],
-                        lower=1e-3)
-    return prob
-
-
 def test_fixed_seam_slsqp_matches_jax():
     from goldfish_tpu_torch.demos import tube_shape_opt as demo
 
+    ref = _ref("fixed_slsqp")
     ns = demo.setup(**TUBE_SMALL, device="cpu", pressure=SLICE_PRESSURE)
-    res_j = _jax_problem(ns).run_slsqp(maxiter=2, tol=1e-14)
     res = ns.prob.run_slsqp(maxiter=2, tol=1e-14)
-    assert (res.nit, res.nfev, res.njev) == (res_j.nit, res_j.nfev,
-                                             res_j.njev)
-    assert rel(res.x["p_xy"], res_j.x["p_xy"]) <= 1e-6
-    assert abs(res.fun - res_j.fun) <= 1e-8 * abs(res_j.fun)
-    assert np.allclose(res.history, res_j.history, rtol=1e-8, atol=0)
+    assert (res.nit, res.nfev, res.njev) == (ref["nit"], ref["nfev"],
+                                             ref["njev"])
+    assert rel(res.x["p_xy"], ref["x"]) <= 1e-6
+    assert abs(res.fun - ref["fun"]) <= 1e-8 * abs(ref["fun"])
+    assert np.allclose(res.history, ref["history"], rtol=1e-8, atol=0)
     assert res.history[-1] < res.history[0] \
         and ns.solve.device_factor.n_factor_failed == 0
 

@@ -2,16 +2,22 @@
 goldfish_tpu_torch/demos/draft_tube_shopt_mi_wffd.py on the small tube
 (num_el=3, p=3, follower pressure 5e2, four seams of 9 points): J and dJ/dp
 at the ovalized start from d = 0 against `jax.value_and_grad` of the JAX
-demo's objective (direct mode; J 1e-10, dJ/dp 1e-6), and the port's own
+demo's objective (direct mode; J 1e-10, dJ/dp 1e-6; the JAX package's
+numbers are read from tests/data/torch_port_tube_small_reference.json,
+written by scripts/torch_port_tube_small_reference.py), and the port's own
 `run_slsqp(maxiter=2)`, which must end below the start's J (SLSQP's
 first step overshoots, as in the JAX package) and hold the pin to 1e-10."""
 
-import jax
-import jax.numpy as jnp
+import json
+import os
+
 import numpy as np
 import torch
 
-from _torch_port_common import SLICE_PRESSURE, TUBE_SMALL, jax_mi_tube, rel
+from _torch_port_common import SLICE_PRESSURE, TUBE_SMALL, rel
+
+REF = os.path.join(os.path.dirname(__file__), "data",
+                   "torch_port_tube_small_reference.json")
 
 
 def _port_value_and_grad(ns, name, x0):
@@ -22,24 +28,12 @@ def _port_value_and_grad(ns, name, x0):
 
 
 def test_moving_seam_objective_and_gradient_match_jax():
-    from goldfish_tpu.physics import kl_shell
-    from goldfish_tpu.solver import linalg
     from goldfish_tpu_torch.demos import draft_tube_shopt_mi_wffd as demo
 
-    s, sh, p0, p_start = jax_mi_tube()
-    linalg.set_mode("direct")
-    try:
-        forward = s.build_forward(rtol=1e-9, max_it=25)
-
-        def J_of(p):
-            cp = sh(p)
-            d, _ = forward(cp, s.h_init, s.zero_displacement())
-            return kl_shell.internal_energy(s.stack, d, cp, s.h_init, s.E,
-                                            s.nu)
-
-        J_ref, g_ref = jax.value_and_grad(J_of)(jnp.asarray(p_start))
-    finally:
-        linalg.set_mode(None)
+    with open(REF) as fh:
+        ref = json.load(fh)["mi"]
+    p_start, J_ref, g_ref = np.asarray(ref["p_start"]), ref["J"], \
+        ref["dJ_dp"]
     ns = demo.setup(**TUBE_SMALL, device="cpu",
                     pressure=SLICE_PRESSURE)
     assert np.array_equal(ns.p_start, p_start)
