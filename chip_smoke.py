@@ -7,12 +7,18 @@ Phases (any failure raises: non-zero exit, no result line):
 1. device: a CUDA card must be present; prints its name and power limit
    (nvidia-smi) and turns TF32 off;
 2. build: nvcc-compiles goldfish_tpu_torch/csrc/*.cu into
-   goldfish_tpu_torch/_build/ (first use) and prints the ptxas summary;
+   goldfish_tpu_torch/_build/ (first use) and prints the ptxas summary,
+   then the registers and spill bytes of K1's Hessian mode and of every
+   K4 instantiation (it fails if K1's Hessian mode spills);
 3. wing kernels: at the full 20-patch wing (6600 dofs) on the card, at a
    seeded nonzero d, K1 shell_qp and K2 penalty_qp in their three modes,
    K3 jet_assemble and K4 jet_matvec against their plain PyTorch versions
    (relative error in norm <= 1e-11; f64 atomics sum in a run-dependent
-   order), with both times;
+   order), with both times; K4 also timed with the L2 flushed before each
+   launch (`ms_cold`: in a solver loop its 48.8 MB of jets come from device
+   memory), K1's Hessian mode with the bound of its own structured
+   algorithm and, beside it, the 15-column yardstick of the kernel it
+   replaced (`bound_ms_15col`);
 4. wing main path: one thickness-optimization iteration of bench.py's
    workload (cold, with the adjoint gradient), checked against the JAX
    package's CPU f64 numbers in tests/data/torch_port_wing20_reference.json
@@ -140,10 +146,11 @@ Phases (any failure raises: non-zero exit, no result line):
    `lu_factor_ex` at N = 2028 beside its bound.
 
 Launch counters, reset just before each main path and read just after,
-prove that the path went through its kernels. The line before the last is
-the kernels' JSON record (`launches` sums the main paths; the probe's
-launches stand apart under `launches_pegasus_probe`); the last line is
-{"ok": true, "device": {...}}.
+prove that the path went through its kernels; after each path the group
+shapes K4 ran at are printed with the instantiation that served them. The
+line before the last is the kernels' JSON record (`launches` sums the main
+paths; the probe's launches stand apart under `launches_pegasus_probe`);
+the last line is {"ok": true, "device": {...}}.
 Imports nothing of JAX.
 """
 
@@ -151,6 +158,8 @@ from __future__ import annotations
 
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -193,9 +202,19 @@ def say(msg):
 
 
 def cuda_ms(fn, reps):
-    """Mean device time of fn() over `reps` launches (CUDA events)."""
+    """Mean device time of fn() over `reps` launches (CUDA events). Where
+    one call takes the host less than 2 ms, the card first spins
+    (torch.cuda._sleep) for twice the host's time to enqueue the launches,
+    so that they run back to back: the wrapper's own host time (its checks
+    and the ctypes call, ~15-30 us) is not counted as device time."""
     fn()
     torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    host = time.perf_counter() - t
+    torch.cuda.synchronize()
+    if host < 2e-3:
+        torch.cuda._sleep(int(min(2.0 * reps * host + 1e-4, 0.05) * 2e9))
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
@@ -204,6 +223,37 @@ def cuda_ms(fn, reps):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+_FLUSH = []
+
+
+def cuda_ms_cold(fn, reps):
+    """Median device time of fn() over `reps` launches (CUDA events), each
+    after writing a 256 MB scratch tensor (5x the 50 MB L2) outside the
+    timed window, so that fn reads its inputs from device memory as it
+    does in a solver loop between factor substitutions. While the card
+    writes, the host enqueues fn, so its host time is not counted."""
+    if not _FLUSH:
+        _FLUSH.append(torch.empty(2 ** 25, dtype=torch.float64,
+                                  device="cuda"))
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(reps):
+        _FLUSH[0].fill_(1.0)
+        t0.record()
+        fn()
+        t1.record()
+        torch.cuda.synchronize()
+        times.append(t0.elapsed_time(t1))
+    return float(np.median(times))
+
+
+# kernels also timed with the L2 flushed before each launch
+COLD_TIMED = ("jet_matvec",)
 
 
 def rel_err(a, b):
@@ -251,10 +301,44 @@ def phase_build():
     say(f"[build] kernels ready in {time.perf_counter() - t0:.1f} s "
         f"(built={_cuda.build_info['built']}) -> {_cuda.build_info['path']}")
     with open(_cuda.build_info["ptxas_log"]) as fh:
-        for line in fh:
-            if "Compiling entry" in line or "spill" in line \
-                    or "Used" in line:
-                say("[ptxas] " + line.strip())
+        log = fh.read()
+    for line in log.splitlines():
+        if "Compiling entry" in line or "spill" in line or "Used" in line:
+            say("[ptxas] " + line.strip())
+    spills = ptxas_spills(log)
+    for name, (regs, st, ld) in spills.items():
+        if "shell_hess" in name or "jet_matvec" in name:
+            say(f"[ptxas-redesigned] {name}: {regs} registers, spill "
+                f"stores {st} B, spill loads {ld} B")
+    hess = [v for k, v in spills.items() if "shell_hess" in k]
+    if not hess or any(st or ld for _, st, ld in hess):
+        raise RuntimeError(f"K1 shell_hess spills or is missing: {hess}")
+
+
+def ptxas_spills(log):
+    """{kernel: (registers, spill store bytes, spill load bytes)} of every
+    entry function in an `nvcc -Xptxas -v` log (names demangled where
+    c++filt exists)."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = m.group(1)
+            out[cur] = [0, 0, 0]
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur in out:
+            out[cur][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur in out:
+            out[cur][0] = int(m.group(1))
+    if shutil.which("c++filt") and out:
+        names = subprocess.run(["c++filt"], input="\n".join(out),
+                               capture_output=True, text=True).stdout.split(
+            "\n")
+        out = {n.strip() or k: v for n, k, v in zip(names, out, out.values())}
+    return {k: tuple(v) for k, v in out.items()}
 
 
 # name, source, replaced JAX device program (file:line)
@@ -390,10 +474,17 @@ def fixed_cases(data, d, cp, h, lam, v):
     if Hs[2] is not None:
         asm += 18 * g_e * L * L * Q * 9
         mv += g_e * Q * (12 * 3 * L + 162)
+    # K1 mode b's structured algorithm (its bound): the jets once a qp, 6
+    # columns of a tangent reverse sweep (~6 density evaluations each), the
+    # 81 s-s entries; the 15-column dual-over-dual count of the kernel it
+    # replaced stays beside it as a yardstick (`bound_ms_15col`)
+    hess_structured = nqp * (jets_s + 6 * 6 * DENS_SHELL + 3 * 81)
     base = [d, cp, h, E, nu, data.free]
     shell_in = base + list(st)
     pen_in = base + list(ifs)
     jet_in = list(tables) + list(Hs)
+    # K4 reads every group's H, R and dof map once, free and v
+    mv_in = list({id(t): t for grp in groups for t in grp}.values()) + [free]
     return {
         "shell_qp/value_grad": (
             lambda: kl_shell.shell_value_grad(st, d, cp, h, E, nu),
@@ -402,7 +493,8 @@ def fixed_cases(data, d, cp, h, lam, v):
         "shell_qp/hess": (
             lambda: kl_shell.shell_hessians(st, d, cp, h, E, nu),
             lambda: kl_shell._hessians_plain(st, d, cp, h, E, nu),
-            nqp * 15 * (jets_s + 32 * DENS_SHELL), shell_in),
+            hess_structured, shell_in,
+            {"flops_15col": nqp * 15 * (jets_s + 32 * DENS_SHELL)}),
         "shell_qp/adjoint": (
             lambda: kl_shell.shell_adjoint(st, d, cp, h, E, nu, lam),
             lambda: kl_shell._adjoint_plain(st, d, cp, h, E, nu, lam),
@@ -424,7 +516,7 @@ def fixed_cases(data, d, cp, h, lam, v):
                          jet_in),
         "jet_matvec": (lambda: matvec(system.jet_matvec),
                        lambda: matvec(system._matvec_plain), mv,
-                       jet_in + [v]),
+                       mv_in + [v]),
     }
 
 
@@ -460,9 +552,13 @@ def check_kernels(cases, tag, reps=5, tol=None):
     """Compare every kernel with its plain version (relative error in norm
     <= tol[name], default KERNEL_TOL); returns {name: dict} with the
     relative and max abs error, both times and the bound. A case may add
-    the f64 rate of its bound as a fifth entry (default PEAK_F64)."""
+    the f64 rate of its bound (default PEAK_F64) and a dict whose
+    "flops_15col" gives a second bound, `bound_ms_15col`. The
+    kernels of COLD_TIMED add `ms_cold`."""
     out = {}
-    for name, (kern, plain, flops, inputs, *peak) in cases.items():
+    for name, (kern, plain, flops, inputs, *opt) in cases.items():
+        peak = [o for o in opt if isinstance(o, float)]
+        extra = next((o for o in opt if isinstance(o, dict)), {})
         a, b = kern(), plain()
         torch.cuda.synchronize()
         a = a if isinstance(a, tuple) else (a,)
@@ -478,15 +574,22 @@ def check_kernels(cases, tag, reps=5, tol=None):
         ms = cuda_ms(kern, reps)
         plain_ms = cuda_ms(plain, max(1, reps // 2))
         b_ms, b_by = bound(nbytes(*inputs, *a), flops, *peak)
+        more = {}
+        if name in COLD_TIMED:
+            more["ms_cold"] = cuda_ms_cold(kern, reps)
+        if "flops_15col" in extra:
+            more["bound_ms_15col"] = bound(
+                nbytes(*inputs, *a), extra["flops_15col"], *peak)[0]
         say(f"[{tag}] {name:22s} rel {rel:.3e} max_abs {mx:.3e} "
             f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
-            f"bound {b_ms:.4f} ms ({b_by})")
+            f"bound {b_ms:.4f} ms ({b_by})"
+            + "".join(f" {k} {v:.4f}" for k, v in more.items()))
         gate = (tol or {}).get(name, KERNEL_TOL)
         if not rel <= gate:
             raise RuntimeError(f"{name}: kernel vs plain rel err {rel:.3e} "
                                f"> {gate:g}")
         out[name] = dict(rel=rel, max_abs_err=mx, ms=ms, plain_ms=plain_ms,
-                         bound_ms=b_ms, bound_by=b_by)
+                         bound_ms=b_ms, bound_by=b_by, **more)
     return out
 
 
@@ -549,7 +652,7 @@ def phase_main_path(sys_, dev):
     h0 = torch.tensor(th.init_h_ffd(wing.H_TH), dtype=torch.float64,
                       device=dev)
 
-    _cuda.reset_launch_counts()
+    reset_counts()
     J, d, g, t_cold = run(h0, sys_.zero_displacement())
     eJ = abs(float(J) - ref["J"]) / abs(ref["J"])
     g_ref = torch.tensor(ref["dJ_dh_ffd"], dtype=torch.float64)
@@ -574,6 +677,7 @@ def phase_main_path(sys_, dev):
     h_big = h0 * (1.0 + 1e-2)
     Jb, db, gb, t_ref = run(h_big, ws.predict(h_big, d))
     counts = dict(_cuda.launch_counts)
+    say_shapes("main")
     say(f"[main] refactor iteration (1e-2) {t_ref:.3f} s J={float(Jb)!r} "
         f"newton its {solve.solver.last_its}")
     say(f"[main] warm median {float(np.median(warm)):.3f} s; "
@@ -793,7 +897,8 @@ def merge(checks, name, got, suffix=None):
     prev["max_abs_err"] = max(got["max_abs_err"], prev["max_abs_err"])
     if suffix:
         prev.update({f"{k}_{suffix}": got[k]
-                     for k in ("ms", "plain_ms", "bound_ms")})
+                     for k in ("ms", "plain_ms", "bound_ms", "ms_cold",
+                               "bound_ms_15col") if k in got})
 
 
 def phase_mi_kernels(sys_, checks, reps=5, tube=False):
@@ -892,7 +997,7 @@ def phase_mi_main(sys_, dev):
     iteration, forward = make_mi_iteration(sys_, dev)
     fac = forward.solve_d.device_factor
     xi_start = sys_.c2x.xi0_flat
-    _cuda.reset_launch_counts()
+    reset_counts()
     J, g, d, xi, t_cold = iteration(0.05, sys_.zero_displacement(), None)
     eJ = abs(J - ref["J"]) / abs(ref["J"])
     eg = abs(g - ref["dJ_damp"]) / abs(ref["dJ_damp"])
@@ -925,6 +1030,7 @@ def phase_mi_main(sys_, dev):
             f"newton its {forward.solve_d.solver.last_its} xi-newton its "
             f"{sys_.c2x.last_its}")
     counts = dict(_cuda.launch_counts)
+    say_shapes("mi")
     say(f"[mi] warm median {float(np.median(warm)):.3f} s; n_factor "
         f"{fac.n_factor} (failed {fac.n_factor_failed}); seam subspace M "
         f"{fac._M}")
@@ -1074,6 +1180,49 @@ def report_slsqp(tag, prob, res, fac, J_start, A_pin, p0, x):
                            f"{J_start!r}) or broke the pin ({pin:.3e})")
 
 
+# K4 group shape (nq, nj, nloc) -> launches since the last reset_counts()
+K4_SHAPES: dict = {}
+
+
+def record_k4_shapes():
+    """Wrap system.jet_matvec, through which every K4 launch of the
+    package goes, so that the smoke sees the group shapes K4 runs at
+    (say_shapes prints them); the kernel's launch count is untouched."""
+    from goldfish_tpu_torch.solver import system
+
+    inner = system.jet_matvec
+
+    def jet_matvec(y, H, R, gi, free, v):
+        out = inner(y, H, R, gi, free, v)
+        if H.is_cuda:
+            sh = tuple(R.shape[1:])
+            K4_SHAPES[sh] = K4_SHAPES.get(sh, 0) + 1
+        return out
+
+    system.jet_matvec = jet_matvec
+
+
+def reset_counts():
+    """Zero the kernels' launch counts and the recorded K4 shapes."""
+    from goldfish_tpu_torch import _cuda
+
+    _cuda.reset_launch_counts()
+    K4_SHAPES.clear()
+
+
+def say_shapes(tag):
+    """Print the group shapes (nq, nj, nloc) K4 ran at since the last
+    reset_counts(), each with the instantiation that served it (the index
+    of its compile-time shape, -1 the runtime-shape one) and its
+    launches."""
+    from goldfish_tpu_torch import _cuda
+
+    variant = _cuda.library().gf_jet_matvec_variant
+    say(f"[{tag}] K4 shapes: " + ("; ".join(
+        f"{sh} variant {variant(*sh)} x{n}"
+        for sh, n in sorted(K4_SHAPES.items())) or "none"))
+
+
 def check_counts(tag, counts, needed):
     say(f"[{tag}] launch counts {counts}")
     missing = [k for k in needed if counts[k] == 0]
@@ -1114,11 +1263,12 @@ def phase_tube_fixed(dev, checks, ref):
     torch.cuda.empty_cache()
 
     fac = ns.solve.device_factor
-    _cuda.reset_launch_counts()
+    reset_counts()
     J0, g0, dt = cold_gradient(ns.obj, "p_xy", ns.p0, s, dev)
     check_cold("tube", J0, g0, dt, ref["fixed"])
     res = ns.prob.run_slsqp(maxiter=3, tol=1e-14)
     counts = dict(_cuda.launch_counts)
+    say_shapes("tube")
     x = res.x["p_xy"]
     report_slsqp("tube", ns.prob, res, fac, J0, ns.P, ns.p0, x)
     slack = float((ns.D @ x).min() - 1e-3)
@@ -1149,13 +1299,14 @@ def phase_tube_mi(dev, checks, ref):
     torch.cuda.empty_cache()
 
     fac = ns.forward.solve_d.device_factor
-    _cuda.reset_launch_counts()
+    reset_counts()
     J0, g0, dt = cold_gradient(ns.obj, "p_ffd", ns.p_start, s, dev)
     check_cold("tube-mi", J0, g0, dt, ref["mi"])
     say(f"[tube-mi] xi-newton its {s.c2x.last_its}; seam subspace M "
         f"{fac._M}")
     res = ns.prob.run_slsqp(maxiter=3, tol=1e-12)
     counts = dict(_cuda.launch_counts)
+    say_shapes("tube-mi")
     report_slsqp("tube-mi", ns.prob, res, fac, J0, ns.A_pin2, ns.p0,
                  res.x["p_ffd"])
     say(f"[tube-mi] xi-newton its of the last solve {s.c2x.last_its}; "
@@ -1260,7 +1411,7 @@ def phase_plate(dev, checks, ref):
     op = prob.model._subs["disp_states_comp"].op
     fac = op.factor
     comp = prob.model._subs["max_vmstress_comp"]
-    _cuda.reset_launch_counts()
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     prob.run_model()
@@ -1292,6 +1443,7 @@ def phase_plate(dev, checks, ref):
     out = demo.run(prob)
     wall = time.perf_counter() - t0
     counts = dict(_cuda.launch_counts)
+    say_shapes("plate")
     res, log = out.result, out.log
     say(f"[plate] slsqp {wall:.2f} s: nit {res.nit} nfev {res.nfev} njev "
         f"{res.njev}; {res.message}")
@@ -1430,7 +1582,7 @@ def phase_pegasus_dense(dev, ref):
 
     ns = demo.setup(**PEG, route="dense", device=dev)
     s, fac = ns.sys, ns.solve.device_factor
-    _cuda.reset_launch_counts()
+    reset_counts()
     x0 = np.asarray(ns.x0)
     J, g, d, dt = evaluate(ns.obj, "h_ffd", x0, s.zero_displacement(), dev)
     check_cold("pegasus-dense", J, g, dt, ref["ffd"], key="grad")
@@ -1447,6 +1599,7 @@ def phase_pegasus_dense(dev, ref):
         say(f"[pegasus-dense] warm step {k}/3 {dtk:.3f} s J={Jk!r} newton "
             f"its {ns.solve.solver.last_its}")
     counts = dict(_cuda.launch_counts)
+    say_shapes("pegasus-dense")
     say(f"[pegasus-dense] warm median {float(np.median(warm)):.3f} s; "
         f"n_factor {fac.n_factor} (failed {fac.n_factor_failed}); "
         f"refactor_log {fac.refactor_log}")
@@ -1576,11 +1729,12 @@ def phase_pegasus_krylov(dev, ref):
     ns = demo.setup(**PEG, route="krylov", device=dev)
     s = ns.sys
     sv = ns.solve.solver
-    _cuda.reset_launch_counts()
+    reset_counts()
     pre = gmres_probe(ns, dev)
     probe = dict(_cuda.launch_counts)
+    say_shapes("pegasus-probe")
     check_counts("pegasus-probe", probe, PEG_PROBE_KERNELS)
-    _cuda.reset_launch_counts()
+    reset_counts()
     x0 = np.asarray(ns.x0)
     J0, g, d, dt = evaluate(ns.obj, "h_ffd", x0, s.zero_displacement(), dev)
     say(f"[pegasus-krylov] cold Newton (it, |r|, alpha, GMRES cycles) "
@@ -1597,6 +1751,7 @@ def phase_pegasus_krylov(dev, ref):
     res = ns.prob.run_slsqp(maxiter=3, tol=1e-12)
     wall = time.perf_counter() - t0
     counts = dict(_cuda.launch_counts)
+    say_shapes("pegasus-krylov")
     with torch.no_grad():
         V1 = float(ns.vol({"h_ffd": torch.tensor(res.x["h_ffd"],
                                                  dtype=torch.float64,
@@ -1765,7 +1920,7 @@ def phase_slr(dev, ref):
     from goldfish_tpu_torch import _cuda
     from goldfish_tpu_torch.models import slr
 
-    _cuda.reset_launch_counts()
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     qoi, d, s = slr.solve_qoi(num_el=ref["num_el"],
@@ -1773,6 +1928,7 @@ def phase_slr(dev, ref):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = dict(_cuda.launch_counts)
+    say_shapes("slr")
     e_pub = abs(qoi - slr.QOI_REF) / slr.QOI_REF
     e_ref = abs(qoi - ref["qoi"]) / ref["qoi"]
     scale = ref["load_scale"]
@@ -2003,9 +2159,10 @@ def phase_press(dev, checks, ref, got16):
     P, C = s.stack.n_patches, s.stack.max_cp
     say(f"[setup] press num_el=32: P={P} C={C} N={P * C * 3} stack "
         f"{tuple(s.stack.R00.shape)}")
-    _cuda.reset_launch_counts()
+    reset_counts()
     out = press_path(s)
     counts = dict(_cuda.launch_counts)
+    say_shapes("press")
     fac = out["fac"]
     say(f"[press32] continuation (cold, 4 levels) {out['t_cont']:.3f} s, "
         f"Newton its and |r| per level {out['levels']}; n_factor "
@@ -2052,7 +2209,7 @@ def phase_riks(dev, ref):
     N = P * C * 3
     d0 = s.zero_displacement()
     stats = {}
-    _cuda.reset_launch_counts()
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     d, lam, path = riks_solve(s.data, s.cp, s.h_init, d0, lam_target=1.0,
@@ -2061,6 +2218,7 @@ def phase_riks(dev, ref):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = dict(_cuda.launch_counts)
+    say_shapes("riks")
     lams = np.array([p[0] for p in path])
     norms = np.array([p[1] for p in path])
     i_peak = int(np.argmax(lams[: len(lams) // 2]))
@@ -2098,6 +2256,7 @@ def main():
     t_start = time.perf_counter()
     dev = phase_device()
     phase_build()
+    record_k4_shapes()
     from goldfish_tpu_torch.models import tbeam, wing
 
     with open(REF_TUBE) as fh:
@@ -2182,10 +2341,11 @@ def main():
     coupled = {"wing20": demo.build_coupled(**VLM_WIDE, device=dev),
                "demo": demo.build_coupled(**VLM_DEMO, device=dev)}
     phase_vlm_kernels(coupled, checks)
-    _cuda.reset_launch_counts()
+    reset_counts()
     phase_vlm_demo(dev, ref_vlm["demo"])
     d_wide = phase_vlm_wide(coupled["wing20"], ref_vlm["wing20"])
     counts_vlm = dict(_cuda.launch_counts)
+    say_shapes("vlm")
     check_counts("vlm", counts_vlm, VLM_KERNELS)
     library += time_aic_solve(coupled["wing20"][0], d_wide)
     del coupled, d_wide

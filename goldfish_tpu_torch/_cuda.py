@@ -61,6 +61,7 @@ _SIGNATURES = {
     "gf_penalty_qp": [_I] + [_P] * 23 + [_I] * 4 + [_P],
     "gf_jet_assemble": [_P] * 5 + [_I] * 4 + [ctypes.c_longlong, _P],
     "gf_jet_matvec": [_P] * 6 + [_I] * 4 + [_P],
+    "gf_jet_matvec_variant": [_I] * 3,
     "gf_traced_rows": [_P] * 12 + [_I] * 8 + [_P],
     "gf_mi_penalty_xi": [_P] * 22 + [_I] * 9 + [_P],
     "gf_c2x_res_jac": [_I] + [_P] * 23 + [_I] * 9 + [_P],

@@ -9,7 +9,9 @@
 // Each energy density is written once as a template over its scalar type,
 // so value, gradient, Hessian and adjoint all come from the same source with
 // the exact derivative semantics of the JAX package's automatic
-// differentiation (no hand-derived normal-vector derivatives).
+// differentiation. One exception: K1's Hessian mode pushes a Dual<double, 1>
+// tangent through a hand-written reverse sweep of the shell density
+// (shell_qp.cu: density_grad), held against the plain autograd Hessian.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -4,14 +4,15 @@
 // Replaces the JAX device programs
 //   goldfish_tpu/physics/kl_shell.py: internal_energy, qp_energy_density,
 //     surface_fields (value; gradient = system.residual's shell part),
-//     element_hessians (the per-qp 15x15 jet Hessian H_q),
+//     element_hessians (the per-qp 15x15 jet Hessian H_q, in its
+//     structured form at :251-303),
 //   goldfish_tpu/solver/implicit.py: _jit_entry/_jit_res_pot/_jit_trial
 //     (energy + residual), _jit_residual_vjp (shell part of the adjoint
 //     design gradient).
 //
-// One thread per quadrature point (one per (qp, Hessian column) in mode 1).
-// The thread gathers its element's control points, displacements and
-// thickness through the six basis rows into the midsurface jets
+// Modes 0, 2, 3: one thread per quadrature point. The thread gathers its
+// element's control points, displacements and thickness through the six
+// basis rows into the midsurface jets
 //   X, z = (d/du, d/dv, d2/du2, d2/dudv, d2/dv2) of the geometry and of the
 //   displacement (15 numbers each), h_q = R00 . h_e,
 // evaluates psi * J * w with a dual-number scalar type, and scatters
@@ -20,21 +21,35 @@
 // Modes:
 //   0 value+grad: per-element energy (deterministic in-block sum over the
 //     element's qps), r_shell = dW/dd (P,C,3) and dW/dh (P,C);
-//   1 hess: H_q = d2(psi J w)/dz2, (P,E,Q,15,15), column k by thread k;
+//   1 hess: H_q = d2(psi J w)/dz2, (P,E,Q,15,15), structured (below);
 //   2 adjoint: given lambda (P,C,3), -d/d(cp,h) of lambda^T r_shell into
 //     (P,C,3) and (P,C);
 //   3 geometry gradient: dW/dcp (P,C,3), the energy's direct dependence on
 //     the control points (shape optimization; kl_shell.internal_energy's
 //     gradient w.r.t. cp in the JAX package).
 //
-// What bounds it on the H100: register pressure. A Dual<Dual<double,15>,1>
-// scalar is 32 doubles, so the density's temporaries spill to local memory
-// (ptxas counts are in PERF.md); the arithmetic (~10^5 flops per qp in mode
-// 1) and the 17,920 qps of the wing20 model keep it well below both the f64
-// and the memory roofline. The design accepts the spills for now: it keeps
-// one source of truth for every derivative. The structured Hessian of the
-// JAX package (6 forward-over-reverse passes plus an analytic bending block)
-// and splitting the dual directions across a warp are the later fixes.
+// Mode 1, the structured jet Hessian. Split z = (m, s): m = (x_u, x_v) the
+// 6 first-jet components, s = (x_uu, x_uv, x_vv) the 9 second-jet ones.
+// s enters psi only through bc_i = (X_i + s_i) . a3, linearly, and a3 and
+// the metric depend on m alone, so the s-s block is closed form,
+//   H_ss = Hc (x) a3 a3^T,  Hc = J w h^3/12 M  (psi's bending part is
+//   h^3/24 kap^T M kap with M the SVK form's 3x3 matrix),
+// and only the 6 columns d(grad psi)/dm_k take derivatives: each is one
+// forward tangent (Dual<double, 1>) through `density_grad`, a hand-written
+// reverse sweep of shell_density; H_ms = H_sm^T. One block holds whole
+// elements, 6 threads a qp (one a column). The block gathers each qp's X,
+// z and h once into shared memory (thread k of a qp: the jet through
+// R_(k+1), thread 5: h), and stages the 225 outputs of every qp there, so
+// the store of the block's contiguous H rows is coalesced.
+//
+// What bounds it on the H100: bytes. Mode 1 writes 1800 B a qp (32 MB at
+// wing20) and reads the five R rows and R00 (6 L doubles a qp): 46.4 MB at
+// wing20, 0.0138 ms at 3.35 TB/s; its arithmetic (~8,400 f64 operations a
+// qp) is a third of that at the f64 rate. The earlier one-thread-per-column
+// Dual<Dual<double,15>,1> form spilled ~4.5 KB a thread to local memory
+// and took 1.08 ms at wing20; a column thread now takes 128 registers and
+// spills nothing, and the kernel takes 0.035 ms, 2.5x its byte bound (NVIDIA
+// H100 80GB HBM3, 700 W; scripts/torch_port_kernel_ab.py, PERF.md).
 #include "shell_jets.cuh"
 
 namespace gf {
@@ -184,33 +199,196 @@ __global__ void shell_value_grad(Args a, double* W, double* r, double* dh) {
   }
 }
 
-// mode 1: one thread per (qp, column k)
-__global__ void shell_hess(Args a, double* H) {
-  size_t t = size_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  size_t nqp = size_t(a.P) * a.Ne * a.Q;
-  if (t >= nqp * NJ) return;
-  int qi = int(t / NJ);
-  int k = int(t % NJ);
-  int ei = qi / a.Q;
-  int p = ei / a.Ne;
-  typedef Dual<double, NJ> In;
-  typedef Dual<In, 1> S;
-  double X[NJ], z[NJ];
-  gather_jets(a, a.cp, p, ei, qi, X);
-  gather_jets(a, a.d, p, ei, qi, z);
-  double hq = gather_h(a, p, ei, qi);
-  S Xs[NJ], zs[NJ];
+// ---------------------------------------------------------------- mode 1
+constexpr int NM = 6;          // first-jet components m = (x_u, x_v)
+constexpr int HQ = NJ * NJ;    // outputs per qp
+// doubles of shared memory per qp: X, z, h and the staged H_q
+constexpr int HESS_SM = 2 * NJ + 1 + HQ;
+
+// Reference-state quantities of one qp (independent of d): the metric a,
+// the curvature b, the SVK form's matrix M (quad_form(Aup, s) = s^T M s,
+// stored 00, 01, 02, 11, 12, 22) and J w.
+struct RefQp {
+  double a[3], b[3], M[6], Jw;
+};
+
+__device__ void ref_qp(const double* X, double E, double nu, double wq,
+                       RefQp& r) {
+  const double* A1 = X;
+  const double* A2 = X + 3;
+  double A3[3];
+  cross3(A1, A2, A3);
+  double J = dsqrt(dot3(A3, A3));
+  A3[0] = A3[0] / J;
+  A3[1] = A3[1] / J;
+  A3[2] = A3[2] / J;
+  r.a[0] = dot3(A1, A1);
+  r.a[1] = dot3(A1, A2);
+  r.a[2] = dot3(A2, A2);
+  r.b[0] = dot3(X + 6, A3);
+  r.b[1] = dot3(X + 9, A3);
+  r.b[2] = dot3(X + 12, A3);
+  double det = r.a[0] * r.a[2] - r.a[1] * r.a[1];
+  double A[3] = {r.a[2] / det, -r.a[1] / det, r.a[0] / det};
+  double c = E / (1.0 - nu * nu);
+  // quad_form = c [nu (t.s)^2 + (1 - nu) s^T F s], t = (A0, 2 A1, A2)
+  double t[3] = {A[0], 2.0 * A[1], A[2]};
+  double F[6] = {A[0] * A[0], 2.0 * A[0] * A[1], A[1] * A[1],
+                 2.0 * (A[1] * A[1] + A[0] * A[2]), 2.0 * A[1] * A[2],
+                 A[2] * A[2]};
+  r.M[0] = c * (nu * (t[0] * t[0]) + (1.0 - nu) * F[0]);
+  r.M[1] = c * (nu * (t[0] * t[1]) + (1.0 - nu) * F[1]);
+  r.M[2] = c * (nu * (t[0] * t[2]) + (1.0 - nu) * F[2]);
+  r.M[3] = c * (nu * (t[1] * t[1]) + (1.0 - nu) * F[3]);
+  r.M[4] = c * (nu * (t[1] * t[2]) + (1.0 - nu) * F[4]);
+  r.M[5] = c * (nu * (t[2] * t[2]) + (1.0 - nu) * F[5]);
+  r.Jw = J * wq;
+}
+
+// y = M s for the symmetric M of RefQp
+template <class S>
+__device__ void sym3_apply(const double* M, const S* s, S* y) {
+  y[0] = M[0] * s[0] + M[1] * s[1] + M[2] * s[2];
+  y[1] = M[1] * s[0] + M[3] * s[1] + M[4] * s[2];
+  y[2] = M[2] * s[0] + M[4] * s[1] + M[5] * s[2];
+}
+
+// g = d(psi J w)/dz by a hand-written reverse sweep of shell_density, at
+// the current first jets xm = X[0:6] + z[0:6] (scalar type S: a tangent
+// in m is carried through) and second jets xs = X[6:15] + z[6:15] (plain
+// doubles: psi is linear in them through bc). Also returns a3.
+template <class S>
+__device__ void density_grad(const S* xm, const double* xs, double h,
+                             const RefQp& r, S* g, S* a3) {
+  S n[3];
+  cross3(xm, xm + 3, n);
+  S ln = dsqrt(dot3(n, n));
+  a3[0] = n[0] / ln;
+  a3[1] = n[1] / ln;
+  a3[2] = n[2] / ln;
+  S eps[3] = {0.5 * (dot3(xm, xm) - r.a[0]),
+              0.5 * (dot3(xm, xm + 3) - r.a[1]),
+              0.5 * (dot3(xm + 3, xm + 3) - r.a[2])};
+  S kap[3];
 #pragma unroll
-  for (int i = 0; i < NJ; ++i) {
-    Xs[i] = S(X[i]);
-    zs[i] = S(z[i]);
-    zs[i].v.g[i] = 1.0;
+  for (int i = 0; i < 3; ++i)
+    kap[i] = r.b[i] - (a3[0] * xs[3 * i] + a3[1] * xs[3 * i + 1] +
+                       a3[2] * xs[3 * i + 2]);
+  // adjoints: psi = h/2 eps^T M eps + h^3/24 kap^T M kap, times J w
+  S acb[3], bcb[3];
+  sym3_apply(r.M, eps, acb);
+  sym3_apply(r.M, kap, bcb);
+  double ce = 0.5 * r.Jw * h, ck = -r.Jw * (h * h * h) / 12.0;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    acb[i] = ce * acb[i];   // d/d(ac_i)
+    bcb[i] = ck * bcb[i];   // d/d(bc_i)
   }
-  zs[k].g[0].v = 1.0;
-  S f = shell_density(Xs, zs, S(hq), a.E[p], a.nu[p], a.wq[qi]);
-  double* row = H + (size_t(qi) * NJ + k) * NJ;
+  // bc_i = xs_i . a3
+  S a3b[3];
 #pragma unroll
-  for (int j = 0; j < NJ; ++j) row[j] = f.g[0].g[j];
+  for (int x = 0; x < 3; ++x) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) g[6 + 3 * i + x] = bcb[i] * a3[x];
+    a3b[x] = bcb[0] * xs[x] + bcb[1] * xs[3 + x] + bcb[2] * xs[6 + x];
+  }
+  // a3 = n / |n|: nb = (a3b - (a3b . a3) a3) / |n|
+  S pr = dot3(a3b, a3);
+  S nb[3];
+#pragma unroll
+  for (int x = 0; x < 3; ++x) nb[x] = (a3b[x] - pr * a3[x]) / ln;
+  // n = x_u x x_v; ac = (x_u.x_u, x_u.x_v, x_v.x_v)
+  S cu[3], cv[3];
+  cross3(xm + 3, nb, cu);
+  cross3(nb, xm, cv);
+#pragma unroll
+  for (int x = 0; x < 3; ++x) {
+    g[x] = 2.0 * (acb[0] * xm[x]) + acb[1] * xm[3 + x] + cu[x];
+    g[3 + x] = acb[1] * xm[x] + 2.0 * (acb[2] * xm[3 + x]) + cv[x];
+  }
+}
+
+// one block holds `epb` whole elements: blockDim = 6 Q epb, thread
+// 6 qq + k is column k of the block's qp qq
+__global__ void shell_hess(Args a, double* H, int epb) {
+  extern __shared__ double sm[];
+  const int nqb = epb * a.Q;
+  double* sX = sm;               // (nqb, 15)
+  double* sZ = sX + nqb * NJ;    // (nqb, 15)
+  double* sH = sZ + nqb * NJ;    // (nqb, 225): the block's output rows
+  double* sh = sH + nqb * HQ;    // (nqb,)
+  const size_t nqp = size_t(a.P) * a.Ne * a.Q;
+  const size_t q0 = size_t(blockIdx.x) * nqb;
+  const int nact = int(nqp - q0 < size_t(nqb) ? nqp - q0 : nqb);
+  const int qq = threadIdx.x / NM, k = threadIdx.x % NM;
+  const bool active = qq < nact;
+  const int qi = int(q0) + qq;
+  const int ei = qi / a.Q, p = ei / a.Ne;
+  if (active) {
+    if (k < 5) {
+      // the jet through R_(k+1) of the geometry and the displacement
+      const double* Rk = k == 0 ? a.R[1] : k == 1 ? a.R[2]
+                       : k == 2 ? a.R[3] : k == 3 ? a.R[4] : a.R[5];
+      double x0 = 0.0, x1 = 0.0, x2 = 0.0, z0 = 0.0, z1 = 0.0, z2 = 0.0;
+      for (int l = 0; l < a.L; ++l) {
+        double r = Rk[size_t(qi) * a.L + l];
+        size_t c = (size_t(p) * a.C + a.conn[size_t(ei) * a.L + l]) * 3;
+        x0 += r * a.cp[c];
+        x1 += r * a.cp[c + 1];
+        x2 += r * a.cp[c + 2];
+        z0 += r * a.d[c];
+        z1 += r * a.d[c + 1];
+        z2 += r * a.d[c + 2];
+      }
+      double* X = sX + qq * NJ + 3 * k;
+      double* Z = sZ + qq * NJ + 3 * k;
+      X[0] = x0; X[1] = x1; X[2] = x2;
+      Z[0] = z0; Z[1] = z1; Z[2] = z2;
+    } else {
+      sh[qq] = gather_h(a, p, ei, qi);
+    }
+  }
+  __syncthreads();
+  if (active) {
+    typedef Dual<double, 1> T;
+    const double* X = sX + qq * NJ;
+    const double* Z = sZ + qq * NJ;
+    RefQp r;
+    ref_qp(X, a.E[p], a.nu[p], a.wq[qi], r);
+    T xm[NM];
+#pragma unroll
+    for (int i = 0; i < NM; ++i) {
+      xm[i] = T(X[i] + Z[i]);
+      xm[i].g[0] = i == k ? 1.0 : 0.0;
+    }
+    double xs[NJ - NM];
+#pragma unroll
+    for (int i = 0; i < NJ - NM; ++i) xs[i] = X[NM + i] + Z[NM + i];
+    const double hq = sh[qq];
+    T g[NJ], a3[3];
+    density_grad(xm, xs, hq, r, g, a3);
+    // row k (H_mm, H_ms) and, below the first 6 rows, column k (H_sm)
+    double* Hq = sH + qq * HQ;
+#pragma unroll
+    for (int b = 0; b < NJ; ++b) Hq[k * NJ + b] = g[b].g[0];
+#pragma unroll
+    for (int b = NM; b < NJ; ++b) Hq[b * NJ + k] = g[b].g[0];
+    // H_ss = Hc (x) a3 a3^T, Hc = J w h^3/12 M; 81 entries over 6 threads
+    // (unrolled, so that M and a3 are indexed by constants: registers)
+    const double ck = r.Jw * (hq * hq * hq) / 12.0;
+#pragma unroll
+    for (int e = 0; e < 81; ++e) {
+      if (e % NM != k) continue;
+      const int rr = e / 9, ss = e % 9;
+      const int i = rr / 3, x = rr % 3, j = ss / 3, y = ss % 3;
+      const int lo = i < j ? i : j, hi = i < j ? j : i;
+      const int m = lo == 0 ? hi : lo == 1 ? hi + 2 : 5;
+      Hq[(NM + rr) * NJ + NM + ss] = ck * r.M[m] * a3[x].v * a3[y].v;
+    }
+  }
+  __syncthreads();
+  double* out = H + q0 * HQ;
+  for (int e = threadIdx.x; e < nact * HQ; e += blockDim.x) out[e] = sH[e];
 }
 
 // mode 2: one thread per qp
@@ -290,8 +468,18 @@ extern "C" int gf_shell_qp(int mode, const double* R00, const double* R10,
     shell_value_grad<<<blocks, threads, threads * sizeof(double), s>>>(
         a, out_w, out_f, out_h);
   } else if (mode == 1) {
-    size_t n = nqp * NJ;
-    shell_hess<<<unsigned((n + 127) / 128), 128, 0, s>>>(a, out_f);
+    // whole elements a block, ~128 threads: 6 per qp
+    if (NM * Q > 1024) return static_cast<int>(cudaErrorInvalidValue);
+    int epb = NM * Q >= 128 ? 1 : 128 / (NM * Q);
+    size_t smem = size_t(epb) * Q * HESS_SM * sizeof(double);
+    if (smem > 48 * 1024) {
+      cudaError_t e = cudaFuncSetAttribute(
+          shell_hess, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          int(smem));
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    size_t nb = (size_t(P) * Ne + epb - 1) / epb;
+    shell_hess<<<unsigned(nb), NM * Q * epb, smem, s>>>(a, out_f, epb);
   } else if (mode == 2) {
     shell_adjoint<<<unsigned((nqp + 127) / 128), 128, 0, s>>>(a, out_f, out_h);
   } else if (mode == 3) {

@@ -6,10 +6,12 @@ of chip_smoke.py's phase 11) stops after 11 SLSQP iterations in some runs
 and runs to its 30-iteration limit in others, the runs differing only in
 the rounding order of the f64-atomic kernels. This script repeats the
 demo's SLSQP `--runs` times in one process (a fresh problem each time) and
-prints each run's iterations, evaluations, end volume and wall, so that two
-trees can be compared in one chip call: `--root` names the tree whose
-`goldfish_tpu_torch` is imported (default: this checkout), e.g. a
-`git archive` of the parent commit unpacked into a gitignored directory.
+prints each run's iterations, evaluations, end volume, wall and the median
+host walls of its fun and jac evaluations (as chip_smoke.py phase 11 prints
+them), so that two trees can be compared in one chip call: `--root` names
+the tree whose `goldfish_tpu_torch` is imported (default: this checkout),
+e.g. a `git archive` of the parent commit unpacked into a gitignored
+directory.
 
     python scripts/torch_port_plate_slsqp_repeat.py [--runs 4] [--root DIR]
 """
@@ -21,6 +23,8 @@ import json
 import os
 import sys
 import time
+
+import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -49,7 +53,9 @@ def main():
         res = out.result
         rows.append({"run": k, "nit": int(res.nit), "nfev": int(res.nfev),
                      "njev": int(res.njev), "volume_end": float(out.V1),
-                     "seconds": time.perf_counter() - t0})
+                     "seconds": time.perf_counter() - t0,
+                     "fun_median": float(np.median(out.log.fun_wall)),
+                     "jac_median": float(np.median(out.log.jac_wall))})
         print(json.dumps(rows[-1]), flush=True)
     print(json.dumps({"root": os.path.abspath(args.root),
                       "nit": [r["nit"] for r in rows]}))
