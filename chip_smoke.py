@@ -8,8 +8,10 @@ Phases (any failure raises: non-zero exit, no result line):
    (nvidia-smi) and turns TF32 off;
 2. build: nvcc-compiles goldfish_tpu_torch/csrc/*.cu into
    goldfish_tpu_torch/_build/ (first use) and prints the ptxas summary,
-   then the registers and spill bytes of K1's Hessian mode and of every
-   K4 instantiation (it fails if K1's Hessian mode spills);
+   then the registers and spill bytes of the redesigned kernels: K1's
+   Hessian mode, every K4 instantiation, K12's cull and work kernels and
+   every K3 instantiation (it fails if any of K1's Hessian mode, K12 or
+   K3 spills);
 3. wing kernels: at the full 20-patch wing (6600 dofs) on the card, at a
    seeded nonzero d, K1 shell_qp and K2 penalty_qp in their three modes,
    K3 jet_assemble and K4 jet_matvec against their plain PyTorch versions
@@ -120,30 +122,37 @@ Phases (any failure raises: non-zero exit, no result line):
 19. the Scordelis-Lo roof (goldfish_tpu_torch/models/slr.py) at num_el=6:
    the linear-regime QoI against the published 0.3006 (5e-3) and the JAX
    package's value in the same file (1e-8), and the displacement jump
-   across the patch 0 | 1 interface;
+   across the patch 0 | 1 interface; then K1-K4 at the roof's shapes;
 20. contact kernels: the two-plate press of tests/test_contact.py (two
    clamped plates 0.12 apart, q = 120, k_pen = 1e7, r_max = 0.1; 2 patches,
    p = 2, 9 qps) at num_el=16 (N = 1944, 2304 qps per plate) at its
-   continuation equilibrium plus seeded noise: K12 contact_pairs in its
-   three modes against their plain versions (the value 1e-12, the forces,
-   the hvp and the stiffness 1e-11), with both times, the bound (f64
-   operations of the pairs within r_max) and the share of tiles and
-   element pairs the cutoff skipped;
+   continuation equilibrium plus seeded noise: K12 contact_pairs, its
+   cull (the sorted list of element pairs equal to its plain twin
+   `candidate_pairs`) and its three modes against their plain versions
+   (the value 1e-12, the forces, the hvp and the stiffness 1e-11), with
+   both times, the bound (f64 operations of the pairs within r_max) and
+   the share of element pairs the cull dropped;
 21. the press at num_el=32 (C = 1156, N = 6936, 9216 qps per plate): the
    counted path is `continuation_solve` (4 levels, rtol 1e-9) from d = 0,
    then `build_solve_fn` warm at the equilibrium, J = W_int and dJ/dh by
    the adjoint, and the central difference of dJ/dh along a seeded v; it
    must meet tests/test_contact.py's criteria (|r|/|r(0)| < 1e-8, W_c > 0,
    midspan deflection < -0.02, FD < 1e-5) and launch K12's three modes;
-   then K12 against its plain versions at this size, the same path at
-   num_el=6 against tests/data/torch_port_contact_reference.json (d and
-   W_c 1e-8, dJ/dh 1e-6), and cholesky_ex / cholesky_solve at N = 6936;
+   then K12 against its plain versions and K1-K4 at this size, the same
+   path at num_el=6 against tests/data/torch_port_contact_reference.json
+   (d and W_c 1e-8, dJ/dh 1e-6), and cholesky_ex / cholesky_solve at N =
+   6936;
 22. Riks: tests/test_riks.py's shallow cylindrical panel (hinged, centre
    point load) at num_el=24 (N = 2028): `riks_solve` with the test's
    arguments must reach lam = 1 with |r| < 1e-5 |q|, trace the limit point
    (lam_peak > lam_valley + 0.2) and end at more than 3x the pre-limit
    |d|; the final d (1e-6) and lam_peak (1e-3) against the same file; then
-   `lu_factor_ex` at N = 2028 beside its bound.
+   K1-K4 at the panel's shapes and `lu_factor_ex` at N = 2028 beside its
+   bound.
+
+Wherever K3 is checked, the smoke prints its groups, the runs of equal dof
+maps it sums before adding (`jet_runs`) and the atomics into K one per
+group (the design before the runs) and one per run.
 
 Launch counters, reset just before each main path and read just after,
 prove that the path went through its kernels; after each path the group
@@ -182,7 +191,7 @@ REF_VLM = os.path.join(ROOT, "tests", "data",
 REF_CONTACT = os.path.join(ROOT, "tests", "data",
                            "torch_port_contact_reference.json")
 CONTACT_TOL = {"contact_pairs/value_grad": 1e-11, "contact_pairs/hvp": 1e-11,
-               "contact_pairs/hess": 1e-11}
+               "contact_pairs/hess": 1e-11, "contact_pairs/cull": 0.0}
 VLM_WIDE = dict(n_chord=4, n_span=5, num_el=6, p=3, mc=16, ns=64)
 VLM_DEMO = dict(n_chord=2, n_span=3, num_el=3, p=3, mc=6, ns=10)
 VLM_TOL = {"vlm_aic/value": 1e-12, "vlm_aic/vjp": 1e-11}
@@ -307,12 +316,23 @@ def phase_build():
             say("[ptxas] " + line.strip())
     spills = ptxas_spills(log)
     for name, (regs, st, ld) in spills.items():
-        if "shell_hess" in name or "jet_matvec" in name:
+        if any(k in name for k in REDESIGNED):
             say(f"[ptxas-redesigned] {name}: {regs} registers, spill "
                 f"stores {st} B, spill loads {ld} B")
-    hess = [v for k, v in spills.items() if "shell_hess" in k]
-    if not hess or any(st or ld for _, st, ld in hess):
-        raise RuntimeError(f"K1 shell_hess spills or is missing: {hess}")
+    for k in REDESIGNED_NO_SPILL:
+        got = [v for n, v in spills.items() if k in n]
+        if not got or any(st or ld for _, st, ld in got):
+            raise RuntimeError(f"{k} spills or is missing: {got}")
+
+
+# entry functions of the kernels redesigned for the H100 (K1's Hessian
+# mode, K4, K12's cull and work kernels, K3), and those of them that must
+# not spill
+REDESIGNED = ("shell_hess", "jet_matvec", "cell_box_kernel", "cull_kernel",
+              "pair_list_kernel", "pair_hess_kernel", "jet_assemble_kernel")
+REDESIGNED_NO_SPILL = ("shell_hess", "cell_box_kernel", "cull_kernel",
+                       "pair_list_kernel", "pair_hess_kernel",
+                       "jet_assemble_kernel")
 
 
 def ptxas_spills(log):
@@ -387,6 +407,8 @@ KERNELS = [
      "goldfish_tpu/physics/vlm.py:126"),
     ("vlm_aic/vjp", "goldfish_tpu_torch/csrc/vlm_aic.cu",
      "goldfish_tpu/physics/vlm.py:162"),
+    ("contact_pairs/cull", "goldfish_tpu_torch/csrc/contact_pairs.cu",
+     "goldfish_tpu/physics/contact.py:58"),
     ("contact_pairs/value_grad", "goldfish_tpu_torch/csrc/contact_pairs.cu",
      "goldfish_tpu/physics/contact.py:58"),
     ("contact_pairs/hvp", "goldfish_tpu_torch/csrc/contact_pairs.cu",
@@ -410,7 +432,8 @@ VLM_KERNELS = WING_KERNELS + ("traced_rows", "vlm_aic/value", "vlm_aic/vjp")
 SLR_KERNELS = ("shell_qp/value_grad", "shell_qp/hess", "penalty_qp/value_grad",
                "penalty_qp/hess", "jet_assemble")
 PRESS_KERNELS = ("shell_qp/value_grad", "shell_qp/hess", "shell_qp/adjoint",
-                 "jet_assemble", "jet_matvec", "contact_pairs/value_grad",
+                 "jet_assemble", "jet_matvec", "contact_pairs/cull",
+                 "contact_pairs/value_grad",
                  "contact_pairs/hvp", "contact_pairs/hess")
 RIKS_KERNELS = ("shell_qp/value_grad", "shell_qp/hess", "jet_assemble")
 
@@ -429,9 +452,44 @@ CONTACT_OPS = {"contact_pairs/value_grad": 32, "contact_pairs/hvp": 55,
                "contact_pairs/hess": 50}
 
 
-def fixed_cases(data, d, cp, h, lam, v):
+# cull: per cell pair the squared box gap and its test (~12), per qp the
+# box update (6)
+CULL_OPS_PAIR, CULL_OPS_QP = 12, 6
+
+
+def assemble_ops(R):
+    """f64 operations of K3 on groups of rows R (G, nq, nj, nloc): per qp
+    T = H B (nz x 3nloc, nj MACs each) and B^T T ((3nloc)^2, nj each)."""
+    G, nq, nj, nloc = R.shape
+    n3 = 3 * nloc
+    return G * nq * 2 * nj * n3 * (3 * nj + n3)
+
+
+def k3_runs(tag, groups, free):
+    """Print each K3 group's count, its runs of equal dof maps and the
+    atomics into K one per group and one per run (every entry of the (3
+    nloc)^2 block; between free dofs)."""
+    from goldfish_tpu_torch.solver import system
+
+    parts = []
+    for name, gi in groups:
+        starts, lengths = system.jet_runs(gi)
+        n3 = gi.shape[1]
+        nf = (free[gi.long()] != 0).sum(1).double() ** 2
+        parts.append(
+            f"{name} {gi.shape[0]} groups in {starts.numel()} runs "
+            f"(longest {int(lengths.max())}), atomics one per group "
+            f"{gi.shape[0] * n3 * n3} -> one per run "
+            f"{starts.numel() * n3 * n3}"
+            f" (free dofs {int(nf.sum())} -> {int(nf[starts].sum())})")
+    say(f"[{tag}] K3 " + "; ".join(parts))
+
+
+def fixed_cases(data, d, cp, h, lam, v, tag=None):
     """name -> (kernel fn, plain fn, flops, inputs) of K1-K4 on the card,
-    on a SystemData (its stack and interface stack) at state d."""
+    on a SystemData (its stack and, where it has one, its interface stack)
+    at state d; K2 where there are interfaces. With `tag`, K3's groups and
+    runs are printed (`k3_runs`)."""
     from goldfish_tpu_torch.physics import coupling, kl_shell
     from goldfish_tpu_torch.solver import system
 
@@ -443,10 +501,15 @@ def fixed_cases(data, d, cp, h, lam, v):
     N = free.shape[0]
     dev = free.device
 
-    groups = [(Hs[0], tables.R_e, tables.gi_e),
-              (Hs[1], tables.R_i, tables.gi_i)]
+    groups = [(Hs[0], tables.R_e, tables.gi_e)]
+    if Hs[1] is not None:
+        groups.append((Hs[1], tables.R_i, tables.gi_i))
     if Hs[2] is not None:   # the follower pressure's group
         groups.append((Hs[2], tables.R_p, tables.gi_e))
+    if tag:
+        k3_runs(tag, [(n, g[2]) for n, g in zip(
+            ("shell", "interface" if Hs[1] is not None else "pressure",
+             "pressure"), groups)], free)
 
     def assemble(fn):
         K = torch.zeros(N, N, dtype=torch.float64, device=dev)
@@ -463,16 +526,16 @@ def fixed_cases(data, d, cp, h, lam, v):
 
     P, Ne, Q, L = st.R00.shape
     nqp = P * Ne * Q
-    I_, Nq, Li = ifs.RA00.shape
-    nip = I_ * Nq
     jets_s = 2 * 15 * L * 2 + 2 * L          # X, z jets + h per qp
-    jets_p = 2 * (9 * Li * 2 + 2 * Li) * 2    # both sides, X, z, h
-    g_e, g_i = tables.R_e.shape[0], tables.R_i.shape[0]
-    # K3: 9 FMAs per (local pair, qp, jet pair); K4: gather, H z, scatter
-    asm = 18 * (g_e * L * L * Q * 25 + g_i * (2 * Li) ** 2 * 36)
-    mv = g_e * Q * (12 * 5 * L + 450) + g_i * (12 * 6 * 2 * Li + 648)
+    # K3: T = H B and B^T T per qp (`assemble_ops`); K4: gather, H z,
+    # scatter
+    asm = sum(assemble_ops(R) for _, R, _ in groups)
+    g_e = tables.R_e.shape[0]
+    mv = g_e * Q * (12 * 5 * L + 450)
+    if Hs[1] is not None:
+        g_i, Li = tables.R_i.shape[0], ifs.RA00.shape[2]
+        mv += g_i * (12 * 6 * 2 * Li + 648)
     if Hs[2] is not None:
-        asm += 18 * g_e * L * L * Q * 9
         mv += g_e * Q * (12 * 3 * L + 162)
     # K1 mode b's structured algorithm (its bound): the jets once a qp, 6
     # columns of a tangent reverse sweep (~6 density evaluations each), the
@@ -481,11 +544,11 @@ def fixed_cases(data, d, cp, h, lam, v):
     hess_structured = nqp * (jets_s + 6 * 6 * DENS_SHELL + 3 * 81)
     base = [d, cp, h, E, nu, data.free]
     shell_in = base + list(st)
-    pen_in = base + list(ifs)
-    jet_in = list(tables) + list(Hs)
+    jet_in = [t for t in tables if isinstance(t, torch.Tensor)] + \
+        [t for t in Hs[:3] if t is not None]
     # K4 reads every group's H, R and dof map once, free and v
     mv_in = list({id(t): t for grp in groups for t in grp}.values()) + [free]
-    return {
+    cases = {
         "shell_qp/value_grad": (
             lambda: kl_shell.shell_value_grad(st, d, cp, h, E, nu),
             lambda: kl_shell._value_grad_plain(st, d, cp, h, E, nu),
@@ -499,6 +562,20 @@ def fixed_cases(data, d, cp, h, lam, v):
             lambda: kl_shell.shell_adjoint(st, d, cp, h, E, nu, lam),
             lambda: kl_shell._adjoint_plain(st, d, cp, h, E, nu, lam),
             nqp * (jets_s * 3 // 2 + 34 * DENS_SHELL), shell_in + [lam]),
+        "jet_assemble": (lambda: assemble(system.jet_assemble),
+                         lambda: assemble(system._assemble_plain), asm,
+                         jet_in),
+        "jet_matvec": (lambda: matvec(system.jet_matvec),
+                       lambda: matvec(system._matvec_plain), mv,
+                       mv_in + [v]),
+    }
+    if ifs is None:
+        return cases
+    I_, Nq, Li = ifs.RA00.shape
+    nip = I_ * Nq
+    jets_p = 2 * (9 * Li * 2 + 2 * Li) * 2    # both sides, X, z, h
+    pen_in = base + list(ifs)
+    cases.update({
         "penalty_qp/value_grad": (
             lambda: coupling.penalty_value_grad(ifs, d, cp, h, E),
             lambda: coupling._value_grad_plain(ifs, d, cp, h, E),
@@ -511,13 +588,8 @@ def fixed_cases(data, d, cp, h, lam, v):
             lambda: coupling.penalty_adjoint(ifs, d, cp, h, E, lam),
             lambda: coupling._adjoint_plain(ifs, d, cp, h, E, lam),
             nip * (jets_p * 3 // 2 + 30 * DENS_PEN), pen_in + [lam]),
-        "jet_assemble": (lambda: assemble(system.jet_assemble),
-                         lambda: assemble(system._assemble_plain), asm,
-                         jet_in),
-        "jet_matvec": (lambda: matvec(system.jet_matvec),
-                       lambda: matvec(system._matvec_plain), mv,
-                       mv_in + [v]),
-    }
+    })
+    return cases
 
 
 def pressure_cases(data, d, cp, lam):
@@ -554,18 +626,23 @@ def check_kernels(cases, tag, reps=5, tol=None):
     relative and max abs error, both times and the bound. A case may add
     the f64 rate of its bound (default PEAK_F64) and a dict whose
     "flops_15col" gives a second bound, `bound_ms_15col`. The
-    kernels of COLD_TIMED add `ms_cold`."""
+    kernels of COLD_TIMED add `ms_cold`. A dict with "compare" gives
+    the (relative, max abs) error of the kernel's output against the plain
+    version's, and "outputs" the kernel's output tensors for the bound."""
     out = {}
     for name, (kern, plain, flops, inputs, *opt) in cases.items():
         peak = [o for o in opt if isinstance(o, float)]
         extra = next((o for o in opt if isinstance(o, dict)), {})
         a, b = kern(), plain()
         torch.cuda.synchronize()
+        rel = mx = 0.0
+        if "compare" in extra:
+            rel, mx = extra["compare"](a, b)
+            a = extra["outputs"](a)
         a = a if isinstance(a, tuple) else (a,)
         b = b if isinstance(b, tuple) else (b,)
-        rel = mx = 0.0
         for x, y in zip(a, b):
-            if x is None:
+            if x is None or "compare" in extra:
                 continue
             if not bool(torch.isfinite(x.double()).all()):
                 raise RuntimeError(f"{name}: non-finite kernel output")
@@ -604,8 +681,8 @@ def phase_kernels(sys_, reps=5, seed=0):
     d = T(1e-3 * scale * rng.normal(size=tuple(cp.shape))) * sys_.data.free
     lam = T(rng.normal(size=tuple(cp.shape)))
     v = T(rng.normal(size=tuple(cp.shape)))
-    return check_kernels(fixed_cases(sys_.data, d, cp, sys_.h_init, lam, v),
-                         "kernel", reps)
+    return check_kernels(fixed_cases(sys_.data, d, cp, sys_.h_init, lam, v,
+                                     "kernel"), "kernel", reps)
 
 
 def make_iteration(sys_, th, solve):
@@ -843,18 +920,20 @@ def mi_kernel_cases(sys_, edge=True):
     dn = d + T(1e-3 * float(d.abs().max())
                * rng.normal(size=tuple(cp.shape))) * data.free
     v = T(rng.normal(size=tuple(cp.shape)))
-    for name, case in fixed_cases(dx, dn, cp, h, lam, v).items():
+    tag = "mi-kernel" if edge else "tube-mi-kernel"
+    for name, case in fixed_cases(dx, dn, cp, h, lam, v, tag).items():
         cases[(name, "mi")] = case
     # K3 through the Woodbury seam-slot map: every dof outside the seam
     # subspace lands in one padding slot whose free entry is 0
     fac = system_mi.PersistentDeviceFactorMI(*sys_.mi_args)
     fac.ensure(cp, h, xi, d, force=True, why="smoke")
     H_i, tab = fac._interface_hessians((cp, h, xi, d))
+    k3_runs(tag + " seam-slots", [("interface", fac._slot[tab.gi_i.long()])],
+            fac._free_m)
     cases[("jet_assemble", "seam-slots")] = (
         lambda: fac._compact_K(H_i, tab),
         lambda: fac._compact_K(H_i, tab, system._assemble_plain),
-        18 * tab.R_i.shape[0] * tab.R_i.shape[-1] ** 2 * 36,
-        [H_i, tab.R_i, tab.gi_i, fac._free_m])
+        assemble_ops(tab.R_i), [H_i, tab.R_i, tab.gi_i, fac._free_m])
     return cases
 
 
@@ -1250,7 +1329,7 @@ def phase_tube_fixed(dev, checks, ref):
     for name, got in check_kernels(pressure_cases(s.data, d, cp, lam),
                                    "tube-kernel").items():
         merge(checks, name, got)
-    cases = fixed_cases(s.data, d, cp, h, lam, v)
+    cases = fixed_cases(s.data, d, cp, h, lam, v, "tube-kernel")
     cases["shell_qp/geom_grad"] = (
         lambda: kl_shell.shell_geom_grad(s.stack, d, cp, h, s.E, s.nu),
         lambda: kl_shell._geom_grad_plain(s.stack, d, cp, h, s.E, s.nu),
@@ -1375,7 +1454,8 @@ def phase_plate_kernels(s, checks, seed=8):
             merge(checks, name, g)
     lam = T(rng.normal(size=tuple(cp.shape))) * s.data.free
     v = T(rng.normal(size=tuple(cp.shape)))
-    for name, got in check_kernels(fixed_cases(s.data, dn, cp, h, lam, v),
+    for name, got in check_kernels(fixed_cases(s.data, dn, cp, h, lam, v,
+                                               "plate-kernel"),
                                    "plate-kernel").items():
         merge(checks, name, got, "plate")
 
@@ -1568,7 +1648,8 @@ def phase_pegasus_kernels(s, checks, seed=9):
         f"{ps.blocks.iface.block.numel()}")
     for name, got in check_kernels(cases, "pegasus-kernel").items():
         merge(checks, name, got)
-    for name, got in check_kernels(fixed_cases(s.data, d, cp, h, lam, v),
+    for name, got in check_kernels(fixed_cases(s.data, d, cp, h, lam, v,
+                                               "pegasus-kernel"),
                                    "pegasus-kernel").items():
         merge(checks, name, got, "pegasus")
 
@@ -1914,9 +1995,49 @@ def time_aic_solve(J_of_h, d, reps=10):
     return [row]
 
 
-def phase_slr(dev, ref):
+def path_kernels(s, d, checks, tag, suffix, seed):
+    """K1-K4 (K2 where there are interfaces) at a path's shapes against
+    their plain versions, merged into `checks` with their times as
+    *_<suffix>: at phase 3's kind of state (d random at 1e-3 of the CP
+    scale on free dofs, seeded; lam, v random). Printed, not gated: K1 mode
+    a at the path's own d (plus 1e-3 of its largest entry as noise), kernel
+    vs plain, beside the plain version's own change when that d moves by
+    one ulp: near a linear-regime solution the strains are small
+    differences of large metrics, so two correct f64 evaluations differ by
+    about the latter."""
+    from goldfish_tpu_torch.physics import kl_shell
+
+    rng = np.random.default_rng(seed)
+    T = lambda a: torch.tensor(a, dtype=torch.float64,  # noqa: E731
+                               device=d.device)
+    free, cp, h = s.data.free, s.cp, s.h_init
+    scale = float(torch.linalg.norm(cp)) / np.sqrt(cp.numel())
+    dn = T(1e-3 * scale * rng.normal(size=tuple(d.shape))) * free
+    lam = T(rng.normal(size=tuple(d.shape))) * free
+    v = T(rng.normal(size=tuple(d.shape)))
+    for name, got in check_kernels(fixed_cases(s.data, dn, cp, h, lam, v,
+                                               tag), tag).items():
+        merge(checks, name, got, suffix)
+    de = d + T(1e-3 * float(d.abs().max())
+               * rng.normal(size=tuple(d.shape))) * free
+    ulp = 1.0 + 2.2e-16 * T(rng.choice([-1.0, 1.0], size=tuple(d.shape)))
+    st, E, nu = s.stack, s.data.E, s.data.nu
+    plain = kl_shell._value_grad_plain(st, de, cp, h, E, nu)
+
+    def worst(a):
+        return max(rel_err(x, y)[0] for x, y in zip(a, plain)
+                   if x is not None)
+
+    k = worst(kl_shell.shell_value_grad(st, de, cp, h, E, nu))
+    u = worst(kl_shell._value_grad_plain(st, de * ulp, cp, h, E, nu))
+    say(f"[{tag} own-d] shell_qp/value_grad kernel vs plain rel {k:.3e}; "
+        f"plain vs plain at d moved by one ulp rel {u:.3e} (not gated)")
+
+
+def phase_slr(dev, ref, checks):
     """The Scordelis-Lo roof at num_el=6: the linear-regime QoI and the
-    interface continuity of the reference's test_slr.py."""
+    interface continuity of the reference's test_slr.py; then K1-K4 at its
+    shapes."""
     from goldfish_tpu_torch import _cuda
     from goldfish_tpu_torch.models import slr
 
@@ -1944,6 +2065,7 @@ def phase_slr(dev, ref):
         raise RuntimeError(f"slr: QoI {qoi!r} or interface jump {jump:.2e} "
                            f"out of its gate")
     check_counts("slr", counts, SLR_KERNELS)
+    path_kernels(s, d, checks, "slr-kernel", "slr", 23)
     return counts
 
 
@@ -2043,10 +2165,15 @@ def press_path(s):
 
 
 def contact_cases(s, d, seed):
-    """K12's three modes at the press s's state d: name -> (kernel fn, plain
-    fn, flops, inputs). The flops count the qp pairs within r_max (and, for
+    """K12's cull and three modes at the press s's state d, with cells the
+    elements as on the main path: name -> (kernel fn, plain fn, flops,
+    inputs[, extra]). value_grad builds its own list (as `contact_energy`
+    does); hvp and hess take one built at this state (as the tangent's K_c
+    v and assembly do). The flops count the qp pairs within r_max (and, for
     the hess mode, the element pairs holding one): the work this state
-    needs; the cutoff skips the rest."""
+    needs; the cull's, its tests. Prints the element pairs the cull listed
+    beside its plain twin's count (also with 16-qp cells) and raises if
+    the lists differ."""
     from goldfish_tpu_torch.physics import contact as pc
     from goldfish_tpu_torch.solver import system
 
@@ -2056,58 +2183,81 @@ def contact_cases(s, d, seed):
                      device=x.device)
     tabs = system.jet_tables(s.data)
     G, Q, _, L = tabs.R_c.shape
-    E = G // x.shape[0]
+    P = x.shape[0]
+    E = G // P
     N = tabs.free.shape[0]
     n_pairs = n_elem = 0
     for *_, dphi, _, ww in pc._pairs(c, x, w, align=Q):
         act = (dphi != 0) & (ww != 0)
         n_pairs += int(act.sum())
         n_elem += int(act.reshape(-1, Q, E, Q).any(3).any(1).sum())
+    cells = pc.contact_cells(c, x, w, Q)
 
-    def hess(fn):
+    def listed(cl):
+        return torch.sort(cl.index[:int(cl.count)].long()).values
+
+    def compare(a, b):
+        got = listed(a)
+        if got.numel() != b.numel():
+            raise RuntimeError(f"cull lists {got.numel()} element pairs, "
+                               f"its plain twin {b.numel()}")
+        diff = (got - b).abs()
+        if not diff.numel():
+            return 0.0, 0.0
+        return float((diff != 0).double().mean()), float(diff.max())
+
+    def hess(fn, **kw):
         K = torch.zeros(N, N, dtype=torch.float64, device=x.device)
-        S = fn(K, c, x, w, tabs.R_c, tabs.gi_e, tabs.free)
+        S = fn(K, c, x, w, tabs.R_c, tabs.gi_e, tabs.free, **kw)
         return S, K
 
     ops = CONTACT_OPS
     io = [x, w, c.pa, c.pb, c.k_pen, c.r_max]
     cases = {
+        "contact_pairs/cull": (
+            lambda: pc.contact_cells(c, x, w, Q),
+            lambda: pc.candidate_pairs(c, x, w, Q),
+            c.pa.numel() * E * E * CULL_OPS_PAIR + P * E * Q * CULL_OPS_QP,
+            io, {"compare": compare, "outputs": lambda a: a.index[
+                :int(a.count)]}),
         "contact_pairs/value_grad": (
-            lambda: pc.contact_value_grad(c, x, w),
+            lambda: pc.contact_value_grad(c, x, w, q=Q),
             lambda: pc._value_grad_plain(c, x, w),
             n_pairs * ops["contact_pairs/value_grad"], io),
         "contact_pairs/hvp": (
-            lambda: pc.contact_hvp(c, x, w, v),
+            lambda: pc.contact_hvp(c, x, w, v, cells=cells),
             lambda: pc._hvp_plain(c, x, w, v),
             n_pairs * ops["contact_pairs/hvp"], io + [v]),
         "contact_pairs/hess": (
-            lambda: hess(pc.contact_hess), lambda: hess(pc._hess_plain),
+            lambda: hess(pc.contact_hess, cells=cells),
+            lambda: hess(pc._hess_plain),
             n_pairs * ops["contact_pairs/hess"]
             + n_elem * 2 * 9 * Q * L * (Q + L),
             io + [tabs.R_c, tabs.gi_e, tabs.free]),
     }
-    # the blocks the cutoff did not skip, counted by the kernel
-    act = {}
-    for name, mode in (("contact_pairs/value_grad", "tile"),
-                       ("contact_pairs/hess", "element pair")):
+    # the element pairs that ran, counted by the kernels, against the twin
+    runs = {}
+    for mode in ("value_grad", "hess"):
         n = torch.zeros(1, dtype=torch.int32, device=x.device)
-        if mode == "tile":
-            pc.contact_value_grad(c, x, w, active=n)
-            nt = -(-w.shape[1] // 16)
-            total = c.pa.numel() * nt * nt
+        if mode == "value_grad":
+            pc.contact_value_grad(c, x, w, active=n, q=Q)
         else:
-            pc.contact_hess(torch.zeros(N, N, dtype=torch.float64,
-                                        device=x.device), c, x, w, tabs.R_c,
-                            tabs.gi_e, tabs.free, active=n)
-            total = c.pa.numel() * E * E
-        act[mode] = (int(n), total)
+            hess(pc.contact_hess, active=n)
+        runs[mode] = int(n)
+    total = c.pa.numel() * E * E
+    twin = pc.candidate_pairs(c, x, w, Q).numel()
+    n16 = int(pc.contact_cells(c, x, w).count)
+    twin16 = pc.candidate_pairs(c, x, w).numel()
     say(f"[contact-kernel] qp pairs within r_max {n_pairs} of "
         f"{c.pa.numel() * w.shape[1] ** 2}, element pairs holding one "
-        f"{n_elem}; skipped by the cutoff: tiles "
-        f"{1 - act['tile'][0] / act['tile'][1]:.4f} ({act['tile'][0]} of "
-        f"{act['tile'][1]} run), element pairs "
-        f"{1 - act['element pair'][0] / act['element pair'][1]:.4f} "
-        f"({act['element pair'][0]} of {act['element pair'][1]} run)")
+        f"{n_elem}; the cull listed {int(cells.count)} of {total} element "
+        f"pairs (plain twin {twin}), dropped {1 - twin / total:.4f}; "
+        f"element pairs run: value_grad {runs['value_grad']}, hess "
+        f"{runs['hess']}; with 16-qp cells {n16} (plain twin {twin16}) of "
+        f"{c.pa.numel() * (-(-w.shape[1] // 16)) ** 2}")
+    if not (int(cells.count) == twin == runs["value_grad"] == runs["hess"]
+            and n16 == twin16 and twin >= n_elem):
+        raise RuntimeError("K12's cull disagrees with its plain twin")
     return cases, (x, w)
 
 
@@ -2182,6 +2332,7 @@ def phase_press(dev, checks, ref, got16):
                                     "contact-kernel press32").items():
         merge(checks, name, case)
         merge(checks, name, got16[name], "press16")
+    path_kernels(s, out["d"], checks, "press-kernel", "press", 24)
     del s, out, fac
     torch.cuda.empty_cache()
 
@@ -2197,9 +2348,9 @@ def phase_press(dev, checks, ref, got16):
     return counts, library
 
 
-def phase_riks(dev, ref):
+def phase_riks(dev, ref, checks):
     """Riks through the panel's snap-through at num_el=24 against the JAX
-    test's criteria and the reference."""
+    test's criteria and the reference; then K1-K4 at its shapes."""
     from goldfish_tpu_torch import _cuda
     from goldfish_tpu_torch.solver.riks import riks_solve
     from goldfish_tpu_torch.solver.system import residual, scale_loads
@@ -2240,6 +2391,7 @@ def phase_riks(dev, ref):
     if not abs(peak - ref["lam_peak"]) <= 1e-3:
         raise RuntimeError(f"riks lam_peak {peak!r} vs {ref['lam_peak']!r}")
     check_counts("riks", counts, RIKS_KERNELS)
+    path_kernels(s, d, checks, "riks-kernel", "riks", 25)
     from goldfish_tpu_torch.solver.system import assemble_K
 
     K = assemble_K(data1, d, s.cp, s.h_init)
@@ -2350,7 +2502,7 @@ def main():
     library += time_aic_solve(coupled["wing20"][0], d_wide)
     del coupled, d_wide
     torch.cuda.empty_cache()
-    counts_slr = phase_slr(dev, ref_vlm["slr"])
+    counts_slr = phase_slr(dev, ref_vlm["slr"], checks)
     say(f"[vlm] phases 16-19 {time.perf_counter() - t0:.1f} s")
 
     with open(REF_CONTACT) as fh:
@@ -2361,7 +2513,7 @@ def main():
     counts_press, rows = phase_press(dev, checks, ref_contact["press6"], got16)
     library += rows
     torch.cuda.empty_cache()
-    counts_riks, rows = phase_riks(dev, ref_contact["riks24"])
+    counts_riks, rows = phase_riks(dev, ref_contact["riks24"], checks)
     library += rows
     say(f"[contact] phases 20-22 {time.perf_counter() - t0:.1f} s")
 

@@ -18,8 +18,15 @@ the dead load's); the pair sums are kernel K12 `contact_pairs`
 - `contact_assemble`: K_c into a dense K: the cross quadrants by K12, the
   own-side 3x3 sums per qp through K3 as a one-jet group on the R00 rows.
 
+On the card each first lists the cell pairs that may hold a qp pair within
+r_max (`contact_cells`: K12's cull; cells of `q` consecutive qps, 16 by
+default, an element's Q where the package calls them) and then works on
+that list only; a caller whose (x, w) stay fixed over many calls (the
+tangent's K_c v in every sweep of one Newton step, `system.jet_hessians`)
+builds the list once and passes it as `cells`.
 Each runs K12 on CUDA tensors and its plain PyTorch version, the dense
-(EQ, EQ) composition after the JAX formula, on CPU tensors.
+(EQ, EQ) composition after the JAX formula, on CPU tensors;
+`candidate_pairs` is the cull's plain twin.
 `contact_energy` is differentiable in (d, cp) by autograd, through K12's
 value_grad mode.
 """
@@ -40,8 +47,9 @@ from goldfish_tpu_torch.physics.kl_shell import (
     gather,
 )
 
-__all__ = ["ContactPairs", "build_contact", "qp_field", "qp_scatter",
-           "qp_weights", "contact_value_grad", "contact_hvp",
+__all__ = ["ContactPairs", "ContactCells", "build_contact", "qp_field",
+           "qp_scatter", "qp_weights", "contact_cells", "candidate_pairs",
+           "contact_value_grad", "contact_hvp",
            "contact_hess", "contact_assemble", "contact_energy",
            "contact_value_force", "contact_adjoint"]
 
@@ -53,6 +61,16 @@ class ContactPairs(NamedTuple):
     pb: torch.Tensor      # (K,) int32
     k_pen: torch.Tensor   # (K,) penalty stiffness (energy/(len^2 area^2))
     r_max: torch.Tensor   # (K,) interaction cutoff
+
+
+class ContactCells(NamedTuple):
+    """Cell pairs that may hold a qp pair within r_max (`contact_cells`):
+    pair (k, a, b), cell a of patch pa[k] with cell b of patch pb[k], is
+    listed as (k ncell + a) ncell + b, ncell = ceil(EQ / cell)."""
+
+    index: torch.Tensor   # (capacity,) int32: the first `count` are listed
+    count: torch.Tensor   # (1,) int32, on the device that holds the list
+    cell: int             # qps per cell
 
 
 def build_contact(pairs, k_pen, r_max, device=None) -> ContactPairs:
@@ -176,6 +194,74 @@ def _hess_plain(K, contact, x, w, R, gi, free):
     return S
 
 
+# ------------------------------------------------------------ the cull
+CELL = 16   # qps per cell of the cull where the caller names none
+
+
+def _cells_of(EQ, q):
+    nc = CELL if q is None else int(q)
+    if nc <= 0:
+        raise ValueError(f"cell size {nc}: must be positive")
+    return nc, -(-EQ // nc)
+
+
+def candidate_pairs(contact: ContactPairs, x, w, q=None):
+    """The cull's plain twin: the sorted (k ncell + a) ncell + b (int64) of
+    every cell pair (cells of `q` consecutive qps, default CELL) that the
+    box rule of K12 keeps: both cells have a nonzero weight and their
+    bounding boxes lie at most r_max apart (squared gap summed as (g0^2 +
+    g1^2) + g2^2 against r_max^2 (1 + 1e-12), every product and sum
+    rounded)."""
+    P, EQ = w.shape
+    nc, ncell = _cells_of(EQ, q)
+    pad = ncell * nc - EQ
+    xc = torch.cat([x, x[:, -1:].expand(P, pad, 3)], 1).reshape(
+        P, ncell, nc, 3)
+    wc = torch.cat([w, w.new_zeros(P, pad)], 1).reshape(P, ncell, nc)
+    lo, hi, live = xc.amin(2), xc.amax(2), (wc != 0).any(2)
+    out = []
+    for k, (A, B) in enumerate(zip(contact.pa.tolist(),
+                                   contact.pb.tolist())):
+        g = torch.clamp(torch.maximum(lo[B][None] - hi[A][:, None],
+                                      lo[A][:, None] - hi[B][None]), min=0.0)
+        s = (g[..., 0] * g[..., 0] + g[..., 1] * g[..., 1]) \
+            + g[..., 2] * g[..., 2]
+        rm = float(contact.r_max[k])
+        keep = live[A][:, None] & live[B][None, :] \
+            & ~(s > rm * rm * (1.0 + 1e-12))
+        a, b = keep.nonzero(as_tuple=True)
+        out.append((k * ncell + a) * ncell + b)
+    return torch.sort(torch.cat(out)).values if out else \
+        torch.zeros(0, dtype=torch.int64, device=x.device)
+
+
+def contact_cells(contact: ContactPairs, x, w, q=None) -> ContactCells:
+    """K12's cull at qp positions x (P, EQ, 3) and weights w (P, EQ): the
+    cell pairs (cells of `q` consecutive qps, default CELL; elements
+    where q is an element's Q) that may hold a qp pair within r_max, as a
+    device list whose length stays on the device. On CPU tensors:
+    `candidate_pairs`."""
+    P, EQ, Kp = _check(contact, x, w)
+    nc, ncell = _cells_of(EQ, q)
+    if not _cuda.on_cuda(x):
+        idx = candidate_pairs(contact, x, w, nc).to(INDEX_DTYPE)
+        return ContactCells(idx, torch.tensor([idx.numel()],
+                                              dtype=INDEX_DTYPE), nc)
+    total = Kp * ncell * ncell
+    if total >= 2 ** 31:
+        raise ValueError(f"{total} cell pairs: the list's int32 index "
+                         f"overflows; use larger cells")
+    box = torch.empty(P * ncell * 6, dtype=DTYPE, device=x.device)
+    ibuf = torch.empty(1 + P * ncell + total, dtype=INDEX_DTYPE,
+                       device=x.device)
+    count, flag, index = ibuf[:1], ibuf[1:1 + P * ncell], ibuf[1 + P * ncell:]
+    p, c = _cuda.ptr, contact
+    _cuda.launch("contact_pairs/cull", "gf_contact_cull", p(x), p(w),
+                 p(c.pa), p(c.pb), p(c.r_max), p(box), p(flag), p(index),
+                 p(count), Kp, P, EQ, nc)
+    return ContactCells(index, count, nc)
+
+
 # ------------------------------------------------------------ K12
 def _check(contact: ContactPairs, x, w, v=None):
     dev = x.device
@@ -192,47 +278,70 @@ def _check(contact: ContactPairs, x, w, v=None):
     return P, EQ, Kp
 
 
+def _list_of(contact, x, w, cells, q=None):
+    """`cells`, checked, or the cull's list at (x, w)."""
+    if cells is None:
+        return contact_cells(contact, x, w, q)
+    for name in ("index", "count"):
+        _cuda.check(getattr(cells, name), f"cells.{name}", INDEX_DTYPE,
+                    None, x.device)
+    if q is not None and int(cells.cell) != q:
+        raise ValueError(f"cells of {cells.cell} qps, expected {q}")
+    return cells
+
+
 def _launch(mode, counter, contact, x, w, v, R, gi, free, vec, scal, S, K,
-            active, E, Q, L, ndof):
+            cells, active, L, ndof):
     p = _cuda.ptr
     c = contact
+    EQ = w.shape[1]
+    nc = int(cells.cell)
     _cuda.launch(counter, "gf_contact_pairs", mode, p(x), p(w), p(v),
                  p(c.pa), p(c.pb), p(c.k_pen), p(c.r_max), p(R), p(gi),
-                 p(free), p(vec), p(scal), p(S), p(K), p(active),
-                 c.pa.shape[0], E, Q, L, ndof)
+                 p(free), p(vec), p(scal), p(S), p(K), p(cells.index),
+                 p(cells.count), p(active), c.pa.shape[0], -(-EQ // nc), nc,
+                 EQ, L, ndof)
 
 
-def contact_value_grad(contact: ContactPairs, x, w, active=None):
+def contact_value_grad(contact: ContactPairs, x, w, active=None,
+                       cells=None, q=None):
     """K12 mode 0: (W_c (0-dim), G = dW_c/dx (P, EQ, 3), U = dW_c/dw
     (P, EQ)) at qp positions x (P, EQ, 3) and weights w (P, EQ). W_c =
-    1/2 sum w U. `active` (int32 (1,), CUDA only) counts the tiles the
-    cutoff did not skip."""
+    1/2 sum w U. `cells`: `contact_cells` of these x, w, built here (cells
+    of q qps) when None. `active` (int32 (1,), CUDA only) gains the number
+    of cell pairs that ran."""
     _check(contact, x, w)
     if not _cuda.on_cuda(x):
         return _value_grad_plain(contact, x, w)
+    cells = _list_of(contact, x, w, cells, q)
     G, U = torch.zeros_like(x), torch.zeros_like(w)
     _launch(0, "contact_pairs/value_grad", contact, x, w, None, None, None,
-            None, G, U, None, None, active, 1, w.shape[1], 1, 0)
+            None, G, U, None, None, cells, active, 0, 0)
     return 0.5 * (w * U).sum(), G, U
 
 
-def contact_hvp(contact: ContactPairs, x, w, v):
+def contact_hvp(contact: ContactPairs, x, w, v, cells=None, q=None):
     """K12 mode 1: (Y (P, EQ, 3), T (P, EQ)) for the qp field v: Y = the
-    contact Hessian in x applied to v, T = d/dw of v . dW_c/dx."""
+    contact Hessian in x applied to v, T = d/dw of v . dW_c/dx. `cells`,
+    `q` as for `contact_value_grad`."""
     _check(contact, x, w, v)
     if not _cuda.on_cuda(x):
         return _hvp_plain(contact, x, w, v)
+    cells = _list_of(contact, x, w, cells, q)
     Y, T = torch.zeros_like(x), torch.zeros_like(w)
     _launch(1, "contact_pairs/hvp", contact, x, w, v, None, None, None, Y,
-            T, None, None, None, 1, w.shape[1], 1, 0)
+            T, None, None, cells, None, 0, 0)
     return Y, T
 
 
-def contact_hess(K, contact: ContactPairs, x, w, R, gi, free, active=None):
+def contact_hess(K, contact: ContactPairs, x, w, R, gi, free, active=None,
+                 cells=None):
     """K12 mode 2: adds the cross quadrants -R_a^T H_ab R_b (and their
     transposes) of every element pair into K (N, N) in place, over free
     dofs; returns the own-side sums S (P, EQ, 3, 3). R: (P*E, Q, 1, L)
-    R00 rows; gi: (P*E, 3L) int32 element dofs; free: (N,)."""
+    R00 rows; gi: (P*E, 3L) int32 element dofs; free: (N,). `cells`:
+    `contact_cells(contact, x, w, Q)` (cells are elements), built here
+    when None; `active` as for `contact_value_grad`."""
     P, EQ, _ = _check(contact, x, w)
     G, Q, nj, L = R.shape
     dev = x.device
@@ -245,19 +354,22 @@ def contact_hess(K, contact: ContactPairs, x, w, R, gi, free, active=None):
         raise ValueError(f"R: {G} x {Q} qps, x has {P} x {EQ}")
     if not _cuda.on_cuda(x):
         return _hess_plain(K, contact, x, w, R, gi, free)
+    cells = _list_of(contact, x, w, cells, Q)
     S = torch.zeros(P, EQ, 3, 3, dtype=DTYPE, device=dev)
     _launch(2, "contact_pairs/hess", contact, x, w, None, R, gi, free, None,
-            None, S, K, active, G // P, Q, L, N)
+            None, S, K, cells, active, L, N)
     return S
 
 
-def contact_assemble(K, contact: ContactPairs, x, w, R, gi, free):
+def contact_assemble(K, contact: ContactPairs, x, w, R, gi, free,
+                     cells=None):
     """K_c into the dense K in place: K12's cross quadrants, then the
-    own-side sums through K3 (nj = 1 on the R00 rows R)."""
+    own-side sums through K3 (nj = 1 on the R00 rows R); `cells` as for
+    `contact_hess`."""
     from goldfish_tpu_torch.solver.system import jet_assemble
 
     G, Q, _, _ = R.shape
-    S = contact_hess(K, contact, x, w, R, gi, free)
+    S = contact_hess(K, contact, x, w, R, gi, free, cells=cells)
     jet_assemble(K, S.reshape(G, Q, 3, 3), R, gi, free)
     return K
 
@@ -270,19 +382,20 @@ def contact_qps(stack: PatchStack, d, cp):
 
 
 class _ContactEnergy(torch.autograd.Function):
-    """W_c from K12 mode 0; its gradient in (x, w) from the same launch."""
+    """W_c from K12 mode 0 (cells of q qps: the stack's elements); its
+    gradient in (x, w) from the same launch."""
 
     @staticmethod
-    def forward(ctx, x, w, contact):
+    def forward(ctx, x, w, contact, q):
         W, G, U = contact_value_grad(contact, x.detach().contiguous(),
-                                     w.detach().contiguous())
+                                     w.detach().contiguous(), q=q)
         ctx.save_for_backward(G, U)
         return W
 
     @staticmethod
     def backward(ctx, g):
         G, U = ctx.saved_tensors
-        return g * G, g * U, None
+        return g * G, g * U, None, None
 
 
 def contact_energy(contact: ContactPairs | None, stack: PatchStack, d, cp):
@@ -290,13 +403,13 @@ def contact_energy(contact: ContactPairs | None, stack: PatchStack, d, cp):
     if contact is None:
         return torch.zeros((), dtype=d.dtype, device=d.device)
     x, w = contact_qps(stack, d, cp)
-    return _ContactEnergy.apply(x, w, contact)
+    return _ContactEnergy.apply(x, w, contact, stack.R00.shape[2])
 
 
 def contact_value_force(contact: ContactPairs, stack: PatchStack, d, cp):
     """(W_c, dW_c/dd (P, C, 3)) from one K12 value_grad launch."""
     x, w = contact_qps(stack, d, cp)
-    W, G, _ = contact_value_grad(contact, x, w)
+    W, G, _ = contact_value_grad(contact, x, w, q=stack.R00.shape[2])
     return W, qp_scatter(stack, G, cp.shape[1])
 
 
@@ -305,7 +418,8 @@ def contact_adjoint(contact: ContactPairs, stack: PatchStack, d, cp, lam):
     (x depends on cp as on d), through w the cp pullback of T (K12 hvp
     with v = lam), by autograd on the plain weights."""
     x, w = contact_qps(stack, d, cp)
-    Y, T = contact_hvp(contact, x, w, qp_field(stack, lam))
+    Y, T = contact_hvp(contact, x, w, qp_field(stack, lam),
+                       q=stack.R00.shape[2])
     with torch.enable_grad():
         cpv = cp.detach().requires_grad_(True)
         gw = torch.autograd.grad((qp_weights(stack, cpv) * T).sum(), cpv)[0]

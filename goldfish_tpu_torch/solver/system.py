@@ -62,7 +62,8 @@ from goldfish_tpu_torch.physics.loads import (
 
 __all__ = ["SystemData", "NonMatchingSystem", "JetTables", "JetHessians",
            "jet_tables", "interface_tables", "scale_loads",
-           "jet_hessians", "jet_assemble", "jet_matvec", "assemble_K_from",
+           "jet_hessians", "jet_runs", "jet_assemble", "jet_matvec",
+           "assemble_K_from",
            "tangent_matvec_from", "potential_and_residual", "residual_vjp",
            "residual_vjp_field",
            "total_potential", "residual", "tangent_matvec", "assemble_K",
@@ -257,17 +258,20 @@ def jet_tables(data: SystemData) -> JetTables:
 
 class JetHessians(NamedTuple):
     """The tangent's pieces at one state: per-group jet Hessians and, with
-    contact, the qp positions and weights K12 works on."""
+    contact, the qp positions and weights K12 works on and its cull's list
+    of element pairs at them (shared by the assembly and every K_c v)."""
 
     H_e: torch.Tensor                 # (P*E, Q, 15, 15)
     H_i: torch.Tensor | None          # (I*N, 1, 18, 18)
     H_p: torch.Tensor | None          # (P*E, Q, 9, 9)
     contact_xw: tuple | None = None   # ((P, E*Q, 3), (P, E*Q))
+    contact_cells: contact_.ContactCells | None = None
 
 
 def jet_hessians(data: SystemData, d, cp, h):
     """The tangent's pieces at state d (`JetHessians`): jet Hessians from
-    K1, K2 and K8 mode (b); with contact the qp positions and weights."""
+    K1, K2 and K8 mode (b); with contact the qp positions and weights and
+    K12's list of element pairs that may touch at them."""
     stack = data.stack
     P, Ne, Q, _ = stack.R00.shape
     H_e = kl_shell.shell_hessians(stack, d, cp, h, data.E, data.nu)
@@ -278,11 +282,12 @@ def jet_hessians(data: SystemData, d, cp, h):
     if data.pressure is not None:
         H_p = pressure_hessians(stack, d, cp, data.pressure).reshape(
             P * Ne, Q, 9, 9)
-    xw = None
+    xw = cells = None
     if data.contact is not None:
         xw = tuple(t.contiguous() for t in contact_.contact_qps(stack, d, cp))
+        cells = contact_.contact_cells(data.contact, *xw, q=Q)
     return JetHessians(H_e.reshape(P * Ne, Q, kl_shell.NJ, kl_shell.NJ),
-                       H_i, H_p, xw)
+                       H_i, H_p, xw, cells)
 
 
 # ------------------------------------------------------------ K3 / K4
@@ -314,15 +319,37 @@ def _assemble_plain(K, H, R, gi, free):
                  Kg, accumulate=True)
 
 
+# jet counts K3 is compiled for: contact own-side sums, pressure, shell,
+# interface
+ASSEMBLE_JETS = (1, 3, 5, 6)
+
+
+def jet_runs(gi):
+    """(starts, lengths) int64 of the runs of consecutive groups with the
+    same dof map, which K3 sums before it adds them to K (the kernel finds
+    them itself; the tests and chip_smoke.py count them here)."""
+    G = gi.shape[0]
+    head = torch.ones(G, dtype=torch.bool, device=gi.device)
+    head[1:] = (gi[1:] != gi[:-1]).any(1)
+    starts = head.nonzero()[:, 0]
+    ends = torch.cat([starts[1:], starts.new_tensor([G])])
+    return starts, ends - starts
+
+
 def jet_assemble(K, H, R, gi, free):
     """K3: K[gi_a, gi_b] += sum_q B_q^T H_q B_q for every group, over free
     dofs only (in place). K: (N, N); H: (G, nq, 3nj, 3nj); R: (G, nq, nj,
-    nloc); gi: (G, 3 nloc) int32; free: (N,)."""
+    nloc); gi: (G, 3 nloc) int32; free: (N,). On the card consecutive
+    groups with the same row of gi (`jet_runs`) are summed first and
+    added once."""
     N = free.shape[0]
     G, nq, nj, nloc = _check_jet_args(H, R, gi, free, ("K", K, (N, N)))
     if not _cuda.on_cuda(H):
         _assemble_plain(K, H, R, gi, free)
         return K
+    if nj not in ASSEMBLE_JETS:
+        raise ValueError(f"jet_assemble: {nj} jets; K3 is built for "
+                         f"{ASSEMBLE_JETS}")
     p = _cuda.ptr
     _cuda.launch("jet_assemble", "gf_jet_assemble", p(H), p(R), p(gi),
                  p(free), p(K), G, nq, nj, nloc, N)
@@ -356,7 +383,7 @@ def jet_matvec(y, H, R, gi, free, v):
 
 def assemble_K_from(tables: JetTables, Hs):
     """Dense BC-reduced tangent from `Hs` (jet_hessians)."""
-    H_e, H_i, H_p, xw = Hs
+    H_e, H_i, H_p, xw, cells = Hs
     free = tables.free
     N = free.shape[0]
     K = torch.zeros(N, N, dtype=DTYPE, device=free.device)
@@ -367,14 +394,14 @@ def assemble_K_from(tables: JetTables, Hs):
         jet_assemble(K, H_p, tables.R_p, tables.gi_e, free)
     if xw is not None:
         contact_.contact_assemble(K, tables.contact, *xw, tables.R_c,
-                                  tables.gi_e, free)
+                                  tables.gi_e, free, cells=cells)
     K.diagonal().add_(1.0 - free)
     return K
 
 
-def _contact_matvec(y, tables: JetTables, xw, vf):
-    """y += free * K_c (free * v): v to the qps on the R00 rows, K12's hvp,
-    back by R00^T."""
+def _contact_matvec(y, tables: JetTables, xw, vf, cells=None):
+    """y += free * K_c (free * v): v to the qps on the R00 rows, K12's hvp
+    (on the list `cells` of these x, w when given), back by R00^T."""
     G, Q, _, L = tables.R_c.shape
     free = tables.free
     gl = tables.gi_e.long()
@@ -382,7 +409,7 @@ def _contact_matvec(y, tables: JetTables, xw, vf):
     vq = torch.einsum("gql,glk->gqk", R, (vf * free)[gl].reshape(G, L, 3))
     x, w = xw
     Y, _ = contact_.contact_hvp(tables.contact, x, w,
-                                vq.reshape(x.shape).contiguous())
+                                vq.reshape(x.shape).contiguous(), cells=cells)
     contrib = torch.einsum("gql,gqk->glk", R, Y.reshape(G, Q, 3))
     y.index_add_(0, gl.reshape(-1), (contrib.reshape(G, 3 * L)
                                      * free[gl]).reshape(-1))
@@ -390,7 +417,7 @@ def _contact_matvec(y, tables: JetTables, xw, vf):
 
 def tangent_matvec_from(tables: JetTables, Hs, v):
     """K(d) v from `Hs` at d, masked both sides; v: (P, C, 3)."""
-    H_e, H_i, H_p, xw = Hs
+    H_e, H_i, H_p, xw, cells = Hs
     free = tables.free
     vf = v.reshape(-1).contiguous()
     y = torch.zeros_like(vf)
@@ -400,7 +427,7 @@ def tangent_matvec_from(tables: JetTables, Hs, v):
     if H_p is not None:
         jet_matvec(y, H_p, tables.R_p, tables.gi_e, free, vf)
     if xw is not None:
-        _contact_matvec(y, tables, xw, vf)
+        _contact_matvec(y, tables, xw, vf, cells)
     return y.reshape(v.shape)
 
 

@@ -1,5 +1,7 @@
-"""K1's Hessian mode and K4 at the wing20 main path's shapes, on the GPU.
+"""Redesigned kernels at their main paths' shapes, on the GPU, for A/B runs
+of two trees.
 
+`--what k1k4`: K1's Hessian mode and K4 at the wing20 main path's shapes.
 Times K1 `shell_qp/hess` and K4 `jet_matvec` of one tree's
 `goldfish_tpu_torch` on the 20-patch wing (wing.build(num_el=6, p=3), N =
 6600, 17,920 shell qps, 992 interface qps) at chip_smoke.py phase 3's
@@ -7,16 +9,36 @@ seeded state, two ways: back to back (CUDA events around `--launches`
 launches: the inputs may stay in the 50 MB L2) and cold (each launch after
 writing a 256 MB scratch tensor outside the timed window: in the solver's
 IR loop every K4 call follows a substitution that streams the 348 MB
-factor, so its 48.8 MB of jets come from device memory). Each number is the
-median of `--repeats` measurements. K4 is timed as chip_smoke.py times it
-(y zeroed, then one launch per group: shell and interface) and per group.
-Each kernel is also checked against its plain version, and the ptxas
-registers and spill bytes of both kernels' entry functions are printed.
-Where the tree's K4 source lets a build replace its table of compile-time
-shapes, K4's C entry is also built with an empty table (into this
-checkout's gitignored `goldfish_tpu_torch/_build/`), so that every group
-runs the runtime-shape instantiation, and timed the same ways beside the
-compiled one (`jet_matvec[runtime-shape]`).
+factor, so its 48.8 MB of jets come from device memory). K4 is timed as
+chip_smoke.py times it (y zeroed, then one launch per group: shell and
+interface) and per group. Where the tree's K4 source lets a build replace
+its table of compile-time shapes, K4's C entry is also built with an empty
+table (into this checkout's gitignored `goldfish_tpu_torch/_build/`), so
+that every group runs the runtime-shape instantiation, and timed the same
+ways beside the compiled one (`jet_matvec[runtime-shape]`).
+
+`--what contact`: K12 through its public entry points, `contact_value_grad`,
+`contact_hvp` and `contact_hess` (into a zeroed K, the zero-fill timed
+with it), on the two-plate press at num_el=16 and 32 (chip_smoke.py's
+`press_problem`) at its continuation equilibrium (4 levels) plus the
+smoke's seeded noise (`check_contact`), with the same calls on both trees
+(cells of 16 qps where a tree culls); where the tree has the cull
+(`contact_cells`), also as the package's main path calls them: cells are
+elements (`[q=Q]`), and the hvp and hess on a list built once (`[list]`),
+and the cull alone.
+
+`--what assemble`: K3 through `system.assemble_K_from` (K's zero-fill, the
+launches of every group, the diagonal of fixed dofs) and as chip_smoke.py
+times it (zeroed K, one launch per group) on the 20-patch wing (phase 3's
+seeded state), the num_el=32 plate (N = 7140) and the pegasus-91 box wing
+(N = 11466), each at d = 1e-3 of its CP scale on free dofs (seeded).
+
+K12 and K3 are timed back to back only: K12's inputs are under 1 MB and
+K3 writes a K larger than the L2. Each number is the median of
+`--repeats` measurements; each kernel is checked against its plain
+version, and the ptxas registers and spill bytes of every redesigned
+kernel's entry functions (those of the tree's K12 and K3 included) are
+printed.
 
 `--root` names the tree whose package is imported and built (default this
 checkout), so that two commits can be compared in one chip call: unpack
@@ -24,7 +46,7 @@ the parent with `git archive <commit> | tar -x -C scratch_chip/parent` and
 run parent, change, change, parent.
 
     python scripts/torch_port_kernel_ab.py [--root DIR] [--repeats 5]
-        [--launches 20]
+        [--launches 20] [--what k1k4 contact assemble]
 
 The last line is one JSON object with every number.
 """
@@ -74,49 +96,37 @@ def runtime_shape_matvec(root, cuda):
            "-shared", "-o", so, stub]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError("nvcc failed:\n" + (res.stdout + res.stderr)[-4000:])
+        raise RuntimeError("nvcc failed:\n"
+                           + (res.stdout + res.stderr)[-4000:])
     fn = ctypes.CDLL(so).gf_jet_matvec
     fn.argtypes = cuda._SIGNATURES["gf_jet_matvec"]
     fn.restype = ctypes.c_int
     return fn, res.stdout + res.stderr
 
 
-def main():
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--root", default=ROOT)
-    ap.add_argument("--repeats", type=int, default=5)
-    ap.add_argument("--launches", type=int, default=20)
-    args = ap.parse_args()
-    root = os.path.abspath(args.root)
-    sys.path.insert(0, root)
+def time_cases(sm, out, cases, launches, repeats, cold=True):
+    import numpy as np
+
+    for name, fn in cases.items():
+        warm = [sm.cuda_ms(fn, launches) for _ in range(repeats)]
+        out[name] = {"ms": float(np.median(warm)), "ms_all": warm}
+        msg = f"back to back {out[name]['ms']:.4f} ms"
+        if cold:
+            c = [sm.cuda_ms_cold(fn, launches) for _ in range(repeats)]
+            out[name].update(ms_cold=float(np.median(c)), ms_cold_all=c)
+            msg += f", L2 flushed {out[name]['ms_cold']:.4f} ms"
+        print(f"[ab] {name:44s} {msg}", flush=True)
+
+
+def k1k4(sm, root, out, args):
+    """K1's Hessian mode and K4 at wing20 (see the module's note)."""
     import numpy as np
     import torch
 
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: this script needs one GPU")
-    sm = _smoke()
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(card, flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
     from goldfish_tpu_torch import _cuda
     from goldfish_tpu_torch.models import wing
     from goldfish_tpu_torch.physics import kl_shell
     from goldfish_tpu_torch.solver import system
-
-    if not os.path.abspath(_cuda.__file__).startswith(root):
-        raise RuntimeError(f"imported {_cuda.__file__}, not from {root}")
-    t0 = time.perf_counter()
-    _cuda.library()
-    build_s = time.perf_counter() - t0
-    with open(_cuda.build_info["ptxas_log"]) as fh:
-        spills = {k: v for k, v in sm.ptxas_spills(fh.read()).items()
-                  if "shell_hess" in k or "jet_matvec" in k}
-    for name, (regs, st, ld) in spills.items():
-        print(f"[ptxas] {name}: {regs} registers, spill stores {st} B, "
-              f"spill loads {ld} B", flush=True)
 
     dev = torch.device("cuda", 0)
     s = wing.build(num_el=6, p=3, device=dev)
@@ -149,13 +159,12 @@ def main():
         **{f"jet_matvec/{g}": (lambda grp=grp: system.jet_matvec(
             y_group, *grp, free, vf)) for g, grp in groups.items()},
     }
-    err = {
-        "shell_qp/hess": sm.rel_err(
-            cases["shell_qp/hess"](),
-            kl_shell._hessians_plain(st, d, cp, h, data.E, data.nu))[0],
-        "jet_matvec": sm.rel_err(matvec(system.jet_matvec),
-                                 matvec(system._matvec_plain))[0],
-    }
+    err = out["rel_err"]
+    err["shell_qp/hess"] = sm.rel_err(
+        cases["shell_qp/hess"](),
+        kl_shell._hessians_plain(st, d, cp, h, data.E, data.nu))[0]
+    err["jet_matvec"] = sm.rel_err(matvec(system.jet_matvec),
+                                   matvec(system._matvec_plain))[0]
     rt, rt_log = runtime_shape_matvec(root, _cuda)
     if rt is not None:
         for name, (regs, st_, ld) in sm.ptxas_spills(rt_log).items():
@@ -177,29 +186,183 @@ def main():
             for g, grp in groups.items()})
         err["jet_matvec[runtime-shape]"] = sm.rel_err(
             matvec(matvec_rt), matvec(system._matvec_plain))[0]
-    out = {"card": card, "root": root, "build_s": build_s,
-           "ptxas": {k: list(v) for k, v in spills.items()},
-           "rel_err": err, "bytes": {
-               "shell_qp/hess": sm.nbytes(d, cp, h, *st, *Hs[:1]),
-               "jet_matvec": sm.nbytes(*[u for g in groups.values()
-                                         for u in g], free, vf, vf)}}
+    out["bytes"].update({
+        "shell_qp/hess": sm.nbytes(d, cp, h, *st, *Hs[:1]),
+        "jet_matvec": sm.nbytes(*[u for g in groups.values() for u in g],
+                                free, vf, vf)})
     if rt is not None:
         out["bytes"]["jet_matvec[runtime-shape]"] = out["bytes"]["jet_matvec"]
-    for name, fn in cases.items():
-        warm = [sm.cuda_ms(fn, args.launches) for _ in range(args.repeats)]
-        cold = [sm.cuda_ms_cold(fn, args.launches)
-                for _ in range(args.repeats)]
-        out[name] = {"ms": float(np.median(warm)),
-                     "ms_cold": float(np.median(cold)),
-                     "ms_all": warm, "ms_cold_all": cold}
-        print(f"[ab] {name:34s} back to back {out[name]['ms']:.4f} ms, "
-              f"L2 flushed {out[name]['ms_cold']:.4f} ms", flush=True)
+    time_cases(sm, out, cases, args.launches, args.repeats)
+
+
+def contact(sm, out, args):
+    """K12 at press16 and press32 (see the module's note)."""
+    import numpy as np
+    import torch
+
+    from goldfish_tpu_torch.physics import contact as pc
+    from goldfish_tpu_torch.solver import system
+    from goldfish_tpu_torch.solver.implicit import continuation_solve
+
+    dev = torch.device("cuda", 0)
+    culls = hasattr(pc, "contact_cells")
+    for num_el in (16, 32):
+        tag = f"press{num_el}"
+        s = sm.press_problem(num_el, dev)
+        d, _, _ = continuation_solve(s.data, s.cp, s.h_init,
+                                     s.zero_displacement(), n_steps=4,
+                                     rtol=1e-9, max_it=40)
+        rng = np.random.default_rng(20)   # chip_smoke.check_contact's
+        d = d + 1e-3 * float(d.abs().max()) * torch.tensor(
+            rng.normal(size=tuple(d.shape)), device=dev) * s.data.free
+        c = s.data.contact
+        x, w = (t.contiguous() for t in pc.contact_qps(s.stack, d, s.cp))
+        v = torch.tensor(np.random.default_rng(20).normal(
+            size=tuple(x.shape)), device=dev)
+        tabs = system.jet_tables(s.data)
+        Q = tabs.R_c.shape[1]
+        N = tabs.free.shape[0]
+
+        def hess(fn, **kw):
+            K = torch.zeros(N, N, dtype=torch.float64, device=dev)
+            return fn(K, c, x, w, tabs.R_c, tabs.gi_e, tabs.free, **kw), K
+
+        cases = {
+            f"contact_pairs/value_grad@{tag}":
+                lambda: pc.contact_value_grad(c, x, w),
+            f"contact_pairs/hvp@{tag}": lambda: pc.contact_hvp(c, x, w, v),
+            f"contact_pairs/hess@{tag}": lambda: hess(pc.contact_hess),
+        }
+        if culls:
+            cells = pc.contact_cells(c, x, w, Q)
+            cases.update({
+                f"contact_pairs/cull[q=Q]@{tag}":
+                    lambda: pc.contact_cells(c, x, w, Q),
+                f"contact_pairs/cull@{tag}":
+                    lambda: pc.contact_cells(c, x, w),
+                f"contact_pairs/value_grad[q=Q]@{tag}":
+                    lambda: pc.contact_value_grad(c, x, w, q=Q),
+                f"contact_pairs/hvp[q=Q]@{tag}":
+                    lambda: pc.contact_hvp(c, x, w, v, q=Q),
+                f"contact_pairs/hvp[list]@{tag}":
+                    lambda: pc.contact_hvp(c, x, w, v, cells=cells),
+                f"contact_pairs/hess[list]@{tag}":
+                    lambda: hess(pc.contact_hess, cells=cells),
+            })
+        plain = {"value_grad": pc._value_grad_plain(c, x, w),
+                 "hvp": pc._hvp_plain(c, x, w, v),
+                 "hess": hess(pc._hess_plain)}
+        for name, fn in cases.items():
+            mode = name.split("/")[1].split("@")[0].split("[")[0]
+            if mode == "cull":
+                continue
+            got = fn()
+            out["rel_err"][name] = max(sm.rel_err(a, b)[0] for a, b in
+                                       zip(got, plain[mode]))
+        out["bytes"][f"contact@{tag}"] = sm.nbytes(x, w, v)
+        time_cases(sm, out, cases, args.launches, args.repeats, cold=False)
+        del s, plain
+        torch.cuda.empty_cache()
+
+
+def assemble(sm, out, args):
+    """K3 at wing20, plate32 and pegasus-91 (see the module's note)."""
+    import numpy as np
+    import torch
+
+    from goldfish_tpu_torch.models import boxwing, plate, wing
+    from goldfish_tpu_torch.solver import system
+
+    dev = torch.device("cuda", 0)
+    builds = {"wing20": lambda: wing.build(num_el=6, p=3, device=dev),
+              "plate32": lambda: plate.build(num_el=32, p=2, num_patches=2,
+                                             device=dev),
+              "pegasus91": lambda: boxwing.build(**sm.PEG, device=dev)}
+    for tag, build in builds.items():
+        s = build()
+        data, cp, h = s.data, s.cp, s.h_init
+        rng = np.random.default_rng(0)
+        scale = float(torch.linalg.norm(cp)) / np.sqrt(cp.numel())
+        d = torch.tensor(1e-3 * scale * rng.normal(size=tuple(cp.shape)),
+                         device=dev) * data.free
+        tab = system.jet_tables(data)
+        Hs = system.jet_hessians(data, d, cp, h)
+        N = tab.free.shape[0]
+        groups = [(Hs[0], tab.R_e, tab.gi_e)]
+        if Hs[1] is not None:
+            groups.append((Hs[1], tab.R_i, tab.gi_i))
+
+        def smoke_case(fn):
+            K = torch.zeros(N, N, dtype=torch.float64, device=dev)
+            for H, R, gi in groups:
+                fn(K, H, R, gi, tab.free)
+            return K
+
+        cases = {f"assemble_K_from@{tag}":
+                 lambda: system.assemble_K_from(tab, Hs),
+                 f"jet_assemble[smoke case]@{tag}":
+                 lambda: smoke_case(system.jet_assemble)}
+        out["rel_err"][f"jet_assemble[smoke case]@{tag}"] = sm.rel_err(
+            smoke_case(system.jet_assemble),
+            smoke_case(system._assemble_plain))[0]
+        out["bytes"][f"K@{tag}"] = N * N * 8
+        time_cases(sm, out, cases, args.launches, args.repeats, cold=False)
+        del s, Hs, tab
+        torch.cuda.empty_cache()
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=ROOT)
+    ap.add_argument("--repeats", type=int, default=5)
+    ap.add_argument("--launches", type=int, default=20)
+    ap.add_argument("--what", nargs="*", default=["k1k4", "contact",
+                                                  "assemble"],
+                    choices=["k1k4", "contact", "assemble"])
+    args = ap.parse_args()
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: this script needs one GPU")
+    sm = _smoke()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from goldfish_tpu_torch import _cuda
+
+    if not os.path.abspath(_cuda.__file__).startswith(root):
+        raise RuntimeError(f"imported {_cuda.__file__}, not from {root}")
+    t0 = time.perf_counter()
+    _cuda.library()
+    build_s = time.perf_counter() - t0
+    with open(_cuda.build_info["ptxas_log"]) as fh:
+        names = sm.REDESIGNED + ("pair_tile_kernel",)
+        spills = {k: v for k, v in sm.ptxas_spills(fh.read()).items()
+                  if any(n in k for n in names)}
+    for name, (regs, st, ld) in spills.items():
+        print(f"[ptxas] {name}: {regs} registers, spill stores {st} B, "
+              f"spill loads {ld} B", flush=True)
+    out = {"card": card, "root": root, "build_s": build_s,
+           "ptxas": {k: list(v) for k, v in spills.items()},
+           "rel_err": {}, "bytes": {}}
+    if "k1k4" in args.what:
+        k1k4(sm, root, out, args)
+    if "contact" in args.what:
+        contact(sm, out, args)
+    if "assemble" in args.what:
+        assemble(sm, out, args)
     for name, b in out["bytes"].items():
-        print(f"[ab] {name:34s} bytes {b / 1e6:.1f} MB, byte bound "
-              f"{b / sm.PEAK_BYTES * 1e3:.4f} ms; rel err vs plain "
-              f"{err[name]:.2e}", flush=True)
-        if not err[name] <= sm.KERNEL_TOL:
-            raise RuntimeError(f"{name}: kernel vs plain {err[name]:.3e}")
+        print(f"[ab] {name:44s} bytes {b / 1e6:.1f} MB, byte bound "
+              f"{b / sm.PEAK_BYTES * 1e3:.4f} ms", flush=True)
+    for name, e in out["rel_err"].items():
+        print(f"[ab] {name:44s} rel err vs plain {e:.2e}", flush=True)
+        if not e <= sm.KERNEL_TOL:
+            raise RuntimeError(f"{name}: kernel vs plain {e:.3e}")
     print(json.dumps(out))
 
 

@@ -106,8 +106,8 @@ def _vlm_calls(colloc, nhat, A, B, wake, gbar):
 
 
 def _contact_calls(device):
-    """K12's three modes on the small press (num_el=3) at a contact-active
-    seeded state."""
+    """K12's cull (its sorted list of element pairs) and three modes on the
+    small press (num_el=3) at a contact-active seeded state."""
     from goldfish_tpu_torch.physics import contact
     from goldfish_tpu_torch.solver import system
 
@@ -129,7 +129,12 @@ def _contact_calls(device):
         return (contact.contact_hess(K, c, x, w, tabs.R_c, tabs.gi_e,
                                      tabs.free), K)
 
+    def cull():
+        cells = contact.contact_cells(c, x, w, tabs.R_c.shape[1])
+        return torch.sort(cells.index[:int(cells.count)].long()).values
+
     return {
+        "contact_pairs/cull": cull,
         "contact_pairs/value_grad": lambda: contact.contact_value_grad(c, x,
                                                                        w),
         "contact_pairs/hvp": lambda: contact.contact_hvp(c, x, w, vq),
@@ -324,3 +329,62 @@ def test_cuda_kernels_match_plain_versions():
             if x is not None:
                 assert rel(x.cpu(), y.numpy()) <= 1e-11, name
         assert _cuda.launch_counts[name] >= 1, name
+
+
+@pytest.mark.gpu
+def test_cuda_cull_list_and_run_merged_assembly():
+    """K12's cull lists exactly the cell pairs of its plain twin
+    `candidate_pairs` on the press at num_el=3 (element cells and the
+    default 16-qp cells) and at num_el=8 (where neighbouring elements are
+    listed too); K3 on the small wing's interface table, whose groups form
+    runs of up to four, matches its plain version (1e-11)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    from goldfish_tpu_torch import _cuda
+    from goldfish_tpu_torch.models import wing
+    from goldfish_tpu_torch.physics import contact
+    from goldfish_tpu_torch.solver import system
+
+    dev = torch.device("cuda")
+    _cuda.reset_launch_counts()
+    for num_el, drop in ((3, 0.03), (8, 0.05)):
+        s = port_press(num_el=num_el, device=dev)
+        cp, _, d, _, _ = press_state(s, seed=7, drop=drop)
+        x, w = (a.contiguous() for a in contact.contact_qps(
+            s.stack, t(d).to(dev), t(cp).to(dev)))
+        Q = s.stack.R00.shape[2]
+        c = s.data.contact
+        cc = contact.ContactPairs(*(a.cpu() for a in c))
+        xc, wc = x.cpu(), w.cpu()
+        v = torch.randn(x.shape, dtype=torch.float64,
+                        generator=torch.Generator().manual_seed(num_el))
+        ref_vg = contact._value_grad_plain(cc, xc, wc)
+        ref_hvp = contact._hvp_plain(cc, xc, wc, v)
+        for q in (Q, None):
+            cells = contact.contact_cells(c, x, w, q)
+            got = torch.sort(cells.index[:int(cells.count)].long()).values
+            ref = contact.candidate_pairs(cc, xc, wc, q)
+            assert int(cells.count) == ref.numel() > 0, (num_el, q)
+            assert torch.equal(got.cpu(), ref), (num_el, q)
+            # the modes on lists longer than one cell's pairs (ncell != q)
+            for a, b in zip(contact.contact_value_grad(c, x, w, q=q),
+                            ref_vg):
+                assert rel(a.cpu(), b.numpy()) <= 1e-11, (num_el, q)
+            for a, b in zip(contact.contact_hvp(c, x, w, v.to(dev),
+                                                cells=cells), ref_hvp):
+                assert rel(a.cpu(), b.numpy()) <= 1e-11, (num_el, q)
+    assert _cuda.launch_counts["contact_pairs/cull"] == 8
+
+    s = wing.build(**WING_SMALL, device="cpu")
+    cp, h, d, _, _ = seeded_state(4, s)
+    tab = system.jet_tables(s.data)
+    Hs = system.jet_hessians(s.data, t(d), t(cp), t(h))
+    args = (Hs.H_i, tab.R_i, tab.gi_i, tab.free)
+    assert int(system.jet_runs(tab.gi_i)[1].max()) > 1
+    N = tab.free.numel()
+    K0 = torch.zeros(N, N, dtype=torch.float64)
+    system._assemble_plain(K0, *args)
+    K = torch.zeros(N, N, dtype=torch.float64, device=dev)
+    system.jet_assemble(K, *(a.to(dev) for a in args))
+    assert rel(K.cpu(), K0.numpy()) <= 1e-11
+    assert _cuda.launch_counts["jet_assemble"] == 1
