@@ -8,19 +8,22 @@ Phases (any failure raises: non-zero exit, no result line):
    (nvidia-smi) and turns TF32 off;
 2. build: nvcc-compiles goldfish_tpu_torch/csrc/*.cu into
    goldfish_tpu_torch/_build/ (first use) and prints the ptxas summary,
-   then the registers and spill bytes of the redesigned kernels: K1's
-   Hessian mode, every K4 instantiation, K12's cull and work kernels and
-   every K3 instantiation (it fails if any of K1's Hessian mode, K12 or
-   K3 spills);
+   then the registers and spill bytes of the redesigned kernels: K1's four
+   modes, K2's three, every K4 instantiation, K12's cull and work kernels
+   and every K3 instantiation (it fails if any of K1, K2, K12 or K3
+   spills);
 3. wing kernels: at the full 20-patch wing (6600 dofs) on the card, at a
    seeded nonzero d, K1 shell_qp and K2 penalty_qp in their three modes,
    K3 jet_assemble and K4 jet_matvec against their plain PyTorch versions
    (relative error in norm <= 1e-11; f64 atomics sum in a run-dependent
    order), with both times; K4 also timed with the L2 flushed before each
    launch (`ms_cold`: in a solver loop its 48.8 MB of jets come from device
-   memory), K1's Hessian mode with the bound of its own structured
-   algorithm and, beside it, the 15-column yardstick of the kernel it
-   replaced (`bound_ms_15col`);
+   memory), K1 and K2 with the bounds of their own algorithms (K1's
+   structured Hessian; the reverse sweeps of K1's other modes and of K2)
+   and, beside them, the yardstick of the dual-number kernels they
+   replaced (`bound_ms_15col`, `bound_ms_dual`); then, printed and not
+   gated, how much K1's and K2's mode a outputs change over 5 launches on
+   one input (`[kernel C2]`: f64 atomics, ROADMAP C2);
 4. wing main path: one thickness-optimization iteration of bench.py's
    workload (cold, with the adjoint gradient), checked against the JAX
    package's CPU f64 numbers in tests/data/torch_port_wing20_reference.json
@@ -122,7 +125,10 @@ Phases (any failure raises: non-zero exit, no result line):
 19. the Scordelis-Lo roof (goldfish_tpu_torch/models/slr.py) at num_el=6:
    the linear-regime QoI against the published 0.3006 (5e-3) and the JAX
    package's value in the same file (1e-8), and the displacement jump
-   across the patch 0 | 1 interface; then K1-K4 at the roof's shapes;
+   across the patch 0 | 1 interface; then K1-K4 at the roof's shapes,
+   and, printed and not gated, K1 mode a at the roof's own equilibrium
+   four ways with their gaps (`[slr-kernel own-d]`: kernel, plain,
+   cancellation-free, plain at x moved by one ulp; ROADMAP C6);
 20. contact kernels: the two-plate press of tests/test_contact.py (two
    clamped plates 0.12 apart, q = 120, k_pen = 1e7, r_max = 0.1; 2 patches,
    p = 2, 9 qps) at num_el=16 (N = 1944, 2304 qps per plate) at its
@@ -325,14 +331,18 @@ def phase_build():
             raise RuntimeError(f"{k} spills or is missing: {got}")
 
 
-# entry functions of the kernels redesigned for the H100 (K1's Hessian
-# mode, K4, K12's cull and work kernels, K3), and those of them that must
-# not spill
-REDESIGNED = ("shell_hess", "jet_matvec", "cell_box_kernel", "cull_kernel",
-              "pair_list_kernel", "pair_hess_kernel", "jet_assemble_kernel")
-REDESIGNED_NO_SPILL = ("shell_hess", "cell_box_kernel", "cull_kernel",
-                       "pair_list_kernel", "pair_hess_kernel",
-                       "jet_assemble_kernel")
+# entry functions of the kernels redesigned for the H100 (K1's four modes,
+# K2's three, K4, K12's cull and work kernels, K3), and those of them that
+# must not spill
+K1K2_ENTRIES = ("shell_value_grad", "shell_hess", "shell_adjoint",
+                "shell_geom_grad", "penalty_value_grad", "penalty_hess",
+                "penalty_adjoint")
+REDESIGNED = K1K2_ENTRIES + ("jet_matvec", "cell_box_kernel", "cull_kernel",
+                             "pair_list_kernel", "pair_hess_kernel",
+                             "jet_assemble_kernel")
+REDESIGNED_NO_SPILL = K1K2_ENTRIES + ("cell_box_kernel", "cull_kernel",
+                                      "pair_list_kernel", "pair_hess_kernel",
+                                      "jet_assemble_kernel")
 
 
 def ptxas_spills(log):
@@ -438,8 +448,17 @@ PRESS_KERNELS = ("shell_qp/value_grad", "shell_qp/hess", "shell_qp/adjoint",
 RIKS_KERNELS = ("shell_qp/value_grad", "shell_qp/hess", "jet_assemble")
 
 # f64 operations of one density evaluation (counted from the sources); a
-# kernel mode's count is that times the dual components it carries
+# dual-number kernel mode's count is that times the dual components it
+# carries (K1 and K2 before their reverse sweeps: the `bound_ms_dual`
+# yardstick)
 DENS_SHELL, DENS_PEN, DENS_VM = 200, 250, 300
+# f64 operations of one hand-written reverse sweep at a qp (counted from
+# csrc/shell_qp.cu:shell_sweep and csrc/penalty_sweep.cuh), in plain
+# doubles, without and with the sweep back through the geometry; a
+# Dual<double, 1> tangent makes an operation ~2.5
+SWEEP_SHELL, SWEEP_SHELL_GEO = 320, 580
+SWEEP_PEN, SWEEP_PEN_GEO = 380, 580
+TANGENT = 2.5
 # f64 operations of one AIC entry: two horseshoes of a bound segment (~50)
 # and two semi-infinite legs (~36 each), and the dot with the normal
 AIC_OPS = 265
@@ -552,7 +571,8 @@ def fixed_cases(data, d, cp, h, lam, v, tag=None):
         "shell_qp/value_grad": (
             lambda: kl_shell.shell_value_grad(st, d, cp, h, E, nu),
             lambda: kl_shell._value_grad_plain(st, d, cp, h, E, nu),
-            nqp * (jets_s + 17 * DENS_SHELL), shell_in),
+            nqp * (jets_s + 32 * L + SWEEP_SHELL), shell_in,
+            {"flops_dual": nqp * (jets_s + 17 * DENS_SHELL)}),
         "shell_qp/hess": (
             lambda: kl_shell.shell_hessians(st, d, cp, h, E, nu),
             lambda: kl_shell._hessians_plain(st, d, cp, h, E, nu),
@@ -561,7 +581,9 @@ def fixed_cases(data, d, cp, h, lam, v, tag=None):
         "shell_qp/adjoint": (
             lambda: kl_shell.shell_adjoint(st, d, cp, h, E, nu, lam),
             lambda: kl_shell._adjoint_plain(st, d, cp, h, E, nu, lam),
-            nqp * (jets_s * 3 // 2 + 34 * DENS_SHELL), shell_in + [lam]),
+            nqp * (jets_s * 3 // 2 + 32 * L + TANGENT * SWEEP_SHELL_GEO),
+            shell_in + [lam],
+            {"flops_dual": nqp * (jets_s * 3 // 2 + 34 * DENS_SHELL)}),
         "jet_assemble": (lambda: assemble(system.jet_assemble),
                          lambda: assemble(system._assemble_plain), asm,
                          jet_in),
@@ -574,22 +596,44 @@ def fixed_cases(data, d, cp, h, lam, v, tag=None):
     I_, Nq, Li = ifs.RA00.shape
     nip = I_ * Nq
     jets_p = 2 * (9 * Li * 2 + 2 * Li) * 2    # both sides, X, z, h
+    scat_p = 2 * Li * 20                       # both sides, B^T g and h
     pen_in = base + list(ifs)
+    # the reverse sweep's count (K2's bound); the dual-number count of the
+    # kernel it replaced beside it (`bound_ms_dual`)
     cases.update({
         "penalty_qp/value_grad": (
             lambda: coupling.penalty_value_grad(ifs, d, cp, h, E),
             lambda: coupling._value_grad_plain(ifs, d, cp, h, E),
-            nip * (jets_p + 21 * DENS_PEN), pen_in),
+            nip * (jets_p + scat_p + SWEEP_PEN), pen_in,
+            {"flops_dual": nip * (jets_p + 21 * DENS_PEN)}),
         "penalty_qp/hess": (
             lambda: coupling.penalty_hessians(ifs, d, cp, h, E),
             lambda: coupling._hessians_plain(ifs, d, cp, h, E),
-            nip * 18 * (jets_p + 38 * DENS_PEN), pen_in),
+            nip * (jets_p + 12 * TANGENT * SWEEP_PEN), pen_in,
+            {"flops_dual": nip * 18 * (jets_p + 38 * DENS_PEN)}),
         "penalty_qp/adjoint": (
             lambda: coupling.penalty_adjoint(ifs, d, cp, h, E, lam),
             lambda: coupling._adjoint_plain(ifs, d, cp, h, E, lam),
-            nip * (jets_p * 3 // 2 + 30 * DENS_PEN), pen_in + [lam]),
+            nip * (jets_p * 3 // 2 + scat_p + TANGENT * SWEEP_PEN_GEO),
+            pen_in + [lam],
+            {"flops_dual": nip * (jets_p * 3 // 2 + 30 * DENS_PEN)}),
     })
     return cases
+
+
+def geom_grad_case(st, d, cp, h, E, nu):
+    """K1 mode d (dW/dcp) on stack `st`: (kernel fn, plain fn, flops,
+    inputs, the dual-number yardstick): per qp the X and z jets and h, the
+    sweep with its geometry part, B^T g (30 a local)."""
+    from goldfish_tpu_torch.physics import kl_shell
+
+    P, Ne, Q, L = st.R00.shape
+    jets = 2 * 15 * L * 2 + 2 * L
+    return (lambda: kl_shell.shell_geom_grad(st, d, cp, h, E, nu),
+            lambda: kl_shell._geom_grad_plain(st, d, cp, h, E, nu),
+            P * Ne * Q * (jets + 30 * L + SWEEP_SHELL_GEO),
+            list(st) + [d, cp, h],
+            {"flops_dual": P * Ne * Q * (jets + 16 * DENS_SHELL)})
 
 
 def pressure_cases(data, d, cp, lam):
@@ -625,7 +669,8 @@ def check_kernels(cases, tag, reps=5, tol=None):
     <= tol[name], default KERNEL_TOL); returns {name: dict} with the
     relative and max abs error, both times and the bound. A case may add
     the f64 rate of its bound (default PEAK_F64) and a dict whose
-    "flops_15col" gives a second bound, `bound_ms_15col`. The
+    "flops_<what>" gives a second bound, `bound_ms_<what>`, for the
+    algorithm of the kernel it replaced (a yardstick). The
     kernels of COLD_TIMED add `ms_cold`. A dict with "compare" gives
     the (relative, max abs) error of the kernel's output against the plain
     version's, and "outputs" the kernel's output tensors for the bound."""
@@ -654,9 +699,10 @@ def check_kernels(cases, tag, reps=5, tol=None):
         more = {}
         if name in COLD_TIMED:
             more["ms_cold"] = cuda_ms_cold(kern, reps)
-        if "flops_15col" in extra:
-            more["bound_ms_15col"] = bound(
-                nbytes(*inputs, *a), extra["flops_15col"], *peak)[0]
+        for k, v in extra.items():
+            if k.startswith("flops_"):
+                more["bound_ms_" + k[6:]] = bound(
+                    nbytes(*inputs, *a), v, *peak)[0]
         say(f"[{tag}] {name:22s} rel {rel:.3e} max_abs {mx:.3e} "
             f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
             f"bound {b_ms:.4f} ms ({b_by})"
@@ -681,8 +727,29 @@ def phase_kernels(sys_, reps=5, seed=0):
     d = T(1e-3 * scale * rng.normal(size=tuple(cp.shape))) * sys_.data.free
     lam = T(rng.normal(size=tuple(cp.shape)))
     v = T(rng.normal(size=tuple(cp.shape)))
-    return check_kernels(fixed_cases(sys_.data, d, cp, sys_.h_init, lam, v,
-                                     "kernel"), "kernel", reps)
+    cases = fixed_cases(sys_.data, d, cp, sys_.h_init, lam, v, "kernel")
+    checks = check_kernels(cases, "kernel", reps)
+    reproducibility("kernel", cases, ("shell_qp/value_grad",
+                                      "penalty_qp/value_grad"))
+    return checks
+
+
+def reproducibility(tag, cases, names, runs=5):
+    """Printed, not gated (ROADMAP C2): the largest relative change, in
+    norm, of each output of a kernel over `runs` launches on the same
+    inputs. The reverse-sweep kernels sum an element's (K1) or a qp's (K2)
+    B^T g in a fixed order, but nodes shared between elements still gather
+    their sums by f64 atomics in a run-dependent order."""
+    for name in names:
+        kern = cases[name][0]
+        first = kern()
+        worst = [0.0] * len(first)
+        for _ in range(runs - 1):
+            got = kern()
+            worst = [max(w, rel_err(a, b)[0])
+                     for w, a, b in zip(worst, got, first)]
+        say(f"[{tag} C2] {name}: largest relative change over {runs} "
+            f"launches (W, r, dW/dh) " + " ".join(f"{w:.3e}" for w in worst))
 
 
 def make_iteration(sys_, th, solve):
@@ -831,7 +898,7 @@ def mi_kernel_cases(sys_, edge=True):
     whose own seams do not take it)."""
     from goldfish_tpu_torch.geometry import cpiga2xi
     from goldfish_tpu_torch.ops import bspline_traced as bt
-    from goldfish_tpu_torch.physics import coupling_mi, kl_shell
+    from goldfish_tpu_torch.physics import coupling_mi
     from goldfish_tpu_torch.solver import system, system_mi
 
     cp, h, xi, d, lam = mi_state(sys_)
@@ -859,7 +926,6 @@ def mi_kernel_cases(sys_, edge=True):
     gx = torch.tensor(np.random.default_rng(2).normal(size=(I, 4 * N)),
                       device=cp.device)
     st = data.stack
-    P_, Ne, Q, Ls = st.R00.shape
     sv = [ss.knots_u, ss.knots_v, ss.span_u_vals, ss.span_u_ids,
           ss.span_v_vals, ss.span_v_ids, ss.w, ss.n_v]
     mi_in = [mi.pairA, mi.pairB, mi.n_pts, mi.end_dir, mi.end_val, mi.xi0,
@@ -904,11 +970,7 @@ def mi_kernel_cases(sys_, edge=True):
             lambda: cpiga2xi._res_vjp_plain(ex.ss, p, q, ex.mi, ecp, ex_x,
                                             eg),
             0, e_in + [eg])
-    cases[("shell_qp/geom_grad",)] = (
-        lambda: kl_shell.shell_geom_grad(st, d, cp, h, E, data.nu),
-        lambda: kl_shell._geom_grad_plain(st, d, cp, h, E, data.nu),
-        P_ * Ne * Q * (2 * 15 * Ls * 2 + 2 * Ls + 16 * DENS_SHELL),
-        list(st) + [d, cp, h])
+    cases[("shell_qp/geom_grad",)] = geom_grad_case(st, d, cp, h, E, data.nu)
     # K1-K4 as the MI path runs them: the T-beam stack, the interface stack
     # of K5's rows at xi, the full MI tangent. At the coupled response d
     # the displacement jump across the seam nearly cancels and K2's value
@@ -975,9 +1037,9 @@ def merge(checks, name, got, suffix=None):
     prev["rel"] = max(got["rel"], prev["rel"])
     prev["max_abs_err"] = max(got["max_abs_err"], prev["max_abs_err"])
     if suffix:
-        prev.update({f"{k}_{suffix}": got[k]
-                     for k in ("ms", "plain_ms", "bound_ms", "ms_cold",
-                               "bound_ms_15col") if k in got})
+        prev.update({f"{k}_{suffix}": got[k] for k in got
+                     if k in ("ms", "plain_ms", "bound_ms", "ms_cold")
+                     or k.startswith("bound_ms_")})
 
 
 def phase_mi_kernels(sys_, checks, reps=5, tube=False):
@@ -1315,7 +1377,6 @@ def phase_tube_fixed(dev, checks, ref):
     cold J and dJ/dp at p0, then run_slsqp(maxiter=3)."""
     from goldfish_tpu_torch import _cuda
     from goldfish_tpu_torch.demos import tube_shape_opt as demo
-    from goldfish_tpu_torch.physics import kl_shell
 
     t0 = time.perf_counter()
     ns = demo.setup(num_el=ref["num_el"], p=ref["p"], device=dev,
@@ -1330,12 +1391,8 @@ def phase_tube_fixed(dev, checks, ref):
                                    "tube-kernel").items():
         merge(checks, name, got)
     cases = fixed_cases(s.data, d, cp, h, lam, v, "tube-kernel")
-    cases["shell_qp/geom_grad"] = (
-        lambda: kl_shell.shell_geom_grad(s.stack, d, cp, h, s.E, s.nu),
-        lambda: kl_shell._geom_grad_plain(s.stack, d, cp, h, s.E, s.nu),
-        P * s.stack.R00.shape[1] * s.stack.R00.shape[2]
-        * (2 * 15 * s.stack.R00.shape[3] * 2 + 16 * DENS_SHELL),
-        list(s.stack) + [d, cp, h])
+    cases["shell_qp/geom_grad"] = geom_grad_case(s.stack, d, cp, h, s.E,
+                                                 s.nu)
     for name, got in check_kernels(cases, "tube-kernel").items():
         merge(checks, name, got, "tube")
     del cp, h, d, lam, v, cases
@@ -1999,12 +2056,15 @@ def path_kernels(s, d, checks, tag, suffix, seed):
     """K1-K4 (K2 where there are interfaces) at a path's shapes against
     their plain versions, merged into `checks` with their times as
     *_<suffix>: at phase 3's kind of state (d random at 1e-3 of the CP
-    scale on free dofs, seeded; lam, v random). Printed, not gated: K1 mode
-    a at the path's own d (plus 1e-3 of its largest entry as noise), kernel
-    vs plain, beside the plain version's own change when that d moves by
-    one ulp: near a linear-regime solution the strains are small
-    differences of large metrics, so two correct f64 evaluations differ by
-    about the latter."""
+    scale on free dofs, seeded; lam, v random). Printed, not gated
+    (ROADMAP C6): K1 mode a at the path's own d (plus 1e-3 of its largest
+    entry as noise) four ways, the kernel, the plain version, the
+    cancellation-free evaluation (`kl_shell.shell_density_increments`) and
+    the plain version at x = cp + d moved by one ulp of x, with their
+    pairwise gaps, and the plain version at d moved by one ulp of d: near a
+    linear-regime solution the strains are small differences of large
+    metrics, so every f64 evaluation of the plain form carries a rounding
+    of about the kernel-vs-plain gap."""
     from goldfish_tpu_torch.physics import kl_shell
 
     rng = np.random.default_rng(seed)
@@ -2020,18 +2080,28 @@ def path_kernels(s, d, checks, tag, suffix, seed):
         merge(checks, name, got, suffix)
     de = d + T(1e-3 * float(d.abs().max())
                * rng.normal(size=tuple(d.shape))) * free
-    ulp = 1.0 + 2.2e-16 * T(rng.choice([-1.0, 1.0], size=tuple(d.shape)))
+    sign = T(rng.choice([-1.0, 1.0], size=tuple(d.shape)))
     st, E, nu = s.stack, s.data.E, s.data.nu
-    plain = kl_shell._value_grad_plain(st, de, cp, h, E, nu)
+    got = {
+        "kernel": kl_shell.shell_value_grad(st, de, cp, h, E, nu),
+        "plain": kl_shell._value_grad_plain(st, de, cp, h, E, nu),
+        "cancellation-free": kl_shell._value_grad_plain(
+            st, de, cp, h, E, nu, density=kl_shell.shell_density_increments),
+        "plain x-ulp": kl_shell._value_grad_plain(
+            st, de + (cp + de) * 2.2e-16 * sign, cp, h, E, nu),
+    }
+    u = kl_shell._value_grad_plain(st, de * (1.0 + 2.2e-16 * sign), cp, h,
+                                   E, nu)
 
-    def worst(a):
-        return max(rel_err(x, y)[0] for x, y in zip(a, plain)
-                   if x is not None)
+    def worst(a, b):
+        return max(rel_err(x, y)[0] for x, y in zip(a, b))
 
-    k = worst(kl_shell.shell_value_grad(st, de, cp, h, E, nu))
-    u = worst(kl_shell._value_grad_plain(st, de * ulp, cp, h, E, nu))
-    say(f"[{tag} own-d] shell_qp/value_grad kernel vs plain rel {k:.3e}; "
-        f"plain vs plain at d moved by one ulp rel {u:.3e} (not gated)")
+    names = list(got)
+    gaps = "; ".join(f"{a} vs {b} {worst(got[a], got[b]):.3e}"
+                     for i, a in enumerate(names) for b in names[i + 1:])
+    say(f"[{tag} own-d] shell_qp/value_grad, relative in norm (worst of W, "
+        f"r, dW/dh): {gaps}; plain vs plain at d moved by one ulp of d "
+        f"{worst(u, got['plain']):.3e} (not gated)")
 
 
 def phase_slr(dev, ref, checks):

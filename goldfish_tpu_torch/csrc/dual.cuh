@@ -9,9 +9,10 @@
 // Each energy density is written once as a template over its scalar type,
 // so value, gradient, Hessian and adjoint all come from the same source with
 // the exact derivative semantics of the JAX package's automatic
-// differentiation. One exception: K1's Hessian mode pushes a Dual<double, 1>
-// tangent through a hand-written reverse sweep of the shell density
-// (shell_qp.cu: density_grad), held against the plain autograd Hessian.
+// differentiation. K1 shell_qp and K2 penalty_qp instead sweep their
+// densities back by hand (shell_qp.cu: density_grad, shell_sweep;
+// penalty_sweep.cuh), carrying at most a Dual<double, 1> tangent; they are
+// held against the plain autograd versions.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -152,6 +153,36 @@ __device__ inline void unit3(S* a) {
   a[0] = a[0] / n;
   a[1] = a[1] / n;
   a[2] = a[2] / n;
+}
+
+// backwards through the helpers above, for hand-written reverse sweeps
+// y = v / |v| backwards: vb = (yb - (yb . y) y) / |v|
+template <class S, class T, class U>
+__device__ inline void unit3_rev(const T* y, U lv, const S* yb, S* vb) {
+  S pr = yb[0] * y[0] + yb[1] * y[1] + yb[2] * y[2];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) vb[i] = (yb[i] - pr * y[i]) / lv;
+}
+
+// c = a x b backwards: ab += b x cb, bb += cb x a
+template <class S, class T>
+__device__ inline void cross3_rev(const T* a, const T* b, const S* cb, S* ab,
+                                  S* bb) {
+  S t[3];
+  cross3(b, cb, t);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) ab[i] = ab[i] + t[i];
+  cross3(cb, a, t);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) bb[i] = bb[i] + t[i];
+}
+
+// c = a x b, a plain
+template <class S>
+__device__ inline void cross3_mixed(const double* a, const S* b, S* c) {
+  c[0] = b[2] * a[1] - b[1] * a[2];
+  c[1] = b[0] * a[2] - b[2] * a[0];
+  c[2] = b[1] * a[0] - b[0] * a[1];
 }
 
 // Entry points return a cudaError_t as int: the launch status, checked by

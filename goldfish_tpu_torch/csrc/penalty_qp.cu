@@ -1,5 +1,5 @@
 // K2 penalty_qp: penalty coupling of non-matching patches at every interface
-// quadrature point, with its derivatives by dual numbers.
+// quadrature point, with its derivatives by a hand-written reverse sweep.
 //
 // Replaces the JAX device programs
 //   goldfish_tpu/physics/coupling.py: qp_penalty_density, penalty_energy
@@ -8,25 +8,36 @@
 //   goldfish_tpu/solver/implicit.py: _jit_entry/_jit_res_pot/_jit_trial and
 //     _jit_residual_vjp (coupling part).
 //
-// One thread per interface qp (one per (qp, Hessian column) in mode 1). The
-// density depends on the displacement only through the 18-jet
+// The density depends on the displacement only through the 18-jet
 //   z = (uA, uA_u, uA_v, uB, uB_u, uB_v),
 // on the geometry through (XA_u, XA_v, XB_u, XB_v) and on the thickness
 // through (hA, hB):
 //   w dl [ad E h/2 |uA-uB|^2 + ar E h^3/24 (dphi^2 + dbeta^2)],
-// with dphi, dbeta the normal and co-normal rotation jumps.
+// with dphi, dbeta the normal and co-normal rotation jumps. Its derivatives
+// come from `penalty_sweep` (penalty_sweep.cuh).
 //
-// Modes as in shell_qp.cu: 0 value+grad (per-interface energy summed in a
-// fixed order inside the block; r and dW/dh by f64 atomics), 1 hess
-// (I, N, 18, 18), 2 adjoint (-d/d(cp,h) of lambda^T r_pen).
+// Modes (the outputs of the dual-number kernels they replaced):
+//   0 value+grad: per-qp energy (I, N) (the wrapper sums each interface's
+//     qps), r = dW/dd (P,C,3) and dW/dh (P,C) by f64 atomics;
+//   1 hess: (I, N, 18, 18). The u-u block is closed form, w dl alpha_d
+//     [[I, -I], [-I, I]], u against the first jets is exactly zero, and the
+//     12 first-jet columns are tangents (Dual<double, 1>) through the sweep;
+//   2 adjoint: -d/d(cp,h) of lambda^T r_pen: the sweep extended back to the
+//     geometry jets and h, with lambda's jets as the tangent of z.
 //
-// What bounds it on the H100: nothing at the wing20 size (992 qps, well
-// under one wave of the card); the launch and the register spills of the
-// nested dual type dominate. Kept one thread per qp for simplicity.
+// Layout. Modes 0 and 2: a block holds PCH consecutive qps; 6 PCH threads
+// gather their jets into shared memory (one (qp, side, basis row) each),
+// PCH threads sweep (one a qp), then all scatter B^T g (one (qp, side,
+// local) each). Mode 1: a block holds HQB
+// consecutive qps, 12 threads a qp (one a first-jet column; 6 of them also
+// gather, and write the closed-form u rows); the block stages its HQB x 324
+// outputs in shared memory and stores them coalesced.
 //
-// The density itself (penalty_density.cuh) is shared with K6 mi_penalty_xi.
+// The density itself (penalty_density.cuh) stays the one K6 mi_penalty_xi
+// differentiates through the moving intersection's tangents.
 #include "dual.cuh"
 #include "penalty_density.cuh"
+#include "penalty_sweep.cuh"
 
 namespace gf {
 namespace {
@@ -54,187 +65,208 @@ struct Args {
   int I, N, L, C;
 };
 
-// value, d/du, d/dv jets of a (P, C, 3) field on one side of qp t
-__device__ void side_jets(const Args& a, const double* const* R,
-                          const int* conn, int p, size_t t, const double* f,
-                          double* out) {
+__device__ inline const double* row(const Args& a, int side, int j) {
+  const double* const* R = side == 0 ? a.RA : a.RB;
+  return j == 0 ? R[0] : j == 1 ? R[1] : R[2];
+}
+
+// The jets of qp t through basis row j of one side into shared memory:
+// X (rows 1, 2: sX[6 side + 3 (j - 1)]), z (sZ[9 side + 3 j]), lambda's z
+// (mode 2) and h (row 0: sH[side]).
+template <int MODE>
+__device__ void gather(const Args& a, size_t t, int side, int j, double* sX,
+                       double* sZ, double* sL, double* sH) {
+  const int i = int(t / a.N);
+  const int p = side == 0 ? a.pairA[i] : a.pairB[i];
+  const double* R = row(a, side, j) + t * a.L;
+  const int* conn = (side == 0 ? a.connA : a.connB) + t * a.L;
+  double x[3] = {0.0, 0.0, 0.0}, z[3] = {0.0, 0.0, 0.0},
+         l[3] = {0.0, 0.0, 0.0}, hh = 0.0;
+#pragma unroll 4
+  for (int k = 0; k < a.L; ++k) {
+    const double r = R[k];
+    const size_t node = size_t(p) * a.C + conn[k];
 #pragma unroll
-  for (int i = 0; i < 9; ++i) out[i] = 0.0;
-  for (int l = 0; l < a.L; ++l) {
-    const double* c = f + (size_t(p) * a.C + conn[t * a.L + l]) * 3;
+    for (int c = 0; c < 3; ++c) {
+      if (j > 0) x[c] += r * a.cp[node * 3 + c];
+      z[c] += r * a.d[node * 3 + c];
+      if (MODE == 2) l[c] += r * a.lam[node * 3 + c];
+    }
+    if (j == 0) hh += r * a.h[node];
+  }
 #pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      double r = R[j][t * a.L + l];
-      out[3 * j] += r * c[0];
-      out[3 * j + 1] += r * c[1];
-      out[3 * j + 2] += r * c[2];
+  for (int c = 0; c < 3; ++c) {
+    if (j > 0) sX[6 * side + 3 * (j - 1) + c] = x[c];
+    sZ[9 * side + 3 * j + c] = z[c];
+    if (MODE == 2) sL[9 * side + 3 * j + c] = l[c];
+  }
+  if (j == 0) sH[side] = hh;
+}
+
+constexpr int PCH = 16;        // qps a block (modes 0, 2)
+constexpr int PTH = 6 * PCH;   // threads a block: one gather task each
+// doubles of shared memory a qp: X, z, lambda's z, hA hB, g, gh
+constexpr int PSM = NX + NZ + NZ + 2 + NZ + 1;
+
+// modes 0 and 2: PCH consecutive qps a block
+template <int MODE>
+__device__ void grad_block(const Args& a, double* Wq, double* out_f,
+                           double* out_h) {
+  extern __shared__ double sm[];
+  double* sX = sm;                 // (PCH, 12)
+  double* sZ = sX + PCH * NX;      // (PCH, 18)
+  double* sL = sZ + PCH * NZ;      // (PCH, 18)
+  double* sH = sL + PCH * NZ;      // (PCH, 2)
+  double* sG = sH + PCH * 2;       // (PCH, 18): dF/dz, or the adjoint's
+                                   // X-gradient in z's layout
+  double* sGh = sG + PCH * NZ;     // (PCH,)
+  const size_t nqp = size_t(a.I) * a.N;
+  const size_t t0 = size_t(blockIdx.x) * PCH;
+  const int nc = int(nqp - t0 < size_t(PCH) ? nqp - t0 : PCH);
+  const double sign = MODE == 0 ? 1.0 : -1.0;
+  for (int task = threadIdx.x; task < 6 * nc; task += blockDim.x) {
+    const int qq = task / 6, side = (task % 6) / 3, j = task % 3;
+    gather<MODE>(a, t0 + qq, side, j, sX + qq * NX, sZ + qq * NZ,
+                 sL + qq * NZ, sH + 2 * qq);
+  }
+  __syncthreads();
+  for (int qq = threadIdx.x; qq < nc; qq += blockDim.x) {
+    const size_t t = t0 + qq;
+    const int i = int(t / a.N);
+    const double E = fmax(a.E[a.pairA[i]], a.E[a.pairB[i]]);
+    const double* X = sX + qq * NX;
+    double* G = sG + qq * NZ;
+    if (MODE == 0) {
+      double gh;
+      penalty_sweep<double, false>(X, sZ + qq * NZ, sH[2 * qq],
+                                   sH[2 * qq + 1], a.dxiA + 2 * t,
+                                   a.dxiB + 2 * t, E, a.ad[i], a.ar[i],
+                                   a.w[t], Wq[t], G, gh);
+      sGh[qq] = gh;
+    } else {
+      typedef Dual<double, 1> T;
+      T z[NZ], g[NX], val, gh;
+#pragma unroll
+      for (int k = 0; k < NZ; ++k) {
+        z[k] = T(sZ[qq * NZ + k]);
+        z[k].g[0] = sL[qq * NZ + k];
+      }
+      penalty_sweep<T, true>(X, z, sH[2 * qq], sH[2 * qq + 1],
+                             a.dxiA + 2 * t, a.dxiB + 2 * t, E, a.ad[i],
+                             a.ar[i], a.w[t], val, g, gh);
+      // the geometry enters through the d/du, d/dv rows only: zero value
+      // rows of each side's 9-jet
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        G[k] = 0.0;
+        G[9 + k] = 0.0;
+      }
+#pragma unroll
+      for (int k = 0; k < 6; ++k) {
+        G[3 + k] = g[k].g[0];
+        G[12 + k] = g[6 + k].g[0];
+      }
+      sGh[qq] = gh.g[0];
     }
   }
-}
-
-__device__ double side_h(const Args& a, const double* const* R,
-                         const int* conn, int p, size_t t) {
-  double s = 0.0;
-  for (int l = 0; l < a.L; ++l)
-    s += R[0][t * a.L + l] * a.h[size_t(p) * a.C + conn[t * a.L + l]];
-  return s;
-}
-
-struct Point {
-  int pA, pB;
-  double X[NX], z[NZ], hA, hB, E;
-};
-
-__device__ void load_point(const Args& a, size_t t, Point& pt) {
-  int i = int(t / a.N);
-  pt.pA = a.pairA[i];
-  pt.pB = a.pairB[i];
-  double jA[9], jB[9];
-  side_jets(a, a.RA, a.connA, pt.pA, t, a.cp, jA);
-  side_jets(a, a.RB, a.connB, pt.pB, t, a.cp, jB);
-#pragma unroll
-  for (int k = 0; k < 6; ++k) {
-    pt.X[k] = jA[3 + k];
-    pt.X[6 + k] = jB[3 + k];
-  }
-  side_jets(a, a.RA, a.connA, pt.pA, t, a.d, pt.z);
-  side_jets(a, a.RB, a.connB, pt.pB, t, a.d, pt.z + 9);
-  pt.hA = side_h(a, a.RA, a.connA, pt.pA, t);
-  pt.hB = side_h(a, a.RB, a.connB, pt.pB, t);
-  pt.E = fmax(a.E[pt.pA], a.E[pt.pB]);
-}
-
-template <class S>
-__device__ S eval(const Args& a, size_t t, const Point& pt, const S* X,
-                  const S* z, S hA, S hB) {
-  int i = int(t / a.N);
-  return penalty_density(X, z, hA, hB, a.dxiA + 2 * t, a.dxiB + 2 * t, pt.E,
-                         a.ad[i], a.ar[i], a.w[t]);
-}
-
-// out_f[node] += sign * B^T gz for one side (gz: 9 jet components);
-// out_h[node] += sign * R00 gh
-__device__ void scatter_side(const Args& a, const double* const* R,
-                             const int* conn, int p, size_t t, const double* gz,
-                             double gh, double sign, double* out_f,
-                             double* out_h) {
-  for (int l = 0; l < a.L; ++l) {
-    size_t node = size_t(p) * a.C + conn[t * a.L + l];
+  __syncthreads();
+  // B^T g: one (qp, side, local) a task
+  for (int task = threadIdx.x; task < 2 * a.L * nc; task += blockDim.x) {
+    const int qq = task / (2 * a.L), side = (task / a.L) % 2, k = task % a.L;
+    const size_t t = t0 + qq;
+    const int i = int(t / a.N);
+    const int p = side == 0 ? a.pairA[i] : a.pairB[i];
+    const int* conn = side == 0 ? a.connA : a.connB;
+    const size_t node = size_t(p) * a.C + conn[t * a.L + k];
+    const double* G = sG + qq * NZ + 9 * side;
     double acc[3] = {0.0, 0.0, 0.0};
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
-      double r = R[j][t * a.L + l];
-      acc[0] += r * gz[3 * j];
-      acc[1] += r * gz[3 * j + 1];
-      acc[2] += r * gz[3 * j + 2];
+      const double r = row(a, side, j)[t * a.L + k];
+      acc[0] += r * G[3 * j];
+      acc[1] += r * G[3 * j + 1];
+      acc[2] += r * G[3 * j + 2];
     }
-    atomicAdd(out_f + node * 3, sign * acc[0]);
-    atomicAdd(out_f + node * 3 + 1, sign * acc[1]);
-    atomicAdd(out_f + node * 3 + 2, sign * acc[2]);
-    atomicAdd(out_h + node, sign * R[0][t * a.L + l] * gh);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) atomicAdd(out_f + node * 3 + c, sign * acc[c]);
+    atomicAdd(out_h + node, sign * row(a, side, 0)[t * a.L + k] * sGh[qq]);
   }
 }
 
-// mode 0: blockDim = N * (interfaces per block)
-__global__ void penalty_value_grad(Args a, double* W, double* r, double* dh) {
-  extern __shared__ double sm[];
-  int ipb = blockDim.x / a.N;
-  int i = blockIdx.x * ipb + threadIdx.x / a.N;
-  int n = threadIdx.x % a.N;
-  bool active = threadIdx.x < ipb * a.N && i < a.I;
-  double val = 0.0;
-  if (active) {
-    typedef Dual<double, NZ + 2> S;
-    size_t t = size_t(i) * a.N + n;
-    Point pt;
-    load_point(a, t, pt);
-    S Xs[NX], zs[NZ];
-#pragma unroll
-    for (int k = 0; k < NX; ++k) Xs[k] = S(pt.X[k]);
-#pragma unroll
-    for (int k = 0; k < NZ; ++k) {
-      zs[k] = S(pt.z[k]);
-      zs[k].g[k] = 1.0;
-    }
-    S hA(pt.hA), hB(pt.hB);
-    hA.g[NZ] = 1.0;
-    hB.g[NZ + 1] = 1.0;
-    S f = eval(a, t, pt, Xs, zs, hA, hB);
-    val = f.v;
-    scatter_side(a, a.RA, a.connA, pt.pA, t, f.g, f.g[NZ], 1.0, r, dh);
-    scatter_side(a, a.RB, a.connB, pt.pB, t, f.g + 9, f.g[NZ + 1], 1.0, r, dh);
-  }
-  sm[threadIdx.x] = val;
-  __syncthreads();
-  if (active && n == 0) {
-    double s = 0.0;
-    for (int k = 0; k < a.N; ++k) s += sm[threadIdx.x + k];
-    W[i] = s;
-  }
+// mode 0 writes each qp's energy (Wq, (I, N)); the wrapper sums them over
+// each interface's qps
+__global__ void penalty_value_grad(Args a, double* Wq, double* r,
+                                   double* dh) {
+  grad_block<0>(a, Wq, r, dh);
 }
 
-// mode 1: one thread per (qp, column k)
-__global__ void penalty_hess(Args a, double* H) {
-  size_t g = size_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  size_t nqp = size_t(a.I) * a.N;
-  if (g >= nqp * NZ) return;
-  size_t t = g / NZ;
-  int k = int(g % NZ);
-  typedef Dual<double, NZ> In;
-  typedef Dual<In, 1> S;
-  Point pt;
-  load_point(a, t, pt);
-  S Xs[NX], zs[NZ];
-#pragma unroll
-  for (int m = 0; m < NX; ++m) Xs[m] = S(pt.X[m]);
-#pragma unroll
-  for (int m = 0; m < NZ; ++m) {
-    zs[m] = S(pt.z[m]);
-    zs[m].v.g[m] = 1.0;
-  }
-  zs[k].g[0].v = 1.0;
-  S f = eval(a, t, pt, Xs, zs, S(pt.hA), S(pt.hB));
-  double* row = H + (t * NZ + k) * NZ;
-#pragma unroll
-  for (int j = 0; j < NZ; ++j) row[j] = f.g[0].g[j];
-}
-
-// mode 2: one thread per qp
 __global__ void penalty_adjoint(Args a, double* dcp, double* dh) {
-  size_t t = size_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= size_t(a.I) * a.N) return;
-  typedef Dual<double, 1> In;
-  typedef Dual<In, NX + 2> S;
-  Point pt;
-  load_point(a, t, pt);
-  double lz[NZ];
-  side_jets(a, a.RA, a.connA, pt.pA, t, a.lam, lz);
-  side_jets(a, a.RB, a.connB, pt.pB, t, a.lam, lz + 9);
-  S Xs[NX], zs[NZ];
+  grad_block<2>(a, nullptr, dcp, dh);
+}
+
+// ---------------------------------------------------------------- mode 1
+constexpr int NM = 12;              // first-jet components
+constexpr int HQB = 8;              // qps a block
+constexpr int NH = NZ * NZ;         // outputs a qp
+constexpr int HSM = NX + NZ + 2 + NH;
+
+// z index of first-jet column k (uA_u, uA_v, uB_u, uB_v) and of u row k
+__device__ inline int m_index(int k) { return k < 6 ? 3 + k : 6 + k; }
+__device__ inline int u_index(int k) { return k < 3 ? k : 6 + k; }
+
+// blockDim = 12 HQB: thread 12 qq + k is column k of the block's qp qq
+__global__ void penalty_hess(Args a, double* H) {
+  extern __shared__ double sm[];
+  double* sX = sm;               // (HQB, 12)
+  double* sZ = sX + HQB * NX;    // (HQB, 18)
+  double* sH = sZ + HQB * NZ;    // (HQB, 2)
+  double* sO = sH + HQB * 2;     // (HQB, 324): the block's output rows
+  const size_t nqp = size_t(a.I) * a.N;
+  const size_t q0 = size_t(blockIdx.x) * HQB;
+  const int nact = int(nqp - q0 < size_t(HQB) ? nqp - q0 : HQB);
+  const int qq = threadIdx.x / NM, k = threadIdx.x % NM;
+  const bool active = qq < nact;
+  const size_t t = q0 + qq;
+  if (active && k < 6)
+    gather<1>(a, t, k / 3, k % 3, sX + qq * NX, sZ + qq * NZ, nullptr,
+              sH + 2 * qq);
+  __syncthreads();
+  if (active) {
+    typedef Dual<double, 1> T;
+    const int i = int(t / a.N);
+    const double E = fmax(a.E[a.pairA[i]], a.E[a.pairB[i]]);
+    const double* X = sX + qq * NX;
+    const int mk = m_index(k);
+    T z[NZ], g[NZ], val, gh;
 #pragma unroll
-  for (int m = 0; m < NX; ++m) {
-    Xs[m] = S(pt.X[m]);
-    Xs[m].g[m].v = 1.0;
-  }
+    for (int j = 0; j < NZ; ++j) {
+      z[j] = T(sZ[qq * NZ + j]);
+      z[j].g[0] = j == mk ? 1.0 : 0.0;
+    }
+    const double* dxA = a.dxiA + 2 * t;
+    const double hA = sH[2 * qq], hB = sH[2 * qq + 1];
+    penalty_sweep<T, false>(X, z, hA, hB, dxA, a.dxiB + 2 * t, E, a.ad[i],
+                            a.ar[i], a.w[t], val, g, gh);
+    double* Hq = sO + qq * NH;
 #pragma unroll
-  for (int m = 0; m < NZ; ++m) {
-    zs[m] = S(pt.z[m]);
-    zs[m].v.g[0] = lz[m];
-  }
-  S hA(pt.hA), hB(pt.hB);
-  hA.g[NX].v = 1.0;
-  hB.g[NX + 1].v = 1.0;
-  S f = eval(a, t, pt, Xs, zs, hA, hB);
-  // geometry gradients enter through the d/du, d/dv rows only: pad the
-  // value slot of each side's 9-jet with zero
-  double gA[9] = {0.0, 0.0, 0.0}, gB[9] = {0.0, 0.0, 0.0};
+    for (int j = 0; j < NZ; ++j) Hq[mk * NZ + j] = g[j].g[0];
+    if (k < 6) {
+      // u row: w dl alpha_d on the diagonal, minus it against the other
+      // side's u, zero elsewhere
+      double dX[3];
 #pragma unroll
-  for (int m = 0; m < 6; ++m) {
-    gA[3 + m] = f.g[m].g[0];
-    gB[3 + m] = f.g[6 + m].g[0];
+      for (int c = 0; c < 3; ++c) dX[c] = X[c] * dxA[0] + X[3 + c] * dxA[1];
+      const double h = 0.5 * (hA + hB);
+      const double kd = (a.w[t] * sqrt(dot3(dX, dX))) * ((a.ad[i] * E) * h);
+      const int uk = u_index(k), uo = k < 3 ? uk + 9 : uk - 9;
+#pragma unroll
+      for (int j = 0; j < NZ; ++j)
+        Hq[uk * NZ + j] = j == uk ? kd : j == uo ? -kd : 0.0;
+    }
   }
-  scatter_side(a, a.RA, a.connA, pt.pA, t, gA, f.g[NX].g[0], -1.0, dcp, dh);
-  scatter_side(a, a.RB, a.connB, pt.pB, t, gB, f.g[NX + 1].g[0], -1.0, dcp, dh);
+  __syncthreads();
+  double* out = H + q0 * NH;
+  for (int e = threadIdx.x; e < nact * NH; e += blockDim.x) out[e] = sO[e];
 }
 
 }  // namespace
@@ -258,19 +290,17 @@ extern "C" int gf_penalty_qp(int mode, const double* RA00, const double* RA10,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   size_t nqp = size_t(I) * N;
   if (nqp == 0) return 0;
-  if (N > 1024) return static_cast<int>(cudaErrorInvalidValue);
-  if (mode == 0) {
-    int ipb = N >= 128 ? 1 : 128 / N;
-    int threads = ipb * N;
-    int blocks = (I + ipb - 1) / ipb;
-    penalty_value_grad<<<blocks, threads, threads * sizeof(double), s>>>(
-        a, out_w, out_f, out_h);
+  if (mode == 0 || mode == 2) {
+    const unsigned blocks = unsigned((nqp + PCH - 1) / PCH);
+    const size_t smem = size_t(PCH) * PSM * sizeof(double);
+    if (mode == 0)
+      penalty_value_grad<<<blocks, PTH, smem, s>>>(a, out_w, out_f, out_h);
+    else
+      penalty_adjoint<<<blocks, PTH, smem, s>>>(a, out_f, out_h);
   } else if (mode == 1) {
-    size_t n = nqp * NZ;
-    penalty_hess<<<unsigned((n + 127) / 128), 128, 0, s>>>(a, out_f);
-  } else if (mode == 2) {
-    penalty_adjoint<<<unsigned((nqp + 127) / 128), 128, 0, s>>>(a, out_f,
-                                                                out_h);
+    const size_t smem = size_t(HQB) * HSM * sizeof(double);  // 22.8 KB
+    penalty_hess<<<unsigned((nqp + HQB - 1) / HQB), NM * HQB, smem, s>>>(
+        a, out_f);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

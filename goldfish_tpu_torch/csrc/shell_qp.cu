@@ -1,5 +1,6 @@
 // K1 shell_qp: Kirchhoff-Love shell (St. Venant-Kirchhoff) energy at every
-// shell quadrature point, with its derivatives by dual numbers.
+// shell quadrature point, with its derivatives by hand-written reverse
+// sweeps.
 //
 // Replaces the JAX device programs
 //   goldfish_tpu/physics/kl_shell.py: internal_energy, qp_energy_density,
@@ -10,13 +11,13 @@
 //     (energy + residual), _jit_residual_vjp (shell part of the adjoint
 //     design gradient).
 //
-// Modes 0, 2, 3: one thread per quadrature point. The thread gathers its
-// element's control points, displacements and thickness through the six
-// basis rows into the midsurface jets
+// Every mode gathers an element's control points, displacements and
+// thickness through the six basis rows into the midsurface jets
 //   X, z = (d/du, d/dv, d2/du2, d2/dudv, d2/dv2) of the geometry and of the
 //   displacement (15 numbers each), h_q = R00 . h_e,
-// evaluates psi * J * w with a dual-number scalar type, and scatters
-// B^T (d psi/d z) back to the control points with f64 atomics.
+// and differentiates psi * J * w by a hand-written reverse sweep of the
+// density (`density_grad`, `shell_sweep`), carrying at most a
+// Dual<double, 1> tangent.
 //
 // Modes:
 //   0 value+grad: per-element energy (deterministic in-block sum over the
@@ -36,11 +37,24 @@
 //   h^3/24 kap^T M kap with M the SVK form's 3x3 matrix),
 // and only the 6 columns d(grad psi)/dm_k take derivatives: each is one
 // forward tangent (Dual<double, 1>) through `density_grad`, a hand-written
-// reverse sweep of shell_density; H_ms = H_sm^T. One block holds whole
+// reverse sweep of the density (kl_shell.shell_density is its plain
+// version); H_ms = H_sm^T. One block holds whole
 // elements, 6 threads a qp (one a column). The block gathers each qp's X,
 // z and h once into shared memory (thread k of a qp: the jet through
 // R_(k+1), thread 5: h), and stages the 225 outputs of every qp there, so
 // the store of the block's contiguous H rows is coalesced.
+//
+// Modes 0, 2, 3 (`shell_sweep`): mode 0 sweeps back in plain doubles with
+// dpsi/dh in closed form; mode 3 carries the sweep on through the reference
+// quantities (a, b, Aup in M, J, A3) to X; mode 2 does the same with
+// lambda's jets as the tangent of z (Dual<double, 1>), so the tangent of
+// the X-gradient is (d^2 F / dX dz) lambda, about 7 density evaluations a
+// qp in place of the 34 of the Dual<Dual<double, 1>, 16> pass it replaced.
+// A block holds whole elements (at most 64 qps); its 128 threads gather the
+// jets into shared memory (one (qp, basis row) a task), sweep one qp each,
+// then sum B^T g over each element's qps in a fixed order and add it with
+// one f64 atomic per (element, local node, component), Q times fewer than
+// a per-qp scatter.
 //
 // What bounds it on the H100: bytes. Mode 1 writes 1800 B a qp (32 MB at
 // wing20) and reads the five R rows and R00 (6 L doubles a qp): 46.4 MB at
@@ -57,63 +71,6 @@ namespace {
 
 constexpr int NJ = 15;  // jet components: 5 derivatives x 3 coordinates
 
-// (a11, a12, a22) symmetric 2x2 contravariant metric times a symmetric
-// tensor s, contracted: the SVK quadratic form E/(1-nu^2)[nu tr^2 + (1-nu)
-// Aup s Aup : s].
-template <class S>
-__device__ S quad_form(const S* A, const S* s, double c, double nu) {
-  S tr = A[0] * s[0] + 2.0 * (A[1] * s[1]) + A[2] * s[2];
-  S m11 = A[0] * s[0] + A[1] * s[1];
-  S m12 = A[0] * s[1] + A[1] * s[2];
-  S m21 = A[1] * s[0] + A[2] * s[1];
-  S m22 = A[1] * s[1] + A[2] * s[2];
-  S u11 = m11 * A[0] + m12 * A[1];
-  S u12 = m11 * A[1] + m12 * A[2];
-  S u21 = m21 * A[0] + m22 * A[1];
-  S u22 = m21 * A[1] + m22 * A[2];
-  S full = u11 * s[0] + (u12 + u21) * s[1] + u22 * s[2];
-  return c * (nu * (tr * tr) + (1.0 - nu) * full);
-}
-
-// psi * J_ref * w at one qp. X: reference jets (15), z: displacement jets
-// (15), h: thickness at the qp.
-template <class S>
-__device__ S shell_density(const S* X, const S* z, S h, double E, double nu,
-                           double wq) {
-  const S* A1 = X;
-  const S* A2 = X + 3;
-  S A3[3];
-  cross3(A1, A2, A3);
-  S J = dsqrt(dot3(A3, A3));
-  A3[0] = A3[0] / J;
-  A3[1] = A3[1] / J;
-  A3[2] = A3[2] / J;
-  S a[3] = {dot3(A1, A1), dot3(A1, A2), dot3(A2, A2)};
-  S b[3] = {dot3(X + 6, A3), dot3(X + 9, A3), dot3(X + 12, A3)};
-
-  S x[NJ];
-#pragma unroll
-  for (int i = 0; i < NJ; ++i) x[i] = X[i] + z[i];
-  S a3[3];
-  cross3(x, x + 3, a3);
-  unit3(a3);
-  S ac[3] = {dot3(x, x), dot3(x, x + 3), dot3(x + 3, x + 3)};
-  S bc[3] = {dot3(x + 6, a3), dot3(x + 9, a3), dot3(x + 12, a3)};
-
-  S eps[3], kap[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    eps[i] = 0.5 * (ac[i] - a[i]);
-    kap[i] = b[i] - bc[i];
-  }
-  S det = a[0] * a[2] - a[1] * a[1];
-  S Aup[3] = {a[2] / det, -a[1] / det, a[0] / det};
-  double c = E / (1.0 - nu * nu);
-  S psi = (0.5 * h) * quad_form(Aup, eps, c, nu) +
-          ((h * h * h) / 24.0) * quad_form(Aup, kap, c, nu);
-  return psi * J * wq;
-}
-
 struct Args {
   const double* R[6];  // R00, R10, R01, R20, R11, R02: (P, E, Q, L)
   const int* conn;     // (P, E, L)
@@ -127,76 +84,12 @@ struct Args {
   int P, Ne, Q, L, C;
 };
 
-// jets of a (P, C, 3) field at qp `qi` = (p*Ne + e)*Q + q
-__device__ void gather_jets(const Args& a, const double* f, int p, int ei,
-                            int qi, double* out) {
-  gather_rows<5>(a.R + 1, a.conn, f, p, ei, qi, a.L, a.C, out);
-}
-
 __device__ double gather_h(const Args& a, int p, int ei, int qi) {
   double s = 0.0;
   for (int l = 0; l < a.L; ++l)
     s += a.R[0][size_t(qi) * a.L + l] *
          a.h[size_t(p) * a.C + a.conn[size_t(ei) * a.L + l]];
   return s;
-}
-
-// out_f[node] += sign * B^T gz ; out_h[node] += sign * R00 gh (if out_h)
-__device__ void scatter(const Args& a, int p, int ei, int qi, const double* gz,
-                        double gh, double sign, double* out_f, double* out_h) {
-  for (int l = 0; l < a.L; ++l) {
-    size_t node = size_t(p) * a.C + a.conn[size_t(ei) * a.L + l];
-    double acc[3] = {0.0, 0.0, 0.0};
-#pragma unroll
-    for (int j = 0; j < 5; ++j) {
-      double r = a.R[j + 1][size_t(qi) * a.L + l];
-      acc[0] += r * gz[3 * j];
-      acc[1] += r * gz[3 * j + 1];
-      acc[2] += r * gz[3 * j + 2];
-    }
-    atomicAdd(out_f + node * 3, sign * acc[0]);
-    atomicAdd(out_f + node * 3 + 1, sign * acc[1]);
-    atomicAdd(out_f + node * 3 + 2, sign * acc[2]);
-    if (out_h) atomicAdd(out_h + node, sign * a.R[0][size_t(qi) * a.L + l] * gh);
-  }
-}
-
-// mode 0: one thread per qp; blockDim = Q * (elements per block)
-__global__ void shell_value_grad(Args a, double* W, double* r, double* dh) {
-  extern __shared__ double sm[];
-  int epb = blockDim.x / a.Q;
-  int ei = blockIdx.x * epb + threadIdx.x / a.Q;
-  int q = threadIdx.x % a.Q;
-  bool active = threadIdx.x < epb * a.Q && ei < a.P * a.Ne;
-  double val = 0.0;
-  if (active) {
-    typedef Dual<double, NJ + 1> S;
-    int p = ei / a.Ne;
-    int qi = ei * a.Q + q;
-    double X[NJ], z[NJ];
-    gather_jets(a, a.cp, p, ei, qi, X);
-    gather_jets(a, a.d, p, ei, qi, z);
-    double hq = gather_h(a, p, ei, qi);
-    S Xs[NJ], zs[NJ];
-#pragma unroll
-    for (int i = 0; i < NJ; ++i) {
-      Xs[i] = S(X[i]);
-      zs[i] = S(z[i]);
-      zs[i].g[i] = 1.0;
-    }
-    S hs(hq);
-    hs.g[NJ] = 1.0;
-    S f = shell_density(Xs, zs, hs, a.E[p], a.nu[p], a.wq[qi]);
-    val = f.v;
-    scatter(a, p, ei, qi, f.g, f.g[NJ], 1.0, r, dh);
-  }
-  sm[threadIdx.x] = val;
-  __syncthreads();
-  if (active && q == 0) {
-    double s = 0.0;
-    for (int k = 0; k < a.Q; ++k) s += sm[threadIdx.x + k];
-    W[ei] = s;
-  }
 }
 
 // ---------------------------------------------------------------- mode 1
@@ -253,7 +146,7 @@ __device__ void sym3_apply(const double* M, const S* s, S* y) {
   y[2] = M[2] * s[0] + M[4] * s[1] + M[5] * s[2];
 }
 
-// g = d(psi J w)/dz by a hand-written reverse sweep of shell_density, at
+// g = d(psi J w)/dz by a hand-written reverse sweep of the density, at
 // the current first jets xm = X[0:6] + z[0:6] (scalar type S: a tangent
 // in m is carried through) and second jets xs = X[6:15] + z[6:15] (plain
 // doubles: psi is linear in them through bc). Also returns a3.
@@ -391,58 +284,273 @@ __global__ void shell_hess(Args a, double* H, int epb) {
   for (int e = threadIdx.x; e < nact * HQ; e += blockDim.x) out[e] = sH[e];
 }
 
-// mode 2: one thread per qp
-__global__ void shell_adjoint(Args a, double* dcp, double* dh) {
-  size_t qi = size_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (qi >= size_t(a.P) * a.Ne * a.Q) return;
-  int ei = int(qi / a.Q);
-  int p = ei / a.Ne;
-  typedef Dual<double, 1> In;
-  typedef Dual<In, NJ + 1> S;
-  double X[NJ], z[NJ], lz[NJ];
-  gather_jets(a, a.cp, p, ei, int(qi), X);
-  gather_jets(a, a.d, p, ei, int(qi), z);
-  gather_jets(a, a.lam, p, ei, int(qi), lz);
-  double hq = gather_h(a, p, ei, int(qi));
-  S Xs[NJ], zs[NJ];
+// ------------------------------------------------------- modes 0, 2, 3
+// psi J w at one qp and its derivatives by a hand-written reverse sweep:
+// X the reference jets, z the displacement jets (scalar type S; mode 2
+// carries lambda's jets as their tangent), h the thickness. Out: val = psi
+// J w, gh = its h-derivative, J w (1/2 eps^T M eps + h^2/8 kap^T M kap),
+// and g (15) = its z-gradient, the same sweep as `density_grad`; with GEO
+// g is instead its X-gradient: the z-gradient (x = X + z) plus the sweep
+// back through the reference quantities a, b, Aup (in M), J and A3.
+template <class S, bool GEO>
+__device__ void shell_sweep(const double* X, const S* z, double h, double E,
+                            double nu, double wq, S& val, S* g, S& gh) {
+  RefQp r;
+  ref_qp(X, E, nu, wq, r);
+  S xm[NM], xs[NJ - NM];
 #pragma unroll
-  for (int i = 0; i < NJ; ++i) {
-    Xs[i] = S(X[i]);
-    Xs[i].g[i].v = 1.0;
-    zs[i] = S(z[i]);
-    zs[i].v.g[0] = lz[i];
+  for (int i = 0; i < NM; ++i) xm[i] = z[i] + X[i];
+#pragma unroll
+  for (int i = 0; i < NJ - NM; ++i) xs[i] = z[NM + i] + X[NM + i];
+  S n[3], a3[3];
+  cross3(xm, xm + 3, n);
+  S ln = dsqrt(dot3(n, n));
+#pragma unroll
+  for (int x = 0; x < 3; ++x) a3[x] = n[x] / ln;
+  // the strains in the plain version's form: eps = (x . x - A . A) / 2
+  S eps[3] = {0.5 * (dot3(xm, xm) - r.a[0]),
+              0.5 * (dot3(xm, xm + 3) - r.a[1]),
+              0.5 * (dot3(xm + 3, xm + 3) - r.a[2])};
+  S kap[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    kap[i] = r.b[i] - (a3[0] * xs[3 * i] + a3[1] * xs[3 * i + 1] +
+                       a3[2] * xs[3 * i + 2]);
+  S acb[3], bcb[3];
+  sym3_apply(r.M, eps, acb);
+  sym3_apply(r.M, kap, bcb);
+  const S qe = dot3(eps, acb), qk = dot3(kap, bcb);
+  const double h3 = h * h * h;
+  const S psi = (0.5 * h) * qe + (h3 / 24.0) * qk;
+  val = psi * r.Jw;
+  gh = r.Jw * (0.5 * qe + ((h * h) / 8.0) * qk);
+  const double ce = 0.5 * r.Jw * h, ck = -r.Jw * h3 / 12.0;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    acb[i] = ce * acb[i];   // d/d(ac_i)
+    bcb[i] = ck * bcb[i];   // d/d(bc_i)
   }
-  S hs(hq);
-  hs.g[NJ].v = 1.0;
-  S f = shell_density(Xs, zs, hs, a.E[p], a.nu[p], a.wq[qi]);
-  double gX[NJ];
+  // bc_i = xs_i . a3; a3 = n / |n|; n = x_u x x_v; ac = (x_u.x_u, ...)
+  S a3b[3];
 #pragma unroll
-  for (int i = 0; i < NJ; ++i) gX[i] = f.g[i].g[0];
-  scatter(a, p, ei, int(qi), gX, f.g[NJ].g[0], -1.0, dcp, dh);
+  for (int x = 0; x < 3; ++x) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) g[6 + 3 * i + x] = bcb[i] * a3[x];
+    a3b[x] = bcb[0] * xs[x] + bcb[1] * xs[3 + x] + bcb[2] * xs[6 + x];
+  }
+  S nb[3], cu[3], cv[3];
+  unit3_rev(a3, ln, a3b, nb);
+  cross3(xm + 3, nb, cu);
+  cross3(nb, xm, cv);
+#pragma unroll
+  for (int x = 0; x < 3; ++x) {
+    g[x] = 2.0 * (acb[0] * xm[x]) + acb[1] * xm[3 + x] + cu[x];
+    g[3 + x] = acb[1] * xm[x] + 2.0 * (acb[2] * xm[3 + x]) + cv[x];
+  }
+  if (!GEO) return;
+  // The reference quantities. F = J w [h/2 eps^T M eps + h^3/24 kap^T M
+  // kap], eps = (ac - a)/2, kap = b - bc: dF/da = -dF/dac, dF/db = -dF/dbc,
+  // dF/dJ = psi w, and dF/dM (M stored 00 01 02 11 12 22, an off-diagonal
+  // entry counted twice in s^T M s).
+  const double* A1 = X;
+  const double* A2 = X + 3;
+  double A3[3];
+  cross3(A1, A2, A3);
+  const double J = sqrt(dot3(A3, A3));
+#pragma unroll
+  for (int x = 0; x < 3; ++x) A3[x] = A3[x] / J;
+  const double det = r.a[0] * r.a[2] - r.a[1] * r.a[1];
+  const double A[3] = {r.a[2] / det, -r.a[1] / det, r.a[0] / det};
+  const double c = E / (1.0 - nu * nu);
+  const double t[3] = {A[0], 2.0 * A[1], A[2]};
+  const double he = r.Jw * 0.5 * h, hk = r.Jw * h3 / 24.0;
+  S Mb[6] = {he * (eps[0] * eps[0]) + hk * (kap[0] * kap[0]),
+             2.0 * (he * (eps[0] * eps[1]) + hk * (kap[0] * kap[1])),
+             2.0 * (he * (eps[0] * eps[2]) + hk * (kap[0] * kap[2])),
+             he * (eps[1] * eps[1]) + hk * (kap[1] * kap[1]),
+             2.0 * (he * (eps[1] * eps[2]) + hk * (kap[1] * kap[2])),
+             he * (eps[2] * eps[2]) + hk * (kap[2] * kap[2])};
+  // M = c [nu t t^T + (1 - nu) F(A)] (ref_qp): back to A
+  const double cn = c * nu, cf = c * (1.0 - nu);
+  S tb0 = cn * (2.0 * t[0] * Mb[0] + t[1] * Mb[1] + t[2] * Mb[2]);
+  S tb1 = cn * (t[0] * Mb[1] + 2.0 * t[1] * Mb[3] + t[2] * Mb[4]);
+  S tb2 = cn * (t[0] * Mb[2] + t[1] * Mb[4] + 2.0 * t[2] * Mb[5]);
+  S Ab[3];
+  Ab[0] = tb0 + cf * (2.0 * A[0] * Mb[0] + 2.0 * A[1] * Mb[1] +
+                      2.0 * A[2] * Mb[3]);
+  Ab[1] = 2.0 * tb1 + cf * (2.0 * A[0] * Mb[1] + 2.0 * A[1] * Mb[2] +
+                            4.0 * A[1] * Mb[3] + 2.0 * A[2] * Mb[4]);
+  Ab[2] = tb2 + cf * (2.0 * A[0] * Mb[3] + 2.0 * A[1] * Mb[4] +
+                      2.0 * A[2] * Mb[5]);
+  // A = (a2, -a1, a0) / det, det = a0 a2 - a1^2; and a's part in eps
+  S detb = -(Ab[0] * A[0] + Ab[1] * A[1] + Ab[2] * A[2]) / det;
+  S ab0 = Ab[2] / det + detb * r.a[2] - acb[0];
+  S ab1 = -(Ab[1] / det) - 2.0 * (detb * r.a[1]) - acb[1];
+  S ab2 = Ab[0] / det + detb * r.a[0] - acb[2];
+  // b_i = X_s,i . A3 (dF/db_i = -bcb_i); A3 = n0 / J, J = |n0|
+  S A3b[3], n0b[3];
+#pragma unroll
+  for (int x = 0; x < 3; ++x) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) g[6 + 3 * i + x] = g[6 + 3 * i + x] - bcb[i] * A3[x];
+    A3b[x] = -(bcb[0] * X[6 + x] + bcb[1] * X[9 + x] + bcb[2] * X[12 + x]);
+  }
+  const S Jb = psi * wq;
+  unit3_rev(A3, J, A3b, n0b);
+#pragma unroll
+  for (int x = 0; x < 3; ++x) n0b[x] = n0b[x] + Jb * A3[x];
+  // n0 = A1 x A2: A1 += A2 x n0b, A2 -= A1 x n0b; a = (A1.A1, A1.A2, A2.A2)
+  cross3_mixed(A2, n0b, cu);
+  cross3_mixed(A1, n0b, cv);
+#pragma unroll
+  for (int x = 0; x < 3; ++x) {
+    g[x] = g[x] + 2.0 * (ab0 * A1[x]) + ab1 * A2[x] + cu[x];
+    g[3 + x] = g[3 + x] + ab1 * A1[x] + 2.0 * (ab2 * A2[x]) - cv[x];
+  }
 }
 
-// mode 3: one thread per qp
-__global__ void shell_geom_grad(Args a, double* dcp) {
-  size_t qi = size_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (qi >= size_t(a.P) * a.Ne * a.Q) return;
-  int ei = int(qi / a.Q);
-  int p = ei / a.Ne;
-  typedef Dual<double, NJ> S;
-  double X[NJ], z[NJ];
-  gather_jets(a, a.cp, p, ei, int(qi), X);
-  gather_jets(a, a.d, p, ei, int(qi), z);
-  double hq = gather_h(a, p, ei, int(qi));
-  S Xs[NJ], zs[NJ];
+constexpr int GQB = 64;    // qps a block at most (whole elements), modes 0/2/3
+constexpr int GTH = 128;   // threads a block: with the sweep's 100-240
+                           // registers a thread, 2-4 blocks an SM
+
+// doubles of shared memory a qp: X, z, g, h, gh, value (and in mode 2
+// lambda's z)
+constexpr int GRAD_SM = 3 * NJ + 3;
+
+// Modes 0, 2, 3: `epb` whole elements a block. The block gathers its qps'
+// jets into shared memory (one (qp, basis row) a task), sweeps each qp
+// (one a thread), then sums B^T g over each element's qps in a fixed order
+// and adds it with one f64 atomic per (element, local node, component).
+template <int MODE>
+__device__ void grad_block(const Args& a, int epb, double* W, double* out_f,
+                           double* out_h) {
+  extern __shared__ double sm[];
+  const int nqb = epb * a.Q;
+  double* sX = sm;                                  // (nqb, 15)
+  double* sZ = sX + nqb * NJ;                       // (nqb, 15)
+  double* sG = sZ + nqb * NJ;                       // (nqb, 15)
+  double* sh = sG + nqb * NJ;                       // (nqb,)
+  double* sGh = sh + nqb;                           // (nqb,)
+  double* sV = sGh + nqb;                           // (nqb,)
+  double* sL = sV + nqb;                            // (nqb, 15), mode 2
+  const int e0 = blockIdx.x * epb;
+  const int ne = min(epb, a.P * a.Ne - e0);
+  const int nq = ne * a.Q;
+  const size_t q0 = size_t(e0) * a.Q;
+  for (int task = threadIdx.x; task < 6 * nq; task += blockDim.x) {
+    const int qq = task / 6, k = task % 6;
+    const int qi = int(q0) + qq, ei = qi / a.Q, p = ei / a.Ne;
+    if (k == 5) {
+      sh[qq] = gather_h(a, p, ei, qi);
+      continue;
+    }
+    // the jet through R_(k+1) of the geometry, the displacement and lambda
+    const double* Rk = (k == 0 ? a.R[1] : k == 1 ? a.R[2] : k == 2 ? a.R[3]
+                        : k == 3 ? a.R[4] : a.R[5]) + size_t(qi) * a.L;
+    const int* conn = a.conn + size_t(ei) * a.L;
+    double x[3] = {0.0, 0.0, 0.0}, z[3] = {0.0, 0.0, 0.0},
+           l[3] = {0.0, 0.0, 0.0};
+#pragma unroll 4
+    for (int j = 0; j < a.L; ++j) {
+      const double r = Rk[j];
+      const size_t c = (size_t(p) * a.C + conn[j]) * 3;
 #pragma unroll
-  for (int i = 0; i < NJ; ++i) {
-    Xs[i] = S(X[i]);
-    Xs[i].g[i] = 1.0;
-    zs[i] = S(z[i]);
+      for (int y = 0; y < 3; ++y) {
+        x[y] += r * a.cp[c + y];
+        z[y] += r * a.d[c + y];
+        if (MODE == 2) l[y] += r * a.lam[c + y];
+      }
+    }
+#pragma unroll
+    for (int y = 0; y < 3; ++y) {
+      sX[qq * NJ + 3 * k + y] = x[y];
+      sZ[qq * NJ + 3 * k + y] = z[y];
+      if (MODE == 2) sL[qq * NJ + 3 * k + y] = l[y];
+    }
   }
-  S f = shell_density(Xs, zs, S(hq), a.E[p], a.nu[p], a.wq[qi]);
-  scatter(a, p, ei, int(qi), f.g, 0.0, 1.0, dcp, nullptr);
+  __syncthreads();
+  for (int qq = threadIdx.x; qq < nq; qq += blockDim.x) {
+    const int qi = int(q0) + qq, p = qi / a.Q / a.Ne;
+    const double* X = sX + qq * NJ;
+    double* G = sG + qq * NJ;
+    if (MODE == 2) {
+      typedef Dual<double, 1> T;
+      T z[NJ], g[NJ], val, gh;
+#pragma unroll
+      for (int i = 0; i < NJ; ++i) {
+        z[i] = T(sZ[qq * NJ + i]);
+        z[i].g[0] = sL[qq * NJ + i];
+      }
+      shell_sweep<T, true>(X, z, sh[qq], a.E[p], a.nu[p], a.wq[qi], val, g,
+                           gh);
+#pragma unroll
+      for (int i = 0; i < NJ; ++i) G[i] = g[i].g[0];
+      sGh[qq] = gh.g[0];
+    } else {
+      double val, gh;
+      shell_sweep<double, MODE == 3>(X, sZ + qq * NJ, sh[qq], a.E[p],
+                                     a.nu[p], a.wq[qi], val, G, gh);
+      sGh[qq] = gh;
+      sV[qq] = val;
+    }
+  }
+  __syncthreads();
+  const double sign = MODE == 2 ? -1.0 : 1.0;
+  for (int task = threadIdx.x; task < ne * a.L; task += blockDim.x) {
+    const int e = task / a.L, l = task % a.L, ei = e0 + e;
+    const size_t node =
+        size_t(ei / a.Ne) * a.C + a.conn[size_t(ei) * a.L + l];
+    double acc[4] = {0.0, 0.0, 0.0, 0.0};
+#pragma unroll 4
+    for (int q = 0; q < a.Q; ++q) {
+      const int qq = e * a.Q + q;
+      const size_t o = (q0 + qq) * a.L + l;
+      const double* G = sG + qq * NJ;
+#pragma unroll
+      for (int j = 0; j < 5; ++j) {
+        const double r = a.R[j + 1][o];
+        acc[0] += r * G[3 * j];
+        acc[1] += r * G[3 * j + 1];
+        acc[2] += r * G[3 * j + 2];
+      }
+      if (MODE != 3) acc[3] += a.R[0][o] * sGh[qq];
+    }
+#pragma unroll
+    for (int y = 0; y < 3; ++y) atomicAdd(out_f + node * 3 + y, sign * acc[y]);
+    if (MODE != 3) atomicAdd(out_h + node, sign * acc[3]);
+  }
+  if (MODE == 0) {
+    for (int e = threadIdx.x; e < ne; e += blockDim.x) {
+      double s = 0.0;
+      for (int q = 0; q < a.Q; ++q) s += sV[e * a.Q + q];
+      W[e0 + e] = s;
+    }
+  }
 }
 
+// one signature for the three modes: (W, out_f, out_h) as each needs them
+__global__ void shell_value_grad(Args a, int epb, double* W, double* r,
+                                 double* dh) {
+  grad_block<0>(a, epb, W, r, dh);
+}
+
+__global__ void shell_adjoint(Args a, int epb, double*, double* dcp,
+                              double* dh) {
+  grad_block<2>(a, epb, nullptr, dcp, dh);
+}
+
+__global__ void shell_geom_grad(Args a, int epb, double*, double* dcp,
+                                double*) {
+  grad_block<3>(a, epb, nullptr, dcp, nullptr);
+}
+
+// dynamic shared memory above the default 48 KB needs the attribute
+template <class K>
+int allow_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem)));
+}
 }  // namespace
 }  // namespace gf
 
@@ -461,29 +569,26 @@ extern "C" int gf_shell_qp(int mode, const double* R00, const double* R10,
   size_t nqp = size_t(P) * Ne * Q;
   if (nqp == 0) return 0;
   if (Q > 1024) return static_cast<int>(cudaErrorInvalidValue);
-  if (mode == 0) {
-    int epb = Q >= 128 ? 1 : 128 / Q;
-    int threads = epb * Q;
-    int blocks = (P * Ne + epb - 1) / epb;
-    shell_value_grad<<<blocks, threads, threads * sizeof(double), s>>>(
-        a, out_w, out_f, out_h);
+  if (mode == 0 || mode == 2 || mode == 3) {
+    void (*kernel)(Args, int, double*, double*, double*) =
+        mode == 0 ? shell_value_grad : mode == 2 ? shell_adjoint
+                                                 : shell_geom_grad;
+    const int epb = Q >= GQB ? 1 : GQB / Q;
+    const size_t smem = size_t(epb) * Q *
+                        (GRAD_SM + (mode == 2 ? NJ : 0)) * sizeof(double);
+    int e = allow_smem(kernel, smem);
+    if (e != 0) return e;
+    const unsigned nb = unsigned((size_t(P) * Ne + epb - 1) / epb);
+    kernel<<<nb, GTH, smem, s>>>(a, epb, out_w, out_f, out_h);
   } else if (mode == 1) {
     // whole elements a block, ~128 threads: 6 per qp
     if (NM * Q > 1024) return static_cast<int>(cudaErrorInvalidValue);
     int epb = NM * Q >= 128 ? 1 : 128 / (NM * Q);
     size_t smem = size_t(epb) * Q * HESS_SM * sizeof(double);
-    if (smem > 48 * 1024) {
-      cudaError_t e = cudaFuncSetAttribute(
-          shell_hess, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          int(smem));
-      if (e != cudaSuccess) return static_cast<int>(e);
-    }
+    int e = allow_smem(shell_hess, smem);
+    if (e != 0) return e;
     size_t nb = (size_t(P) * Ne + epb - 1) / epb;
     shell_hess<<<unsigned(nb), NM * Q * epb, smem, s>>>(a, out_f, epb);
-  } else if (mode == 2) {
-    shell_adjoint<<<unsigned((nqp + 127) / 128), 128, 0, s>>>(a, out_f, out_h);
-  } else if (mode == 3) {
-    shell_geom_grad<<<unsigned((nqp + 127) / 128), 128, 0, s>>>(a, out_f);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -217,7 +217,8 @@ def penalty_density(X, z, hA, hB, dxA, dxB, E, ad, ar, w):
     """w * density * dl per interface qp. X: (..., 12) = (XAu, XAv, XBu,
     XBv); z: (..., 18) displacement jets; hA, hB, E, ad, ar, w: (...);
     dxA, dxB: (..., 2). The plain version of K2's density (the same
-    formula as csrc/penalty_qp.cu:penalty_density)."""
+    formula as csrc/penalty_density.cuh, which K6 differentiates; K2
+    sweeps it back by hand, csrc/penalty_sweep.cuh)."""
     XAu, XAv, XBu, XBv = (X[..., 3 * k:3 * k + 3] for k in range(4))
     uA, uB = z[..., 0:3], z[..., 9:12]
     h = 0.5 * (hA + hB)
@@ -391,12 +392,12 @@ def penalty_value_grad(ifs: InterfaceStack, d, cp, h, E):
     dims = _check_inputs(ifs, d, cp, h, E)
     if not _cuda.on_cuda(d):
         return _value_grad_plain(ifs, d, cp, h, E)
-    W = torch.empty(dims[0], dtype=DTYPE, device=d.device)
+    Wq = torch.empty(dims[0], dims[1], dtype=DTYPE, device=d.device)
     r = torch.zeros_like(d)
     dh = torch.zeros_like(h)
-    _launch(0, "penalty_qp/value_grad", ifs, d, cp, h, E, None, W, r, dh,
+    _launch(0, "penalty_qp/value_grad", ifs, d, cp, h, E, None, Wq, r, dh,
             dims)
-    return W, r, dh
+    return Wq.sum(-1), r, dh
 
 
 def penalty_hessians(ifs: InterfaceStack, d, cp, h, E):

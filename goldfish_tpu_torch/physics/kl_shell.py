@@ -20,8 +20,9 @@ basis rows:
   (shape optimization).
 
 Each of the four runs the CUDA kernel K1 `shell_qp`
-(csrc/shell_qp.cu) on CUDA tensors and its plain PyTorch version
-(torch.func on `shell_density`) on CPU tensors.
+(csrc/shell_qp.cu: hand-written reverse sweeps of the density) on CUDA
+tensors and its plain PyTorch version (torch.func on `shell_density`) on
+CPU tensors.
 
 The von Mises stress at the qps (`qp_stress_vm`, the stress constraint's
 field) is K9 `vm_stress_qp` (csrc/vm_stress_qp.cu) on CUDA tensors: mode 0
@@ -37,7 +38,8 @@ from goldfish_tpu_torch import _cuda
 from goldfish_tpu_torch.config import DTYPE, INDEX_DTYPE
 from goldfish_tpu_torch.geometry.patch_stack import PatchStack
 
-__all__ = ["gather", "shell_density", "shell_value_grad", "shell_hessians",
+__all__ = ["gather", "shell_density", "shell_density_increments",
+           "shell_value_grad", "shell_hessians",
            "shell_adjoint", "shell_geom_grad", "internal_energy", "element_hessians",
            "stress_density", "vm_stress_value", "vm_stress_vjp",
            "qp_stress_vm", "volume", "external_work_dead_load",
@@ -120,7 +122,8 @@ def _quad_form(A, s, c, nu):
 def shell_density(X, z, h, E, nu, wq):
     """psi * J_ref * w per qp. X, z: (..., 15) geometry / displacement
     jets; h, E, nu, wq: (...). The plain version of K1's density (the
-    same formula as csrc/shell_qp.cu:shell_density)."""
+    kernel sweeps the same formula back by hand: csrc/shell_qp.cu,
+    `shell_sweep`)."""
     A1, A2 = X[..., 0:3], X[..., 3:6]
     A3 = _cross(A1, A2)
     J = torch.sqrt(_dot(A3, A3))
@@ -145,6 +148,41 @@ def shell_density(X, z, h, E, nu, wq):
     return psi * J * wq
 
 
+def shell_density_increments(X, z, h, E, nu, wq):
+    """`shell_density` with the strains formed from the displacement's
+    increments, free of the cancellation in a - A and b - bc when |z| <<
+    |X|: eps = (X_u.z_u + z_u.z_u/2, (X_u.z_v + z_u.X_v + z_u.z_v)/2, X_v.z_v
+    + z_v.z_v/2) and kap = -(X_s.(a3 - A3) + z_s.a3), a3 - A3 formed from
+    n - n0 = X_u x z_v + z_u x X_v + z_u x z_v. The same density in exact
+    arithmetic; near a linear-regime state it is the yardstick of the
+    rounding that every f64 evaluation of the plain form carries (ROADMAP
+    C6)."""
+    A1, A2 = X[..., 0:3], X[..., 3:6]
+    z1, z2 = z[..., 0:3], z[..., 3:6]
+    n0 = _cross(A1, A2)
+    J = torch.sqrt(_dot(n0, n0))
+    a = (_dot(A1, A1), _dot(A1, A2), _dot(A2, A2))
+    eps = (_dot(A1, z1) + 0.5 * _dot(z1, z1),
+           0.5 * (_dot(A1, z2) + _dot(z1, A2) + _dot(z1, z2)),
+           _dot(A2, z2) + 0.5 * _dot(z2, z2))
+    dn = _cross(A1, z2) + _cross(z1, A2) + _cross(z1, z2)
+    n = n0 + dn
+    ln = torch.sqrt(_dot(n, n))
+    a3 = n / ln[..., None]
+    # a3 - A3 = dn/|n| + n0 (|n0| - |n|)/(|n| |n0|), |n0| - |n| = -(2 n0.dn
+    # + dn.dn)/(|n0| + |n|)
+    da3 = dn / ln[..., None] - n0 * ((2.0 * _dot(n0, dn) + _dot(dn, dn))
+                                     / (ln * J * (J + ln)))[..., None]
+    kap = tuple(-(_dot(X[..., 6 + 3 * i:9 + 3 * i], da3)
+                  + _dot(z[..., 6 + 3 * i:9 + 3 * i], a3)) for i in range(3))
+    det = a[0] * a[2] - a[1] * a[1]
+    Aup = (a[2] / det, -a[1] / det, a[0] / det)
+    c = E / (1.0 - nu * nu)
+    psi = (0.5 * h) * _quad_form(Aup, eps, c, nu) \
+        + ((h * h * h) / 24.0) * _quad_form(Aup, kap, c, nu)
+    return psi * J * wq
+
+
 def _qp_params(stack, E, nu):
     shp = stack.wq.shape
     return (E[:, None, None].expand(shp), nu[:, None, None].expand(shp),
@@ -152,11 +190,11 @@ def _qp_params(stack, E, nu):
 
 
 # ------------------------------------------------------------ plain versions
-def _value_grad_plain(stack, d, cp, h, E, nu):
+def _value_grad_plain(stack, d, cp, h, E, nu, density=shell_density):
     X, z, hq = jets(stack, cp), jets(stack, d), h_at_qps(stack, h)
     Eq, nuq, wq = _qp_params(stack, E, nu)
     vals, vjp = torch.func.vjp(
-        lambda zz, hh: shell_density(X, zz, hh, Eq, nuq, wq), z, hq)
+        lambda zz, hh: density(X, zz, hh, Eq, nuq, wq), z, hq)
     gz, gh = vjp(torch.ones_like(vals))
     C = d.shape[1]
     return vals.sum(-1), _scatter_jets(stack, gz, C), _scatter_h(stack, gh, C)

@@ -27,6 +27,26 @@ smoke's seeded noise (`check_contact`), with the same calls on both trees
 elements (`[q=Q]`), and the hvp and hess on a list built once (`[list]`),
 and the cull alone.
 
+`--what k1k2`: K1 `shell_qp` modes 0 and 2 (value and gradient, adjoint)
+and K2 `penalty_qp` modes 0, 1 and 2 (value and gradient, Hessian,
+adjoint) through their public entry points (`kl_shell.shell_value_grad`,
+`shell_adjoint`; `coupling.penalty_value_grad`, `penalty_hessians`,
+`penalty_adjoint`) on the 20-patch wing, the num_el=32 plate (N = 7140)
+and the pegasus-91 box wing (N = 11466), and K1 mode 3
+(`kl_shell.shell_geom_grad`) on the MI T-beam (`tbeam.build_mi(num_el=40,
+p=3, n_pts=17)`, N = 6072) and the num_el=16 tube, each at d = 1e-3 of its
+CP scale on free dofs and lambda standard normal (seeded), back to back and
+with the L2 flushed; the same calls on both trees.
+
+`--what c6`: K1 mode 0 at the Scordelis-Lo roof's own equilibrium
+(num_el=6, solved by the tree's package, plus chip_smoke.py's seeded
+noise), against the tree's plain version and against the
+cancellation-free evaluation of this checkout's
+`kl_shell.shell_density_increments` (ROADMAP C6): the relative gaps in
+norm, worst of (W, r, dW/dh). With `--state FILE` the noisy state is read
+from FILE if it exists and written there if not, so that the kernels of
+two trees are read at the same inputs.
+
 `--what assemble`: K3 through `system.assemble_K_from` (K's zero-fill, the
 launches of every group, the diagonal of fixed dofs) and as chip_smoke.py
 times it (zeroed K, one launch per group) on the 20-patch wing (phase 3's
@@ -46,7 +66,7 @@ the parent with `git archive <commit> | tar -x -C scratch_chip/parent` and
 run parent, change, change, parent.
 
     python scripts/torch_port_kernel_ab.py [--root DIR] [--repeats 5]
-        [--launches 20] [--what k1k4 contact assemble]
+        [--launches 20] [--what k1k4 contact assemble k1k2 c6] [--state FILE]
 
 The last line is one JSON object with every number.
 """
@@ -311,14 +331,123 @@ def assemble(sm, out, args):
         torch.cuda.empty_cache()
 
 
+def k1k2(sm, out, args):
+    """K1 modes 0, 2, 3 and K2 modes 0, 1, 2 (see the module's note)."""
+    import numpy as np
+    import torch
+
+    from goldfish_tpu_torch.models import boxwing, plate, tbeam, tube, wing
+    from goldfish_tpu_torch.physics import coupling, kl_shell
+
+    dev = torch.device("cuda", 0)
+    builds = {
+        "wing20": lambda: wing.build(num_el=6, p=3, device=dev),
+        "plate32": lambda: plate.build(num_el=32, p=2, num_patches=2,
+                                       device=dev),
+        "pegasus91": lambda: boxwing.build(**sm.PEG, device=dev),
+        "mi_tbeam40": lambda: tbeam.build_mi(num_el=40, p=3, n_pts=17,
+                                             device=dev),
+        "tube16": lambda: tube.build(num_el=16, p=3, pressure=1e2,
+                                     device=dev),
+    }
+    for tag, build in builds.items():
+        s = build()
+        data, cp, h = s.data, s.cp, s.h_init
+        st, ifs, E, nu = data.stack, data.ifs, data.E, data.nu
+        rng = np.random.default_rng(0)
+        scale = float(torch.linalg.norm(cp)) / np.sqrt(cp.numel())
+        T = lambda a: torch.tensor(a, dtype=torch.float64, device=dev)  # noqa
+        d = T(1e-3 * scale * rng.normal(size=tuple(cp.shape))) * data.free
+        lam = T(rng.normal(size=tuple(cp.shape)))
+        if tag in ("mi_tbeam40", "tube16"):
+            pairs = {"shell_qp/geom_grad": (
+                lambda: kl_shell.shell_geom_grad(st, d, cp, h, E, nu),
+                lambda: kl_shell._geom_grad_plain(st, d, cp, h, E, nu))}
+        else:
+            pairs = {
+                "shell_qp/value_grad": (
+                    lambda: kl_shell.shell_value_grad(st, d, cp, h, E, nu),
+                    lambda: kl_shell._value_grad_plain(st, d, cp, h, E,
+                                                       nu)),
+                "shell_qp/adjoint": (
+                    lambda: kl_shell.shell_adjoint(st, d, cp, h, E, nu, lam),
+                    lambda: kl_shell._adjoint_plain(st, d, cp, h, E, nu,
+                                                    lam)),
+                "penalty_qp/value_grad": (
+                    lambda: coupling.penalty_value_grad(ifs, d, cp, h, E),
+                    lambda: coupling._value_grad_plain(ifs, d, cp, h, E)),
+                "penalty_qp/hess": (
+                    lambda: coupling.penalty_hessians(ifs, d, cp, h, E),
+                    lambda: coupling._hessians_plain(ifs, d, cp, h, E)),
+                "penalty_qp/adjoint": (
+                    lambda: coupling.penalty_adjoint(ifs, d, cp, h, E, lam),
+                    lambda: coupling._adjoint_plain(ifs, d, cp, h, E, lam)),
+            }
+            out["shapes"][tag] = {"stack": list(st.R00.shape),
+                                  "ifs": list(ifs.RA00.shape)}
+        out["shapes"].setdefault(tag, {"stack": list(st.R00.shape)})
+        cases = {}
+        for name, (kern, plain) in pairs.items():
+            got, want = kern(), plain()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            out["rel_err"][f"{name}@{tag}"] = max(
+                sm.rel_err(a, b)[0] for a, b in zip(got, want))
+            cases[f"{name}@{tag}"] = kern
+        time_cases(sm, out, cases, args.launches, args.repeats)
+        del s, data, st, ifs, cases, pairs
+        torch.cuda.empty_cache()
+
+
+def c6(sm, out, args):
+    """K1 mode 0 at the roof three ways (see the module's note)."""
+    import numpy as np
+    import torch
+
+    from goldfish_tpu_torch.models import slr
+    from goldfish_tpu_torch.physics import kl_shell
+
+    spec = importlib.util.spec_from_file_location(
+        "kl_shell_here", os.path.join(ROOT, "goldfish_tpu_torch", "physics",
+                                      "kl_shell.py"))
+    here = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(here)
+    dev = torch.device("cuda", 0)
+    _, d, s = slr.solve_qoi(num_el=6, load_scale=1e-3, device=dev)
+    rng = np.random.default_rng(23)   # chip_smoke.path_kernels' draws
+    for _ in range(3):                # its state, lambda and v
+        rng.normal(size=tuple(d.shape))
+    free, cp, h = s.data.free, s.cp, s.h_init
+    de = d + torch.tensor(1e-3 * float(d.abs().max())
+                          * rng.normal(size=tuple(d.shape)),
+                          device=dev) * free
+    if args.state and os.path.exists(args.state):
+        de = torch.load(args.state).to(dev)
+    elif args.state:
+        torch.save(de.cpu(), args.state)
+    st, E, nu = s.stack, s.data.E, s.data.nu
+    got = {"kernel": kl_shell.shell_value_grad(st, de, cp, h, E, nu),
+           "plain": kl_shell._value_grad_plain(st, de, cp, h, E, nu),
+           "cancellation-free": here._value_grad_plain(
+               st, de, cp, h, E, nu,
+               density=here.shell_density_increments)}
+    names = list(got)
+    for i, a in enumerate(names):
+        for b in names[i + 1:]:
+            gap = max(sm.rel_err(x, y)[0] for x, y in zip(got[a], got[b]))
+            out["c6"][f"{a} vs {b}"] = gap
+            print(f"[c6] {a} vs {b}: {gap:.3e}", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=ROOT)
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--launches", type=int, default=20)
+    ap.add_argument("--state", default=None)
     ap.add_argument("--what", nargs="*", default=["k1k4", "contact",
-                                                  "assemble"],
-                    choices=["k1k4", "contact", "assemble"])
+                                                  "assemble", "k1k2"],
+                    choices=["k1k4", "contact", "assemble", "k1k2", "c6"])
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -349,13 +478,17 @@ def main():
               f"spill loads {ld} B", flush=True)
     out = {"card": card, "root": root, "build_s": build_s,
            "ptxas": {k: list(v) for k, v in spills.items()},
-           "rel_err": {}, "bytes": {}}
+           "rel_err": {}, "bytes": {}, "shapes": {}, "c6": {}}
     if "k1k4" in args.what:
         k1k4(sm, root, out, args)
     if "contact" in args.what:
         contact(sm, out, args)
     if "assemble" in args.what:
         assemble(sm, out, args)
+    if "k1k2" in args.what:
+        k1k2(sm, out, args)
+    if "c6" in args.what:
+        c6(sm, out, args)
     for name, b in out["bytes"].items():
         print(f"[ab] {name:44s} bytes {b / 1e6:.1f} MB, byte bound "
               f"{b / sm.PEAK_BYTES * 1e3:.4f} ms", flush=True)
