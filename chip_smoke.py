@@ -9,9 +9,9 @@ Phases (any failure raises: non-zero exit, no result line):
 2. build: nvcc-compiles goldfish_tpu_torch/csrc/*.cu into
    goldfish_tpu_torch/_build/ (first use) and prints the ptxas summary,
    then the registers and spill bytes of the redesigned kernels: K1's four
-   modes, K2's three, every K4 instantiation, K12's cull and work kernels
-   and every K3 instantiation (it fails if any of K1, K2, K12 or K3
-   spills);
+   modes, K2's three, every K4 instantiation, K12's cull and work kernels,
+   every K3 instantiation, K8's three and K11's two (it fails if any of
+   K1, K2, K12, K3, K8 or K11 spills);
 3. wing kernels: at the full 20-patch wing (6600 dofs) on the card, at a
    seeded nonzero d, K1 shell_qp and K2 penalty_qp in their three modes,
    K3 jet_assemble and K4 jet_matvec against their plain PyTorch versions
@@ -56,9 +56,12 @@ Phases (any failure raises: non-zero exit, no result line):
    degree (3, 2), 12 qps, N = 8436) on the card, at d = the pressure's linear
    response plus seeded noise, lambda random: K8 pressure_qp in its three
    modes and K1-K4 (K3/K4 with the pressure group) on the fixed-seam
-   elliptic tube; K5-K7 and K1-K4 (K3 also through the seam-slot map) on
-   the moving-seam tube (four edge seams of 35 points, xi moved inside its
-   edges); each against its plain version (1e-11), with both times;
+   elliptic tube, then, printed and not gated, how much K8's mode 0
+   outputs change over 5 launches on one input (`[tube-kernel C2]`); K8 in
+   its three modes (at d = seeded noise) and K5-K7 and K1-K4 (K3 also
+   through the seam-slot map) on the moving-seam tube (four edge seams of
+   35 points, xi moved inside its edges); each against its plain version
+   (1e-11), with both times;
 8. fixed-seam tube path (goldfish_tpu_torch/demos/tube_shape_opt.py): J
    and dJ/dp at p0 from d = 0 against tests/data/
    torch_port_tube16_reference.json (J 1e-8, gradient 1e-6), then
@@ -110,7 +113,9 @@ Phases (any failure raises: non-zero exit, no result line):
    version, compared in norm over the whole matrix: at the root the real
    and mirrored trailing legs nearly cancel) on the full-width lattice (the
    20-patch wing, N = 6600, under 16 x 64 panels) at the deformed corners
-   of a seeded d, and on the demo's 6 x 10 lattice, with both times;
+   of a seeded d, and on the demo's 6 x 10 lattice, with both times; the
+   VJP's bound counts its reverse sweep (SWEEP_AIC a pair), and the
+   dual-number kernel it replaced stays beside it (`bound_ms_dual`);
 17. VLM demo path (goldfish_tpu_torch/demos/vlm_aeroelastic_wing.py's
    `main` at its defaults: 2 x 3 patches, num_el=3, 6 x 10 panels, 4
    fixed-point passes): W_int and lift (1e-8), tip displacement and
@@ -332,17 +337,20 @@ def phase_build():
 
 
 # entry functions of the kernels redesigned for the H100 (K1's four modes,
-# K2's three, K4, K12's cull and work kernels, K3), and those of them that
-# must not spill
+# K2's three, K4, K12's cull and work kernels, K3, K8's three modes (the
+# template `pressure_grad_block` is modes 0 and 2), K11's two), and those of
+# them that must not spill
 K1K2_ENTRIES = ("shell_value_grad", "shell_hess", "shell_adjoint",
                 "shell_geom_grad", "penalty_value_grad", "penalty_hess",
                 "penalty_adjoint")
-REDESIGNED = K1K2_ENTRIES + ("jet_matvec", "cell_box_kernel", "cull_kernel",
-                             "pair_list_kernel", "pair_hess_kernel",
-                             "jet_assemble_kernel")
-REDESIGNED_NO_SPILL = K1K2_ENTRIES + ("cell_box_kernel", "cull_kernel",
-                                      "pair_list_kernel", "pair_hess_kernel",
-                                      "jet_assemble_kernel")
+K8K11_ENTRIES = ("pressure_grad_block", "pressure_hess", "aic_value_kernel",
+                 "aic_vjp_kernel")
+REDESIGNED = K1K2_ENTRIES + K8K11_ENTRIES + (
+    "jet_matvec", "cell_box_kernel", "cull_kernel", "pair_list_kernel",
+    "pair_hess_kernel", "jet_assemble_kernel")
+REDESIGNED_NO_SPILL = K1K2_ENTRIES + K8K11_ENTRIES + (
+    "cell_box_kernel", "cull_kernel", "pair_list_kernel", "pair_hess_kernel",
+    "jet_assemble_kernel")
 
 
 def ptxas_spills(log):
@@ -462,6 +470,12 @@ TANGENT = 2.5
 # f64 operations of one AIC entry: two horseshoes of a bound segment (~50)
 # and two semi-infinite legs (~36 each), and the dot with the normal
 AIC_OPS = 265
+# f64 operations of K11's VJP a pair (counted from csrc/vlm_aic.cu): two
+# `horseshoe_rev` sweeps (315 each: the shared r1, r2, r0, norms and their
+# reciprocals 25, the bound segment forward and back 102, each leg 78, the
+# norms' and ends' pullbacks 32), the cotangent g n, the mirror's fold and
+# dn = g v (18); a division or square root counts one
+SWEEP_AIC = 648
 # f64 operations of one qp pair within r_max in K12 (counted from
 # csrc/contact_pairs.cu): the distance and cubic (~20), then the force and
 # the two weighted potentials (~12), the hvp's projection and 3-vector
@@ -647,7 +661,7 @@ def pressure_cases(data, d, cp, lam):
     ins = [st.R00, st.R10, st.R01, st.conn, st.wq, d, cp, pr]
     # per qp: 9-jet gathers (36 flops per local and field), the triple
     # products and cross products (~70), the scatter (18 per local); the
-    # Hessian applies 9 directional derivatives (~72 each)
+    # Hessian's closed form: c and its 54 nonzero entries +-c y_m
     return {
         "pressure_qp/value_grad": (
             lambda: loads.pressure_value_grad(st, d, cp, pr),
@@ -656,7 +670,7 @@ def pressure_cases(data, d, cp, lam):
         "pressure_qp/hess": (
             lambda: loads.pressure_hessians(st, d, cp, pr),
             lambda: loads._pressure_hessians_plain(st, d, cp, pr),
-            nqp * (36 * L + 9 * 72), ins),
+            nqp * (36 * L + 56), ins),
         "pressure_qp/adjoint": (
             lambda: loads.pressure_adjoint(st, d, cp, pr, lam),
             lambda: loads._pressure_adjoint_plain(st, d, cp, pr, lam),
@@ -734,12 +748,12 @@ def phase_kernels(sys_, reps=5, seed=0):
     return checks
 
 
-def reproducibility(tag, cases, names, runs=5):
+def reproducibility(tag, cases, names, runs=5, outputs="(W, r, dW/dh)"):
     """Printed, not gated (ROADMAP C2): the largest relative change, in
     norm, of each output of a kernel over `runs` launches on the same
-    inputs. The reverse-sweep kernels sum an element's (K1) or a qp's (K2)
-    B^T g in a fixed order, but nodes shared between elements still gather
-    their sums by f64 atomics in a run-dependent order."""
+    inputs. The reverse-sweep kernels sum an element's (K1, K8) or a qp's
+    (K2) B^T g in a fixed order, but nodes shared between elements still
+    gather their sums by f64 atomics in a run-dependent order."""
     for name in names:
         kern = cases[name][0]
         first = kern()
@@ -749,7 +763,7 @@ def reproducibility(tag, cases, names, runs=5):
             worst = [max(w, rel_err(a, b)[0])
                      for w, a, b in zip(worst, got, first)]
         say(f"[{tag} C2] {name}: largest relative change over {runs} "
-            f"launches (W, r, dW/dh) " + " ".join(f"{w:.3e}" for w in worst))
+            f"launches {outputs} " + " ".join(f"{w:.3e}" for w in worst))
 
 
 def make_iteration(sys_, th, solve):
@@ -1387,9 +1401,12 @@ def phase_tube_fixed(dev, checks, ref):
         f" P={P} C={C} N={P * C * 3} stack {tuple(s.stack.R00.shape)} ifs "
         f"{tuple(s.ifs.RA00.shape)} design {ns.p0.size}")
     cp, h, d, lam, v = tube_state(s)
-    for name, got in check_kernels(pressure_cases(s.data, d, cp, lam),
-                                   "tube-kernel").items():
+    pcases = pressure_cases(s.data, d, cp, lam)
+    for name, got in check_kernels(pcases, "tube-kernel").items():
         merge(checks, name, got)
+    reproducibility("tube-kernel", pcases, ("pressure_qp/value_grad",),
+                    outputs="(W, dW/dd)")
+    del pcases
     cases = fixed_cases(s.data, d, cp, h, lam, v, "tube-kernel")
     cases["shell_qp/geom_grad"] = geom_grad_case(s.stack, d, cp, h, s.E,
                                                  s.nu)
@@ -1431,6 +1448,18 @@ def phase_tube_mi(dev, checks, ref):
         f"s: P={P} C={C} N={P * C * 3} stack {tuple(s.stack.R00.shape)} "
         f"seams (I, N)=({s.mi.n_int}, {s.mi.n_max}) degree "
         f"({s.pdeg}, {s.qdeg}) design {ns.p0.size}")
+    # K8 on the moving-seam tube's own stack, at d = seeded noise (1e-3 of
+    # the CP scale on free dofs)
+    rng = np.random.default_rng(7)
+    cp = s.cp
+    scale = float(torch.linalg.norm(cp)) / np.sqrt(cp.numel())
+    T = lambda a: torch.tensor(a, dtype=torch.float64, device=dev)  # noqa
+    d = T(1e-3 * scale * rng.normal(size=tuple(cp.shape))) * s.data.free
+    lam = T(rng.normal(size=tuple(cp.shape))) * s.data.free
+    for name, got in check_kernels(pressure_cases(s.data, d, cp, lam),
+                                   "tube-mi-kernel").items():
+        merge(checks, name, got, "tube_mi")
+    del d, lam
     phase_mi_kernels(s, checks, tube=True)
     torch.cuda.empty_cache()
 
@@ -1916,7 +1945,9 @@ def phase_pegasus_krylov(dev, ref):
 def vlm_cases(corners, seed):
     """K11 in both modes on the panels of a corner grid: name -> (kernel
     fn, plain fn, flops, inputs). Bounds: the value's AIC_OPS per pair;
-    the VJP's 4x that (reverse mode's cheap-gradient bound)."""
+    the VJP's reverse sweep, SWEEP_AIC per pair, and beside it the
+    yardstick of the dual-number kernel it replaced, 4 AIC_OPS per pair
+    (`bound_ms_dual`)."""
     from goldfish_tpu_torch.physics import vlm
 
     A, B, colloc, nhat, _ = vlm.panel_geometry(corners)
@@ -1930,7 +1961,8 @@ def vlm_cases(corners, seed):
                           lambda: vlm.aic_plain(*io), N * N * AIC_OPS, io),
         "vlm_aic/vjp": (lambda: vlm.aic_vjp(*io, g),
                         lambda: vlm.aic_vjp_plain(*io, g),
-                        4 * N * N * AIC_OPS, io + [g]),
+                        N * N * SWEEP_AIC, io + [g],
+                        {"flops_dual": 4 * N * N * AIC_OPS}),
     }
 
 

@@ -22,8 +22,10 @@ linear solves are the certificate-gated refinement on the persistent factor
 package's BC-reduced K).
 
 dR/d(cp, h) applied forward has no kernel mode: on CPU tensors it is a
-plain torch forward-over-reverse derivative of the potential; on the card
-it raises (the reverse-mode totals of the OpenMDAO driver never call it).
+plain torch forward-over-reverse derivative of the whole potential (contact
+and follower pressure included, as the JAX package's jvp of its residual);
+on the card it raises (the reverse-mode totals of the OpenMDAO driver never
+call it).
 """
 
 from __future__ import annotations
@@ -33,8 +35,8 @@ import torch
 
 from goldfish_tpu_torch.design.pipeline import CPLayout
 from goldfish_tpu_torch.opt.warmstart import SecantWarmStart
-from goldfish_tpu_torch.physics import coupling, kl_shell
-from goldfish_tpu_torch.physics.loads import external_work
+from goldfish_tpu_torch.physics import contact, coupling, kl_shell
+from goldfish_tpu_torch.physics.loads import external_work, pressure_work_plain
 from goldfish_tpu_torch.solver.implicit import _Solver, adjoint_lambda
 from goldfish_tpu_torch.solver.system import (
     jet_hessians,
@@ -48,12 +50,9 @@ __all__ = ["DispImOperation"]
 
 
 def _potential_plain(data, d, cp, h):
-    """Pi(d, cp, h) in plain torch (shell + penalty - dead/point/edge/field
-    work): the CPU path of the design tangent."""
-    if data.pressure is not None:
-        raise NotImplementedError(
-            "the forward design tangent with a follower pressure is not "
-            "ported (ROADMAP Queue B, K1/K2 forward design-tangent mode)")
+    """Pi(d, cp, h) in plain torch (shell + penalty + contact - the dead,
+    point, edge, field and follower-pressure work): the CPU path of the
+    design tangent, the JAX package's `total_potential` term for term."""
     st = data.stack
     Eq, nuq, wq = kl_shell._qp_params(st, data.E, data.nu)
     W = kl_shell.shell_density(kl_shell.jets(st, cp), kl_shell.jets(st, d),
@@ -63,6 +62,11 @@ def _potential_plain(data, d, cp, h):
         X, z, hA, hB, Ei, ad, ar = coupling._qp_inputs(ifs, d, cp, h, data.E)
         W = W + coupling.penalty_density(X, z, hA, hB, ifs.dxiA, ifs.dxiB,
                                          Ei, ad, ar, ifs.w).sum()
+    if data.contact is not None:
+        W = W + contact.energy_plain(data.contact,
+                                     *contact.contact_qps(st, d, cp))
+    if data.pressure is not None:
+        W = W - pressure_work_plain(st, d, cp, data.pressure)
     return W - external_work(st, d, cp, data.f_areal, data.point_loads, None,
                              data.edge_loads, data.f_field)
 

@@ -49,7 +49,7 @@ from goldfish_tpu_torch.physics.kl_shell import (
 
 __all__ = ["ContactPairs", "ContactCells", "build_contact", "qp_field",
            "qp_scatter", "qp_weights", "contact_cells", "candidate_pairs",
-           "contact_value_grad", "contact_hvp",
+           "energy_plain", "contact_value_grad", "contact_hvp",
            "contact_hess", "contact_assemble", "contact_energy",
            "contact_value_force", "contact_adjoint"]
 
@@ -128,6 +128,16 @@ def _pairs(contact: ContactPairs, x, w, align=1):
             yield (A, B, a0, a1, dx, r, (kk / 6.0) * gap * gap * gap,
                    -0.5 * kk * gap * gap, kk * gap,
                    w[A, a0:a1, None] * w[B][None, :])
+
+
+def energy_plain(contact, x, w):
+    """W_c at qp positions x (P, EQ, 3) and weights w (P, EQ) by the dense
+    JAX formula alone: differentiable (twice) by autograd and torch.func
+    in x and w (the design tangent of `operations.disp_imop`)."""
+    W = torch.zeros((), dtype=x.dtype, device=x.device)
+    for *_, phi, _, _, ww in _pairs(contact, x, w):
+        W = W + (phi * ww).sum()
+    return W
 
 
 def _value_grad_plain(contact, x, w):

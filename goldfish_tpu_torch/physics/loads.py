@@ -16,8 +16,11 @@ The follower pressure is not linear in d: its work per qp is
 a function of the 9-jet (u, u_u, u_v) through (R00, R10, R01). Its value
 and d-gradient, its per-qp 9x9 jet Hessian and its adjoint run the CUDA
 kernel K8 `pressure_qp` (csrc/pressure_qp.cu) on CUDA tensors and their
-plain PyTorch versions (torch.func on `pressure_density`) on CPU tensors.
-Areal field loads are not ported yet (ROADMAP Queue A10) and raise.
+plain PyTorch versions (torch.func on `pressure_density`) on CPU tensors;
+`pressure_work_plain` is its work alone in plain torch, differentiable by
+autograd in d and cp. The areal field load (a force-density coefficient
+field, the aeroelastic coupling's input) is linear in d: its work and force
+are plain contractions (`areal_field_work`, `areal_field_force`).
 """
 
 from __future__ import annotations
@@ -45,7 +48,8 @@ from goldfish_tpu_torch.physics.kl_shell import (
 
 __all__ = ["PointLoads", "build_point_loads", "point_load_work",
            "EdgeLoads", "build_edge_loads", "edge_load_work",
-           "pressure_density", "pressure_value_grad", "pressure_hessians",
+           "pressure_density", "pressure_work_plain", "pressure_value_grad",
+           "pressure_hessians",
            "pressure_adjoint", "follower_pressure_work",
            "areal_field_work", "areal_field_force",
            "external_work_and_force", "external_work"]
@@ -224,6 +228,13 @@ def pressure_density(X, z, pr, wq):
 
 def _pr_qp(stack, pressure):
     return pressure[:, None, None].expand(stack.wq.shape)
+
+
+def pressure_work_plain(stack: PatchStack, d, cp, pressure):
+    """W_p (0-dim) in plain torch: differentiable (twice) by autograd and
+    torch.func in d, cp and the pressure."""
+    return pressure_density(pressure_jets(stack, cp), pressure_jets(stack, d),
+                            _pr_qp(stack, pressure), stack.wq).sum()
 
 
 def _pressure_value_grad_plain(stack, d, cp, pressure):

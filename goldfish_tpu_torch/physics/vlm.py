@@ -191,8 +191,7 @@ def aic_vjp(colloc, nhat, A, B, wake, gbar, symmetric=True):
     N = _check_aic(colloc, nhat, A, B, wake, gbar)
     if not _cuda.on_cuda(colloc):
         return aic_vjp_plain(colloc, nhat, A, B, wake, gbar, symmetric)
-    outs = [torch.zeros(N, 3, dtype=DTYPE, device=colloc.device)
-            for _ in range(4)]
+    outs = torch.zeros(4, N, 3, dtype=DTYPE, device=colloc.device)
     p = _cuda.ptr
     _cuda.launch("vlm_aic/vjp", "gf_vlm_aic", 1, p(colloc), p(nhat), p(A),
                  p(B), p(wake), p(gbar), None, *(p(o) for o in outs), N,

@@ -53,7 +53,18 @@ times it (zeroed K, one launch per group) on the 20-patch wing (phase 3's
 seeded state), the num_el=32 plate (N = 7140) and the pegasus-91 box wing
 (N = 11466), each at d = 1e-3 of its CP scale on free dofs (seeded).
 
-K12 and K3 are timed back to back only: K12's inputs are under 1 MB and
+`--what k8k11`: K8 `pressure_qp` in its three modes (value and gradient,
+Hessian, adjoint; `loads.pressure_value_grad`, `pressure_hessians`,
+`pressure_adjoint`) on the num_el=16 tube's two stacks: the fixed-seam tube
+(`tube.build(num_el=16, p=3, pressure=1e2)`, 27,744 qps, at chip_smoke.py's
+`tube_state`) and the moving-seam tube (`draft_tube_shopt_mi_wffd.
+build_mi_tube` at the same size, at d = 1e-3 of its CP scale on free dofs);
+and K11 `vlm_aic` in both modes (`vlm.aic_value`, `aic_vjp`) on the full-
+width 16 x 64 lattice of the 20-patch wing (N = 1024) and on the VLM demo's
+6 x 10 (N = 60), at the deformed corners of chip_smoke.py's seeded d
+(`vlm_cases`); the same calls on both trees.
+
+K12, K3, K8 and K11 are timed back to back only: K12's inputs are under 1 MB and
 K3 writes a K larger than the L2. Each number is the median of
 `--repeats` measurements; each kernel is checked against its plain
 version, and the ptxas registers and spill bytes of every redesigned
@@ -66,7 +77,8 @@ the parent with `git archive <commit> | tar -x -C scratch_chip/parent` and
 run parent, change, change, parent.
 
     python scripts/torch_port_kernel_ab.py [--root DIR] [--repeats 5]
-        [--launches 20] [--what k1k4 contact assemble k1k2 c6] [--state FILE]
+        [--launches 20] [--what k1k4 contact assemble k1k2 c6 k8k11]
+        [--state FILE]
 
 The last line is one JSON object with every number.
 """
@@ -399,6 +411,61 @@ def k1k2(sm, out, args):
         torch.cuda.empty_cache()
 
 
+def k8k11(sm, out, args):
+    """K8 at tube16's two stacks, K11 at the VLM's two lattices (see the
+    module's note)."""
+    import numpy as np
+    import torch
+
+    from goldfish_tpu_torch.demos import draft_tube_shopt_mi_wffd as mi_demo
+    from goldfish_tpu_torch.demos import vlm_aeroelastic_wing as vlm_demo
+    from goldfish_tpu_torch.models import tube
+
+    dev = torch.device("cuda", 0)
+
+    def run(tag, cases):
+        timed = {}
+        for name, (kern, plain, _, inputs, *_) in cases.items():
+            got, want = kern(), plain()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            out["rel_err"][f"{name}@{tag}"] = max(
+                sm.rel_err(a, b)[0] for a, b in zip(got, want))
+            out["bytes"][f"{name}@{tag}"] = sm.nbytes(*inputs, *got)
+            timed[f"{name}@{tag}"] = kern
+        time_cases(sm, out, timed, args.launches, args.repeats, cold=False)
+
+    s = tube.build(num_el=16, p=3, pressure=1e2, device=dev)
+    cp, _, d, lam, _ = sm.tube_state(s)
+    out["shapes"]["tube16"] = {"stack": list(s.stack.R00.shape)}
+    run("tube16", sm.pressure_cases(s.data, d, cp, lam))
+    del s, cp, d, lam
+    s = mi_demo.build_mi_tube(num_el=16, p=3, pressure=1e2, device=dev)
+    rng = np.random.default_rng(7)
+    cp = s.cp
+    scale = float(torch.linalg.norm(cp)) / np.sqrt(cp.numel())
+    d = torch.tensor(1e-3 * scale * rng.normal(size=tuple(cp.shape)),
+                     device=dev) * s.data.free
+    lam = torch.tensor(rng.normal(size=tuple(cp.shape)),
+                       device=dev) * s.data.free
+    out["shapes"]["tube16_mi"] = {"stack": list(s.stack.R00.shape)}
+    run("tube16_mi", sm.pressure_cases(s.data, d, cp, lam))
+    del s, cp, d, lam
+    torch.cuda.empty_cache()
+    for tag, kw in (("wing20", sm.VLM_WIDE), ("demo", sm.VLM_DEMO)):
+        J_of_h, s, _ = vlm_demo.build_coupled(**kw, device=dev)
+        rng = np.random.default_rng(12)   # chip_smoke.phase_vlm_kernels'
+        cp = s.cp
+        scale = float(torch.linalg.norm(cp)) / np.sqrt(cp.numel())
+        d = torch.tensor(1e-3 * scale * rng.normal(size=tuple(cp.shape)),
+                         device=dev) * s.data.free
+        corners = J_of_h.corners(d)
+        out["shapes"][f"vlm_{tag}"] = {"lattice": list(corners.shape[:2])}
+        run(f"vlm_{tag}", sm.vlm_cases(corners, 12))
+        del J_of_h, s
+        torch.cuda.empty_cache()
+
+
 def c6(sm, out, args):
     """K1 mode 0 at the roof three ways (see the module's note)."""
     import numpy as np
@@ -447,7 +514,8 @@ def main():
     ap.add_argument("--state", default=None)
     ap.add_argument("--what", nargs="*", default=["k1k4", "contact",
                                                   "assemble", "k1k2"],
-                    choices=["k1k4", "contact", "assemble", "k1k2", "c6"])
+                    choices=["k1k4", "contact", "assemble", "k1k2", "c6",
+                             "k8k11"])
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -489,6 +557,8 @@ def main():
         k1k2(sm, out, args)
     if "c6" in args.what:
         c6(sm, out, args)
+    if "k8k11" in args.what:
+        k8k11(sm, out, args)
     for name, b in out["bytes"].items():
         print(f"[ab] {name:44s} bytes {b / 1e6:.1f} MB, byte bound "
               f"{b / sm.PEAK_BYTES * 1e3:.4f} ms", flush=True)
