@@ -8,10 +8,11 @@ Phases (any failure raises: non-zero exit, no result line):
    (nvidia-smi) and turns TF32 off;
 2. build: nvcc-compiles goldfish_tpu_torch/csrc/*.cu into
    goldfish_tpu_torch/_build/ (first use) and prints the ptxas summary,
-   then the registers and spill bytes of the redesigned kernels: K1's four
-   modes, K2's three, every K4 instantiation, K12's cull and work kernels,
-   every K3 instantiation, K8's three and K11's two (it fails if any of
-   K1, K2, K12, K3, K8 or K11 spills);
+   then the registers, spill and stack bytes of the redesigned kernels:
+   K1's four modes, K2's three, every K4 instantiation, K12's cull and
+   work kernels, every K3 instantiation, K8's three, K11's two, K5 and
+   K7's four modes and its cross-intersection sum (it fails if any of K1,
+   K2, K12, K3, K8, K11, K5 or K7 spills, or K5 or K7 has a stack frame);
 3. wing kernels: at the full 20-patch wing (6600 dofs) on the card, at a
    seeded nonzero d, K1 shell_qp and K2 penalty_qp in their three modes,
    K3 jet_assemble and K4 jet_matvec against their plain PyTorch versions
@@ -33,9 +34,15 @@ Phases (any failure raises: non-zero exit, no result line):
    full size (N = 6072 dofs, one seam of 17 points) on the card, at a
    seeded state (xi moved within its knot spans, d the linear response to
    the tip load, lambda random): K5 traced_rows (also at the unperturbed
-   seam that lies on a knot), K6 mi_penalty_xi, K7 c2x_res_jac (both
-   modes; also at a seam along an edge of both patches, whose coincidence
-   rows take the edge-to-edge variant), K1's geometry-gradient mode, and
+   seam that lies on a knot; conn equal, R 1e-13), K6 mi_penalty_xi, K7
+   c2x_res_jac in its four modes (residual and Jacobian, the given-lambda
+   adjoint, the fused Newton step: dx 1e-10, |r(x)| and |r(x + dx)|
+   1e-12 of |r(x)|, and the fused adjoint: dcp 1e-12, each beside the
+   composed route it replaces, `ms_composed`; also at a seam along an
+   edge of both patches, whose coincidence rows take the edge-to-edge
+   variant), then K7's adjoint modes over 5 launches on one input, which
+   must give dcp bit for bit (`[kernel C2] c2x adjoint`), K1's
+   geometry-gradient mode, and
    K1-K4 as the MI path runs them (d with seeded noise, as for the wing:
    at the coupled response the seam's displacement jump cancels, and K2
    mode a there is printed beside its own one-ulp sensitivity, not
@@ -48,8 +55,10 @@ Phases (any failure raises: non-zero exit, no result line):
    through both implicit solves), cold at amp = 0.05 from d = 0, checked
    against tests/data/torch_port_mi_tbeam40_reference.json (J 1e-8,
    dJ/damp 1e-6), then 5 warm steps amp = 0.05 (1 + 1e-3 k) with secant
-   warm starts for d, xi and (inside the solve) the adjoint; then, outside
-   the counted path, the system's own `solve_nonlinear` at amp = 0.05
+   warm starts for d, xi and (inside the solve) the adjoint, and the xi
+   solve's route (fused: K7 modes 2 and 3 must have run) with K7's
+   launches by mode (the tube's moving-seam path prints the same); then,
+   outside the counted path, the system's own `solve_nonlinear` at amp = 0.05
    against `build_forward`'s coupled solve (1e-8: ROADMAP Queue C1);
 7. tube kernels: the pressurized tube at the size and follower pressure of
    tests/data/torch_port_tube16_reference.json (num_el=16, p=3: 4 patches,
@@ -109,24 +118,26 @@ Phases (any failure raises: non-zero exit, no result line):
    variant, then run_slsqp(maxiter=3): it must lower W_int and hold the
    volume to 1e-9; then the batched pair LU, its solves, the dense LU and
    its solve, timed beside their bounds;
-16. VLM kernels: K11 vlm_aic (value 1e-12, VJP 1e-11 against its plain
-   version, compared in norm over the whole matrix: at the root the real
-   and mirrored trailing legs nearly cancel) on the full-width lattice (the
-   20-patch wing, N = 6600, under 16 x 64 panels) at the deformed corners
-   of a seeded d, and on the demo's 6 x 10 lattice, with both times; the
-   VJP's bound counts its reverse sweep (SWEEP_AIC a pair), and the
-   dual-number kernel it replaced stays beside it (`bound_ms_dual`);
-17. VLM demo path (goldfish_tpu_torch/demos/vlm_aeroelastic_wing.py's
+16. VLM demo path (goldfish_tpu_torch/demos/vlm_aeroelastic_wing.py's
    `main` at its defaults: 2 x 3 patches, num_el=3, 6 x 10 panels, 4
    fixed-point passes): W_int and lift (1e-8), tip displacement and
    dW_int/dh (1e-6) against tests/data/torch_port_vlm_reference.json, and
    the demo's central-difference check (< 1e-5);
-18. VLM at full width (the benchmark wing under the 16 x 64 lattice): the
+17. VLM at full width (the benchmark wing under the 16 x 64 lattice): its
+   build (`build_coupled` computes the lattice's K5 rows once), the
    cold coupled evaluation with its gradient against the same file (J,
    lift 1e-8, tip, gradient 1e-6) and its FD check, then 3 warm
    evaluations at h0 + k 1e-4 v, each from the previous d, with their
    median wall, the Newton iterations per pass and the factorizations;
    then the AIC's `torch.linalg.solve` (N = 1024) beside its bound;
+18. VLM kernels: K11 vlm_aic (value 1e-12, VJP 1e-11 against its plain
+   version, compared in norm over the whole matrix: at the root the real
+   and mirrored trailing legs nearly cancel) on the full-width lattice (the
+   20-patch wing, N = 6600, under 16 x 64 panels) at the deformed corners
+   of a seeded d, and on the demo's 6 x 10 lattice, with both times; the
+   VJP's bound counts its reverse sweep (SWEEP_AIC a pair), and the
+   dual-number kernel it replaced stays beside it (`bound_ms_dual`); K5 at
+   both lattices' corners (1105 and 77 points; conn equal, R 1e-13);
 19. the Scordelis-Lo roof (goldfish_tpu_torch/models/slr.py) at num_el=6:
    the linear-regime QoI against the published 0.3006 (5e-3) and the JAX
    package's value in the same file (1e-8), and the displacement jump
@@ -326,48 +337,55 @@ def phase_build():
         if "Compiling entry" in line or "spill" in line or "Used" in line:
             say("[ptxas] " + line.strip())
     spills = ptxas_spills(log)
-    for name, (regs, st, ld) in spills.items():
+    for name, (regs, st, ld, frame) in spills.items():
         if any(k in name for k in REDESIGNED):
             say(f"[ptxas-redesigned] {name}: {regs} registers, spill "
-                f"stores {st} B, spill loads {ld} B")
+                f"stores {st} B, spill loads {ld} B, stack frame {frame} B")
     for k in REDESIGNED_NO_SPILL:
         got = [v for n, v in spills.items() if k in n]
-        if not got or any(st or ld for _, st, ld in got):
+        if not got or any(st or ld for _, st, ld, _ in got):
             raise RuntimeError(f"{k} spills or is missing: {got}")
+    for k in K5K7_ENTRIES:
+        got = [v for n, v in spills.items() if k in n]
+        if any(frame for *_, frame in got):
+            raise RuntimeError(f"{k} has a stack frame: {got}")
 
 
 # entry functions of the kernels redesigned for the H100 (K1's four modes,
 # K2's three, K4, K12's cull and work kernels, K3, K8's three modes (the
-# template `pressure_grad_block` is modes 0 and 2), K11's two), and those of
-# them that must not spill
+# template `pressure_grad_block` is modes 0 and 2), K11's two, K5, K7's four
+# modes (the template `c2x_kernel`) and its cross-intersection sum), and
+# those of them that must not spill; K5's and K7's also have no stack frame
 K1K2_ENTRIES = ("shell_value_grad", "shell_hess", "shell_adjoint",
                 "shell_geom_grad", "penalty_value_grad", "penalty_hess",
                 "penalty_adjoint")
 K8K11_ENTRIES = ("pressure_grad_block", "pressure_hess", "aic_value_kernel",
                  "aic_vjp_kernel")
-REDESIGNED = K1K2_ENTRIES + K8K11_ENTRIES + (
+K5K7_ENTRIES = ("traced_rows_kernel", "c2x_kernel", "c2x_reduce_dcp")
+REDESIGNED = K1K2_ENTRIES + K8K11_ENTRIES + K5K7_ENTRIES + (
     "jet_matvec", "cell_box_kernel", "cull_kernel", "pair_list_kernel",
     "pair_hess_kernel", "jet_assemble_kernel")
-REDESIGNED_NO_SPILL = K1K2_ENTRIES + K8K11_ENTRIES + (
+REDESIGNED_NO_SPILL = K1K2_ENTRIES + K8K11_ENTRIES + K5K7_ENTRIES + (
     "cell_box_kernel", "cull_kernel", "pair_list_kernel", "pair_hess_kernel",
     "jet_assemble_kernel")
 
 
 def ptxas_spills(log):
-    """{kernel: (registers, spill store bytes, spill load bytes)} of every
-    entry function in an `nvcc -Xptxas -v` log (names demangled where
-    c++filt exists)."""
+    """{kernel: (registers, spill store bytes, spill load bytes, stack
+    frame bytes)} of every entry function in an `nvcc -Xptxas -v` log
+    (names demangled where c++filt exists)."""
     out, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             cur = m.group(1)
-            out[cur] = [0, 0, 0]
+            out[cur] = [0, 0, 0, 0]
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if m and cur in out:
-            out[cur][1:] = [int(m.group(1)), int(m.group(2))]
+            out[cur][1:] = [int(m.group(2)), int(m.group(3)),
+                            int(m.group(1))]
         m = re.search(r"Used (\d+) registers", line)
         if m and cur in out:
             out[cur][0] = int(m.group(1))
@@ -407,6 +425,10 @@ KERNELS = [
      "goldfish_tpu/geometry/cpiga2xi.py:202"),
     ("c2x_res_jac/adjoint", "goldfish_tpu_torch/csrc/c2x_res_jac.cu",
      "goldfish_tpu/geometry/cpiga2xi.py:356"),
+    ("c2x_res_jac/step", "goldfish_tpu_torch/csrc/c2x_res_jac.cu",
+     "goldfish_tpu/geometry/cpiga2xi.py:293"),
+    ("c2x_res_jac/solve_adjoint", "goldfish_tpu_torch/csrc/c2x_res_jac.cu",
+     "goldfish_tpu/geometry/cpiga2xi.py:366"),
     ("pressure_qp/value_grad", "goldfish_tpu_torch/csrc/pressure_qp.cu",
      "goldfish_tpu/physics/loads.py:146"),
     ("pressure_qp/hess", "goldfish_tpu_torch/csrc/pressure_qp.cu",
@@ -437,7 +459,11 @@ KERNELS = [
 WING_KERNELS = ("shell_qp/value_grad", "shell_qp/hess", "shell_qp/adjoint",
                 "penalty_qp/value_grad", "penalty_qp/hess",
                 "penalty_qp/adjoint", "jet_assemble", "jet_matvec")
-MI_PATH_KERNELS = tuple(k[0] for k in KERNELS[:13])
+# K7's modes 0 and 1 run only in the rare damped step and on seams past
+# the fused route's size: not required on a main path
+MI_PATH_KERNELS = WING_KERNELS + (
+    "shell_qp/geom_grad", "traced_rows", "mi_penalty_xi",
+    "c2x_res_jac/step", "c2x_res_jac/solve_adjoint")
 PRESSURE_KERNELS = ("pressure_qp/value_grad", "pressure_qp/hess",
                     "pressure_qp/adjoint")
 TUBE_KERNELS = WING_KERNELS + ("shell_qp/geom_grad",) + PRESSURE_KERNELS
@@ -687,7 +713,9 @@ def check_kernels(cases, tag, reps=5, tol=None):
     algorithm of the kernel it replaced (a yardstick). The
     kernels of COLD_TIMED add `ms_cold`. A dict with "compare" gives
     the (relative, max abs) error of the kernel's output against the plain
-    version's, and "outputs" the kernel's output tensors for the bound."""
+    version's, "outputs" the kernel's output tensors for the bound, and
+    "also" {label: fn} further calls timed as `ms_<label>` (the library
+    composite a fused kernel replaced)."""
     out = {}
     for name, (kern, plain, flops, inputs, *opt) in cases.items():
         peak = [o for o in opt if isinstance(o, float)]
@@ -717,6 +745,8 @@ def check_kernels(cases, tag, reps=5, tol=None):
             if k.startswith("flops_"):
                 more["bound_ms_" + k[6:]] = bound(
                     nbytes(*inputs, *a), v, *peak)[0]
+        for k, fn in extra.get("also", {}).items():
+            more["ms_" + k] = cuda_ms(fn, reps)
         say(f"[{tag}] {name:22s} rel {rel:.3e} max_abs {mx:.3e} "
             f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
             f"bound {b_ms:.4f} ms ({b_by})"
@@ -905,6 +935,130 @@ def edge_seam(dev):
     return c2x, cp, x, g
 
 
+# K5's rows: conn equal, R within 1e-13 in norm; K7's fused step: dx
+# within 1e-10 (the solve of a system of cond 1e3-1e5), |r(x)| within
+# 1e-12 and |r(x + dx)| within 1e-12 |r(x)| (it inherits dx's rounding);
+# the fused adjoint's dcp 1e-12
+ROWS_TOL = 1e-13
+FUSED_TOL = {"traced_rows": ROWS_TOL, "c2x_res_jac/step": 1e-10,
+             "c2x_res_jac/solve_adjoint": 1e-12}
+NORM_TOL = 1e-12
+# f64 operations of K5 a point: two A2.3 recursions with their first
+# derivatives (p = q = 3: ~60 each), the weights' products and sums and
+# the quotient rule (~10 an entry of L = 16)
+ROWS_OPS = 280
+# f64 operations of K7 an owner (seam point) beyond its two side-points'
+# evaluations (K5's rows, then S and dS/dxi, 18 L a side-point): its rows
+# in closed form (the spacing row's differences, value and gradient, ~30)
+# with their chain rule through dS/dxi (3 points x 2 columns x 5)
+K7_FORM_OPS = 60
+# a point's basis in plain doubles as the dual-number kernels count it
+# (two 1D recursions + the tensor), times their dual components: K6 9, the
+# parent's K7 modes 0 and 1 3, besides their Dual<double, 15> rows,
+# 4 x 16 x 40 a seam point (the `bound_ms_dual` yardstick)
+BASIS_OPS = 2 * 4 * 12 + 16 * 3
+
+
+def k7_ops(I, N, L):
+    """f64 operations of K7's modes at I seams of N points, {counter
+    suffix: (ops, the parent's dual-number count of the same work)}: the
+    evaluations (both side-points of every owner), the closed-form rows,
+    the adjoint's lam-weighted row sums (~36 an owner) and pullback -R0 g_P
+    (6 L a side-point), and the dense LU of a seam's n = 4N system with its
+    substitutions (2n^3/3 + 2n^2). The step evaluates twice (r(x + dx)
+    builds no Jacobian) and forms the rows once; the adjoint evaluates
+    once."""
+    n = 4 * N
+    ev = I * N * 2 * (ROWS_OPS + 18 * L)
+    form = I * N * K7_FORM_OPS
+    pull = I * N * (36 + 12 * L)
+    solve = I * (2 * n ** 3 / 3 + 2 * n * n)
+    dual = I * N * (2 * (BASIS_OPS * 3 + 18 * L) + 4 * 16 * 40)
+    return {"res_jac": (ev + form, dual), "adjoint": (ev + pull, dual),
+            "step": (2 * ev + form + solve, 2 * dual + solve),
+            "solve_adjoint": (ev + form + pull + solve, 2 * dual + solve)}
+
+
+def rows_case(ss, p, q, ip, pts):
+    """K5 at points (ip, pts): its conn must equal the plain version's."""
+    from goldfish_tpu_torch.ops import bspline_traced as bt
+
+    def compare(a, b):
+        if not torch.equal(a[0], b[0]):
+            raise RuntimeError("traced_rows: conn differs from the plain "
+                               "version's")
+        return rel_err(a[1], b[1])
+
+    sv = [ss.knots_u, ss.knots_v, ss.span_u_vals, ss.span_u_ids,
+          ss.span_v_vals, ss.span_v_ids, ss.w, ss.n_v]
+    return (lambda: bt.traced_rows(ss, p, q, ip, pts),
+            lambda: bt._rows_plain(ss, p, q, ip, pts),
+            ip.shape[0] * ROWS_OPS, sv + [ip, pts],
+            {"compare": compare, "outputs": lambda a: a})
+
+
+def fused_cases(ss, p, q, mi, cp, x, g, fixed):
+    """K7 modes 2 and 3 at (cp, x, g) against their plain versions, each
+    with the composed route it replaces timed beside it (`ms_composed`:
+    mode 0, batched torch.linalg.solve, mode 0 at x + dx, or mode 1).
+    Bound: `k7_ops`, the parent's dual-number count beside it
+    (`bound_ms_dual`)."""
+    from goldfish_tpu_torch.geometry import cpiga2xi
+
+    ops = k7_ops(mi.n_int, mi.n_max, (p + 1) * (q + 1))
+
+    def step_compare(a, b):
+        dx = rel_err(a[0] - x, b[0] - x)
+        r0 = rel_err(a[1][:, 0], b[1][:, 0])[0]
+        r1 = float((a[1][:, 1] - b[1][:, 1]).abs().max()) \
+            / float(b[1][:, 0].max())
+        say(f"[fused step] dx rel {dx[0]:.3e}; |r(x)| rel {r0:.3e}; "
+            f"|r(x + dx)| diff / |r(x)| {r1:.3e} (gates {1e-10:g}, "
+            f"{NORM_TOL:g}, {NORM_TOL:g})")
+        if not (r0 <= NORM_TOL and r1 <= NORM_TOL):
+            raise RuntimeError(f"c2x_res_jac/step: norms disagree: {r0:.3e}"
+                               f", {r1:.3e}")
+        return dx
+
+    return {
+        ("c2x_res_jac/step",): (
+            lambda: cpiga2xi.c2x_step(ss, p, q, mi, cp, x),
+            lambda: cpiga2xi._step_plain(ss, p, q, mi, cp, x),
+            ops["step"][0], fixed + [cp, x],
+            {"compare": step_compare, "outputs": lambda a: a,
+             "flops_dual": ops["step"][1],
+             "also": {"composed": lambda: cpiga2xi._step_composed(
+                 ss, p, q, mi, cp, x)}}),
+        ("c2x_res_jac/solve_adjoint",): (
+            lambda: cpiga2xi.c2x_solve_adjoint(ss, p, q, mi, cp, x, g),
+            lambda: cpiga2xi._adjoint_plain(ss, p, q, mi, cp, x, g),
+            ops["solve_adjoint"][0], fixed + [cp, x, g],
+            {"flops_dual": ops["solve_adjoint"][1],
+             "also": {"composed": lambda: cpiga2xi._adjoint_composed(
+                 ss, p, q, mi, cp, x, g)}}),
+    }
+
+
+def c7_reproducible(sys_, runs=5):
+    """[kernel C2] K7's solved adjoint (and mode 1) sum without atomics:
+    dcp must be the same, bit for bit, over `runs` launches."""
+    from goldfish_tpu_torch.geometry import cpiga2xi
+
+    cp, _, xi, _, _ = mi_state(sys_)
+    mi, ss, p, q = sys_.mi, sys_.ss, sys_.pdeg, sys_.qdeg
+    g = torch.tensor(np.random.default_rng(2).normal(
+        size=tuple(xi.shape)), device=cp.device)
+    for name, fn in (("solve_adjoint", cpiga2xi.c2x_solve_adjoint),
+                     ("adjoint", cpiga2xi.c2x_res_vjp)):
+        outs = [fn(ss, p, q, mi, cp, xi, g) for _ in range(runs)]
+        same = all(torch.equal(o, outs[0]) for o in outs[1:])
+        say(f"[kernel C2] c2x adjoint c2x_res_jac/{name}: dcp over {runs} "
+            f"launches bit-identical {same}")
+        if not same:
+            raise RuntimeError(f"c2x_res_jac/{name}: dcp changes from "
+                               f"launch to launch")
+
+
 def mi_kernel_cases(sys_, edge=True):
     """(name, case...) -> (kernel fn, plain fn, flops, inputs) of an MI
     system; the first case of each name is the one the MI path runs.
@@ -933,7 +1087,6 @@ def mi_kernel_cases(sys_, edge=True):
     ip0, pts0 = pts_of(sys_.c2x.xi0_flat)
     M = ip.shape[0]
 
-    basis = 2 * 4 * 12 + 16 * 3          # two 1D recursions + the tensor
     dA = coupling_mi._curve_tangents(xi4[:, :, 0], mi.n_pts).contiguous()
     dB = coupling_mi._curve_tangents(xi4[:, :, 1], mi.n_pts).contiguous()
     E = data.E
@@ -946,27 +1099,26 @@ def mi_kernel_cases(sys_, edge=True):
              mi.both_edges, mi.epin_dir, mi.epin_val]
     cases = {}
     for tag, (ipx, ptx) in (("moved", (ip, pts)), ("on-knot", (ip0, pts0))):
-        cases[("traced_rows", tag)] = (
-            lambda ipx=ipx, ptx=ptx: bt.traced_rows(ss, p, q, ipx, ptx),
-            lambda ipx=ipx, ptx=ptx: bt._rows_plain(ss, p, q, ipx, ptx),
-            M * (basis * 3 + L * 6), sv + [ipx, ptx])
+        cases[("traced_rows", tag)] = rows_case(ss, p, q, ipx, ptx)
     cases[("mi_penalty_xi",)] = (
         lambda: coupling_mi.mi_penalty_xi(ss, p, q, mi, co, xi4, dA, dB, d,
                                           cp, h, E, lam),
         lambda: coupling_mi._xi_grad_plain(ss, p, q, mi, co, xi4, dA, dB, d,
                                            cp, h, E, lam),
-        I * N * (2 * basis * 9 + 2 * L * 6 * 9 * 3 + 18 * DENS_PEN),
+        I * N * (2 * BASIS_OPS * 9 + 2 * L * 6 * 9 * 3 + 18 * DENS_PEN),
         sv + [xi4, dA, dB, co.w_s, d, cp, h, lam])
+    ops = k7_ops(I, N, L)
     cases[("c2x_res_jac/res_jac",)] = (
         lambda: cpiga2xi.c2x_res_jac(ss, p, q, mi, cp, xi),
         lambda: cpiga2xi._res_jac_plain(ss, p, q, mi, cp, xi, True),
-        I * N * (2 * (basis * 3 + L * 3 * 6) + 4 * 16 * 40),
-        sv + mi_in + [cp, xi])
+        ops["res_jac"][0], sv + mi_in + [cp, xi],
+        {"flops_dual": ops["res_jac"][1]})
     cases[("c2x_res_jac/adjoint",)] = (
         lambda: cpiga2xi.c2x_res_vjp(ss, p, q, mi, cp, xi, gx),
         lambda: cpiga2xi._res_vjp_plain(ss, p, q, mi, cp, xi, gx),
-        I * N * (2 * (basis * 3 + L * 3 * 6) + 4 * 16 * 40),
-        sv + mi_in + [cp, xi, gx])
+        ops["adjoint"][0], sv + mi_in + [cp, xi, gx],
+        {"flops_dual": ops["adjoint"][1]})
+    cases.update(fused_cases(ss, p, q, mi, cp, xi, gx, sv + mi_in))
     if edge:
         # K7's edge-to-edge variant, which the T-beam's seam does not take:
         # two flat patches side by side, seam along A's u = 1 and B's u = 0
@@ -984,6 +1136,8 @@ def mi_kernel_cases(sys_, edge=True):
             lambda: cpiga2xi._res_vjp_plain(ex.ss, p, q, ex.mi, ecp, ex_x,
                                             eg),
             0, e_in + [eg])
+        cases.update({k + ("edge",): v for k, v in fused_cases(
+            ex.ss, p, q, ex.mi, ecp, ex_x, eg, e_in[:-2]).items()})
     cases[("shell_qp/geom_grad",)] = geom_grad_case(st, d, cp, h, E, data.nu)
     # K1-K4 as the MI path runs them: the T-beam stack, the interface stack
     # of K5's rows at xi, the full MI tangent. At the coupled response d
@@ -1052,8 +1206,8 @@ def merge(checks, name, got, suffix=None):
     prev["max_abs_err"] = max(got["max_abs_err"], prev["max_abs_err"])
     if suffix:
         prev.update({f"{k}_{suffix}": got[k] for k in got
-                     if k in ("ms", "plain_ms", "bound_ms", "ms_cold")
-                     or k.startswith("bound_ms_")})
+                     if k in ("ms", "plain_ms", "bound_ms")
+                     or k.startswith(("ms_", "bound_ms_"))})
 
 
 def phase_mi_kernels(sys_, checks, reps=5, tube=False):
@@ -1065,13 +1219,15 @@ def phase_mi_kernels(sys_, checks, reps=5, tube=False):
     for key, case in mi_kernel_cases(sys_, edge=not tube).items():
         name = key[0]
         got = check_kernels({name: case}, tag + " " + "/".join(
-            str(k) for k in key[1:]), reps)[name]
+            str(k) for k in key[1:]), reps, tol=FUSED_TOL)[name]
         suffix = None
         if key[1:] == ("mi",):
             suffix = "tube_mi" if tube else "mi"
         elif tube and key[1:] in ((), ("moved",)):
             suffix = "tube"
         merge(checks, name, got, suffix)
+    if not tube:
+        c7_reproducible(sys_)
     return checks
 
 
@@ -1192,6 +1348,7 @@ def phase_mi_main(sys_, dev):
     say(f"[mi] refactor_log {fac.refactor_log}")
     say(f"[mi] cert_log tail {fac.cert_log[-16:]}")
     say(f"[mi] launch counts {counts}")
+    say_route("mi", sys_.c2x, counts)
     missing = [k for k in MI_PATH_KERNELS if counts[k] == 0]
     if missing:
         raise RuntimeError(f"kernels never launched on the MI path: "
@@ -1378,6 +1535,18 @@ def say_shapes(tag):
         for sh, n in sorted(K4_SHAPES.items())) or "none"))
 
 
+def say_route(tag, c2x, counts):
+    """Print the xi solve's route (by the seams' size) and K7's launches
+    by mode; a path of the fused route must not take the composed one."""
+    k7 = {k: counts[k] for k in counts if k.startswith("c2x_res_jac/")}
+    say(f"[{tag}] xi route {c2x.route} (seams of {c2x.mi.n_max} points); "
+        f"K7 launches {k7}")
+    if c2x.route == "fused" and not (k7["c2x_res_jac/step"]
+                                     and k7["c2x_res_jac/solve_adjoint"]):
+        raise RuntimeError(f"{tag}: the fused route's K7 modes were not "
+                           f"launched: {k7}")
+
+
 def check_counts(tag, counts, needed):
     say(f"[{tag}] launch counts {counts}")
     missing = [k for k in needed if counts[k] == 0]
@@ -1478,6 +1647,7 @@ def phase_tube_mi(dev, checks, ref):
         f"seam subspace M {fac._M}; newton its "
         f"{ns.forward.solve_d.solver.last_its}")
     check_counts("tube-mi", counts, TUBE_MI_KERNELS)
+    say_route("tube-mi", s.c2x, counts)
     return counts, fac, s.c2x
 
 
@@ -1968,8 +2138,22 @@ def vlm_cases(corners, seed):
 
 def phase_vlm_kernels(coupled, checks, seed=12):
     """K11 on the full-width lattice and on the demo's, at the deformed
-    corners of a seeded d (1e-3 of the CP scale on free dofs)."""
+    corners of a seeded d (1e-3 of the CP scale on free dofs); K5 at each
+    lattice's corners (the full width's 17 x 65 = 1105 points)."""
+    from goldfish_tpu_torch.ops import bspline_traced as bt
+    from goldfish_tpu_torch.physics import vlm
+
     for tag, (J_of_h, s, _) in coupled.items():
+        kw = VLM_WIDE if tag == "wing20" else VLM_DEMO
+        ss, (p, q) = bt.make_surf_set(s.surfs, device=s.cp.device)
+        lat = vlm.build_lattice_param(kw["n_chord"], kw["n_span"], kw["mc"],
+                                      kw["ns"], device=s.cp.device)
+        case = rows_case(ss, p, q, lat.ip.reshape(-1).contiguous(),
+                         lat.xi.reshape(-1, 2).contiguous())
+        got = check_kernels({"traced_rows": case}, f"vlm-kernel {tag} "
+                            f"lattice rows", tol=FUSED_TOL)
+        merge(checks, "traced_rows", got["traced_rows"],
+              "vlm" if tag == "wing20" else "vlm_demo")
         rng = np.random.default_rng(seed)
         cp = s.cp
         scale = float(torch.linalg.norm(cp)) / np.sqrt(cp.numel())
@@ -2592,15 +2776,17 @@ def main():
     with open(REF_VLM) as fh:
         ref_vlm = json.load(fh)
     t0 = time.perf_counter()
-    coupled = {"wing20": demo.build_coupled(**VLM_WIDE, device=dev),
-               "demo": demo.build_coupled(**VLM_DEMO, device=dev)}
-    phase_vlm_kernels(coupled, checks)
     reset_counts()
     phase_vlm_demo(dev, ref_vlm["demo"])
+    # built under the counts: the coupled build launches K5 for the
+    # lattice's rows, once
+    coupled = {"wing20": demo.build_coupled(**VLM_WIDE, device=dev)}
     d_wide = phase_vlm_wide(coupled["wing20"], ref_vlm["wing20"])
     counts_vlm = dict(_cuda.launch_counts)
     say_shapes("vlm")
     check_counts("vlm", counts_vlm, VLM_KERNELS)
+    coupled["demo"] = demo.build_coupled(**VLM_DEMO, device=dev)
+    phase_vlm_kernels(coupled, checks)
     library += time_aic_solve(coupled["wing20"][0], d_wide)
     del coupled, d_wide
     torch.cuda.empty_cache()

@@ -43,6 +43,7 @@ COUNTERS = ("shell_qp/value_grad", "shell_qp/hess", "shell_qp/adjoint",
             "jet_assemble", "jet_matvec",
             "traced_rows", "mi_penalty_xi",
             "c2x_res_jac/res_jac", "c2x_res_jac/adjoint",
+            "c2x_res_jac/step", "c2x_res_jac/solve_adjoint",
             "pressure_qp/value_grad", "pressure_qp/hess",
             "pressure_qp/adjoint",
             "vm_stress_qp/value", "vm_stress_qp/vjp",
@@ -64,7 +65,7 @@ _SIGNATURES = {
     "gf_jet_matvec_variant": [_I] * 3,
     "gf_traced_rows": [_P] * 12 + [_I] * 8 + [_P],
     "gf_mi_penalty_xi": [_P] * 22 + [_I] * 9 + [_P],
-    "gf_c2x_res_jac": [_I] + [_P] * 23 + [_I] * 9 + [_P],
+    "gf_c2x_res_jac": [_I] + [_P] * 26 + [_I] * 10 + [_P],
     "gf_pressure_qp": [_I] + [_P] * 11 + [_I] * 5 + [_P],
     "gf_vm_stress_qp": [_I] + [_P] * 17 + [ctypes.c_double] + [_I] * 5 + [_P],
     "gf_pair_assemble": [_P] * 6 + [_I] * 5 + [_P],

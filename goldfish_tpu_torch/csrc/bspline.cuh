@@ -1,4 +1,4 @@
-// Traced NURBS surface bases for the moving-intersection kernels (K5-K7).
+// Traced NURBS surface bases at a Dual xi (K6), and the padded SurfSet.
 //
 // Device counterpart of goldfish_tpu/ops/bspline_jax.py and of the port's
 // ops/bspline_traced.py: knot-span search over the valid-span starts of a

@@ -2,8 +2,9 @@
 shell's distributed-force adjoint input.
 
 Port of demos/vlm_aeroelastic_wing.py: the VLM lattice rides the DEFORMED
-shell midsurface (`vlm.lattice_points`, kernel K5's rows), panel forces
-(the AIC by kernel K11, Gamma by `torch.linalg.solve`) feed back through
+shell midsurface (`vlm.lattice_points` on kernel K5's rows, which
+`vlm.lattice_rows` computes once), panel forces (the AIC by kernel K11,
+Gamma by `torch.linalg.solve`) feed back through
 `implicit.build_field_solve_fn`'s f input, the coupled state is advanced by
 n_fp unrolled fixed-point passes, and one `torch.autograd.grad` delivers
 the coupled fluid-structure design gradient dW_int/dh through both solvers,
@@ -31,6 +32,7 @@ from goldfish_tpu_torch.physics.vlm import (
     build_lattice_param,
     forces_to_cp_field,
     lattice_points,
+    lattice_rows,
     solve_panel_forces,
 )
 from goldfish_tpu_torch.solver.implicit import build_field_solve_fn
@@ -70,6 +72,8 @@ def build_coupled(n_chord=2, n_span=3, num_el=3, p=3, mc=6, ns=10,
                               cp_uv=cp_parametric_locations(sys_, n_chord,
                                                             n_span),
                               device=dev)
+    # K5 once: the corners' parametric points are fixed
+    rows = lattice_rows(ss, pd, qd, lat)
     solve = build_field_solve_fn(sys_.data, rtol=rtol, max_it=30)
     cp = sys_.cp
     mask = sys_.stack.cp_mask[..., None]
@@ -78,7 +82,7 @@ def build_coupled(n_chord=2, n_span=3, num_el=3, p=3, mc=6, ns=10,
     rho = 2.0 * q_dyn
 
     def aero_field(d):
-        corners = lattice_points(ss, pd, qd, lat, cp, d)
+        corners = lattice_points(ss, pd, qd, lat, cp, d, rows)
         F, aux = solve_panel_forces(corners, alpha, V_inf=1.0, rho=rho)
         f = forces_to_cp_field(lat, F, aux["area"], lay.to_padded)
         return f * mask, aux["lift"]
@@ -93,7 +97,7 @@ def build_coupled(n_chord=2, n_span=3, num_el=3, p=3, mc=6, ns=10,
         return Wi, (d, lift)
 
     J_of_h.solve = solve
-    J_of_h.corners = lambda d: lattice_points(ss, pd, qd, lat, cp, d)
+    J_of_h.corners = lambda d: lattice_points(ss, pd, qd, lat, cp, d, rows)
     return J_of_h, sys_, sys_.h_init
 
 

@@ -13,13 +13,18 @@ Padded points k >= n are pinned to their initial values through the
 padded slots of blocks 1-2; intersections whose curves run along
 parametric edges on both sides use the edge-to-edge variant of block 1.
 
-Residual, Jacobian and the control-point adjoint come from kernel K7
-`c2x_res_jac` (csrc/c2x_res_jac.cu) on CUDA tensors and from its plain
+Residual, Jacobian, Newton step and control-point adjoint come from kernel
+K7 `c2x_res_jac` (csrc/c2x_res_jac.cu) on CUDA tensors and from its plain
 PyTorch version (the residual on ops/bspline_traced's plain rows,
-differentiated by autograd) on CPU tensors. Both the Newton step and the
-adjoint solve the small per-intersection systems with batched f64
-`torch.linalg.solve` (cond 1e3-1e5); the reference's f32-LU + IR path
-exists only because the TPU has no batched f64 LU, and does not cross.
+differentiated by autograd; batched f64 `torch.linalg.solve`) on CPU
+tensors. K7's mode 2 is one fused Newton step (residual, Jacobian, the
+solve in the block's shared memory, the trial residual and both norms;
+the reference's `_c2x_step`) and mode 3 the fused adjoint (the transposed
+solve and the cp pullback; `_c2x_adjoint_direct`), for seams of up to
+FUSED_N_MAX = 39 points (`fused_route`); longer seams take the composed
+route: mode 0, the batched solve, mode 0 or mode 1. The reference's
+f32-LU + IR path exists only because the TPU has no batched f64 LU, and
+does not cross.
 """
 
 from __future__ import annotations
@@ -40,8 +45,8 @@ from goldfish_tpu_torch.ops.bspline_traced import (
 )
 
 __all__ = ["MovingIntersections", "build_moving_intersections",
-           "c2x_res_jac", "c2x_res_vjp", "c2x_newton", "c2x_adjoint",
-           "CPIGA2Xi"]
+           "c2x_res_jac", "c2x_res_vjp", "c2x_step", "c2x_solve_adjoint",
+           "fused_route", "c2x_newton", "c2x_adjoint", "CPIGA2Xi"]
 
 
 class MovingIntersections(NamedTuple):
@@ -202,11 +207,53 @@ def _res_vjp_plain(ss, p, q, mi, cp, x, lam):
         return torch.autograd.grad(r, cpv, grad_outputs=-lam)[0]
 
 
+def _step(res_jac, ss, p, q, mi, cp, x):
+    """One full Newton step on `res_jac` (the plain version, or K7 mode 0)
+    and batched f64 `torch.linalg.solve`: (x + dx, norms (I, 2) = |r(x)|,
+    |r(x + dx)| per intersection)."""
+    r, J = res_jac(ss, p, q, mi, cp, x, True)
+    x_new = x + torch.linalg.solve(J, -r[..., None])[..., 0]
+    r_new, _ = res_jac(ss, p, q, mi, cp, x_new, False)
+    return x_new, torch.stack([torch.linalg.norm(r, dim=-1),
+                               torch.linalg.norm(r_new, dim=-1)], -1)
+
+
+def _adjoint(res_jac, res_vjp, ss, p, q, mi, cp, x, g):
+    """dR/dx^T lam = g by batched f64 `torch.linalg.solve`, then
+    dcp = -lam^T dR/dcp, on `res_jac`, `res_vjp` (the plain versions, or
+    K7 modes 0 and 1)."""
+    _, J = res_jac(ss, p, q, mi, cp, x, True)
+    lam = torch.linalg.solve(J.transpose(-1, -2), g[..., None])[..., 0]
+    return res_vjp(ss, p, q, mi, cp, x, lam.contiguous())
+
+
+def _step_plain(ss, p, q, mi, cp, x):
+    """Plain version of K7 mode 2."""
+    return _step(_res_jac_plain, ss, p, q, mi, cp, x)
+
+
+def _adjoint_plain(ss, p, q, mi, cp, x, g):
+    """Plain version of K7 mode 3."""
+    return _adjoint(_res_jac_plain, _res_vjp_plain, ss, p, q, mi, cp, x, g)
+
+
 # ------------------------------------------------------------ K7 wrappers
 _MI_INT = ("pairA", "pairB", "n_pts")
+# the longest seam K7's modes 2 and 3 hold: csrc/c2x_res_jac.cu's
+# FUSED_N_MAX, where static_asserts hold it to the block's shared memory
+FUSED_N_MAX = 39
 
 
-def _check_inputs(ss, mi, cp, x, lam=None):
+def fused_route(N: int) -> bool:
+    """Whether K7's fused step and adjoint (modes 2, 3) hold a seam of N
+    points (N <= FUSED_N_MAX: the 4N x (4N + 1) augmented system and the
+    rest fit one block's shared memory). Longer seams take the composed
+    route: mode 0, batched `torch.linalg.solve`, mode 0 or mode 1. A choice
+    by size, made before any launch."""
+    return N <= FUSED_N_MAX
+
+
+def _check_inputs(ss, mi, cp, x, vec=None):
     I, N = mi.n_int, mi.n_max
     dev = x.device
     for name in _MI_INT:
@@ -220,45 +267,100 @@ def _check_inputs(ss, mi, cp, x, lam=None):
     _cuda.check(mi.mask, "mask", DTYPE, (I, N), dev)
     _cuda.check(cp, "cp", DTYPE, (ss.w.shape[0], ss.w.shape[1], 3), dev)
     _cuda.check(x, "x", DTYPE, (I, 4 * N), dev)
-    if lam is not None:
-        _cuda.check(lam, "lam", DTYPE, (I, 4 * N), dev)
+    if vec is not None:
+        _cuda.check(vec, "lam/g", DTYPE, (I, 4 * N), dev)
     return I, N
 
 
-def _launch(mode, counter, ss, p, q, mi, cp, x, lam, res, J, dcp):
+def _launch(mode, counter, ss, p, q, mi, cp, x, vec=None, res=None, J=None,
+            xnew=None, norms=None, part=None, dcp=None):
     P = _cuda.ptr
     _cuda.launch(counter, "gf_c2x_res_jac", mode, *_surf_set_args(ss),
                  P(mi.pairA), P(mi.pairB), P(mi.n_pts), P(mi.end_dir),
                  P(mi.end_val), P(mi.xi0), P(mi.both_edges), P(mi.epin_dir),
-                 P(mi.epin_val), P(cp), P(x), P(lam), P(res), P(J), P(dcp),
-                 *_surf_set_dims(ss, p, q), mi.n_int, mi.n_max)
+                 P(mi.epin_val), P(cp), P(x), P(vec), P(res), P(J), P(xnew),
+                 P(norms), P(part), P(dcp), *_surf_set_dims(ss, p, q),
+                 cp.shape[0], mi.n_int, mi.n_max)
+
+
+def _partial(mi, cp):
+    """Per-intersection dcp partials (I, 2, C, 3) of modes 1 and 3."""
+    return torch.empty(mi.n_int, 2, cp.shape[1], 3, dtype=DTYPE,
+                       device=cp.device)
 
 
 def c2x_res_jac(ss: SurfSet, p: int, q: int, mi: MovingIntersections, cp,
                 x, jac: bool = True):
     """K7 mode 0: the residual (I, 4N) and, with `jac`, the dense Jacobian
-    dR/dx (I, 4N, 4N) (else None)."""
+    dR/dx (I, 4N, 4N) (else None); the kernel writes every entry."""
     I, N = _check_inputs(ss, mi, cp, x)
     if not _cuda.on_cuda(x):
         return _res_jac_plain(ss, p, q, mi, cp, x, jac)
     res = torch.empty(I, 4 * N, dtype=DTYPE, device=x.device)
-    J = torch.zeros(I, 4 * N, 4 * N, dtype=DTYPE, device=x.device) \
+    J = torch.empty(I, 4 * N, 4 * N, dtype=DTYPE, device=x.device) \
         if jac else None
-    _launch(0, "c2x_res_jac/res_jac", ss, p, q, mi, cp, x, None, res, J,
-            None)
+    _launch(0, "c2x_res_jac/res_jac", ss, p, q, mi, cp, x, res=res, J=J)
     return res, J
 
 
 def c2x_res_vjp(ss: SurfSet, p: int, q: int, mi: MovingIntersections, cp,
                 x, lam):
-    """K7 mode 1: -lam^T dR/dcp (P, C, 3)."""
+    """K7 mode 1: -lam^T dR/dcp (P, C, 3), summed in a fixed order."""
     _check_inputs(ss, mi, cp, x, lam)
     if not _cuda.on_cuda(x):
         return _res_vjp_plain(ss, p, q, mi, cp, x, lam)
-    dcp = torch.zeros_like(cp)
-    _launch(1, "c2x_res_jac/adjoint", ss, p, q, mi, cp, x, lam, None, None,
-            dcp)
+    dcp = torch.empty_like(cp)
+    _launch(1, "c2x_res_jac/adjoint", ss, p, q, mi, cp, x, vec=lam,
+            part=_partial(mi, cp), dcp=dcp)
     return dcp
+
+
+def c2x_step(ss: SurfSet, p: int, q: int, mi: MovingIntersections, cp, x):
+    """K7 mode 2, one fused full Newton step: (x + dx (I, 4N), norms (I,
+    2)) with dR/dx dx = -R(x) and norms[:, 0] = |R(x)|, norms[:, 1] =
+    |R(x + dx)| per intersection. Only for seams of the fused route."""
+    I, N = _check_inputs(ss, mi, cp, x)
+    if not _cuda.on_cuda(x):
+        return _step_plain(ss, p, q, mi, cp, x)
+    if not fused_route(N):
+        raise ValueError(f"K7's fused step holds seams of up to "
+                         f"{FUSED_N_MAX} points, not {N}: take the composed "
+                         f"route")
+    x_new = torch.empty_like(x)
+    norms = torch.empty(I, 2, dtype=DTYPE, device=x.device)
+    _launch(2, "c2x_res_jac/step", ss, p, q, mi, cp, x, xnew=x_new,
+            norms=norms)
+    return x_new, norms
+
+
+def c2x_solve_adjoint(ss: SurfSet, p: int, q: int, mi: MovingIntersections,
+                      cp, x, g):
+    """K7 mode 3, the fused implicit-function backward: dR/dx^T lam = g,
+    then -lam^T dR/dcp (P, C, 3), the same bit for bit from launch to
+    launch. Only for seams of the fused route."""
+    _, N = _check_inputs(ss, mi, cp, x, g)
+    if not _cuda.on_cuda(x):
+        return _adjoint_plain(ss, p, q, mi, cp, x, g)
+    if not fused_route(N):
+        raise ValueError(f"K7's fused adjoint holds seams of up to "
+                         f"{FUSED_N_MAX} points, not {N}: take the composed "
+                         f"route")
+    dcp = torch.empty_like(cp)
+    _launch(3, "c2x_res_jac/solve_adjoint", ss, p, q, mi, cp, x, vec=g,
+            part=_partial(mi, cp), dcp=dcp)
+    return dcp
+
+
+def _step_composed(ss, p, q, mi, cp, x):
+    """The step of seams past the fused route: mode 0, the batched solve,
+    mode 0 at x + dx."""
+    return _step(c2x_res_jac, ss, p, q, mi, cp, x)
+
+
+def _adjoint_composed(ss, p, q, mi, cp, x, g):
+    """The adjoint of seams past the fused route: mode 0, the transposed
+    batched solve, mode 1."""
+    return _adjoint(c2x_res_jac, c2x_res_vjp, ss, p, q, mi, cp, x, g)
 
 
 # ------------------------------------------------------------ solves
@@ -270,25 +372,30 @@ def _rnorm(r):
 
 def c2x_newton(ss, p, q, mi, cp, x0, rtol=1e-12, max_it=20):
     """Batched Newton over intersections (the reference's host loop,
-    `_c2x_newton_host`): the full step is accepted on sufficient decrease
-    of the max per-intersection norm, otherwise a backtracking step is
-    taken. Returns (x, iterations, residual norm)."""
+    `_c2x_newton_host`): a full step (K7 mode 2, or the composed route past
+    its size) with one readback of the two max per-intersection norms; the
+    step is accepted on sufficient decrease, otherwise a backtracking step
+    on mode 0 and `torch.linalg.solve` is taken. Returns (x, iterations,
+    residual norm)."""
+    step = c2x_step if fused_route(mi.n_max) else _step_composed
     x = x0
-    r, J = c2x_res_jac(ss, p, q, mi, cp, x)
-    rn = _rnorm(r)
     for it in range(max_it):
+        x_new, norms = step(ss, p, q, mi, cp, x)
+        # one readback; the max in Python: a CPU torch op right after the
+        # optimizer's NumPy work can wait ~10-30 ms on the CPU thread pool
+        rows = norms.tolist()
+        rn, rn_new = max(r[0] for r in rows), max(r[1] for r in rows)
         if rn <= rtol:
             return x, it, rn
-        dx = torch.linalg.solve(J, -r[..., None])[..., 0]
-        r_new, J_new = c2x_res_jac(ss, p, q, mi, cp, x + dx)
-        rn_new = _rnorm(r_new)
         if rn_new <= (1 - 1e-4) * rn:
-            x, r, J, rn = x + dx, r_new, J_new, rn_new
-            if rn <= rtol:
-                return x, it + 1, rn
+            x = x_new
+            if rn_new <= rtol:
+                return x, it + 1, rn_new
             continue
         # the full step did not contract (a cold or pathological state):
         # backtrack on the batched residual norm
+        r, J = c2x_res_jac(ss, p, q, mi, cp, x)
+        dx = torch.linalg.solve(J, -r[..., None])[..., 0]
         alpha = 1.0
         for _ in range(20):
             rt, _ = c2x_res_jac(ss, p, q, mi, cp, x + alpha * dx, jac=False)
@@ -296,17 +403,17 @@ def c2x_newton(ss, p, q, mi, cp, x0, rtol=1e-12, max_it=20):
                 break
             alpha *= 0.5
         x = x + alpha * dx
-        r, J = c2x_res_jac(ss, p, q, mi, cp, x)
-        rn = _rnorm(r)
-    return x, max_it, rn
+    r, _ = c2x_res_jac(ss, p, q, mi, cp, x, jac=False)
+    return x, max_it, _rnorm(r)
 
 
 def c2x_adjoint(ss, p, q, mi, cp, x, g):
     """Implicit-function backward: dR/dx^T lam = g, dcp = -lam^T dR/dcp
-    (the reference's `_c2x_adjoint_direct`)."""
-    _, J = c2x_res_jac(ss, p, q, mi, cp, x)
-    lam = torch.linalg.solve(J.transpose(-1, -2), g[..., None])[..., 0]
-    return c2x_res_vjp(ss, p, q, mi, cp, x, lam.contiguous())
+    (the reference's `_c2x_adjoint_direct`): K7 mode 3, or the composed
+    route past its size."""
+    if fused_route(mi.n_max):
+        return c2x_solve_adjoint(ss, p, q, mi, cp, x, g)
+    return _adjoint_composed(ss, p, q, mi, cp, x, g)
 
 
 class _SolveXi(torch.autograd.Function):
@@ -347,6 +454,12 @@ class CPIGA2Xi:
         self.rtol = rtol
         self.max_it = max_it
         self.last_its = None   # Newton iterations of the last solve
+
+    @property
+    def route(self):
+        """The xi solve's route, by the seams' size: "fused" (K7 modes 2
+        and 3) or "composed" (mode 0, the batched solve, mode 0 or 1)."""
+        return "fused" if fused_route(self.mi.n_max) else "composed"
 
     @property
     def xi0_flat(self):

@@ -6,11 +6,13 @@ design, together with their xi-derivatives. The JAX package traces the
 Cox-de Boor recursion and differentiates it with jax.jacfwd; here
 
 - `traced_rows` evaluates the rows of many points at once: kernel K5
-  (csrc/traced_rows.cu, the recursion of csrc/bspline.cuh at a dual xi) on
-  CUDA tensors, and on CPU tensors its plain PyTorch version, which runs
-  the same recursion on (value, d/du) pairs and the quotient rule of
-  ops/bspline.rational_basis_2d, so its rows stay differentiable by
-  autograd in xi (the plain versions of K6 and K7 differentiate them);
+  (csrc/traced_rows.cu: half a warp a point, the span by ballots, Piegl &
+  Tiller A2.3's values and first derivatives in closed form, of
+  csrc/bspline_rows.cuh) on CUDA tensors, and on CPU tensors its plain
+  PyTorch version, which runs the Cox-de Boor recursion on (value, d/du)
+  pairs and the quotient rule of ops/bspline.rational_basis_2d, so its
+  rows stay differentiable by autograd in xi (the plain versions of K6 and
+  K7 differentiate them);
 - `surface_basis`, `surface_point`, `field_at` are the reference's point
   evaluators, batched over points, on top of `traced_rows`.
 

@@ -8,8 +8,10 @@ fluid-structure gradient comes out of autograd through both solvers.
   lattice's patch ids and patch-local coordinates, and the panel of every
   flat CP for the force-to-field map;
 - `lattice_points`: midsurface + displacement at the lattice's fixed
-  parametric points, on K5's rows (`bspline_traced.traced_rows`); autograd
-  flows through the coefficient gather into d and cp;
+  parametric points, on K5's rows (`lattice_rows`, one
+  `bspline_traced.traced_rows` launch; they depend on neither cp nor d,
+  so the coupled demo computes them once); autograd flows through the
+  coefficient gather into d and cp;
 - `aic`: the aerodynamic influence matrix, AIC[i, j] = (v_hs(c_i; A_j, B_j)
   + v_hs(c_i; m B_j, m A_j)) . n_i with the mirror m = (1, -1, 1), as a
   `torch.autograd.Function` over kernel K11 `vlm_aic`
@@ -36,7 +38,8 @@ from goldfish_tpu_torch.config import DTYPE, INDEX_DTYPE, as_device, tensor
 from goldfish_tpu_torch.ops.bspline_traced import SurfSet, traced_rows
 from goldfish_tpu_torch.physics.kl_shell import _cross, _dot
 
-__all__ = ["Lattice", "build_lattice_param", "lattice_points", "aic_plain",
+__all__ = ["Lattice", "build_lattice_param", "lattice_rows",
+           "lattice_points", "aic_plain",
            "aic_vjp_plain", "aic_value", "aic_vjp", "aic", "panel_geometry",
            "wake_direction", "solve_panel_forces",
            "forces_to_cp_field"]
@@ -85,16 +88,25 @@ def build_lattice_param(n_chord_patches, n_span_patches, mc, ns,
                    n_chord=mc, n_span=ns)
 
 
-def lattice_points(ss: SurfSet, p: int, q: int, lat: Lattice, cp, d):
-    """Deformed corner nodes (Mc+1, Ns+1, 3): midsurface + displacement at
-    the lattice's fixed parametric points. One K5 launch gives the rows;
-    the two rational interpolations are gathers, differentiable in cp and
-    d."""
+def lattice_rows(ss: SurfSet, p: int, q: int, lat: Lattice):
+    """The K5 rows of the lattice's corners, one launch: ((patch, CP)
+    gather index, R0 (M, L)). They depend on neither cp nor d, so a caller
+    that evaluates the lattice again and again computes them once and
+    passes them to `lattice_points`."""
     ip = lat.ip.reshape(-1).contiguous()
     conn, R = traced_rows(ss, p, q, ip, lat.xi.reshape(-1, 2).contiguous())
-    rows = (ip.long()[:, None], conn.long())
-    x = torch.einsum("ml,mlk->mk", R[0], cp[rows])
-    u = torch.einsum("ml,mlk->mk", R[0], d[rows])
+    return (ip.long()[:, None], conn.long()), R[0]
+
+
+def lattice_points(ss: SurfSet, p: int, q: int, lat: Lattice, cp, d,
+                   rows=None):
+    """Deformed corner nodes (Mc+1, Ns+1, 3): midsurface + displacement at
+    the lattice's fixed parametric points, on `rows` (`lattice_rows`; one
+    K5 launch here when None); the two rational interpolations are
+    gathers, differentiable in cp and d."""
+    idx, R0 = lattice_rows(ss, p, q, lat) if rows is None else rows
+    x = torch.einsum("ml,mlk->mk", R0, cp[idx])
+    u = torch.einsum("ml,mlk->mk", R0, d[idx])
     return (x + u).reshape(lat.ip.shape + (3,))
 
 

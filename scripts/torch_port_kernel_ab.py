@@ -64,8 +64,23 @@ width 16 x 64 lattice of the 20-patch wing (N = 1024) and on the VLM demo's
 6 x 10 (N = 60), at the deformed corners of chip_smoke.py's seeded d
 (`vlm_cases`); the same calls on both trees.
 
-K12, K3, K8 and K11 are timed back to back only: K12's inputs are under 1 MB and
-K3 writes a K larger than the L2. Each number is the median of
+`--what k5k7`: K7's Newton step and adjoint and K5 at the moving-
+intersection paths' shapes: the MI T-beam (`tbeam.build_mi(num_el=40,
+p=3, n_pts=17)`: one seam of 17 points, 4N = 68) and the num_el=16
+moving-seam tube (four seams of 35 points, 4N = 140), at chip_smoke.py's
+`mi_state` (xi moved 1e-3 off the seed, cp at the start) with a seeded g.
+On every tree the composed step (`c2x_res_jac` with its Jacobian, batched
+`torch.linalg.solve`, `c2x_res_jac` at x + dx, both norms; on a tree
+whose mode 0 needs it, J's zero-fill) and the composed adjoint (mode 0,
+the transposed solve, mode 1); on a tree with the fused modes, also
+`c2x_step` and `c2x_solve_adjoint` (their dx and dcp against the composed
+ones printed, not gated), and the host wall of a warm `c2x_newton` (from
+the solution at cp, to cp moved by 1e-3 of the T-beam's bend; a readback
+a step). K5 `traced_rows` at both sides' points of each path and at the
+16 x 64 lattice's 1105 corners of the 20-patch wing.
+
+K12, K3, K8, K11, K5 and K7 are timed back to back only: K12's inputs are
+under 1 MB and K3 writes a K larger than the L2. Each number is the median of
 `--repeats` measurements; each kernel is checked against its plain
 version, and the ptxas registers and spill bytes of every redesigned
 kernel's entry functions (those of the tree's K12 and K3 included) are
@@ -77,7 +92,8 @@ the parent with `git archive <commit> | tar -x -C scratch_chip/parent` and
 run parent, change, change, parent.
 
     python scripts/torch_port_kernel_ab.py [--root DIR] [--repeats 5]
-        [--launches 20] [--what k1k4 contact assemble k1k2 c6 k8k11]
+        [--launches 20] [--what k1k4 contact assemble k1k2 c6 k8k11
+        k5k7]
         [--state FILE]
 
 The last line is one JSON object with every number.
@@ -199,7 +215,7 @@ def k1k4(sm, root, out, args):
                                    matvec(system._matvec_plain))[0]
     rt, rt_log = runtime_shape_matvec(root, _cuda)
     if rt is not None:
-        for name, (regs, st_, ld) in sm.ptxas_spills(rt_log).items():
+        for name, (regs, st_, ld, _) in sm.ptxas_spills(rt_log).items():
             print(f"[ptxas runtime-shape build] {name}: {regs} registers, "
                   f"spill stores {st_} B, spill loads {ld} B", flush=True)
 
@@ -466,6 +482,112 @@ def k8k11(sm, out, args):
         torch.cuda.empty_cache()
 
 
+def k5k7(sm, out, args):
+    """K7's step and adjoint, composed and fused, and K5 (see the module's
+    note)."""
+    import numpy as np
+    import torch
+
+    from goldfish_tpu_torch.demos import draft_tube_shopt_mi_wffd as mi_demo
+    from goldfish_tpu_torch.geometry import cpiga2xi
+    from goldfish_tpu_torch.models import tbeam, wing
+    from goldfish_tpu_torch.ops import bspline_traced as bt
+    from goldfish_tpu_torch.physics import vlm
+
+    dev = torch.device("cuda", 0)
+    fused = hasattr(cpiga2xi, "c2x_step")
+
+    def step_composed(ss, p, q, mi, cp, x):
+        r, J = cpiga2xi.c2x_res_jac(ss, p, q, mi, cp, x)
+        x_new = x + torch.linalg.solve(J, -r[..., None])[..., 0]
+        r_new, _ = cpiga2xi.c2x_res_jac(ss, p, q, mi, cp, x_new, jac=False)
+        return x_new, torch.stack([torch.linalg.norm(r, dim=-1),
+                                   torch.linalg.norm(r_new, dim=-1)], -1)
+
+    def adjoint_composed(ss, p, q, mi, cp, x, g):
+        _, J = cpiga2xi.c2x_res_jac(ss, p, q, mi, cp, x)
+        lam = torch.linalg.solve(J.transpose(-1, -2), g[..., None])[..., 0]
+        return cpiga2xi.c2x_res_vjp(ss, p, q, mi, cp, x, lam.contiguous())
+
+    def rows(tag, ss, p, q, ip, pts):
+        conn, R = bt.traced_rows(ss, p, q, ip, pts)
+        conn_p, R_p = bt._rows_plain(ss, p, q, ip, pts)
+        if not torch.equal(conn, conn_p):
+            raise RuntimeError(f"traced_rows@{tag}: conn differs")
+        out["rel_err"][f"traced_rows@{tag}"] = sm.rel_err(R, R_p)[0]
+        out["bytes"][f"traced_rows@{tag}"] = sm.nbytes(ip, pts, conn, R)
+        return {f"traced_rows@{tag}": lambda: bt.traced_rows(ss, p, q, ip,
+                                                             pts)}
+
+    builds = (("mi_tbeam40", lambda: tbeam.build_mi(num_el=40, p=3,
+                                                    n_pts=17, device=dev)),
+              ("tube16_mi", lambda: mi_demo.build_mi_tube(
+                  num_el=16, p=3, pressure=1e2, device=dev)))
+    for tag, build in builds:
+        s = build()
+        cp, _, xi, _, _ = sm.mi_state(s)
+        ss, p, q, mi = s.ss, s.pdeg, s.qdeg, s.mi
+        I, N = mi.n_int, mi.n_max
+        g = torch.tensor(np.random.default_rng(2).normal(size=(I, 4 * N)),
+                         device=dev)
+        args_x = (ss, p, q, mi, cp, xi)
+        cases = {f"xi step composed@{tag}": lambda: step_composed(*args_x),
+                 f"xi adjoint composed@{tag}":
+                     lambda: adjoint_composed(*args_x, g)}
+        if fused:
+            cases[f"xi step fused@{tag}"] = \
+                lambda: cpiga2xi.c2x_step(*args_x)
+            cases[f"xi adjoint fused@{tag}"] = \
+                lambda: cpiga2xi.c2x_solve_adjoint(*args_x, g)
+            xc, nc = step_composed(*args_x)
+            xf, nf = cpiga2xi.c2x_step(*args_x)
+            out["k7_vs_composed"][f"dx@{tag}"] = sm.rel_err(xf - xi,
+                                                            xc - xi)[0]
+            out["k7_vs_composed"][f"norm0@{tag}"] = sm.rel_err(
+                nf[:, 0], nc[:, 0])[0]
+            out["k7_vs_composed"][f"dcp@{tag}"] = sm.rel_err(
+                cpiga2xi.c2x_solve_adjoint(*args_x, g),
+                adjoint_composed(*args_x, g))[0]
+        x4 = xi.reshape(I, N, 2, 2)
+        ip = torch.cat([mi.pairA[:, None].expand(I, N).reshape(-1),
+                        mi.pairB[:, None].expand(I, N).reshape(-1)])
+        pts = x4.permute(2, 0, 1, 3).reshape(-1, 2).contiguous()
+        cases.update(rows(tag, ss, p, q, ip.contiguous(), pts))
+        out["shapes"][tag] = {"seams": [I, N], "points": int(ip.numel())}
+        time_cases(sm, out, cases, args.launches, args.repeats, cold=False)
+        # the host wall of a warm xi solve: the solution at cp, then cp
+        # moved by 1e-3 of the T-beam's design direction (the tube: of
+        # its own scale), a readback a Newton step
+        c2x = s.c2x
+        x0, _, _ = cpiga2xi.c2x_newton(ss, p, q, mi, cp, xi.clone())
+        dcp = 1e-3 * 0.05 * torch.tensor(np.random.default_rng(9).normal(
+            size=tuple(cp.shape)), device=dev)
+        walls, its = [], []
+        for _ in range(args.repeats):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, it, _ = cpiga2xi.c2x_newton(ss, p, q, mi, cp + dcp,
+                                           x0.clone(), rtol=c2x.rtol)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            its.append(it)
+        out["xi_newton_wall"][tag] = {"s": float(np.median(walls)),
+                                      "all": walls, "its": its}
+        print(f"[ab] xi newton warm wall@{tag} {np.median(walls) * 1e3:.3f}"
+              f" ms, its {its}", flush=True)
+        del s, c2x
+        torch.cuda.empty_cache()
+    s = wing.build(n_chord=4, n_span=5, num_el=6, p=3, device=dev)
+    ss, (p, q) = bt.make_surf_set(s.surfs, device=dev)
+    lat = vlm.build_lattice_param(4, 5, 16, 64, device=dev)
+    time_cases(sm, out, rows("vlm_wing20", ss, p, q,
+                             lat.ip.reshape(-1).contiguous(),
+                             lat.xi.reshape(-1, 2).contiguous()),
+               args.launches, args.repeats, cold=False)
+    for k, v in out["k7_vs_composed"].items():
+        print(f"[ab] fused vs composed {k}: rel {v:.3e}", flush=True)
+
+
 def c6(sm, out, args):
     """K1 mode 0 at the roof three ways (see the module's note)."""
     import numpy as np
@@ -515,7 +637,7 @@ def main():
     ap.add_argument("--what", nargs="*", default=["k1k4", "contact",
                                                   "assemble", "k1k2"],
                     choices=["k1k4", "contact", "assemble", "k1k2", "c6",
-                             "k8k11"])
+                             "k8k11", "k5k7"])
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -541,12 +663,13 @@ def main():
         names = sm.REDESIGNED + ("pair_tile_kernel",)
         spills = {k: v for k, v in sm.ptxas_spills(fh.read()).items()
                   if any(n in k for n in names)}
-    for name, (regs, st, ld) in spills.items():
+    for name, (regs, st, ld, frame) in spills.items():
         print(f"[ptxas] {name}: {regs} registers, spill stores {st} B, "
-              f"spill loads {ld} B", flush=True)
+              f"spill loads {ld} B, stack frame {frame} B", flush=True)
     out = {"card": card, "root": root, "build_s": build_s,
            "ptxas": {k: list(v) for k, v in spills.items()},
-           "rel_err": {}, "bytes": {}, "shapes": {}, "c6": {}}
+           "rel_err": {}, "bytes": {}, "shapes": {}, "c6": {},
+           "k7_vs_composed": {}, "xi_newton_wall": {}}
     if "k1k4" in args.what:
         k1k4(sm, root, out, args)
     if "contact" in args.what:
@@ -559,6 +682,8 @@ def main():
         c6(sm, out, args)
     if "k8k11" in args.what:
         k8k11(sm, out, args)
+    if "k5k7" in args.what:
+        k5k7(sm, out, args)
     for name, b in out["bytes"].items():
         print(f"[ab] {name:44s} bytes {b / 1e6:.1f} MB, byte bound "
               f"{b / sm.PEAK_BYTES * 1e3:.4f} ms", flush=True)

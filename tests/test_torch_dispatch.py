@@ -51,6 +51,9 @@ def _mi_calls(s, d, cp, h, lam):
             ss, p, q, mi, cp, xi),
         "c2x_res_jac/adjoint": lambda: cpiga2xi.c2x_res_vjp(
             ss, p, q, mi, cp, xi, g),
+        "c2x_res_jac/step": lambda: cpiga2xi.c2x_step(ss, p, q, mi, cp, xi),
+        "c2x_res_jac/solve_adjoint": lambda: cpiga2xi.c2x_solve_adjoint(
+            ss, p, q, mi, cp, xi, g),
     }
 
 
