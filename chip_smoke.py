@@ -11,8 +11,14 @@ Phases (any failure raises: non-zero exit, no result line):
    then the registers, spill and stack bytes of the redesigned kernels:
    K1's four modes, K2's three, every K4 instantiation, K12's cull and
    work kernels, every K3 instantiation, K8's three, K11's two, K5 and
-   K7's four modes and its cross-intersection sum (it fails if any of K1,
-   K2, K12, K3, K8, K11, K5 or K7 spills, or K5 or K7 has a stack frame);
+   K7's four modes and its cross-intersection sum, K6, K9's value, VJP
+   and gather kernels (it fails if any of K1, K2, K12, K3, K8, K11, K5,
+   K7, K6 or K9 spills, or K5, K7 or K6 has a stack frame); then K2's
+   three modes on the small wing's interface stack unrolled so that no two
+   qps share a node (no two atomics meet) against the outputs the parent
+   tree's K2 gave on the card, bit for bit (`[kernel K2 bits]`, sha256 in
+   tests/data/torch_port_k2_bits.json: the extended penalty_sweep.cuh
+   must leave K2 as it was);
 3. wing kernels: at the full 20-patch wing (6600 dofs) on the card, at a
    seeded nonzero d, K1 shell_qp and K2 penalty_qp in their three modes,
    K3 jet_assemble and K4 jet_matvec against their plain PyTorch versions
@@ -34,7 +40,9 @@ Phases (any failure raises: non-zero exit, no result line):
    full size (N = 6072 dofs, one seam of 17 points) on the card, at a
    seeded state (xi moved within its knot spans, d the linear response to
    the tip load, lambda random): K5 traced_rows (also at the unperturbed
-   seam that lies on a knot; conn equal, R 1e-13), K6 mi_penalty_xi, K7
+   seam that lies on a knot; conn equal, R 1e-13), K6 mi_penalty_xi (also
+   at the unperturbed seam on the knot; then over 5 launches on one input
+   bit for bit, `[kernel C2] mi_penalty_xi`), K7
    c2x_res_jac in its four modes (residual and Jacobian, the given-lambda
    adjoint, the fused Newton step: dx 1e-10, |r(x)| and |r(x + dx)|
    1e-12 of |r(x)|, and the fused adjoint: dcp 1e-12, each beside the
@@ -85,6 +93,8 @@ Phases (any failure raises: non-zero exit, no result line):
    bottom; value 1e-12, VJP 1e-11) and K1-K4 (1e-11) against their plain
    versions, with both times; the smallest stress of a real qp at the
    solution (K9 and its plain version give no derivative at sigma = 0);
+   K9's VJP over 5 launches on one input must give dd, dcp and dh bit for
+   bit (`[kernel C2] vm vjp`: no atomics);
 11. plate path (goldfish_tpu_torch/demos/plate_var_th_opt_stress.py through
    the port's OpenMDAO graph and om_shim): the cold run_model (KS stress at
    rho = 100 and volume, 1e-8 against the reference), compute_totals of
@@ -187,6 +197,7 @@ Imports nothing of JAX.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import re
@@ -218,6 +229,9 @@ VLM_WIDE = dict(n_chord=4, n_span=5, num_el=6, p=3, mc=16, ns=64)
 VLM_DEMO = dict(n_chord=2, n_span=3, num_el=3, p=3, mc=6, ns=10)
 VLM_TOL = {"vlm_aic/value": 1e-12, "vlm_aic/vjp": 1e-11}
 PEG = dict(n_sections=18, num_el=3, p=3)   # the reference's full box wing
+# sha256 of K2's outputs on the card at `k2_bits`' input, as the parent
+# tree of the extended penalty_sweep.cuh gave them
+K2_BITS = os.path.join(ROOT, "tests", "data", "torch_port_k2_bits.json")
 KERNEL_TOL = 1e-11
 STRESS_TOL = {"vm_stress_qp/value": 1e-12, "vm_stress_qp/vjp": 1e-11}
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, the f64 rate outside the
@@ -345,7 +359,7 @@ def phase_build():
         got = [v for n, v in spills.items() if k in n]
         if not got or any(st or ld for _, st, ld, _ in got):
             raise RuntimeError(f"{k} spills or is missing: {got}")
-    for k in K5K7_ENTRIES:
+    for k in K5K7_ENTRIES + K6_ENTRIES:
         got = [v for n, v in spills.items() if k in n]
         if any(frame for *_, frame in got):
             raise RuntimeError(f"{k} has a stack frame: {got}")
@@ -354,18 +368,23 @@ def phase_build():
 # entry functions of the kernels redesigned for the H100 (K1's four modes,
 # K2's three, K4, K12's cull and work kernels, K3, K8's three modes (the
 # template `pressure_grad_block` is modes 0 and 2), K11's two, K5, K7's four
-# modes (the template `c2x_kernel`) and its cross-intersection sum), and
-# those of them that must not spill; K5's and K7's also have no stack frame
+# modes (the template `c2x_kernel`) and its cross-intersection sum, K6, K9's
+# value, VJP and gather kernels), and those of them that must not spill;
+# K5's, K7's and K6's also have no stack frame
 K1K2_ENTRIES = ("shell_value_grad", "shell_hess", "shell_adjoint",
                 "shell_geom_grad", "penalty_value_grad", "penalty_hess",
                 "penalty_adjoint")
 K8K11_ENTRIES = ("pressure_grad_block", "pressure_hess", "aic_value_kernel",
                  "aic_vjp_kernel")
 K5K7_ENTRIES = ("traced_rows_kernel", "c2x_kernel", "c2x_reduce_dcp")
-REDESIGNED = K1K2_ENTRIES + K8K11_ENTRIES + K5K7_ENTRIES + (
+K6_ENTRIES = ("mi_penalty_xi_kernel",)
+K9_ENTRIES = ("vm_value", "vm_vjp_elements", "vm_gather")
+REDESIGNED = K1K2_ENTRIES + K8K11_ENTRIES + K5K7_ENTRIES + K6_ENTRIES + \
+    K9_ENTRIES + (
     "jet_matvec", "cell_box_kernel", "cull_kernel", "pair_list_kernel",
     "pair_hess_kernel", "jet_assemble_kernel")
-REDESIGNED_NO_SPILL = K1K2_ENTRIES + K8K11_ENTRIES + K5K7_ENTRIES + (
+REDESIGNED_NO_SPILL = K1K2_ENTRIES + K8K11_ENTRIES + K5K7_ENTRIES + \
+    K6_ENTRIES + K9_ENTRIES + (
     "cell_box_kernel", "cull_kernel", "pair_list_kernel", "pair_hess_kernel",
     "jet_assemble_kernel")
 
@@ -486,6 +505,10 @@ RIKS_KERNELS = ("shell_qp/value_grad", "shell_qp/hess", "jet_assemble")
 # carries (K1 and K2 before their reverse sweeps: the `bound_ms_dual`
 # yardstick)
 DENS_SHELL, DENS_PEN, DENS_VM = 200, 250, 300
+# f64 operations of K9's reverse sweep a qp (csrc/vm_stress_qp.cu:
+# vm_sweep, counted from the source: s_ij and the frame ~130, S^ab, A^-1
+# and the strains ~120, the current and reference configurations ~200)
+SWEEP_VM = 450
 # f64 operations of one hand-written reverse sweep at a qp (counted from
 # csrc/shell_qp.cu:shell_sweep and csrc/penalty_sweep.cuh), in plain
 # doubles, without and with the sweep back through the geometry; a
@@ -796,6 +819,83 @@ def reproducibility(tag, cases, names, runs=5, outputs="(W, r, dW/dh)"):
             f"launches {outputs} " + " ".join(f"{w:.3e}" for w in worst))
 
 
+def k2_unrolled(ifs, d, cp, h, lam):
+    """The interface stack `ifs` with every (qp, side, local) on a node of
+    its own, and d, cp, h, lam gathered to match: each qp's jets, and so
+    K2's work a qp, are unchanged, and no two qps add into one node, so
+    K2's outputs do not depend on the order of its atomics."""
+    I, N, L = ifs.connA.shape
+    dev = d.device
+    base = (torch.arange(I * N, device=dev).reshape(I, N, 1) * (2 * L)
+            + torch.arange(L, device=dev))
+    sides = ((ifs.pairA, ifs.connA, base), (ifs.pairB, ifs.connB, base + L))
+    out = []
+    for f in (d, cp, h, lam):
+        fu = torch.zeros((f.shape[0], I * N * 2 * L) + tuple(f.shape[2:]),
+                         dtype=f.dtype, device=dev)
+        for pair, conn, cu in sides:
+            pp = pair.long()[:, None, None].expand(I, N, L)
+            fu[pp, cu] = f[pp, conn.long()]
+        out.append(fu)
+    ifs = ifs._replace(connA=base.to(ifs.connA.dtype).contiguous(),
+                       connB=(base + L).to(ifs.connB.dtype).contiguous())
+    return (ifs, *out)
+
+
+def k2_bits(dev, **wing_kw):
+    """K2's three modes on a wing's interface stack unrolled by
+    `k2_unrolled` (default the CPU tests' small wing, 2 x 2 patches,
+    num_el=3, p=3) at a seeded state: {output: tensor}, the node outputs
+    at the nodes that hold a value, (I, N, 2 sides, L, ...)."""
+    from goldfish_tpu_torch.models import wing
+    from goldfish_tpu_torch.physics import coupling
+
+    s = wing.build(**(wing_kw or dict(n_chord=2, n_span=2, num_el=3, p=3)),
+                   device=dev)
+    rng = np.random.default_rng(0)
+    cp = s.cp
+    scale = float(torch.linalg.norm(cp)) / np.sqrt(cp.numel())
+    T = lambda a: torch.tensor(a, dtype=torch.float64, device=dev)  # noqa
+    d = T(1e-3 * scale * rng.normal(size=tuple(cp.shape))) * s.data.free
+    lam = T(rng.normal(size=tuple(cp.shape)))
+    ifs, d, cp, h, lam = k2_unrolled(s.data.ifs, d, cp, s.h_init, lam)
+    E = s.data.E
+    I, N, L = ifs.connA.shape
+
+    def compact(fu):
+        # (I, N, 2, L, ...): the unrolled nodes that hold a value
+        return torch.stack([
+            fu[pair.long()[:, None, None].expand(I, N, L), conn.long()]
+            for pair, conn in ((ifs.pairA, ifs.connA),
+                               (ifs.pairB, ifs.connB))], 2)
+
+    W, r, dh = coupling.penalty_value_grad(ifs, d, cp, h, E)
+    dcp, dh2 = coupling.penalty_adjoint(ifs, d, cp, h, E, lam)
+    return {"value_grad W": W, "value_grad r": compact(r),
+            "value_grad dW/dh": compact(dh),
+            "hess": coupling.penalty_hessians(ifs, d, cp, h, E),
+            "adjoint dcp": compact(dcp), "adjoint dh": compact(dh2)}
+
+
+def sha256(t):
+    return hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes()
+                          ).hexdigest()
+
+
+def phase_k2_bits(dev):
+    """[kernel K2 bits]: K2's outputs at `k2_bits`' input, bit for bit
+    against those the parent tree of the extended penalty_sweep.cuh gave on
+    the card (tests/data/torch_port_k2_bits.json)."""
+    with open(K2_BITS) as fh:
+        want = json.load(fh)["sha256"]
+    got = {k: sha256(v) for k, v in k2_bits(dev).items()}
+    same = {k: got[k] == want[k] for k in want}
+    say(f"[kernel K2 bits] penalty_qp outputs bit for bit as the parent "
+        f"tree's: {same}")
+    if not all(same.values()):
+        raise RuntimeError(f"K2's outputs changed: {same}")
+
+
 def make_iteration(sys_, th, solve):
     from goldfish_tpu_torch.physics import kl_shell
 
@@ -957,6 +1057,19 @@ K7_FORM_OPS = 60
 # parent's K7 modes 0 and 1 3, besides their Dual<double, 15> rows,
 # 4 x 16 x 40 a seam point (the `bound_ms_dual` yardstick)
 BASIS_OPS = 2 * 4 * 12 + 16 * 3
+# f64 operations of K6 a point (counted from csrc/mi_penalty_xi.cu and
+# bspline_rows.cuh: lane_row2): per side the two A2.3 recursions with first
+# and second derivatives (~60 each), per basis function and side the
+# tensor products, weights and quotient rule (~25), its share of the jets
+# (2 x 25) and of the chain rule (~62); the sweep (penalty_sweep.cuh with
+# ALL: SWEEP_PEN_GEO and the curve tangents' ~30) in a Dual<double, 1>
+K6_ROWS_DIR, K6_ROWS_BASIS, K6_JETS, K6_CHAIN = 60, 25, 50, 62
+
+
+def k6_ops(I, N, L):
+    return I * N * (2 * (2 * K6_ROWS_DIR
+                         + L * (K6_ROWS_BASIS + K6_JETS + K6_CHAIN))
+                    + TANGENT * (SWEEP_PEN_GEO + 30))
 
 
 def k7_ops(I, N, L):
@@ -1059,6 +1172,27 @@ def c7_reproducible(sys_, runs=5):
                                f"launch to launch")
 
 
+def k6_reproducible(sys_, runs=5):
+    """[kernel C2] K6 writes each output once a point (no atomics): its
+    output must be the same, bit for bit, over `runs` launches."""
+    from goldfish_tpu_torch.physics import coupling_mi
+
+    cp, h, xi, d, lam = mi_state(sys_)
+    mi = sys_.mi
+    x4 = xi.reshape(mi.n_int, mi.n_max, 2, 2).contiguous()
+    tA = coupling_mi._curve_tangents(x4[:, :, 0], mi.n_pts).contiguous()
+    tB = coupling_mi._curve_tangents(x4[:, :, 1], mi.n_pts).contiguous()
+    outs = [coupling_mi.mi_penalty_xi(sys_.ss, sys_.pdeg, sys_.qdeg, mi,
+                                      sys_.co, x4, tA, tB, d, cp, h,
+                                      sys_.data.E, lam) for _ in range(runs)]
+    same = all(torch.equal(o, outs[0]) for o in outs[1:])
+    say(f"[kernel C2] mi_penalty_xi: out over {runs} launches bit-identical "
+        f"{same}")
+    if not same:
+        raise RuntimeError("mi_penalty_xi: its output changes from launch "
+                           "to launch")
+
+
 def mi_kernel_cases(sys_, edge=True):
     """(name, case...) -> (kernel fn, plain fn, flops, inputs) of an MI
     system; the first case of each name is the one the MI path runs.
@@ -1074,7 +1208,6 @@ def mi_kernel_cases(sys_, edge=True):
     data = sys_.data
     I, N = mi.n_int, mi.n_max
     L = (p + 1) * (q + 1)
-    xi4 = xi.reshape(I, N, 2, 2)
 
     def pts_of(x):
         x4 = x.reshape(I, N, 2, 2)
@@ -1087,8 +1220,6 @@ def mi_kernel_cases(sys_, edge=True):
     ip0, pts0 = pts_of(sys_.c2x.xi0_flat)
     M = ip.shape[0]
 
-    dA = coupling_mi._curve_tangents(xi4[:, :, 0], mi.n_pts).contiguous()
-    dB = coupling_mi._curve_tangents(xi4[:, :, 1], mi.n_pts).contiguous()
     E = data.E
     gx = torch.tensor(np.random.default_rng(2).normal(size=(I, 4 * N)),
                       device=cp.device)
@@ -1100,13 +1231,17 @@ def mi_kernel_cases(sys_, edge=True):
     cases = {}
     for tag, (ipx, ptx) in (("moved", (ip, pts)), ("on-knot", (ip0, pts0))):
         cases[("traced_rows", tag)] = rows_case(ss, p, q, ipx, ptx)
-    cases[("mi_penalty_xi",)] = (
-        lambda: coupling_mi.mi_penalty_xi(ss, p, q, mi, co, xi4, dA, dB, d,
-                                          cp, h, E, lam),
-        lambda: coupling_mi._xi_grad_plain(ss, p, q, mi, co, xi4, dA, dB, d,
-                                           cp, h, E, lam),
-        I * N * (2 * BASIS_OPS * 9 + 2 * L * 6 * 9 * 3 + 18 * DENS_PEN),
-        sv + [xi4, dA, dB, co.w_s, d, cp, h, lam])
+    for tag, x in (((), xi), (("on-knot",), sys_.c2x.xi0_flat)):
+        x4 = x.reshape(I, N, 2, 2).contiguous()
+        tA = coupling_mi._curve_tangents(x4[:, :, 0], mi.n_pts).contiguous()
+        tB = coupling_mi._curve_tangents(x4[:, :, 1], mi.n_pts).contiguous()
+        args = (ss, p, q, mi, co, x4, tA, tB, d, cp, h, E, lam)
+        cases[("mi_penalty_xi",) + tag] = (
+            lambda a=args: coupling_mi.mi_penalty_xi(*a),
+            lambda a=args: coupling_mi._xi_grad_plain(*a),
+            k6_ops(I, N, L), sv + [x4, tA, tB, co.w_s, d, cp, h, lam],
+            {"flops_dual": I * N * (2 * BASIS_OPS * 9 + 2 * L * 6 * 9 * 3
+                                    + 18 * DENS_PEN)})
     ops = k7_ops(I, N, L)
     cases[("c2x_res_jac/res_jac",)] = (
         lambda: cpiga2xi.c2x_res_jac(ss, p, q, mi, cp, xi),
@@ -1228,6 +1363,7 @@ def phase_mi_kernels(sys_, checks, reps=5, tube=False):
         merge(checks, name, got, suffix)
     if not tube:
         c7_reproducible(sys_)
+        k6_reproducible(sys_)
     return checks
 
 
@@ -1663,8 +1799,11 @@ def stress_cases(st, E, nu, d, cp, h, gbar, through):
     jets = 2 * 15 * L * 2 + 2 * L          # X, z jets + h per qp
     ins = [st.R00, st.R10, st.R01, st.R20, st.R11, st.R02, st.conn, d, cp,
            h, E, nu]
-    # the VJP: two dual passes of 16 and 15 directions (~(k + 1) x the
-    # value's operations each) and the scatter of 31 jet cotangents
+    # the VJP: the forward pass, its hand-written reverse sweep, B^T of the
+    # 31 jet cotangents a qp and the nodes' sums of the (element, local)
+    # partials; beside it the dual-number kernel it replaced (two passes of
+    # 16 and 15 directions, ~(k + 1) x the value's operations each)
+    vjp = nqp * (jets + DENS_VM + SWEEP_VM + 62 * L) + P * Ne * L * 7
     return {
         "vm_stress_qp/value": (
             lambda: kl_shell.vm_stress_value(st, d, cp, h, E, nu, z),
@@ -1673,7 +1812,8 @@ def stress_cases(st, E, nu, d, cp, h, gbar, through):
         "vm_stress_qp/vjp": (
             lambda: kl_shell.vm_stress_vjp(st, d, cp, h, E, nu, z, gbar),
             lambda: kl_shell._stress_vjp_plain(st, d, cp, h, E, nu, z, gbar),
-            nqp * (jets + 33 * DENS_VM + 62 * L), ins + [gbar]),
+            vjp, ins + [gbar],
+            {"flops_dual": nqp * (jets + 33 * DENS_VM + 62 * L)}),
     }
 
 
@@ -1708,6 +1848,15 @@ def phase_plate_kernels(s, checks, seed=8):
                             tol=STRESS_TOL)
         for name, g in got.items():
             merge(checks, name, g)
+    # [kernel C2] vm vjp: no atomics, so the same bits on every launch
+    outs = [kl_shell.vm_stress_vjp(s.stack, dn, cp, h, s.E, s.nu, 0.5, gbar)
+            for _ in range(5)]
+    same = all(torch.equal(a, b) for o in outs[1:] for a, b in zip(o, outs[0]))
+    say(f"[kernel C2] vm vjp vm_stress_qp/vjp: (dd, dcp, dh) over 5 launches "
+        f"bit-identical {same}")
+    if not same:
+        raise RuntimeError("vm_stress_qp/vjp: its output changes from launch "
+                           "to launch")
     lam = T(rng.normal(size=tuple(cp.shape))) * s.data.free
     v = T(rng.normal(size=tuple(cp.shape)))
     for name, got in check_kernels(fixed_cases(s.data, dn, cp, h, lam, v,
@@ -2694,6 +2843,7 @@ def main():
     t_start = time.perf_counter()
     dev = phase_device()
     phase_build()
+    phase_k2_bits(dev)
     record_k4_shapes()
     from goldfish_tpu_torch.models import tbeam, wing
 

@@ -1,8 +1,10 @@
-// Rational NURBS basis rows in closed form, 16 lanes a point (K5, K7).
+// Rational NURBS basis rows in closed form, 16 lanes a point (K5, K6, K7).
 //
 // Device counterpart of goldfish_tpu/ops/bspline_jax.py (_find_span,
-// _basis_values, surface_basis) and of the first xi-derivatives that
-// goldfish_tpu/physics/coupling_mi.py takes of them with jax.jacfwd.
+// _basis_values, surface_basis) and of the first and second
+// xi-derivatives that goldfish_tpu/physics/coupling_mi.py takes of them
+// with jax.jacfwd (the second ones through the moving intersection's
+// residual VJP).
 //
 // Half a warp evaluates one point: lane l < L = (p + 1)(q + 1) owns the
 // local basis function (i, j) = (l / (q + 1), l % (q + 1)), lanes l >= L
@@ -26,6 +28,11 @@
 //   butterfly (the same sum, bit for bit, in every lane, whatever the
 //   launch), then R = wN / W and R_u = (wN_u - R W_u) / W, the quotient
 //   rule of the port's plain version (ops/bspline_traced._rows_plain).
+// - Second derivatives (K6, `lane_row2`): A2.3 with n = 2 (its first
+//   derivatives the same operations as n = 1), the six weighted sums
+//   W, W_u, W_v, W_uu, W_uv, W_vv by the same butterfly, and the quotient
+//   rule's second-order terms, e.g. R_uv = (wN_uv - R_u W_v - R_v W_u -
+//   R W_uv) / W. K5 and K7 keep `lane_row`.
 #pragma once
 
 #include "bspline.cuh"
@@ -48,15 +55,24 @@ __device__ __forceinline__ double half_sum(double x) {
   return x;
 }
 
-// ids[clip(#{s : vals[s] <= u} - 1)] over this lane's half-warp's point
+// ids[clip(#{s : vals[s] <= u} - 1)] over this lane's half-warp's point;
+// CH chunks of 16 starts loaded before their ballots
+template <int CH = 1>
 __device__ __forceinline__ int span_ballot(const double* vals, const int* ids,
                                            int S, double u) {
   const int l = threadIdx.x & 15;
   const unsigned half = 0xffffu << (threadIdx.x & 16);
   int cnt = 0;
-  for (int s0 = 0; s0 < S; s0 += 16) {
-    const bool le = s0 + l < S && vals[s0 + l] <= u;
-    cnt += __popc(__ballot_sync(0xffffffffu, le) & half);
+  for (int s0 = 0; s0 < S; s0 += 16 * CH) {
+    bool le[CH];
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      const int k = s0 + 16 * c + l;
+      le[c] = k < S && vals[k] <= u;
+    }
+#pragma unroll
+    for (int c = 0; c < CH; ++c)
+      cnt += __popc(__ballot_sync(0xffffffffu, le[c]) & half);
   }
   int k = cnt - 1;
   k = k < 0 ? 0 : (k > S - 1 ? S - 1 : k);
@@ -64,11 +80,12 @@ __device__ __forceinline__ int span_ballot(const double* vals, const int* ids,
 }
 
 // the P + 1 nonzero B-splines of degree P at u in knot span `span` and
-// their u-derivatives (Piegl & Tiller A2.3, n = 1)
-template <int P>
-__device__ __forceinline__ void basis_ders1(const double* U, int span,
-                                            double u, double* N,
-                                            double* dN) {
+// their u-derivatives (Piegl & Tiller A2.3, n = 1), with D2 also the second
+// ones (n = 2: the k = 2 pass of its a-array, written out)
+template <int P, bool D2 = false>
+__device__ __forceinline__ void basis_ders(const double* U, int span,
+                                           double u, double* N, double* dN,
+                                           double* d2N = nullptr) {
   double left[P + 1], right[P + 1], ndu[P + 1][P + 1];
   ndu[0][0] = 1.0;
 #pragma unroll
@@ -92,6 +109,19 @@ __device__ __forceinline__ void basis_ders1(const double* U, int span,
     if (r >= 1) d += ndu[r - 1][P - 1] / ndu[P][r - 1];
     if (r <= P - 1) d -= ndu[r][P - 1] / ndu[P][r];
     dN[r] = P * d;
+    if constexpr (D2) {
+      double d2 = 0.0;
+      if constexpr (P >= 2) {
+        // the k = 1 pass: a = (1 / ndu[P][r-1], -1 / ndu[P][r])
+        const double a0 = r >= 1 ? 1.0 / ndu[P][r - 1] : 0.0;
+        const double a1 = r <= P - 1 ? -1.0 / ndu[P][r] : 0.0;
+        if (r >= 2) d2 += (a0 / ndu[P - 1][r - 2]) * ndu[r - 2][P - 2];
+        if (r >= 1 && r <= P - 1)
+          d2 += ((a1 - a0) / ndu[P - 1][r - 1]) * ndu[r - 1][P - 2];
+        if (r <= P - 2) d2 += (-a1 / ndu[P - 1][r]) * ndu[r][P - 2];
+      }
+      d2N[r] = (P * (P - 1)) * d2;
+    }
   }
 }
 
@@ -106,8 +136,8 @@ __device__ __forceinline__ LaneRow lane_row_pq(const SurfSetArgs& s, int ip,
   out.sv = span_ballot(s.sv_vals + size_t(ip) * s.Sv,
                        s.sv_ids + size_t(ip) * s.Sv, s.Sv, v);
   double Nu[P + 1], dNu[P + 1], Nv[Q + 1], dNv[Q + 1];
-  basis_ders1<P>(s.knots_u + size_t(ip) * s.Ku, out.su, u, Nu, dNu);
-  basis_ders1<Q>(s.knots_v + size_t(ip) * s.Kv, out.sv, v, Nv, dNv);
+  basis_ders<P>(s.knots_u + size_t(ip) * s.Ku, out.su, u, Nu, dNu);
+  basis_ders<Q>(s.knots_v + size_t(ip) * s.Kv, out.sv, v, Nv, dNv);
   const int i = l / (Q + 1), j = l - (l / (Q + 1)) * (Q + 1);
   double nu = 0.0, dnu = 0.0, nv = 0.0, dnv = 0.0;
 #pragma unroll
@@ -152,6 +182,84 @@ __device__ __forceinline__ LaneRow lane_row(const SurfSetArgs& s, int ip,
     case 13: return lane_row_pq<3, 1>(s, ip, u, v);
     case 14: return lane_row_pq<3, 2>(s, ip, u, v);
     default: return lane_row_pq<3, 3>(s, ip, u, v);
+  }
+}
+
+// one lane's share of a point with the second derivatives (K6): its
+// local basis function's flat CP index (-1 on lanes l >= L) and R, R_u,
+// R_v, R_uu, R_uv, R_vv
+struct LaneRow2 {
+  int conn;
+  double R0, Ru, Rv, Ruu, Ruv, Rvv;
+};
+
+template <int P, int Q>
+__device__ __forceinline__ LaneRow2 lane_row2_pq(const SurfSetArgs& s,
+                                                 int ip, double u,
+                                                 double v) {
+  constexpr int L = (P + 1) * (Q + 1);
+  const int l = threadIdx.x & 15;
+  const int su = span_ballot<4>(s.su_vals + size_t(ip) * s.Su,
+                               s.su_ids + size_t(ip) * s.Su, s.Su, u);
+  const int sv = span_ballot<4>(s.sv_vals + size_t(ip) * s.Sv,
+                                s.sv_ids + size_t(ip) * s.Sv, s.Sv, v);
+  double Nu[P + 1], dNu[P + 1], d2Nu[P + 1], Nv[Q + 1], dNv[Q + 1],
+      d2Nv[Q + 1];
+  basis_ders<P, true>(s.knots_u + size_t(ip) * s.Ku, su, u, Nu, dNu, d2Nu);
+  basis_ders<Q, true>(s.knots_v + size_t(ip) * s.Kv, sv, v, Nv, dNv, d2Nv);
+  const int i = l / (Q + 1), j = l - (l / (Q + 1)) * (Q + 1);
+  double nu = 0.0, dnu = 0.0, d2nu = 0.0, nv = 0.0, dnv = 0.0, d2nv = 0.0;
+#pragma unroll
+  for (int t = 0; t <= P; ++t)
+    if (t == i) {
+      nu = Nu[t];
+      dnu = dNu[t];
+      d2nu = d2Nu[t];
+    }
+#pragma unroll
+  for (int t = 0; t <= Q; ++t)
+    if (t == j) {
+      nv = Nv[t];
+      dnv = dNv[t];
+      d2nv = d2Nv[t];
+    }
+  double A0 = 0.0, Au = 0.0, Av = 0.0, Auu = 0.0, Auv = 0.0, Avv = 0.0;
+  LaneRow2 out;
+  out.conn = -1;
+  if (l < L) {
+    out.conn = (su - P + i) * s.n_v[ip] + (sv - Q + j);
+    const double w = s.w[size_t(ip) * s.C + out.conn];
+    A0 = (nu * nv) * w;
+    Au = (dnu * nv) * w;
+    Av = (nu * dnv) * w;
+    Auu = (d2nu * nv) * w;
+    Auv = (dnu * dnv) * w;
+    Avv = (nu * d2nv) * w;
+  }
+  const double W0 = half_sum(A0), Wu = half_sum(Au), Wv = half_sum(Av);
+  const double Wuu = half_sum(Auu), Wuv = half_sum(Auv),
+               Wvv = half_sum(Avv);
+  out.R0 = A0 / W0;
+  out.Ru = (Au - out.R0 * Wu) / W0;
+  out.Rv = (Av - out.R0 * Wv) / W0;
+  out.Ruu = (Auu - 2.0 * (out.Ru * Wu) - out.R0 * Wuu) / W0;
+  out.Ruv = (Auv - out.Ru * Wv - out.Rv * Wu - out.R0 * Wuv) / W0;
+  out.Rvv = (Avv - 2.0 * (out.Rv * Wv) - out.R0 * Wvv) / W0;
+  return out;
+}
+
+__device__ __forceinline__ LaneRow2 lane_row2(const SurfSetArgs& s, int ip,
+                                              double u, double v) {
+  switch (s.p * 4 + s.q) {
+    case 5: return lane_row2_pq<1, 1>(s, ip, u, v);
+    case 6: return lane_row2_pq<1, 2>(s, ip, u, v);
+    case 7: return lane_row2_pq<1, 3>(s, ip, u, v);
+    case 9: return lane_row2_pq<2, 1>(s, ip, u, v);
+    case 10: return lane_row2_pq<2, 2>(s, ip, u, v);
+    case 11: return lane_row2_pq<2, 3>(s, ip, u, v);
+    case 13: return lane_row2_pq<3, 1>(s, ip, u, v);
+    case 14: return lane_row2_pq<3, 2>(s, ip, u, v);
+    default: return lane_row2_pq<3, 3>(s, ip, u, v);
   }
 }
 

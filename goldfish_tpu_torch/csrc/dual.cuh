@@ -1,18 +1,12 @@
-// Forward-mode dual numbers for the per-quadrature-point physics kernels.
+// Forward-mode dual numbers for the hand-written reverse sweeps.
 //
-// Dual<T, N> carries a value and N directional derivatives. Nesting gives
-// higher derivatives: Dual<Dual<double, M>, 1> seeded with one outer
-// direction e_k and M inner directions yields one column of the Hessian;
-// Dual<Dual<double, 1>, K> with an inner direction lambda yields the mixed
-// derivative d/dx_i (grad_z f . lambda) for K outer variables x_i.
-//
-// Each energy density is written once as a template over its scalar type,
-// so value, gradient, Hessian and adjoint all come from the same source with
-// the exact derivative semantics of the JAX package's automatic
-// differentiation. K1 shell_qp and K2 penalty_qp instead sweep their
-// densities back by hand (shell_qp.cu: density_grad, shell_sweep;
-// penalty_sweep.cuh), carrying at most a Dual<double, 1> tangent; they are
-// held against the plain autograd versions.
+// Dual<T, N> carries a value and N directional derivatives. The kernels
+// sweep their densities back by hand (shell_qp.cu: density_grad,
+// shell_sweep; penalty_sweep.cuh; vm_stress_qp.cu: vm_sweep) in plain
+// doubles, and carry at most a Dual<double, 1> tangent through a sweep:
+// seeded with e_k it gives a Hessian column, seeded with lambda's jets the
+// second derivatives an adjoint or K6's forward-over-reverse sweep needs.
+// They are held against the plain autograd versions.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -31,10 +25,6 @@ struct Dual {
 };
 
 __device__ inline double dsqrt(double x) { return sqrt(x); }
-__device__ inline double value_of(double x) { return x; }
-
-template <class T, int N>
-__device__ inline double value_of(const Dual<T, N>& a) { return value_of(a.v); }
 
 template <class T, int N>
 __device__ inline Dual<T, N> operator+(const Dual<T, N>& a, const Dual<T, N>& b) {
@@ -145,14 +135,6 @@ __device__ inline void cross3(const S* a, const S* b, S* c) {
   c[0] = a[1] * b[2] - a[2] * b[1];
   c[1] = a[2] * b[0] - a[0] * b[2];
   c[2] = a[0] * b[1] - a[1] * b[0];
-}
-
-template <class S>
-__device__ inline void unit3(S* a) {
-  S n = dsqrt(dot3(a, a));
-  a[0] = a[0] / n;
-  a[1] = a[1] / n;
-  a[2] = a[2] / n;
 }
 
 // backwards through the helpers above, for hand-written reverse sweeps

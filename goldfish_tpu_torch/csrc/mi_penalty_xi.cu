@@ -5,32 +5,52 @@
 //   goldfish_tpu/solver/system_mi.py: _jit_res_vjp_mi (the vjp of
 //     residual_mi w.r.t. xi; its (cp, h) part is K2 mode 2 on K5's rows).
 //
-// For every interface point the thread evaluates
-//   F = lambda_z . grad_z (w * density)(z, X, hA, hB; dxiA, dxiB)
-// where every jet (z, lambda_z, X, h) comes from basis rows rebuilt at the
-// point's dual xi through bspline.cuh, and writes dF/d(xiA, xiB, dxiA,
-// dxiB) (8 numbers, out (I, N, 8)). The scalar type is a dual over a dual
-// as in K2 mode 2: the inner direction is lambda, the 8 outer directions
-// are the point's two coordinates on each side and its two curve tangents.
-// The rows need first and second xi-derivatives (R_u depends on xi), so the
-// basis is evaluated at Dual<Dual<double,2>,2>: outer = d/d(u, v) for the
-// rows R_u, R_v, inner = d/dxi. Torch chains the tangent part through the
-// neighbour map of coupling_mi._curve_tangents and multiplies by -1.
+// For every interface point it evaluates
+//   G = lambda_z . grad_z f(z, X, hA, hB; dxiA, dxiB),  f = w * density,
+// where the jets z (of d), lambda_z (of lambda), X (of cp) and h come from
+// basis rows at the point's xi on each side, and writes dG/d(xiA, xiB,
+// dxiA, dxiB) (8 numbers, out (I, N, 8)). Torch chains the tangent part
+// through the neighbour map of coupling_mi._curve_tangents and multiplies
+// by -1.
 //
-// What bounds it on the H100: register pressure and latency. 17 threads do
-// ~10^5 flops each in an 18-double scalar type (spilled); the launch
-// dominates at the T-beam's size.
-#include "bspline.cuh"
-#include "penalty_density.cuh"
+// Design: a warp a point, half a warp a side.
+// 1. Rows: in each half, lane l < L = (p + 1)(q + 1) owns basis function
+//    l of its side and evaluates its R, R_u, R_v and the second
+//    derivatives R_uu, R_uv, R_vv (bspline_rows.cuh: lane_row2, in plain
+//    doubles), since G depends on xi through R, R_u and R_v. The two sides
+//    run side by side.
+// 2. Jets: each lane weights its rows by its node's cp, d, lambda and h;
+//    each half sums its side's 25 jets (X 6, z 9, lambda_z 9, h) by the
+//    xor butterfly and swaps them with the other half (xor 16), so that
+//    every lane holds the same 50.
+// 3. Sweep: one hand-written reverse sweep of the density
+//    (penalty_sweep.cuh, ALL) in Dual<double, 1> with z's tangent seeded
+//    by lambda_z: forward over reverse. Its value part is grad_z f; its
+//    tangent part is dG/dy for every input y of the density (z, X, hA,
+//    hB, dxiA, dxiB). Every lane runs it on the same sums, so every lane
+//    then holds every cotangent.
+// 4. Chain: each lane contracts its side's cotangents with its rows' xi
+//    derivatives and its node's values (dz/dxi through d, dX/dxi through
+//    cp, dlambda_z/dxi against grad_z f, dh/dxi through h), and each half
+//    sums them; the dxiA, dxiB cotangents go out as they are. Each output
+//    is written once a point: no atomics, the same bits on every launch. A
+//    padded point (w = 0) writes zeros.
+//
+// What bounds it on the H100: latency, at 17-140 points a launch: the
+// rows' dependent loads (span starts, knots, weights, nodes) and divisions
+// (more than half of a launch when one half-warp took both sides in
+// turn), then the sweep's ~1.5 10^3 dependent f64 operations. The rows
+// wait in shared memory while the sweep runs, so no register spills.
+#include "bspline_rows.cuh"
+#include "penalty_sweep.cuh"
 
 namespace gf {
 namespace {
 
-constexpr int NDIR = 8;  // (xiA_u, xiA_v, xiB_u, xiB_v, dxiA_u, dxiA_v, dxiB_u, dxiB_v)
-typedef Dual<double, 2> D2;
-typedef Dual<D2, 2> T2;         // rows: outer d/d(u,v), inner d/dxi
-typedef Dual<double, 1> In;     // lambda direction
-typedef Dual<In, NDIR> O;       // the density's scalar
+constexpr int NOUT = 8;       // (xiA_u, xiA_v, xiB_u, xiB_v, dxiA, dxiB)
+constexpr int THREADS = 64;   // 2 points a block
+constexpr int RS = 5;         // row derivatives a lane keeps in shared memory
+typedef Dual<double, 1> T;
 
 struct Args {
   SurfSetArgs ss;
@@ -50,76 +70,127 @@ struct Args {
   int I, N;
 };
 
-// O-typed scalar from a xi-dual value (value + d/dxi of one side) and an
-// optional lambda part of the same shape
-__device__ O lift(const D2& a, const D2* lam, int side) {
-  O r(a.v);
-  if (lam) r.v.g[0] = lam->v;
+// this lane's share of one side's jets: X (Xu, Xv), z and lambda_z
+// (value, u, v) and h, through the rows of node `node` (none: -1)
+__device__ __forceinline__ void lane_jets(const Args& a, const LaneRow2& r,
+                                          long node, double* X, double* z,
+                                          double* lz, double& h) {
 #pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    r.g[2 * side + k].v = a.g[k];
-    if (lam) r.g[2 * side + k].g[0] = lam->g[k];
+  for (int c = 0; c < 3; ++c) {
+    const double cpc = node < 0 ? 0.0 : a.cp[node * 3 + c];
+    const double dc = node < 0 ? 0.0 : a.d[node * 3 + c];
+    const double lc = node < 0 ? 0.0 : a.lam[node * 3 + c];
+    X[c] = r.Ru * cpc;
+    X[3 + c] = r.Rv * cpc;
+    z[c] = r.R0 * dc;
+    z[3 + c] = r.Ru * dc;
+    z[6 + c] = r.Rv * dc;
+    lz[c] = r.R0 * lc;
+    lz[3 + c] = r.Ru * lc;
+    lz[6 + c] = r.Rv * lc;
   }
-  return r;
+  h = node < 0 ? 0.0 : r.R0 * a.h[node];
 }
 
-// jets of one side: X (u, v derivatives of the geometry), z and lambda_z
-// (value, u, v derivatives of d and lambda), h; each as O
-__device__ void side_jets(const Args& a, int side, int ip, size_t ik, O* X,
-                          O* z, O& h) {
-  const double u0 = a.xi[(ik * 2 + side) * 2];
-  const double v0 = a.xi[(ik * 2 + side) * 2 + 1];
-  T2 u(u0), v(v0), R[LMAX];
-  u.v.g[0] = 1.0;
-  u.g[0].v = 1.0;
-  v.v.g[1] = 1.0;
-  v.g[1].v = 1.0;
-  int conn[LMAX];
-  rational_rows(a.ss, ip, u, v, conn, R);
-  const int L = (a.ss.p + 1) * (a.ss.q + 1);
-  D2 Xj[6], zj[9], lj[9], hj(0.0);
-  for (int m = 0; m < 6; ++m) Xj[m] = D2(0.0);
-  for (int m = 0; m < 9; ++m) zj[m] = lj[m] = D2(0.0);
-  for (int l = 0; l < L; ++l) {
-    const size_t node = size_t(ip) * a.ss.C + conn[l];
-    const D2 rows[3] = {R[l].v, R[l].g[0], R[l].g[1]};  // R0, R_u, R_v
+// this lane's part of dG/d(xi_u, xi_v) of one side: gz, gX the side's
+// cotangents (z: 9, X: 6), gh dG/dh; rw this lane's R_u, R_v, R_uu,
+// R_uv, R_vv
+__device__ __forceinline__ void lane_chain(const Args& a, const double* rw,
+                                           long node, const T* gz,
+                                           const T* gX, double gh,
+                                           double& du, double& dv) {
+  double c0 = 0.0, c1 = 0.0, c2 = 0.0;
+  if (node >= 0) {
+#pragma unroll
     for (int c = 0; c < 3; ++c) {
-      const double cpc = a.cp[node * 3 + c];
       const double dc = a.d[node * 3 + c];
+      const double cpc = a.cp[node * 3 + c];
       const double lc = a.lam[node * 3 + c];
-      Xj[c] = Xj[c] + rows[1] * cpc;
-      Xj[3 + c] = Xj[3 + c] + rows[2] * cpc;
-      for (int j = 0; j < 3; ++j) {
-        zj[3 * j + c] = zj[3 * j + c] + rows[j] * dc;
-        lj[3 * j + c] = lj[3 * j + c] + rows[j] * lc;
-      }
+      // rows R0 (z, lambda_z value, h), R_u (z_u, X_u, ...), R_v
+      c0 += gz[c].g[0] * dc + gz[c].v * lc;
+      c1 += gz[3 + c].g[0] * dc + gX[c].g[0] * cpc + gz[3 + c].v * lc;
+      c2 += gz[6 + c].g[0] * dc + gX[3 + c].g[0] * cpc + gz[6 + c].v * lc;
     }
-    hj = hj + rows[0] * a.h[node];
+    c0 += gh * a.h[node];
   }
-  for (int m = 0; m < 6; ++m) X[m] = lift(Xj[m], nullptr, side);
-  for (int m = 0; m < 9; ++m) z[m] = lift(zj[m], &lj[m], side);
-  h = lift(hj, nullptr, side);
+  // d/du of (R0, R_u, R_v) = (R_u, R_uu, R_uv); d/dv = (R_v, R_uv, R_vv)
+  du = rw[0] * c0 + rw[2] * c1 + rw[3] * c2;
+  dv = rw[1] * c0 + rw[3] * c1 + rw[4] * c2;
 }
 
-__global__ void mi_penalty_xi_kernel(Args a, double* out) {
-  const size_t ik = size_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (ik >= size_t(a.I) * a.N) return;
+// v of side 0 (A) and of side 1 (B) from this lane's value `mine` of side
+// `side` and the other half's
+__device__ __forceinline__ void swap_halves(double mine, int side,
+                                            double& a, double& b) {
+  const double other = __shfl_xor_sync(0xffffffffu, mine, 16);
+  a = side == 0 ? mine : other;
+  b = side == 0 ? other : mine;
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+    mi_penalty_xi_kernel(Args a, double* out) {
+  __shared__ double sRow[THREADS][RS];
+  const size_t n = size_t(a.I) * a.N;
+  const size_t pt = (size_t(blockIdx.x) * THREADS + threadIdx.x) >> 5;
+  const bool live = pt < n;
+  // every lane takes part in the ballots and shuffles: a warp past the
+  // last point repeats it and writes nothing
+  const size_t ik = live ? pt : n - 1;
+  const int l = threadIdx.x & 15;
+  const int side = (threadIdx.x >> 4) & 1;
   const int i = int(ik / a.N);
   const int pA = a.pairA[i], pB = a.pairB[i];
-  O X[PEN_NX], z[PEN_NZ], hA, hB, dxA[2], dxB[2];
-  side_jets(a, 0, pA, ik, X, z, hA);
-  side_jets(a, 1, pB, ik, X + 6, z + 9, hB);
+  const int ip = side == 0 ? pA : pB;
+  const LaneRow2 r = lane_row2(a.ss, ip, a.xi[(ik * 2 + side) * 2],
+                               a.xi[(ik * 2 + side) * 2 + 1]);
+  const long node = r.conn < 0 ? -1 : long(ip) * a.ss.C + r.conn;
+  double* rw = sRow[threadIdx.x];
+  rw[0] = r.Ru;
+  rw[1] = r.Rv;
+  rw[2] = r.Ruu;
+  rw[3] = r.Ruv;
+  rw[4] = r.Rvv;
+  double Xs[6], zs[9], ls[9], hs;
+  lane_jets(a, r, node, Xs, zs, ls, hs);
+  double X[PEN_NX], hA, hB;
+  T zt[PEN_NZ];
 #pragma unroll
-  for (int c = 0; c < 2; ++c) {
-    dxA[c] = O(a.dxiA[ik * 2 + c]);
-    dxA[c].g[4 + c].v = 1.0;
-    dxB[c] = O(a.dxiB[ik * 2 + c]);
-    dxB[c].g[6 + c].v = 1.0;
+  for (int k = 0; k < 6; ++k) swap_halves(half_sum(Xs[k]), side, X[k], X[6 + k]);
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    double zA, zB, lA, lB;
+    swap_halves(half_sum(zs[k]), side, zA, zB);
+    swap_halves(half_sum(ls[k]), side, lA, lB);
+    zt[k] = T(zA);
+    zt[k].g[0] = lA;
+    zt[9 + k] = T(zB);
+    zt[9 + k].g[0] = lB;
   }
-  const double E = fmax(a.E[pA], a.E[pB]);
-  O f = penalty_density(X, z, hA, hB, dxA, dxB, E, a.ad[i], a.ar[i], a.w[ik]);
+  swap_halves(half_sum(hs), side, hA, hB);
+  const double w = a.w[ik];
+  T val, gz[PEN_NZ], gX[PEN_NX], gh, gdx[4];
+  penalty_sweep<T, true, true>(X, zt, hA, hB, a.dxiA + 2 * ik,
+                               a.dxiB + 2 * ik, fmax(a.E[pA], a.E[pB]),
+                               a.ad[i], a.ar[i], w, val, gz, gh, gX, gdx);
+  // this side's cotangents, selected without a runtime index
+  T gzs[9], gXs[6];
 #pragma unroll
-  for (int k = 0; k < NDIR; ++k) out[ik * NDIR + k] = f.g[k].g[0];
+  for (int k = 0; k < 9; ++k) gzs[k] = side == 0 ? gz[k] : gz[9 + k];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) gXs[k] = side == 0 ? gX[k] : gX[6 + k];
+  double du, dv;
+  lane_chain(a, rw, node, gzs, gXs, gh.g[0], du, dv);
+  du = half_sum(du);
+  dv = half_sum(dv);
+  if (live && l < 4) {
+    // half A: xiA (outputs 0, 1), dxiA (4, 5); half B: xiB (2, 3), dxiB
+    // (6, 7)
+    const double v = l == 0 ? du : l == 1 ? dv
+                   : side == 0 ? (l == 2 ? gdx[0].g[0] : gdx[1].g[0])
+                               : (l == 2 ? gdx[2].g[0] : gdx[3].g[0]);
+    const int o = l < 2 ? 2 * side + l : 4 + 2 * side + (l - 2);
+    out[ik * NOUT + o] = w == 0.0 ? 0.0 : v;
+  }
 }
 
 }  // namespace
@@ -134,13 +205,15 @@ extern "C" int gf_mi_penalty_xi(
     const double* h, const double* E, const double* lam, double* out, int Ku,
     int Kv, int Su, int Sv, int C, int p, int q, int I, int N, void* stream) {
   using namespace gf;
-  if (p > PMAX || q > PMAX) return static_cast<int>(cudaErrorInvalidValue);
-  size_t n = size_t(I) * N;
+  if (p < 1 || q < 1 || p > PMAX || q > PMAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t n = size_t(I) * N;
   if (n == 0) return 0;
   Args a{{knots_u, knots_v, su_vals, su_ids, sv_vals, sv_ids, w_cp, n_v, Ku,
           Kv, Su, Sv, C, p, q},
          pairA, pairB, xi, dxiA, dxiB, w, ad, ar, d, cp, h, E, lam, I, N};
-  mi_penalty_xi_kernel<<<unsigned((n + 63) / 64), 64, 0,
+  const unsigned blocks = unsigned((32 * n + THREADS - 1) / THREADS);
+  mi_penalty_xi_kernel<<<blocks, THREADS, 0,
                          static_cast<cudaStream_t>(stream)>>>(a, out);
   return launch_status();
 }

@@ -32,11 +32,6 @@
 // consecutive qps, 12 threads a qp (one a first-jet column; 6 of them also
 // gather, and write the closed-form u rows); the block stages its HQB x 324
 // outputs in shared memory and stores them coalesced.
-//
-// The density itself (penalty_density.cuh) stays the one K6 mi_penalty_xi
-// differentiates through the moving intersection's tangents.
-#include "dual.cuh"
-#include "penalty_density.cuh"
 #include "penalty_sweep.cuh"
 
 namespace gf {

@@ -1,23 +1,30 @@
-// A hand-written reverse sweep of the penalty density (penalty_density.cuh)
-// at one interface point, for K2 penalty_qp.
+// A hand-written reverse sweep of the penalty density at one interface
+// point, for K2 penalty_qp and K6 mi_penalty_xi.
 //
 //   F = w dl [1/2 alpha_d |uA - uB|^2 + 1/2 alpha_r (dphi^2 + dbeta^2)],
 //   alpha_d = ad E h, alpha_r = ar E h^3 / 12, h = (hA + hB) / 2,
-//   dphi = a3A . a3B - A3A . A3B,  dbeta = a3A . anB - A3A . AnB.
+//   dphi = a3A . a3B - A3A . A3B,  dbeta = a3A . anB - A3A . AnB,
+//   dl = |XAu dxA0 + XAv dxA1|, TB = unit(XBu dxB0 + XBv dxB1),
+//   tB = unit(xBu dxB0 + xBv dxB1), AnB = A3B x TB, anB = a3B x tB
+// (the same formula as physics/coupling.py:penalty_density).
 //
-// dl, A3A, A3B, TB and AnB = A3B x TB depend on the geometry jets X only;
+// dl, A3A, A3B, TB and AnB depend on the geometry jets X only;
 // dphi and dbeta depend on the displacement only through the 12 first-jet
 // components m = (uA_u, uA_v, uB_u, uB_v), never on uA or uB. So the
 // sweep runs the current-configuration part (a3A, a3B, tB, anB) forward
 // and back in the scalar type S of the displacement jets z, and the
 // geometry part in plain doubles. With GEO it also sweeps the geometry
 // back to X (the adjoint mode): the gradient in X is then the current
-// part's m-gradient plus the geometry's.
+// part's m-gradient plus the geometry's. With ALL (K6) one sweep returns
+// every cotangent together: z's in g, X's in gX, h's in gh and the curve
+// tangents' (dxA, dxB) in gdx.
 //
 // S = double gives the value and the gradient (mode 0). S = Dual<double,
 // 1> with a tangent on z gives the tangent of the gradient: seeded with
 // e_k it is column k of the Hessian (mode 1), seeded with lambda's jets
-// and GEO it is (d^2 F / dX dz) lambda (mode 2).
+// and GEO it is (d^2 F / dX dz) lambda (mode 2); seeded with lambda's jets
+// and ALL, the tangent of every cotangent y is d/dy (lambda . dF/dz) and
+// the value part of g is dF/dz (K6's forward-over-reverse sweep).
 //
 // Every output carries the factor w (the adjoints start from w dl), so a
 // padded point (w = 0, real geometry) gives exact zeros.
@@ -27,14 +34,20 @@
 
 namespace gf {
 
+constexpr int PEN_NZ = 18;  // (uA, uAu, uAv, uB, uBu, uBv) x 3
+constexpr int PEN_NX = 12;  // (XAu, XAv, XBu, XBv) x 3
+
 // X (12): (XAu, XAv, XBu, XBv); z (18): (uA, uAu, uAv, uB, uBu, uBv).
 // Out: val = F; g (18) = dF/dz, or with GEO (12) = dF/dX in X's layout;
-// gh = dF/dhA = dF/dhB.
-template <class S, bool GEO>
+// gh = dF/dhA = dF/dhB. With ALL (and GEO): g (18) = dF/dz, gX (12) =
+// dF/dX, gdx (4) = dF/d(dxA, dxB).
+template <class S, bool GEO, bool ALL = false>
 __device__ void penalty_sweep(const double* X, const S* z, double hA,
                               double hB, const double* dxA,
                               const double* dxB, double E, double ad,
-                              double ar, double w, S& val, S* g, S& gh) {
+                              double ar, double w, S& val, S* g, S& gh,
+                              S* gX = nullptr, S* gdx = nullptr) {
+  static_assert(GEO || !ALL, "ALL sweeps the geometry too");
   const double h = 0.5 * (hA + hB);
   const double ald = (ad * E) * h;
   const double alr = (ar * E) * (h * h * h) / 12.0;
@@ -95,7 +108,7 @@ __device__ void penalty_sweep(const double* X, const S* z, double hA,
   // back: dF/ddu, dF/ddphi, dF/ddbeta
   const double K = w * dl;
   S pb = (K * alr) * dphi, bb = (K * alr) * dbeta;
-  if (!GEO) {
+  if (!GEO || ALL) {
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
       g[i] = (K * ald) * du[i];
@@ -113,16 +126,21 @@ __device__ void penalty_sweep(const double* X, const S* z, double hA,
   }
   cross3_rev(a3B, tB, anBb, a3Bb, tBb);
   // the m-gradient: into g[3:9], g[12:18] (z layout) or g[0:12] (X)
-  S* gAu = GEO ? g : g + 3;
-  S* gAv = GEO ? g + 3 : g + 6;
-  S* gBu = GEO ? g + 6 : g + 12;
-  S* gBv = GEO ? g + 9 : g + 15;
+  constexpr bool XL = GEO && !ALL;
+  S* gAu = XL ? g : g + 3;
+  S* gAv = XL ? g + 3 : g + 6;
+  S* gBu = XL ? g + 6 : g + 12;
+  S* gBv = XL ? g + 9 : g + 15;
   // tB = unit(xBu dxB0 + xBv dxB1)
   unit3_rev(tB, lT, tBb, vb);
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
     gBu[i] = dxB[0] * vb[i];
     gBv[i] = dxB[1] * vb[i];
+  }
+  if (ALL) {
+    gdx[2] = dot3(xBu, vb);
+    gdx[3] = dot3(xBv, vb);
   }
   // a3B = unit(xBu x xBv)
   unit3_rev(a3B, lB, a3Bb, vb);
@@ -136,6 +154,24 @@ __device__ void penalty_sweep(const double* X, const S* z, double hA,
   }
   cross3_rev(xAu, xAv, vb, gAu, gAv);
   if (GEO) {
+    // the X-layout gradient: the m-gradient itself, or (ALL) a copy of it
+    S* hAu = gAu;
+    S* hAv = gAv;
+    S* hBu = gBu;
+    S* hBv = gBv;
+    if (ALL) {
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        gX[i] = gAu[i];
+        gX[3 + i] = gAv[i];
+        gX[6 + i] = gBu[i];
+        gX[9 + i] = gBv[i];
+      }
+      hAu = gX;
+      hAv = gX + 3;
+      hBu = gX + 6;
+      hBv = gX + 9;
+    }
     // the geometry: dphi, dbeta through A3A, A3B, AnB = A3B x TB; F
     // through dl = |XAu dxA0 + XAv dxA1|
     S A3Ab[3], A3Bb[3], AnBb[3], TBb[3], t[3];
@@ -156,31 +192,40 @@ __device__ void penalty_sweep(const double* X, const S* z, double hA,
     unit3_rev(TB, lTB, TBb, vb);
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
-      gBu[i] = gBu[i] + dxB[0] * vb[i];
-      gBv[i] = gBv[i] + dxB[1] * vb[i];
+      hBu[i] = hBu[i] + dxB[0] * vb[i];
+      hBv[i] = hBv[i] + dxB[1] * vb[i];
     }
-    // A3B = unit(XBu x XBv): gBu += XBv x vb, gBv -= XBu x vb
+    if (ALL) {
+      gdx[2] = gdx[2] + (vb[0] * X[6] + vb[1] * X[7] + vb[2] * X[8]);
+      gdx[3] = gdx[3] + (vb[0] * X[9] + vb[1] * X[10] + vb[2] * X[11]);
+    }
+    // A3B = unit(XBu x XBv): hBu += XBv x vb, hBv -= XBu x vb
     unit3_rev(A3B, lNB, A3Bb, vb);
     cross3_mixed(X + 9, vb, t);
 #pragma unroll
-    for (int i = 0; i < 3; ++i) gBu[i] = gBu[i] + t[i];
+    for (int i = 0; i < 3; ++i) hBu[i] = hBu[i] + t[i];
     cross3_mixed(X + 6, vb, t);
 #pragma unroll
-    for (int i = 0; i < 3; ++i) gBv[i] = gBv[i] - t[i];
+    for (int i = 0; i < 3; ++i) hBv[i] = hBv[i] - t[i];
     unit3_rev(A3A, lNA, A3Ab, vb);
     cross3_mixed(X + 3, vb, t);
 #pragma unroll
-    for (int i = 0; i < 3; ++i) gAu[i] = gAu[i] + t[i];
+    for (int i = 0; i < 3; ++i) hAu[i] = hAu[i] + t[i];
     cross3_mixed(X, vb, t);
 #pragma unroll
-    for (int i = 0; i < 3; ++i) gAv[i] = gAv[i] - t[i];
+    for (int i = 0; i < 3; ++i) hAv[i] = hAv[i] - t[i];
     // dl: dF/ddl = w dens
     S dlb = w * dens;
+    if (ALL) gdx[0] = gdx[1] = S(0.0);
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
       S dXb = dlb * (dX[i] / dl);
-      gAu[i] = gAu[i] + dxA[0] * dXb;
-      gAv[i] = gAv[i] + dxA[1] * dXb;
+      hAu[i] = hAu[i] + dxA[0] * dXb;
+      hAv[i] = hAv[i] + dxA[1] * dXb;
+      if (ALL) {
+        gdx[0] = gdx[0] + dXb * X[i];
+        gdx[1] = gdx[1] + dXb * X[3 + i];
+      }
     }
   }
 }

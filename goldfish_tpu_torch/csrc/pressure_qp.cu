@@ -43,7 +43,7 @@
 //   block's part of (P,E,Q,9,9) is one contiguous range, stored coalesced;
 //   a thread keeps one of the 81 entries, so its block, sign and jet
 //   component are computed once.
-#include "shell_jets.cuh"
+#include "dual.cuh"
 
 namespace gf {
 namespace {

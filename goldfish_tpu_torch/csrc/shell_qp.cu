@@ -64,7 +64,7 @@
 // and took 1.08 ms at wing20; a column thread now takes 128 registers and
 // spills nothing, and the kernel takes 0.035 ms, 2.5x its byte bound (NVIDIA
 // H100 80GB HBM3, 700 W; scripts/torch_port_kernel_ab.py, PERF.md).
-#include "shell_jets.cuh"
+#include "dual.cuh"
 
 namespace gf {
 namespace {

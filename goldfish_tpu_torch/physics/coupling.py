@@ -216,9 +216,8 @@ def _unit(v):
 def penalty_density(X, z, hA, hB, dxA, dxB, E, ad, ar, w):
     """w * density * dl per interface qp. X: (..., 12) = (XAu, XAv, XBu,
     XBv); z: (..., 18) displacement jets; hA, hB, E, ad, ar, w: (...);
-    dxA, dxB: (..., 2). The plain version of K2's density (the same
-    formula as csrc/penalty_density.cuh, which K6 differentiates; K2
-    sweeps it back by hand, csrc/penalty_sweep.cuh)."""
+    dxA, dxB: (..., 2). The plain version of K2's and K6's density (K2
+    and K6 sweep the same formula back by hand, csrc/penalty_sweep.cuh)."""
     XAu, XAv, XBu, XBv = (X[..., 3 * k:3 * k + 3] for k in range(4))
     uA, uB = z[..., 0:3], z[..., 9:12]
     h = 0.5 * (hA + hB)

@@ -26,11 +26,15 @@ CPU tensors.
 
 The von Mises stress at the qps (`qp_stress_vm`, the stress constraint's
 field) is K9 `vm_stress_qp` (csrc/vm_stress_qp.cu) on CUDA tensors: mode 0
-the value, mode 1 its VJP in (d, cp, h); `stress_density` with autograd
-on CPU tensors.
+the value, mode 1 its VJP in (d, cp, h) (a hand-written reverse sweep a
+qp, per-element partials, then each node's sum over the stack's
+`node_incidence` in a fixed order); `stress_density` with autograd on CPU
+tensors.
 """
 
 from __future__ import annotations
+
+import weakref
 
 import torch
 
@@ -438,6 +442,33 @@ def _stress_vjp_plain(stack, d, cp, h, E, nu, zeta, gbar):
         return torch.autograd.grad(s, args, gbar)
 
 
+# (id(conn), C) -> the incidence CSR of a stack, kept while its conn lives
+_INCIDENCE: dict = {}
+
+
+def node_incidence(conn, C: int):
+    """(ptr (P C + 1,), idx (P E L,)) int32 of a stack's conn (P, E, L)
+    over C control points a patch: the (element, local) pairs of every
+    node p C + c, flat element e = p E + ei, pair e L + l, in ascending
+    order (node n's pairs are idx[ptr[n]:ptr[n + 1]]). K9's VJP sums each
+    node's per-element partials in this order, so its gradient is the same
+    bits on every launch. Built once per conn tensor, on its device."""
+    P, Ne, L = conn.shape
+    key = (id(conn), C)
+    hit = _INCIDENCE.get(key)
+    if hit is None:
+        node = (conn.long() + C * torch.arange(
+            P, device=conn.device)[:, None, None]).reshape(-1)
+        idx = torch.sort(node, stable=True).indices
+        ptr = torch.zeros(P * C + 1, dtype=torch.long, device=conn.device)
+        ptr[1:] = torch.cumsum(torch.bincount(node, minlength=P * C), 0)
+        hit = (ptr.to(INDEX_DTYPE).contiguous(),
+               idx.to(INDEX_DTYPE).contiguous())
+        _INCIDENCE[key] = hit
+        weakref.finalize(conn, _INCIDENCE.pop, key, None)
+    return hit
+
+
 def _check_stress(stack, d, cp, h, E, nu, gbar=None):
     dims = _check_inputs(stack, d, cp, h, E, nu)
     if gbar is not None:
@@ -448,11 +479,16 @@ def _check_stress(stack, d, cp, h, E, nu, gbar=None):
 def _launch_stress(mode, counter, stack, d, cp, h, E, nu, zeta, gbar, out_s,
                    out_dd, out_dcp, out_dh, dims):
     p = _cuda.ptr
+    ptr = idx = part = None
+    if mode == 1:
+        P, Ne, _, L, C = dims
+        ptr, idx = node_incidence(stack.conn, C)
+        part = torch.empty(P, Ne, L, 7, dtype=DTYPE, device=d.device)
     _cuda.launch(counter, "gf_vm_stress_qp", mode,
                  p(stack.R00), p(stack.R10), p(stack.R01), p(stack.R20),
                  p(stack.R11), p(stack.R02), p(stack.conn), p(d), p(cp), p(h),
-                 p(E), p(nu), p(gbar), p(out_s), p(out_dd), p(out_dcp),
-                 p(out_dh), float(zeta), *dims)
+                 p(E), p(nu), p(gbar), p(ptr), p(idx), p(part), p(out_s),
+                 p(out_dd), p(out_dcp), p(out_dh), float(zeta), *dims)
 
 
 def vm_stress_value(stack: PatchStack, d, cp, h, E, nu, zeta):
@@ -473,9 +509,9 @@ def vm_stress_vjp(stack: PatchStack, d, cp, h, E, nu, zeta, gbar):
     dims = _check_stress(stack, d, cp, h, E, nu, gbar)
     if not _cuda.on_cuda(d):
         return _stress_vjp_plain(stack, d, cp, h, E, nu, zeta, gbar)
-    dd = torch.zeros_like(d)
-    dcp = torch.zeros_like(cp)
-    dh = torch.zeros_like(h)
+    dd = torch.empty_like(d)
+    dcp = torch.empty_like(cp)
+    dh = torch.empty_like(h)
     _launch_stress(1, "vm_stress_qp/vjp", stack, d, cp, h, E, nu, zeta, gbar,
                    None, dd, dcp, dh, dims)
     return dd, dcp, dh

@@ -79,7 +79,22 @@ the solution at cp, to cp moved by 1e-3 of the T-beam's bend; a readback
 a step). K5 `traced_rows` at both sides' points of each path and at the
 16 x 64 lattice's 1105 corners of the 20-patch wing.
 
-K12, K3, K8, K11, K5 and K7 are timed back to back only: K12's inputs are
+`--what k6k9`: K6 `mi_penalty_xi` at the MI T-beam (`tbeam.build_mi(
+num_el=40, p=3, n_pts=17)`, 1 x 17 points) and the num_el=16 moving-seam
+tube (4 x 35) at chip_smoke.py's `mi_state`; K9 `vm_stress_qp` in both
+modes (`kl_shell.vm_stress_value`, `vm_stress_vjp`) at the num_el=32 plate
+(N = 7140) top and bottom, at chip_smoke.py's plate state (the Newton
+solution plus seeded noise, a seeded gbar); the same calls on both trees.
+Then K2's three modes at `chip_smoke.k2_bits`' input (the interface stack
+unrolled so that no two qps share a node, so that K2's atomics cannot
+reorder a sum) on the small wing and on wing20: their sha256, and with
+`--k2-file FILE` the outputs themselves, written there if FILE does not
+exist and compared by `torch.equal` if it does (run the parent first);
+with `--k2-json FILE` the small wing's sha256 go to FILE as
+tests/data/torch_port_k2_bits.json keeps them (`chip_smoke.phase_k2_bits`
+and the `gpu` test of tests/test_torch_k6_k9.py hold K2 to them).
+
+K12, K3, K8, K11, K5, K7, K6 and K9 are timed back to back only: K12's inputs are
 under 1 MB and K3 writes a K larger than the L2. Each number is the median of
 `--repeats` measurements; each kernel is checked against its plain
 version, and the ptxas registers and spill bytes of every redesigned
@@ -93,8 +108,8 @@ run parent, change, change, parent.
 
     python scripts/torch_port_kernel_ab.py [--root DIR] [--repeats 5]
         [--launches 20] [--what k1k4 contact assemble k1k2 c6 k8k11
-        k5k7]
-        [--state FILE]
+        k5k7 k6k9]
+        [--state FILE] [--k2-file FILE] [--k2-json FILE]
 
 The last line is one JSON object with every number.
 """
@@ -588,6 +603,90 @@ def k5k7(sm, out, args):
         print(f"[ab] fused vs composed {k}: rel {v:.3e}", flush=True)
 
 
+def k6k9(sm, out, args):
+    """K6 at the two moving-seam paths, K9 at plate32, K2's bits (see the
+    module's note)."""
+    import numpy as np
+    import torch
+
+    from goldfish_tpu_torch.demos import draft_tube_shopt_mi_wffd as mi_demo
+    from goldfish_tpu_torch.models import plate, tbeam
+    from goldfish_tpu_torch.physics import coupling_mi
+
+    dev = torch.device("cuda", 0)
+    timed = {}
+    for tag, build in (
+            ("mi_tbeam40", lambda: tbeam.build_mi(num_el=40, p=3, n_pts=17,
+                                                  device=dev)),
+            ("tube16_mi", lambda: mi_demo.build_mi_tube(
+                num_el=16, p=3, pressure=1e2, device=dev))):
+        s = build()
+        cp, h, xi, d, lam = sm.mi_state(s)
+        mi = s.mi
+        x4 = xi.reshape(mi.n_int, mi.n_max, 2, 2).contiguous()
+        tA = coupling_mi._curve_tangents(x4[:, :, 0], mi.n_pts).contiguous()
+        tB = coupling_mi._curve_tangents(x4[:, :, 1], mi.n_pts).contiguous()
+        a = (s.ss, s.pdeg, s.qdeg, mi, s.co, x4, tA, tB, d, cp, h,
+             s.data.E, lam)
+        name = f"mi_penalty_xi@{tag}"
+        out["rel_err"][name] = sm.rel_err(coupling_mi.mi_penalty_xi(*a),
+                                          coupling_mi._xi_grad_plain(*a))[0]
+        timed[name] = lambda a=a: coupling_mi.mi_penalty_xi(*a)
+        out["shapes"][tag] = {"seams": [mi.n_int, mi.n_max]}
+    time_cases(sm, out, timed, args.launches, args.repeats, cold=False)
+    del timed
+    torch.cuda.empty_cache()
+    s = plate.build(num_el=32, p=2, num_patches=2, device=dev)
+    rng = np.random.default_rng(8)   # chip_smoke.phase_plate_kernels'
+    T = lambda a: torch.tensor(a, device=dev)  # noqa: E731
+    d = s.solve_nonlinear(rtol=1e-10)
+    dn = d + T(1e-3 * float(d.abs().max())
+               * rng.normal(size=tuple(s.cp.shape))) * s.data.free
+    gbar = T(rng.normal(size=tuple(s.stack.wq.shape)))
+    out["shapes"]["plate32"] = {"stack": list(s.stack.R00.shape)}
+    timed = {}
+    for th in ("top", "bottom"):
+        cases = sm.stress_cases(s.stack, s.E, s.nu, dn, s.cp, s.h_init, gbar,
+                                th)
+        for name, (kern, plain, _, inputs, *_) in cases.items():
+            got, want = kern(), plain()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            key = f"{name}@plate32_{th}"
+            out["rel_err"][key] = max(sm.rel_err(x, y)[0]
+                                      for x, y in zip(got, want))
+            out["bytes"][key] = sm.nbytes(*inputs, *got)
+            timed[key] = kern
+    time_cases(sm, out, timed, args.launches, args.repeats, cold=False)
+    del s, timed
+    torch.cuda.empty_cache()
+    saved, same = {}, {}
+    for tag, kw in (("wing_small", {}), ("wing20", dict(num_el=6, p=3))):
+        got = sm.k2_bits(dev, **kw)
+        out["k2_sha256"][tag] = {k: sm.sha256(v) for k, v in got.items()}
+        saved[tag] = {k: v.cpu() for k, v in got.items()}
+    if args.k2_file and os.path.exists(args.k2_file):
+        ref = torch.load(args.k2_file)
+        for tag, outs in saved.items():
+            for k, v in outs.items():
+                same[f"{tag} {k}"] = bool(torch.equal(v, ref[tag][k]))
+                print(f"[ab] K2 {tag} {k:20s} torch.equal to {args.k2_file}"
+                      f" {same[f'{tag} {k}']}", flush=True)
+        out["k2_equal"] = same
+    elif args.k2_file:
+        torch.save(saved, args.k2_file)
+        print(f"[ab] K2 outputs written to {args.k2_file}", flush=True)
+    for tag, h in out["k2_sha256"].items():
+        print(f"[ab] K2 {tag} sha256 {json.dumps(h)}", flush=True)
+    if args.k2_json:
+        with open(args.k2_json, "w") as fh:
+            json.dump({"sha256": out["k2_sha256"]["wing_small"],
+                       "input": "chip_smoke.k2_bits(dev): the small wing",
+                       "card": out["card"],
+                       "tree": os.path.relpath(out["root"], ROOT)}, fh,
+                      indent=1)
+
+
 def c6(sm, out, args):
     """K1 mode 0 at the roof three ways (see the module's note)."""
     import numpy as np
@@ -634,10 +733,12 @@ def main():
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--launches", type=int, default=20)
     ap.add_argument("--state", default=None)
+    ap.add_argument("--k2-file", default=None)
+    ap.add_argument("--k2-json", default=None)
     ap.add_argument("--what", nargs="*", default=["k1k4", "contact",
                                                   "assemble", "k1k2"],
                     choices=["k1k4", "contact", "assemble", "k1k2", "c6",
-                             "k8k11", "k5k7"])
+                             "k8k11", "k5k7", "k6k9"])
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -669,7 +770,7 @@ def main():
     out = {"card": card, "root": root, "build_s": build_s,
            "ptxas": {k: list(v) for k, v in spills.items()},
            "rel_err": {}, "bytes": {}, "shapes": {}, "c6": {},
-           "k7_vs_composed": {}, "xi_newton_wall": {}}
+           "k7_vs_composed": {}, "xi_newton_wall": {}, "k2_sha256": {}}
     if "k1k4" in args.what:
         k1k4(sm, root, out, args)
     if "contact" in args.what:
@@ -684,6 +785,8 @@ def main():
         k8k11(sm, out, args)
     if "k5k7" in args.what:
         k5k7(sm, out, args)
+    if "k6k9" in args.what:
+        k6k9(sm, out, args)
     for name, b in out["bytes"].items():
         print(f"[ab] {name:44s} bytes {b / 1e6:.1f} MB, byte bound "
               f"{b / sm.PEAK_BYTES * 1e3:.4f} ms", flush=True)

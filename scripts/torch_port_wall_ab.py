@@ -17,13 +17,19 @@ runs one tree's `goldfish_tpu_torch` (`--root`, default this checkout):
    each printing its iterations, its wall, and the median and total host
    walls of its fun and jac evaluations as phase 11 takes them (no
    synchronize between a fun and the next jac, so device work can fall
-   in either).
+   in either);
+3. the moving-seam tube of phase 9 (draft_tube_shopt_mi_wffd at the size
+   and pressure of tests/data/torch_port_tube16_reference.json): one
+   untimed `run_slsqp(maxiter=3)`, then `--tube-mi-runs` timed ones, each
+   from a fresh setup, with the median and total host walls of its fun
+   and jac evaluations as phase 9 prints them (`--tube-mi-runs 0`, the
+   default, skips it).
 
 To compare two trees, unpack the parent with `git archive <commit> | tar
 -x -C scratch_chip/parent` and run the two alternately in one chip call.
 
     python scripts/torch_port_wall_ab.py [--root DIR] [--cold 3]
-        [--plate-runs 1]
+        [--plate-runs 1] [--tube-mi-runs 0]
 
 The last line is one JSON object with every number.
 """
@@ -55,6 +61,7 @@ def main():
     ap.add_argument("--root", default=ROOT)
     ap.add_argument("--cold", type=int, default=3)
     ap.add_argument("--plate-runs", type=int, default=1)
+    ap.add_argument("--tube-mi-runs", type=int, default=0)
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -95,7 +102,42 @@ def main():
               flush=True)
         del prob, out
         torch.cuda.empty_cache()
-    print(json.dumps({"root": root, "wing20_cold": cold, "plate": plate}))
+    tube_mi = tube_mi_walls(args.tube_mi_runs, dev) if args.tube_mi_runs \
+        else []
+    print(json.dumps({"root": root, "wing20_cold": cold, "plate": plate,
+                      "tube_mi": tube_mi}))
+
+
+def tube_mi_walls(n, dev):
+    """`n` timed moving-seam tube SLSQP runs (maxiter 3) after an untimed
+    one: iterations, wall, fun and jac medians and totals (s)."""
+    import numpy as np
+    import torch
+    from goldfish_tpu_torch.demos import draft_tube_shopt_mi_wffd as demo
+
+    with open(os.path.join(ROOT, "tests", "data",
+                           "torch_port_tube16_reference.json")) as fh:
+        ref = json.load(fh)
+    rows = []
+    for k in range(n + 1):
+        ns = demo.setup(num_el=ref["num_el"], p=ref["p"], device=dev,
+                        pressure=ref["pressure"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = ns.prob.run_slsqp(maxiter=3, tol=1e-12)
+        torch.cuda.synchronize()
+        wf, wj = ns.prob.eval_wall["fun"], ns.prob.eval_wall["jac"]
+        row = {"nit": int(res.nit), "seconds": time.perf_counter() - t0,
+               "fun_median": float(np.median(wf)),
+               "jac_median": float(np.median(wj)),
+               "fun_total": float(np.sum(wf)), "jac_total": float(np.sum(wj))}
+        if k:
+            rows.append(row)
+        print(f"[tube-mi] run {k}{'' if k else ' (untimed)'} "
+              f"{json.dumps(row)}", flush=True)
+        del ns, res
+        torch.cuda.empty_cache()
+    return rows
 
 
 def wing_cold(sm, n, dev):

@@ -15,10 +15,10 @@ trace ROADMAP C6) to the plain density far from the linear regime.
 The `gpu`-marked tests hold K1's three gradient modes and K2's three modes
 against their plain versions at every element and interface shape the
 paths pass (1e-11 relative in norm: f64 atomics sum in a run-dependent
-order), padded interface qps to exact zeros, and K6 (which keeps the
-dual-number density) to its plain version. They skip without a card; run
-them there with `python -m pytest tests/test_torch_reverse_sweeps.py -m gpu
---noconftest -q`.
+order), padded interface qps to exact zeros, and K6 (which runs K2's sweep
+forward over reverse, tests/test_torch_k6_k9.py) to its plain version.
+They skip without a card; run them there with `python -m pytest
+tests/test_torch_reverse_sweeps.py -m gpu --noconftest -q`.
 """
 
 import numpy as np
@@ -319,7 +319,8 @@ def test_padded_interface_qps_are_exact_zeros_on_the_card(cuda):
 
 @pytest.mark.gpu
 def test_mi_penalty_xi_still_matches_plain(cuda):
-    """K6 keeps the dual-number density (penalty_density.cuh)."""
+    """K6 on the small T-beam's seam on its knot (the sweep of
+    penalty_sweep.cuh run forward over reverse)."""
     from goldfish_tpu_torch.physics import coupling_mi
 
     s = _system("mi", cuda)
