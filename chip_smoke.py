@@ -109,9 +109,10 @@ Phases (any failure raises: non-zero exit, no result line):
    with CUDA events beside their bounds;
 13. pegasus kernels: the full box wing of goldfish_tpu_torch/demos/
    pegasus_thickness_opt.py (91 patches, 216 interfaces, C = 42, N =
-   11466, L = 16) at a seeded d: K10 pair_assemble into the (216, 252, 252)
-   pair blocks and the (91, 126, 126) patch blocks, and K1-K4, each against
-   its plain version (1e-11), with both times;
+   11466, L = 16) at a seeded d: K10 pair_assemble into the (91, 126, 126)
+   patch blocks (stage 1) and the (216, 252, 252) pair blocks (stages 1 +
+   2), each bit for bit over 5 launches, and K1-K4, each against its plain
+   version (1e-11; K10 1e-13), with both times;
 14. pegasus dense route (the persistent Cholesky factor): cold W_int and
    dW_int/dh_ffd at the start from d = 0 against tests/data/
    torch_port_pegasus91_reference.json (J 1e-8, gradient 1e-6), then 3 warm
@@ -228,6 +229,8 @@ CONTACT_TOL = {"contact_pairs/value_grad": 1e-11, "contact_pairs/hvp": 1e-11,
 VLM_WIDE = dict(n_chord=4, n_span=5, num_el=6, p=3, mc=16, ns=64)
 VLM_DEMO = dict(n_chord=2, n_span=3, num_el=3, p=3, mc=6, ns=10)
 VLM_TOL = {"vlm_aic/value": 1e-12, "vlm_aic/vjp": 1e-11}
+K10_TOL = {"pair_assemble/patches": 1e-13,
+           "pair_assemble/pairs": 1e-13}
 PEG = dict(n_sections=18, num_el=3, p=3)   # the reference's full box wing
 # sha256 of K2's outputs on the card at `k2_bits`' input, as the parent
 # tree of the extended penalty_sweep.cuh gave them
@@ -369,7 +372,8 @@ def phase_build():
 # K2's three, K4, K12's cull and work kernels, K3, K8's three modes (the
 # template `pressure_grad_block` is modes 0 and 2), K11's two, K5, K7's four
 # modes (the template `c2x_kernel`) and its cross-intersection sum, K6, K9's
-# value, VJP and gather kernels), and those of them that must not spill;
+# value, VJP and gather kernels, K10's two stages (each instantiated for 1
+# and 3 (l, m) pairs a thread)), and those of them that must not spill;
 # K5's, K7's and K6's also have no stack frame
 K1K2_ENTRIES = ("shell_value_grad", "shell_hess", "shell_adjoint",
                 "shell_geom_grad", "penalty_value_grad", "penalty_hess",
@@ -379,12 +383,13 @@ K8K11_ENTRIES = ("pressure_grad_block", "pressure_hess", "aic_value_kernel",
 K5K7_ENTRIES = ("traced_rows_kernel", "c2x_kernel", "c2x_reduce_dcp")
 K6_ENTRIES = ("mi_penalty_xi_kernel",)
 K9_ENTRIES = ("vm_value", "vm_vjp_elements", "vm_gather")
+K10_ENTRIES = ("patch_assemble_kernel", "pair_assemble_kernel")
 REDESIGNED = K1K2_ENTRIES + K8K11_ENTRIES + K5K7_ENTRIES + K6_ENTRIES + \
-    K9_ENTRIES + (
+    K9_ENTRIES + K10_ENTRIES + (
     "jet_matvec", "cell_box_kernel", "cull_kernel", "pair_list_kernel",
     "pair_hess_kernel", "jet_assemble_kernel")
 REDESIGNED_NO_SPILL = K1K2_ENTRIES + K8K11_ENTRIES + K5K7_ENTRIES + \
-    K6_ENTRIES + K9_ENTRIES + (
+    K6_ENTRIES + K9_ENTRIES + K10_ENTRIES + (
     "cell_box_kernel", "cull_kernel", "pair_list_kernel", "pair_hess_kernel",
     "jet_assemble_kernel")
 
@@ -1986,58 +1991,94 @@ def phase_plate_sibling(dev, ref):
 
 
 # ------------------------------------------------------------ pegasus-91
+def k10_ops(be, L, Li):
+    """f64 operations of one K10 launch's entries, each counted once: a qp
+    of an entry costs 18 nj nl (nj + nl) through T (its T_q, then
+    sum_j R_r T_q); the cross quadrants count one direction (the other is
+    its transpose)."""
+    from goldfish_tpu_torch.solver import krylov
+
+    kind = be.kind.cpu().numpy()
+    nq = be.nq.cpu().numpy()
+    ops = 0
+    for k in be.kinds:
+        if k == krylov.CROSS_BA:
+            continue
+        nj, nl = krylov._jets(k, L, Li)
+        ops += 18 * nj * nl * (nj + nl) * int(nq[kind == k].sum())
+    return ops
+
+
 def pair_cases(data, d, cp, h):
-    """K10 into the pair blocks and the patch blocks of `data` at state d:
-    name -> (kernel fn, plain fn, flops, inputs, f64 rate). Flops and bytes
-    count the groups that have destination slots (real elements and
-    interface qps), per local pair the jet pairs whose basis rows are
-    nonzero, and per interface qp only the local pairs its blocks need."""
+    """K10 as the preconditioners run it: stage 1 alone into the patch
+    blocks (`patch_block_precond`), stages 1 + 2 into the pair blocks
+    (`PairSchwarz.assemble`): name -> (kernel fn, plain fn, flops, inputs,
+    f64 rate, {"flops_full": the parent's count}). Flops count each entry
+    once through T (`k10_ops`); bytes what the stages read of the real
+    groups' H and R rows (the patch blocks: H_i's self-quadrants; the pair
+    blocks: all of H_i; R_i's nonzero half), the tables and the output
+    once. The parent's count (`bound_ms_full`): per local
+    pair the 25 element jet pairs over Q qps, and per real interface qp 9
+    jet pairs over the (2L)^2 pairs of a pair block or the two L x L
+    quadrants of a patch block."""
     from goldfish_tpu_torch.solver import krylov, system
 
     ps = krylov.PairSchwarz(data)
-    P, C = data.stack.n_patches, data.stack.max_cp
-    patches = krylov._block_tables(data, krylov._patch_blocks_of(P), P,
-                                   3 * C)
+    patches = krylov._block_tables(data)
     tables = ps.tables
     Hs = system.jet_hessians(data, d, cp, h)
     _, Q, _, L = tables.R_e.shape
-    Li2 = tables.R_i.shape[-1]
-    dev = cp.device
+    Li = tables.R_i.shape[-1] // 2
+    P, n = patches.free.shape
 
-    def run(bt, counter, plain):
+    def plain(bt):
         def fn():
-            out = torch.zeros(bt.n_blocks, bt.nb, bt.nb, dtype=torch.float64,
-                              device=dev)
-            for H, R, tab in ((Hs[0], tables.R_e, bt.elem),
-                              (Hs[1], tables.R_i, bt.iface)):
-                if plain:
-                    krylov._pair_assemble_plain(out, H, R, tab)
-                else:
-                    krylov.pair_assemble(out, H, R, tab, counter)
+            Kp = torch.empty(P, n, n, dtype=torch.float64, device=cp.device)
+            krylov._patch_assemble_plain(Kp, bt, tables, Hs)
+            if bt.pair is None:
+                return Kp
+            out = torch.empty(bt.pa.shape[0], 2 * n, 2 * n,
+                              dtype=torch.float64, device=cp.device)
+            krylov._pair_assemble_plain(out, Kp, bt, tables, Hs)
             return out
         return fn
 
+    ge = torch.nonzero(data.stack.wq.reshape(-1, Q).sum(-1) > 0)[:, 0]
+    gi = torch.nonzero(data.ifs.w.reshape(-1) > 0)[:, 0]
+    Hi, Ri = Hs[1][gi], tables.R_i[gi]
+    # R_i's rows on side A are zero on B's locals and the other way round:
+    # no stage reads those halves
+    ri = [Ri[..., :3, :Li], Ri[..., 3:, Li:]]
+    el = [Hs[0][ge], tables.R_e[ge]]
+    if Hs[2] is not None:
+        el += [Hs[2][ge], tables.R_p[ge]]
     cases = {}
-    for name, bt in (("pair_assemble/pairs", ps.blocks),
-                     ("pair_assemble/patches", patches)):
-        ge = torch.nonzero(bt.elem.ptr[1:] > bt.elem.ptr[:-1])[:, 0]
-        gi = torch.nonzero(bt.iface.ptr[1:] > bt.iface.ptr[:-1])[:, 0]
-        # per local pair: 25 element jet pairs over Q qps; an interface
-        # qp's rows are zero on the other side, leaving 9 jet pairs. A pair
-        # block takes the whole (2L)^2 interface block, a patch block only
-        # the two L x L own-side quadrants
-        ipairs = Li2 * Li2 if name.endswith("pairs") else Li2 * Li2 // 2
-        flops = 18 * (len(ge) * L * L * Q * 25 + len(gi) * ipairs * 9)
-        ins = [Hs[0][ge], tables.R_e[ge], Hs[1][gi], tables.R_i[gi],
-               *bt.elem[:3], *bt.iface[:3]]
-        cases[name] = (run(bt, name, False), run(bt, name, True), flops,
-                       ins, PEAK_F64_TC)
-    return cases, ps
+    for name, bt in (("pair_assemble/patches", patches),
+                     ("pair_assemble/pairs", ps.blocks)):
+        ops = k10_ops(bt.patch, L, Li)
+        ipairs = 4 * Li * Li // 2
+        # stage 1 reads H_i's two self-quadrants, stage 2 the cross ones
+        hi = [Hi[..., :9, :9], Hi[..., 9:, 9:]]
+        if bt.pair is not None:
+            ops += k10_ops(bt.pair, L, Li)
+            ipairs = 4 * Li * Li
+            hi = [Hi]
+        full = 18 * (len(ge) * L * L * Q * 25 + len(gi) * ipairs * 9)
+        ins = [*el, *hi, *ri, bt.free,
+               *(t for t in (bt.pa, bt.pb) if t is not None),
+               *(t for be in (bt.patch, bt.pair) if be is not None
+                 for t in (be.kind, be.group, be.nq, be.cps, be.band_ptr,
+                           be.band_ent))]
+        cases[name] = (lambda bt=bt: krylov.assemble_blocks(bt, tables, Hs),
+                       plain(bt), ops, ins, PEAK_F64_TC,
+                       {"flops_full": full})
+    return cases, ps, patches
 
 
 def phase_pegasus_kernels(s, checks, seed=9):
-    """K10 (pairs, patches) and K1-K4 at the full box wing's shapes, d at
-    1e-3 of the CP scale on free dofs (seeded), lam and v random."""
+    """K10 (patches, pairs) and K1-K4 at the full box wing's shapes, d at
+    1e-3 of the CP scale on free dofs (seeded), lam and v random; K10's
+    blocks must be the same bits over 5 launches (no atomics)."""
     dev = s.cp.device
     rng = np.random.default_rng(seed)
     cp, h = s.cp, s.h_init
@@ -2046,13 +2087,25 @@ def phase_pegasus_kernels(s, checks, seed=9):
     d = T(1e-3 * scale * rng.normal(size=tuple(cp.shape))) * s.data.free
     lam = T(rng.normal(size=tuple(cp.shape))) * s.data.free
     v = T(rng.normal(size=tuple(cp.shape)))
-    cases, ps = pair_cases(s.data, d, cp, h)
+    cases, ps, patches = pair_cases(s.data, d, cp, h)
+    for tag, be, n_dest in (("patches", patches.patch, ps.P),
+                            ("pairs", ps.blocks.pair, 2 * ps.I)):
+        say(f"[pegasus-kernel] K10 {tag}: {be.kind.numel()} entries, "
+            f"{n_dest} x {be.n_bands} bands of {be.band_rows} rows, "
+            f"{be.band_ent.numel()} band entries")
     say(f"[pegasus-kernel] pair-Schwarz: {ps.I} pairs in {len(ps.colors)} "
-        f"colours {[len(c) for c in ps.colors]}; element slots "
-        f"{ps.blocks.elem.block.numel()}, interface slots "
-        f"{ps.blocks.iface.block.numel()}")
-    for name, got in check_kernels(cases, "pegasus-kernel").items():
+        f"colours {[len(c) for c in ps.colors]}")
+    for name, got in check_kernels(cases, "pegasus-kernel",
+                                   tol=K10_TOL).items():
         merge(checks, name, got)
+    for name, (kern, *_) in cases.items():
+        first = kern()
+        same = all(torch.equal(kern(), first) for _ in range(4))
+        say(f"[pegasus-kernel C2] {name}: blocks over 5 launches "
+            f"bit-identical {same}")
+        if not same:
+            raise RuntimeError(f"{name}: its blocks change from launch to "
+                               "launch")
     for name, got in check_kernels(fixed_cases(s.data, d, cp, h, lam, v,
                                                "pegasus-kernel"),
                                    "pegasus-kernel").items():
@@ -2159,8 +2212,8 @@ def time_library_pegasus(pre, n_dof, reps=3):
         dsc = torch.rsqrt(K.diagonal(dim1=-2, dim2=-1).abs() + 1e-300)
         return K.mul_(dsc[..., :, None]).mul_(dsc[..., None, :])
 
-    Kb = equilibrated(krylov.assemble_blocks(ps.blocks, ps.tables, pre["Hs"],
-                                             "pair_assemble/pairs"))
+    Kb = equilibrated(krylov.assemble_blocks(ps.blocks, ps.tables,
+                                             pre["Hs"]))
     rows = []
     tb = 2 * B * nb * nb * 8 / PEAK_BYTES * 1e3
     tf = B * 2 * nb ** 3 / 3 / PEAK_F64_TC * 1e3

@@ -68,7 +68,8 @@ _SIGNATURES = {
     "gf_c2x_res_jac": [_I] + [_P] * 26 + [_I] * 10 + [_P],
     "gf_pressure_qp": [_I] + [_P] * 11 + [_I] * 5 + [_P],
     "gf_vm_stress_qp": [_I] + [_P] * 20 + [ctypes.c_double] + [_I] * 5 + [_P],
-    "gf_pair_assemble": [_P] * 6 + [_I] * 5 + [_P],
+    "gf_patch_assemble": [_P] * 14 + [_I] * 10 + [_P],
+    "gf_pair_assemble": [_P] * 13 + [_I] * 8 + [_P],
     "gf_vlm_aic": [_I] + [_P] * 11 + [_I] * 2 + [_P],
     "gf_contact_cull": [_P] * 9 + [_I] * 4 + [_P],
     "gf_contact_pairs": [_I] + [_P] * 17 + [_I] * 5 + [ctypes.c_longlong,

@@ -7,13 +7,14 @@ solver/system.py is O((P*C*3)^2) memory; this path never assembles it:
     Hessians of K1/K2 mode (b), computed once per state;
   - three preconditioners: the reference's coloured multiplicative
     pair-Schwarz sweep (`PairSchwarz`): one dense (6C, 6C) block per
-    interface pair, built straight from the jet Hessians by kernel K10
-    (`pair_assemble`, csrc/pair_assemble.cu), Jacobi-equilibrated and
-    factored by a batched f64 LU; the per-patch block-Jacobi one
-    (`patch_block_precond`), K10 with another destination list; and the
-    dense one (`full_precond`), K3 into K and an f64 LU. Only the dense one
-    converges on wings and box wings (see `PairSchwarz`), so it is the
-    solve function's default;
+    interface pair, composed by kernel K10 (csrc/pair_assemble.cu) from
+    the patch blocks it sums once from the jet Hessians
+    (`patch_assemble`) and the interface's cross quadrant
+    (`pair_assemble`), Jacobi-equilibrated and factored by a batched f64
+    LU; the per-patch block-Jacobi one (`patch_block_precond`), K10's
+    patch blocks alone; and the dense one (`full_precond`), K3 into K and
+    an f64 LU. Only the dense one converges on wings and box wings (see
+    `PairSchwarz`), so it is the solve function's default;
   - restarted GMRES (`gmres_solve`, left-preconditioned like
     `jax.scipy.sparse.linalg.gmres(solve_method="batched")`) with outer
     iterative refinement against the exact K(d) v;
@@ -53,7 +54,8 @@ from goldfish_tpu_torch.solver.system import (
     tangent_matvec_from,
 )
 
-__all__ = ["SlotTable", "pair_assemble", "assemble_blocks", "PairSchwarz",
+__all__ = ["BlockTables", "patch_assemble", "pair_assemble",
+           "assemble_blocks", "PairSchwarz",
            "patch_block_precond", "full_precond", "gmres", "gmres_solve",
            "NewtonKrylovFailure", "newton_krylov_solve",
            "build_solve_fn_krylov"]
@@ -62,116 +64,128 @@ _EPS = float(np.finfo(np.float64).eps)
 
 
 # ------------------------------------------------------------ K10
-class SlotTable(NamedTuple):
-    """Destination slots of one group type (elements or interface qps) for
-    kernel K10, in CSR form over the groups: group g writes to slots
-    ptr[g] .. ptr[g+1]-1; slot s adds the group's B^T H B to block
-    block[s] through its row map rowmap[s] (local dof -> block-local dof,
-    -1 = skip). `group` repeats each slot's group (the plain version's
-    gather index)."""
-
-    ptr: torch.Tensor      # (G + 1,) int32
-    block: torch.Tensor    # (S,) int32
-    rowmap: torch.Tensor   # (S, 3 nloc) int32
-    group: torch.Tensor    # (S,) int64
-
-
-def _slot_table(chunks, n_groups, n3, device):
-    """SlotTable from chunks (groups (n,), block, maps (n, n3)): the slots
-    sorted by group, in chunk order within a group."""
-    if chunks:
-        g = np.concatenate([c[0] for c in chunks])
-        b = np.concatenate([np.full(len(c[0]), c[1]) for c in chunks])
-        m = np.concatenate([c[2] for c in chunks])
-    else:
-        g = np.zeros(0, np.int64)
-        b = np.zeros(0, np.int64)
-        m = np.zeros((0, n3), np.int64)
-    order = np.argsort(g, kind="stable")
-    g, b, m = g[order], b[order], m[order]
-    ptr = np.searchsorted(g, np.arange(n_groups + 1))
-    return SlotTable(ptr=tensor(ptr, device, INDEX_DTYPE),
-                     block=tensor(b, device, INDEX_DTYPE),
-                     rowmap=tensor(m.reshape(-1, n3), device, INDEX_DTYPE),
-                     group=tensor(g, device, torch.int64))
+# entry kinds of K10's work lists (csrc/pair_assemble.cu): an element's shell
+# or follower-pressure Hessian, a run of interface qps' side-A or side-B
+# self-quadrant, and their cross quadrants (rows on A, columns on B, and the
+# transpose side)
+SHELL, PRESSURE, SELF_A, SELF_B, CROSS_AB, CROSS_BA = range(6)
+QC = 4                   # qps a chunk (pair_assemble.cu: QC)
+MAX_LOC = 27             # locals a side: a thread keeps <= 3 (l, m) pairs
+SMEM_MAX = 232448        # shared memory of one block (227 KB)
+BAND_BYTES = 64 * 1024   # the band's target share of it
+_NINT = 97               # ints of shared memory beside the band and staging
+_RP, _TP = 24, 56        # row pitches of the tensor-core path (16 locals)
 
 
-def _check_pair_args(out, H, R, table):
-    G, nq, nj, nloc = R.shape
-    dev = H.device
-    nz = 3 * nj
-    _cuda.check(H, "H", DTYPE, (G, nq, nz, nz), dev)
-    _cuda.check(R, "R", DTYPE, (G, nq, nj, nloc), dev)
-    _cuda.check(out, "out", DTYPE, None, dev)
-    if out.dim() != 3 or out.shape[1] != out.shape[2]:
-        raise ValueError(f"out: shape {tuple(out.shape)}, expected (B, nb, "
-                         "nb)")
-    if not out.is_contiguous():
-        raise ValueError("out: must be contiguous")
-    _cuda.check(table.ptr, "ptr", INDEX_DTYPE, (G + 1,), dev)
-    S = table.block.shape[0]
-    _cuda.check(table.block, "block", INDEX_DTYPE, (S,), dev)
-    _cuda.check(table.rowmap, "rowmap", INDEX_DTYPE, (S, 3 * nloc), dev)
-    return G, nq, nj, nloc
+class BlockEntries(NamedTuple):
+    """One K10 launch's work list. Entry s adds one group's B^T H B to one
+    block quadrant: `kind[s]`; `group[s]`, the element (SHELL, PRESSURE,
+    nq = Q) or the first of `nq[s]` consecutive interface qps; the CP of
+    each of its row locals and column locals, `cps[s, 0]` and `cps[s, 1]`
+    (-1: none); `dest[s]`, the block it adds into (stage 1: the patch;
+    stage 2: 2 k + half of pair block k). Band t of destination d (rows
+    t band_rows .. of d) walks entries band_ent[band_ptr[d n_bands + t] ..
+    band_ptr[d n_bands + t + 1]], those with a row local in those rows, in
+    entry order. `stage` and `tsz` size the block's shared memory (doubles
+    of its two staging buffers and of a chunk's T) for the kinds present
+    (`kinds`)."""
 
-
-def _pair_assemble_plain(out, H, R, table, chunk=4096):
-    """index_put_(accumulate=True) version of K10, in chunks of slots."""
-    G, nq, nj, nloc = R.shape
-    nb = out.shape[1]
-    flat_out = out.view(-1)
-    S = table.block.shape[0]
-    for s0 in range(0, S, chunk):
-        sl = slice(s0, min(S, s0 + chunk))
-        grp = table.group[sl]
-        ug, inv = torch.unique(grp, return_inverse=True)
-        Hr = H[ug].reshape(-1, nq, nj, 3, nj, 3)
-        Rg = R[ug]
-        tmp = torch.einsum("gqjxky,gqkm->gqjxmy", Hr, Rg)
-        Kg = torch.einsum("gqjxmy,gqjl->glxmy", tmp, Rg).reshape(
-            -1, 3 * nloc, 3 * nloc)[inv]
-        mp = table.rowmap[sl].long()
-        blk = table.block[sl].long()
-        ok = (mp[:, :, None] >= 0) & (mp[:, None, :] >= 0)
-        idx = (blk[:, None, None] * nb + mp[:, :, None]) * nb \
-            + mp[:, None, :]
-        flat_out.index_put_((idx[ok],), Kg[ok], accumulate=True)
-
-
-def pair_assemble(out, H, R, table: SlotTable, counter="pair_assemble/pairs"):
-    """K10: out[block[s]][map_s, map_s] += sum_q B_q^T H_q B_q for every slot
-    s of every group (in place). out: (B, nb, nb); H: (G, nq, 3nj, 3nj);
-    R: (G, nq, nj, nloc); `counter` names the launch (pairs or patches)."""
-    G, nq, nj, nloc = _check_pair_args(out, H, R, table)
-    if not _cuda.on_cuda(H):
-        _pair_assemble_plain(out, H, R, table)
-        return out
-    p = _cuda.ptr
-    _cuda.launch(counter, "gf_pair_assemble", p(H), p(R), p(table.ptr),
-                 p(table.block), p(table.rowmap), p(out), G, nq, nj, nloc,
-                 out.shape[1])
-    return out
+    kind: torch.Tensor       # (S,) int32
+    group: torch.Tensor      # (S,) int32
+    nq: torch.Tensor         # (S,) int32
+    cps: torch.Tensor        # (S, 2, Lw) int32
+    dest: torch.Tensor       # (S,) int64
+    band_ptr: torch.Tensor   # (D n_bands + 1,) int32
+    band_ent: torch.Tensor   # (T,) int32
+    n_bands: int
+    band_rows: int
+    stage: int
+    tsz: int
+    kinds: tuple
 
 
 class BlockTables(NamedTuple):
-    """K10's destination lists for one set of blocks: slots of the element
-    groups (shell and, with a follower pressure, pressure Hessians share
-    them), of the interface groups (None without interfaces), the block
-    count and size, and each block's free mask (B, nb)."""
+    """K10's tables, built once on the host: stage 1 (`patch`: every patch
+    block) and, for pair blocks, stage 2 (`pair`: the cross quadrants of
+    pair block k, whose patches are pa[k] and pb[k]); `free` (P, 3C) is
+    each patch's mask, n = 3C."""
 
-    elem: SlotTable
-    iface: SlotTable | None
-    n_blocks: int
-    nb: int
-    free: torch.Tensor
+    patch: BlockEntries
+    pair: BlockEntries | None
+    pa: torch.Tensor | None   # (B,) int32
+    pb: torch.Tensor | None   # (B,) int32
+    free: torch.Tensor        # (P, 3C)
+    n: int
 
 
-def _local_maps(conn, free_p):
-    """(n, L) local CP indices and the patch's (C, 3) free mask -> (n, 3L)
-    within-patch dofs, -1 where the dof is not free."""
-    dof = conn[..., None] * 3 + np.arange(3)
-    ok = free_p.reshape(-1)[dof] > 0
-    return np.where(ok, dof, -1).reshape(conn.shape[0], -1)
+def _runs(real, *conns):
+    """[q0, nq] of the maximal runs of consecutive real qps on which each
+    (Nq, L) conn keeps its row."""
+    runs = []
+    for q in np.nonzero(real)[0]:
+        if runs and sum(runs[-1]) == q and all(
+                np.array_equal(c[q], c[q - 1]) for c in conns):
+            runs[-1][1] += 1
+        else:
+            runs.append([int(q), 1])
+    return runs
+
+
+def _jets(kind, L, Li):
+    """(jets, locals) a side of an entry kind."""
+    return (5, L) if kind == SHELL else (3, L) if kind == PRESSURE \
+        else (3, Li)
+
+
+def _entries(ents, n_dest, n, L, Li, dev):
+    """BlockEntries from [(kind, group, nq, row CPs, column CPs, dest)]."""
+    Lw = max(L, Li)
+    S = len(ents)
+    cps = np.full((S, 2, Lw), -1, np.int64)
+    for s, e in enumerate(ents):
+        cps[s, 0, :len(e[3])] = e[3]
+        cps[s, 1, :len(e[4])] = e[4]
+    col = lambda k: np.array([e[k] for e in ents], np.int64)  # noqa: E731
+    kind, group, nq, dest = col(0), col(1), col(2), col(5)
+    srt = np.sort(cps, axis=2)
+    if ((srt[..., 1:] == srt[..., :-1]) & (srt[..., 1:] >= 0)).any():
+        raise ValueError("K10: a group's locals must sit on distinct CPs")
+    kinds = tuple(sorted(set(kind.tolist())))
+    stage = tsz = 0
+    for k in kinds:
+        nj, nl = _jets(k, L, Li)
+        if nl > MAX_LOC:
+            raise ValueError(f"K10: {nl} locals a side; at most {MAX_LOC}")
+        # 16 locals a side take the tensor-core path, whose staged rows and
+        # T rows are padded (pair_assemble.cu: RP, TP)
+        rp, tp = (_RP, _TP) if nl == 16 else (nl, 3 * nl)
+        rows = nj * rp * (2 if k >= CROSS_AB else 1)
+        stage = max(stage, 2 * QC * (rows + 9 * nj * nj))   # two buffers
+        tsz = max(tsz, QC * 3 * nj * tp)                    # a chunk's T
+    fixed = (stage + tsz) * 8 + _NINT * 4
+    # balanced bands of whole CPs, at most BAND_BYTES where one CP fits
+    cps_band = max(1, BAND_BYTES // (24 * n))
+    band_rows = 3 * -(-(n // 3) // -(-n // (3 * cps_band)))
+    smem = -(-band_rows * n // 2) * 16 + fixed
+    if smem > SMEM_MAX:
+        raise ValueError(
+            f"K10: a band of {band_rows} rows of a {n}-dof block needs "
+            f"{smem} B of shared memory, above a block's {SMEM_MAX} B")
+    n_bands = -(-n // band_rows)
+    rows = cps[:, 0]
+    touch = np.zeros((S, n_bands), bool)
+    ent, slot = np.nonzero(rows >= 0)
+    touch[ent, 3 * rows[ent, slot] // band_rows] = True
+    ent, band = np.nonzero(touch)
+    key = dest[ent] * n_bands + band
+    o = np.lexsort((ent, key))
+    ptr = np.searchsorted(key[o], np.arange(n_dest * n_bands + 1))
+    idx = lambda a: tensor(a, dev, INDEX_DTYPE)   # noqa: E731
+    return BlockEntries(kind=idx(kind), group=idx(group), nq=idx(nq),
+                        cps=idx(cps), dest=tensor(dest, dev, torch.int64),
+                        band_ptr=idx(ptr), band_ent=idx(ent[o]),
+                        n_bands=n_bands, band_rows=band_rows, stage=stage,
+                        tsz=tsz, kinds=kinds)
 
 
 def _no_contact(data: SystemData):
@@ -181,82 +195,235 @@ def _no_contact(data: SystemData):
             "Queue B); use the persistent-factor solves of solver/implicit")
 
 
-def _block_tables(data: SystemData, blocks_of_patch, n_blocks, nb,
-                  whole=None, patches=None):
-    """BlockTables on the data's device. `blocks_of_patch[p]` lists the
-    (block, offset) pairs that patch p's dofs land in (at offset + its
-    within-patch dof); `whole[i]` (pairs only) is interface i's own block,
-    which takes its qps' full 6L x 6L Hessian, every other block of a side
-    only that side's quadrant. `patches` restricts the element groups to
-    those patches."""
+def _block_tables(data: SystemData, order=None):
+    """BlockTables on the data's device: every patch block (its real
+    elements, with a follower pressure also their pressure Hessians, then
+    the runs of every interface side that touches it) and, given `order`
+    (block k <- interface order[k]), the pair blocks' cross quadrants.
+    Bands hold about BAND_BYTES of rows. Raises where a group's locals
+    share a CP, a side has more than MAX_LOC locals, or a band of 3 rows
+    does not fit in a block's shared memory."""
     _no_contact(data)
     stack, ifs = data.stack, data.ifs
     P, E, Q, L = stack.R00.shape
-    C = stack.max_cp
+    n = 3 * stack.max_cp
+    dev = data.free.device
     conn = stack.conn.cpu().numpy().astype(np.int64)
     real_e = stack.wq.cpu().numpy().sum(-1) > 0          # (P, E)
-    free = data.free.cpu().numpy()                         # (P, C, 3)
-    dev = data.free.device
-    chunks = []
-    for p in (range(P) if patches is None else patches):
-        es = np.nonzero(real_e[p])[0]
-        if len(es) == 0:
-            continue
-        m = _local_maps(conn[p, es], free[p])
-        for blk, off in blocks_of_patch[p]:
-            chunks.append((p * E + es, blk, np.where(m >= 0, m + off, -1)))
-    elem = _slot_table(chunks, P * E, 3 * L, dev)
-    iface = None
-    if ifs is not None and patches is None:
+    kinds = (SHELL,) if data.pressure is None else (SHELL, PRESSURE)
+    ents = [(k, p * E + e, Q, conn[p, e], conn[p, e], p)
+            for p in range(P) for e in np.nonzero(real_e[p])[0]
+            for k in kinds]
+    Li = 0
+    if ifs is not None:
         I_, Nq, Li = ifs.RA00.shape
-        pa = ifs.pairA.cpu().numpy()
-        pb = ifs.pairB.cpu().numpy()
+        pa = ifs.pairA.cpu().numpy().astype(np.int64)
+        pb = ifs.pairB.cpu().numpy().astype(np.int64)
         ca = ifs.connA.cpu().numpy().astype(np.int64)
         cb = ifs.connB.cpu().numpy().astype(np.int64)
         real_q = ifs.w.cpu().numpy() > 0                   # (I, Nq)
-        chunks = []
         for i in range(I_):
-            qs = np.nonzero(real_q[i])[0]
-            g = i * Nq + qs
-            mA = _local_maps(ca[i, qs], free[pa[i]])
-            mB = _local_maps(cb[i, qs], free[pb[i]])
-            none = np.full_like(mA, -1)
-            for blk, off in blocks_of_patch[pa[i]]:
-                if whole is not None and blk == whole[i]:
-                    offB = dict(blocks_of_patch[pb[i]])[blk]
-                    chunks.append((g, blk, np.concatenate(
-                        [np.where(mA >= 0, mA + off, -1),
-                         np.where(mB >= 0, mB + offB, -1)], 1)))
-                else:
-                    chunks.append((g, blk, np.concatenate(
-                        [np.where(mA >= 0, mA + off, -1), none], 1)))
-            for blk, off in blocks_of_patch[pb[i]]:
-                if whole is not None and blk == whole[i]:
-                    continue
-                chunks.append((g, blk, np.concatenate(
-                    [none, np.where(mB >= 0, mB + off, -1)], 1)))
-        iface = _slot_table(chunks, I_ * Nq, 6 * Li, dev)
-    fb = np.zeros((n_blocks, nb))
-    for p in (range(P) if patches is None else patches):
-        for blk, off in blocks_of_patch[p]:
-            fb[blk, off: off + 3 * C] = free[p].reshape(-1)
-    return BlockTables(elem=elem, iface=iface, n_blocks=n_blocks, nb=nb,
-                       free=tensor(fb, dev))
+            for kind, c, p in ((SELF_A, ca[i], pa[i]), (SELF_B, cb[i], pb[i])):
+                ents += [(kind, i * Nq + q0, m, c[q0], c[q0], p)
+                         for q0, m in _runs(real_q[i], c)]
+    patch = _entries(ents, P, n, L, Li, dev)
+    pair = ta = tb = None
+    if order is not None:
+        ents = []
+        for k, i in enumerate(order):
+            for q0, m in _runs(real_q[i], ca[i], cb[i]):
+                g = i * Nq + q0
+                ents += [(CROSS_AB, g, m, ca[i, q0], cb[i, q0], 2 * k),
+                         (CROSS_BA, g, m, cb[i, q0], ca[i, q0], 2 * k + 1)]
+        pair = _entries(ents, 2 * len(order), n, L, Li, dev)
+        ta = tensor(pa[order], dev, INDEX_DTYPE)
+        tb = tensor(pb[order], dev, INDEX_DTYPE)
+    return BlockTables(patch=patch, pair=pair, pa=ta, pb=tb,
+                       free=data.free.reshape(P, n).contiguous(), n=n)
 
 
-def assemble_blocks(bt: BlockTables, tables, Hs, counter):
-    """(B, nb, nb) BC-masked blocks from jet Hessians `Hs` (`jet_hessians`)
-    through K10, with the identity on fixed dofs."""
+def _add_entries_plain(flat, be: BlockEntries, tables, Hs, n):
+    """index_put_(accumulate=True) version of a K10 launch's sums: every
+    entry of `be` into flat (D n n,) over its row and column dofs."""
     H_e, H_i, H_p = Hs[:3]
-    out = torch.zeros(bt.n_blocks, bt.nb, bt.nb, dtype=DTYPE,
-                      device=bt.free.device)
-    pair_assemble(out, H_e, tables.R_e, bt.elem, counter)
-    if bt.iface is not None and H_i is not None:
-        pair_assemble(out, H_i, tables.R_i, bt.iface, counter)
-    if H_p is not None:
-        pair_assemble(out, H_p, tables.R_p, bt.elem, counter)
+    kind = be.kind.long()
+    for k in be.kinds:
+        sel = torch.nonzero(kind == k)[:, 0]
+        g = be.group[sel].long()
+        if k in (SHELL, PRESSURE):
+            R = (tables.R_e if k == SHELL else tables.R_p)[g]
+            H = (H_e if k == SHELL else H_p)[g]
+            s, nqp, nj, nl = R.shape
+            Rr = Rc = R
+            H = H.reshape(s, nqp, nj, 3, nj, 3)
+            own = sel
+        else:
+            nqs = be.nq[sel].long()
+            rep = torch.repeat_interleave(
+                torch.arange(len(sel), device=sel.device), nqs)
+            first = torch.cumsum(nqs, 0) - nqs
+            qi = g[rep] + torch.arange(len(rep), device=sel.device) \
+                - first[rep]
+            Li = tables.R_i.shape[-1] // 2
+            jr, jc = (3 * (k in (SELF_B, CROSS_BA)), 3 * (k in (SELF_B,
+                                                               CROSS_AB)))
+            R = tables.R_i[qi]                            # (t, 1, 6, 2Li)
+            Rr = R[:, :, jr:jr + 3, jr // 3 * Li:(jr // 3 + 1) * Li]
+            Rc = R[:, :, jc:jc + 3, jc // 3 * Li:(jc // 3 + 1) * Li]
+            H = H_i[qi][:, :, 3 * jr:3 * jr + 9, 3 * jc:3 * jc + 9].reshape(
+                -1, 1, 3, 3, 3, 3)
+            nl = Li
+            own = sel[rep]
+        tmp = torch.einsum("gqjxky,gqkm->gqjxmy", H, Rc)
+        Kb = torch.einsum("gqjxmy,gqjl->glxmy", tmp, Rr).reshape(
+            -1, 3 * nl, 3 * nl)
+        cps = be.cps[own].long()
+        three = torch.arange(3, device=cps.device)
+        ri = (3 * cps[:, 0, :nl, None] + three).reshape(-1, 3 * nl)
+        ci = (3 * cps[:, 1, :nl, None] + three).reshape(-1, 3 * nl)
+        ok = (ri[:, :, None] >= 0) & (ci[:, None, :] >= 0)
+        idx = (be.dest[own][:, None, None] * n + ri[:, :, None]) * n \
+            + ci[:, None, :]
+        flat.index_put_((idx[ok],), Kb[ok], accumulate=True)
+
+
+def _patch_assemble_plain(out, bt: BlockTables, tables, Hs):
+    P, n = bt.free.shape
+    flat = torch.zeros(P * n * n, dtype=DTYPE, device=out.device)
+    _add_entries_plain(flat, bt.patch, tables, Hs, n)
+    ok = bt.free > 0
+    out.copy_(torch.where(ok[:, :, None] & ok[:, None, :],
+                          flat.view(P, n, n), 0.0))
     out.diagonal(dim1=1, dim2=2).add_(1.0 - bt.free)
+
+
+def _pair_assemble_plain(out, Kp, bt: BlockTables, tables, Hs):
+    B, n = bt.pa.shape[0], bt.n
+    flat = torch.zeros(B * 2 * n * n, dtype=DTYPE, device=out.device)
+    _add_entries_plain(flat, bt.pair, tables, Hs, n)
+    X = flat.view(B, 2, n, n)
+    pa, pb = bt.pa.long(), bt.pb.long()
+    fa, fb = bt.free[pa] > 0, bt.free[pb] > 0
+    top = torch.where(fa[:, :, None] & fb[:, None, :], X[:, 0], 0.0)
+    bot = torch.where(fb[:, :, None] & fa[:, None, :], X[:, 1], 0.0)
+    out.copy_(torch.cat([torch.cat([Kp[pa], top], 2),
+                         torch.cat([bot, Kp[pb]], 2)], 1))
+
+
+def _check_entries(be: BlockEntries, n_dest, dev):
+    S = be.kind.shape[0]
+    for name, t, shape in (("kind", be.kind, (S,)), ("group", be.group, (S,)),
+                           ("nq", be.nq, (S,)),
+                           ("cps", be.cps, (S, 2, be.cps.shape[2])),
+                           ("band_ptr", be.band_ptr,
+                            (n_dest * be.n_bands + 1,)),
+                           ("band_ent", be.band_ent, None)):
+        _cuda.check(t, name, INDEX_DTYPE, shape, dev)
+
+
+def _jet_args(tables, Hs):
+    """(name, tensor, shape) of the jet tables K10 reads: shell, interface
+    and pressure groups (None where the model has none)."""
+    H_e, H_i, H_p = Hs[:3]
+    G, Q, _, L = tables.R_e.shape
+    out = [("H_e", H_e, (G, Q, 15, 15)), ("R_e", tables.R_e, (G, Q, 5, L))]
+    GI = L2 = 0
+    if tables.R_i is not None:
+        GI, _, _, L2 = tables.R_i.shape
+    out += [("H_i", H_i, (GI, 1, 18, 18)), ("R_i", tables.R_i, (GI, 1, 6, L2)),
+            ("H_p", H_p, (G, Q, 9, 9)), ("R_p", tables.R_p, (G, Q, 3, L))]
     return out
+
+
+def _check_jets(args, kinds, dev):
+    need = {"H_e": True, "R_e": True,
+            "H_i": bool({SELF_A, SELF_B, CROSS_AB, CROSS_BA} & set(kinds)),
+            "H_p": PRESSURE in kinds}
+    need.update(R_i=need["H_i"], R_p=need["H_p"])
+    for name, t, shape in args:
+        if t is None:
+            if need[name]:
+                raise ValueError(f"{name}: required by the K10 tables")
+            continue
+        _cuda.check(t, name, DTYPE, shape, dev)
+
+
+def patch_assemble(out, tables, Hs, bt: BlockTables):
+    """K10 stage 1: out (P, 3C, 3C) <- every patch block, masked by `free`
+    both sides, with the identity on fixed dofs (every entry written).
+    `tables`, `Hs`: `jet_tables`, `jet_hessians`."""
+    P, n = bt.free.shape
+    dev = bt.free.device
+    _cuda.check(out, "out", DTYPE, (P, n, n), dev)
+    args = _jet_args(tables, Hs)
+    _check_jets(args, bt.patch.kinds, dev)
+    _check_entries(bt.patch, P, dev)
+    if not _cuda.on_cuda(out):
+        _patch_assemble_plain(out, bt, tables, Hs)
+        return out
+    p = _cuda.ptr
+    pt = bt.patch
+    _, Q, _, L = tables.R_e.shape
+    Li = 0 if tables.R_i is None else tables.R_i.shape[-1] // 2
+    d = {name: t for name, t, _ in args}
+    _cuda.launch("pair_assemble/patches", "gf_patch_assemble",
+                 p(d["H_e"]), p(d["R_e"]), p(d["H_p"]), p(d["R_p"]),
+                 p(d["H_i"]), p(d["R_i"]), p(pt.kind), p(pt.group), p(pt.nq),
+                 p(pt.cps), p(pt.band_ptr), p(pt.band_ent), p(bt.free),
+                 p(out), P, pt.n_bands, pt.band_rows, n, Q, L, Li,
+                 pt.cps.shape[2], pt.stage, pt.tsz)
+    return out
+
+
+def pair_assemble(out, Kp, tables, Hs, bt: BlockTables):
+    """K10 stage 2: out (B, 6C, 6C) <- pair block k = [[Kp[pa[k]], X],
+    [X', Kp[pb[k]]]], X and X' its interface's cross quadrants masked by
+    `free` (every entry written). Kp: stage 1's patch blocks."""
+    B, n = bt.pa.shape[0], bt.n
+    P = bt.free.shape[0]
+    dev = bt.free.device
+    _cuda.check(out, "out", DTYPE, (B, 2 * n, 2 * n), dev)
+    _cuda.check(Kp, "Kp", DTYPE, (P, n, n), dev)
+    args = [a for a in _jet_args(tables, Hs) if a[0] in ("H_i", "R_i")]
+    _check_jets(args, bt.pair.kinds, dev)
+    _check_entries(bt.pair, 2 * B, dev)
+    for name, t in (("pa", bt.pa), ("pb", bt.pb)):
+        _cuda.check(t, name, INDEX_DTYPE, (B,), dev)
+    if not _cuda.on_cuda(out):
+        _pair_assemble_plain(out, Kp, bt, tables, Hs)
+        return out
+    p = _cuda.ptr
+    qt = bt.pair
+    _cuda.launch("pair_assemble/pairs", "gf_pair_assemble", p(Kp),
+                 p(Hs[1]), p(tables.R_i), p(qt.kind), p(qt.group), p(qt.nq),
+                 p(qt.cps), p(qt.band_ptr), p(qt.band_ent), p(bt.pa),
+                 p(bt.pb), p(bt.free), p(out), B, qt.n_bands, qt.band_rows,
+                 n, tables.R_i.shape[-1] // 2, qt.cps.shape[2], qt.stage,
+                 qt.tsz)
+    return out
+
+
+def _both_stages(bt: BlockTables, tables, Hs):
+    """K10's stages in order: (Kp, Kpair), the (P, 3C, 3C) patch blocks
+    and, where `bt` has pair tables, the (B, 6C, 6C) pair blocks built
+    from them (else None)."""
+    P, n = bt.free.shape
+    Kp = patch_assemble(torch.empty(P, n, n, dtype=DTYPE,
+                                    device=bt.free.device), tables, Hs, bt)
+    if bt.pair is None:
+        return Kp, None
+    B = bt.pa.shape[0]
+    return Kp, pair_assemble(torch.empty(B, 2 * n, 2 * n, dtype=DTYPE,
+                                         device=Kp.device), Kp, tables, Hs,
+                             bt)
+
+
+def assemble_blocks(bt: BlockTables, tables, Hs):
+    """K10: the (P, 3C, 3C) patch blocks, or where `bt` has pair tables
+    the (B, 6C, 6C) pair blocks built from them, masked, with the identity
+    on fixed dofs, from jet Hessians `Hs` (`jet_hessians`)."""
+    Kp, Kpair = _both_stages(bt, tables, Hs)
+    return Kp if Kpair is None else Kpair
 
 
 def _factor(K):
@@ -271,10 +438,6 @@ def _factor(K):
     return lu, piv, dsc, info
 
 
-def _patch_blocks_of(P):
-    return [[(p, 0)] for p in range(P)]
-
-
 # ------------------------------------------------------------ preconditioners
 def patch_block_precond(data: SystemData, d, cp, h, tables=None, Hs=None):
     """Factored per-patch diagonal blocks of K: (lu, piv, dsc) with lu
@@ -283,10 +446,8 @@ def patch_block_precond(data: SystemData, d, cp, h, tables=None, Hs=None):
     without Dirichlet BCs."""
     tables = jet_tables(data) if tables is None else tables
     Hs = jet_hessians(data, d, cp, h) if Hs is None else Hs
-    P, C = data.stack.n_patches, data.stack.max_cp
-    bt = _block_tables(data, _patch_blocks_of(P), P, 3 * C)
-    lu, piv, dsc, _ = _factor(assemble_blocks(bt, tables, Hs,
-                                              "pair_assemble/patches"))
+    lu, piv, dsc, _ = _factor(assemble_blocks(_block_tables(data), tables,
+                                              Hs))
     return lu, piv, dsc
 
 
@@ -384,21 +545,8 @@ class PairSchwarz:
                 colors.append([i])
         self.colors = [np.asarray(c, dtype=np.int64) for c in colors]
         self.order = np.concatenate(self.colors)  # block k <- pair order[k]
-        slot = np.empty(self.I, dtype=np.int64)
-        slot[self.order] = np.arange(self.I)      # pair i -> its block
-        n = 3 * self.C
-        blocks_of_patch = [[] for _ in range(self.P)]
-        for i in range(self.I):
-            blocks_of_patch[self.pairA[i]].append((int(slot[i]), 0))
-            blocks_of_patch[self.pairB[i]].append((int(slot[i]), n))
         self.tables = jet_tables(data)
-        self.blocks = _block_tables(data, blocks_of_patch, self.I, 2 * n,
-                                    whole=slot)
-        self.iso_blocks = None
-        if len(self.iso):
-            self.iso_blocks = _block_tables(
-                data, {int(p): [(k, 0)] for k, p in enumerate(self.iso)},
-                len(self.iso), n, patches=[int(p) for p in self.iso])
+        self.blocks = _block_tables(data, order=self.order)
         dev = data.free.device
         self._iso_idx = tensor(self.iso, dev, torch.int64)
         self._spans = []
@@ -410,17 +558,16 @@ class PairSchwarz:
             k0 += len(col)
 
     def assemble(self, data: SystemData, d, cp, h, Hs=None):
-        """Factored pair blocks at state d: (lu, piv, dsc, iso, info)."""
+        """Factored pair blocks at state d: (lu, piv, dsc, iso, info). K10
+        sums the patch blocks once (an isolated patch's block is its own)
+        and composes the pair blocks from them."""
         Hs = jet_hessians(data, d, cp, h) if Hs is None else Hs
-        Kp = assemble_blocks(self.blocks, self.tables, Hs,
-                             "pair_assemble/pairs")
-        lu, piv, dsc, info = _factor(Kp)
-        del Kp
+        Kp, Kpair = _both_stages(self.blocks, self.tables, Hs)
+        lu, piv, dsc, info = _factor(Kpair)
+        del Kpair
         iso = None
-        if self.iso_blocks is not None:
-            Ki = assemble_blocks(self.iso_blocks, self.tables, Hs,
-                                 "pair_assemble/patches")
-            lui, pivi, dsi, infi = _factor(Ki)
+        if len(self.iso):
+            lui, pivi, dsi, infi = _factor(Kp[self._iso_idx])
             iso = (lui, pivi, dsi)
             info = torch.cat([info, infi])
         return lu, piv, dsc, iso, info

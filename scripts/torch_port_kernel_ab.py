@@ -94,8 +94,21 @@ with `--k2-json FILE` the small wing's sha256 go to FILE as
 tests/data/torch_port_k2_bits.json keeps them (`chip_smoke.phase_k2_bits`
 and the `gpu` test of tests/test_torch_k6_k9.py hold K2 to them).
 
-K12, K3, K8, K11, K5, K7, K6 and K9 are timed back to back only: K12's inputs are
-under 1 MB and K3 writes a K larger than the L2. Each number is the median of
+`--what k10`: K10 `pair_assemble` at pegasus-91 (the demo's box wing,
+chip_smoke.py's seeded state of phase 13) through the tree's public entry
+points, as the preconditioners run them: `assemble_blocks` into the patch
+blocks (`patch_block_precond`'s) and into the pair blocks
+(`PairSchwarz.assemble`'s; on a tree with stage 2, stage 1 + stage 2; on
+a tree with the per-slot scatter, K's zero-fill, two launches and the
+identity), each against the tree's plain version and bit for bit over 5
+launches; with `--k10-file FILE` both block sets are written to FILE if it
+does not exist and compared with it if it does (run the parent first;
+110 MB, so keep FILE in a scratch directory). Then chip_smoke.py's GMRES
+probe (`gmres_probe`: each preconditioner's set-up and GMRES seconds, its
+restart cycles and |Kx + r|/|r|).
+
+K12, K3, K8, K11, K5, K7, K6, K9 and K10 are timed back to back only: K12's
+inputs are under 1 MB and K3 writes a K larger than the L2. Each number is the median of
 `--repeats` measurements; each kernel is checked against its plain
 version, and the ptxas registers and spill bytes of every redesigned
 kernel's entry functions (those of the tree's K12 and K3 included) are
@@ -108,8 +121,8 @@ run parent, change, change, parent.
 
     python scripts/torch_port_kernel_ab.py [--root DIR] [--repeats 5]
         [--launches 20] [--what k1k4 contact assemble k1k2 c6 k8k11
-        k5k7 k6k9]
-        [--state FILE] [--k2-file FILE] [--k2-json FILE]
+        k5k7 k6k9 k10]
+        [--state FILE] [--k2-file FILE] [--k2-json FILE] [--k10-file FILE]
 
 The last line is one JSON object with every number.
 """
@@ -687,6 +700,87 @@ def k6k9(sm, out, args):
                       indent=1)
 
 
+def k10(sm, out, args):
+    """K10 at pegasus-91 through the tree's public entry points (see the
+    module's note), then chip_smoke.py's GMRES probe of the three
+    preconditioners."""
+    import numpy as np
+    import torch
+
+    from goldfish_tpu_torch.demos import pegasus_thickness_opt as demo
+    from goldfish_tpu_torch.solver import krylov, system
+
+    dev = torch.device("cuda", 0)
+    ns = demo.setup(**sm.PEG, route="krylov", device=dev)
+    s = ns.sys
+    data, cp, h = s.data, s.cp, s.h_init
+    rng = np.random.default_rng(9)   # chip_smoke.phase_pegasus_kernels'
+    scale = float(torch.linalg.norm(cp)) / np.sqrt(cp.numel())
+    d = torch.tensor(1e-3 * scale * rng.normal(size=tuple(cp.shape)),
+                     device=dev) * data.free
+    ps = krylov.PairSchwarz(data)
+    tab = ps.tables
+    Hs = system.jet_hessians(data, d, cp, h)
+    P, n = data.stack.n_patches, 3 * data.stack.max_cp
+    if hasattr(krylov, "patch_assemble"):   # patch blocks, then pairs
+        patches = krylov._block_tables(data)
+        run = {"patches": lambda: krylov.assemble_blocks(patches, tab, Hs),
+               "pairs": lambda: krylov.assemble_blocks(ps.blocks, tab, Hs)}
+
+        def plain(name):
+            Kp = torch.empty(P, n, n, dtype=torch.float64, device=dev)
+            bt = patches if name == "patches" else ps.blocks
+            krylov._patch_assemble_plain(Kp, bt, tab, Hs)
+            if name == "patches":
+                return Kp
+            X = torch.empty(ps.I, 2 * n, 2 * n, dtype=torch.float64,
+                            device=dev)
+            krylov._pair_assemble_plain(X, Kp, bt, tab, Hs)
+            return X
+    else:                                   # the per-slot scatter
+        patches = krylov._block_tables(data, krylov._patch_blocks_of(P), P,
+                                       n)
+        run = {k: (lambda k=k, bt=bt: krylov.assemble_blocks(
+            bt, tab, Hs, f"pair_assemble/{k}"))
+            for k, bt in (("patches", patches), ("pairs", ps.blocks))}
+
+        def plain(name):
+            bt = patches if name == "patches" else ps.blocks
+            K = torch.zeros(bt.n_blocks, bt.nb, bt.nb, dtype=torch.float64,
+                            device=dev)
+            for H, R, t in ((Hs[0], tab.R_e, bt.elem),
+                            (Hs[1], tab.R_i, bt.iface)):
+                krylov._pair_assemble_plain(K, H, R, t)
+            K.diagonal(dim1=1, dim2=2).add_(1.0 - bt.free)
+            return K
+    saved, timed = {}, {}
+    for name, fn in run.items():
+        key = f"pair_assemble/{name}@pegasus91"
+        got = fn()
+        out["rel_err"][key] = sm.rel_err(got, plain(name))[0]
+        same = all(torch.equal(fn(), got) for _ in range(4))
+        out.setdefault("k10_bitwise", {})[key] = same
+        print(f"[ab] {key:44s} bit-identical over 5 launches {same}",
+              flush=True)
+        saved[name] = got
+        timed[key] = fn
+    time_cases(sm, out, timed, args.launches, args.repeats, cold=False)
+    if args.k10_file and os.path.exists(args.k10_file):
+        ref = torch.load(args.k10_file)
+        for name, got in saved.items():
+            r = ref[name].to(dev)
+            gap = sm.rel_err(got, r)
+            out.setdefault("k10_vs_file", {})[name] = list(gap)
+            print(f"[ab] K10 {name} against {args.k10_file}: rel "
+                  f"{gap[0]:.3e} max abs {gap[1]:.3e}", flush=True)
+    elif args.k10_file:
+        torch.save({k: v.cpu() for k, v in saved.items()}, args.k10_file)
+        print(f"[ab] K10 blocks written to {args.k10_file}", flush=True)
+    del saved, timed
+    torch.cuda.empty_cache()
+    sm.gmres_probe(ns, dev)
+
+
 def c6(sm, out, args):
     """K1 mode 0 at the roof three ways (see the module's note)."""
     import numpy as np
@@ -735,10 +829,11 @@ def main():
     ap.add_argument("--state", default=None)
     ap.add_argument("--k2-file", default=None)
     ap.add_argument("--k2-json", default=None)
+    ap.add_argument("--k10-file", default=None)
     ap.add_argument("--what", nargs="*", default=["k1k4", "contact",
                                                   "assemble", "k1k2"],
                     choices=["k1k4", "contact", "assemble", "k1k2", "c6",
-                             "k8k11", "k5k7", "k6k9"])
+                             "k8k11", "k5k7", "k6k9", "k10"])
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -787,6 +882,8 @@ def main():
         k5k7(sm, out, args)
     if "k6k9" in args.what:
         k6k9(sm, out, args)
+    if "k10" in args.what:
+        k10(sm, out, args)
     for name, b in out["bytes"].items():
         print(f"[ab] {name:44s} bytes {b / 1e6:.1f} MB, byte bound "
               f"{b / sm.PEAK_BYTES * 1e3:.4f} ms", flush=True)

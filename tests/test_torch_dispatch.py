@@ -75,13 +75,9 @@ def _k10(data, d, cp, h, which):
     from goldfish_tpu_torch.solver import krylov, system
 
     ps = krylov.PairSchwarz(data)
-    bt = ps.blocks
-    if which == "patches":
-        P, C = data.stack.n_patches, data.stack.max_cp
-        bt = krylov._block_tables(data, krylov._patch_blocks_of(P), P, 3 * C)
+    bt = ps.blocks if which == "pairs" else krylov._block_tables(data)
     return krylov.assemble_blocks(bt, ps.tables,
-                                  system.jet_hessians(data, d, cp, h),
-                                  f"pair_assemble/{which}")
+                                  system.jet_hessians(data, d, cp, h))
 
 
 def _vlm_inputs(to):
@@ -232,11 +228,13 @@ def test_wrong_inputs_raise(bad):
     from goldfish_tpu_torch.solver import krylov
 
     bt = krylov.PairSchwarz(data).blocks
-    out = torch.zeros(bt.n_blocks, bt.nb, bt.nb, dtype=torch.float64)
+    out = torch.zeros(bt.pa.shape[0], 2 * bt.n, 2 * bt.n, dtype=torch.float64)
+    Kp = torch.zeros(bt.free.shape[0], bt.n, bt.n, dtype=torch.float64)
+    bad_tables = tables._replace(R_i=tables.R_i[1:])
     with pytest.raises((TypeError, ValueError)):
-        krylov.pair_assemble(out.float() if bad == "dtype" else out, Hs[0],
-                             tables.R_e if bad == "dtype" else tables.R_e[1:],
-                             bt.elem)
+        krylov.pair_assemble(out.float() if bad == "dtype" else out, Kp,
+                             tables if bad == "dtype" else bad_tables, Hs,
+                             bt)
     from goldfish_tpu_torch.physics import vlm
 
     colloc, nhat, A, B, wake, gbar = _vlm_inputs(t)

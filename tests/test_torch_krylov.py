@@ -86,14 +86,12 @@ def test_pair_assemble_plain_matches_dense_K(port_bw, newton_state, jax_K,
     Hs = jet_hessians(s.data, newton_state, s.cp, s.h_init)
     _cuda.reset_launch_counts()
     if which == "pairs":
-        blocks = krylov.assemble_blocks(ps.blocks, ps.tables, Hs,
-                                        "pair_assemble/pairs")
+        blocks = krylov.assemble_blocks(ps.blocks, ps.tables, Hs)
         dofs = [np.r_[ps.pairA[i] * n + np.arange(n),
                       ps.pairB[i] * n + np.arange(n)] for i in ps.order]
     else:
-        bt = krylov._block_tables(s.data, krylov._patch_blocks_of(P), P, n)
-        blocks = krylov.assemble_blocks(bt, ps.tables, Hs,
-                                        "pair_assemble/patches")
+        blocks = krylov.assemble_blocks(krylov._block_tables(s.data),
+                                        ps.tables, Hs)
         dofs = [p * n + np.arange(n) for p in range(P)]
     assert all(v == 0 for v in _cuda.launch_counts.values())
     assert blocks.shape == (len(dofs), len(dofs[0]), len(dofs[0]))
