@@ -68,6 +68,22 @@ Phases (any failure raises: non-zero exit, no result line):
    launches by mode (the tube's moving-seam path prints the same); then,
    outside the counted path, the system's own `solve_nonlinear` at amp = 0.05
    against `build_forward`'s coupled solve (1e-8: ROADMAP Queue C1);
+6b. OM MI path: the same T-beam through the OpenMDAO graph of
+   goldfish_tpu_torch/demos/om_tbeam_shopt_mi.py (`build_problem(num_el=40,
+   p=3, n_pts=17)`, its default design: 18 design CPs of the x field ->
+   CPIGA2XiComp -> DispMintStatesComp -> IntEnergyComp, with the xi-edge
+   and pin constraints): the cold `run_model` and `compute_totals` of w_int
+   w.r.t. the design CPs against tests/data/torch_port_om_mi_reference.json
+   (w_int 1e-8, xi 1e-10 in norm, the totals 1e-6); K1's four modes, K2's
+   three, K3, K4, K5, K6 and K7's modes 0, 1 and 2 must have launched on it
+   (printed by K7 mode); then `run_driver` (SLSQP, maxiter 6), which must
+   end where the JAX demo's does: SLSQP stops at its first iteration
+   (ROADMAP C9: the demo's bounds clip its pinned start, and its 17 xi-edge
+   rows and 2 pin rows outnumber the 18 design variables), w_int lower
+   (1e-8 against the reference's end value), the xi-edge residual <= 1e-6
+   and the pin residual the reference's (the clip, 0.05); its walls per fun
+   and jac evaluation, nfev/njev, the factorizations and the xi route are
+   printed, not gated;
 7. tube kernels: the pressurized tube at the size and follower pressure of
    tests/data/torch_port_tube16_reference.json (num_el=16, p=3: 4 patches,
    degree (3, 2), 12 qps, N = 8436) on the card, at d = the pressure's linear
@@ -222,6 +238,8 @@ REF_PEG = os.path.join(ROOT, "tests", "data",
                        "torch_port_pegasus91_reference.json")
 REF_VLM = os.path.join(ROOT, "tests", "data",
                        "torch_port_vlm_reference.json")
+REF_OM_MI = os.path.join(ROOT, "tests", "data",
+                         "torch_port_om_mi_reference.json")
 REF_CONTACT = os.path.join(ROOT, "tests", "data",
                            "torch_port_contact_reference.json")
 CONTACT_TOL = {"contact_pairs/value_grad": 1e-11, "contact_pairs/hvp": 1e-11,
@@ -488,6 +506,11 @@ WING_KERNELS = ("shell_qp/value_grad", "shell_qp/hess", "shell_qp/adjoint",
 MI_PATH_KERNELS = WING_KERNELS + (
     "shell_qp/geom_grad", "traced_rows", "mi_penalty_xi",
     "c2x_res_jac/step", "c2x_res_jac/solve_adjoint")
+# the OM graph's linearize keeps K7 mode 0's Jacobian and its reverse
+# products take mode 1; its xi Newton takes mode 2 (its totals run no mode 3)
+OM_MI_KERNELS = WING_KERNELS + (
+    "shell_qp/geom_grad", "traced_rows", "mi_penalty_xi",
+    "c2x_res_jac/res_jac", "c2x_res_jac/adjoint", "c2x_res_jac/step")
 PRESSURE_KERNELS = ("pressure_qp/value_grad", "pressure_qp/hess",
                     "pressure_qp/adjoint")
 TUBE_KERNELS = WING_KERNELS + ("shell_qp/geom_grad",) + PRESSURE_KERNELS
@@ -1631,6 +1654,123 @@ def report_slsqp(tag, prob, res, fac, J_start, A_pin, p0, x):
             and pin <= 1e-10):
         raise RuntimeError(f"{tag}: SLSQP did not lower J ({res.fun!r} vs "
                            f"{J_start!r}) or broke the pin ({pin:.3e})")
+
+
+def timed_driver(prob):
+    """Wrap what the driver calls for a fun evaluation (prob.run_model)
+    and a jac evaluation (prob._linearize_all, then prob.compute_totals) to
+    log their host walls: (fun walls, jac walls)."""
+    fun, jac, lin = [], [], [0.0]
+    run_model, linearize = prob.run_model, prob._linearize_all
+    compute_totals = prob.compute_totals
+
+    def timed_run_model():
+        t0 = time.perf_counter()
+        run_model()
+        fun.append(time.perf_counter() - t0)
+
+    def timed_linearize():
+        t0 = time.perf_counter()
+        out = linearize()
+        lin[0] += time.perf_counter() - t0
+        return out
+
+    def timed_compute_totals(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = compute_totals(*args, **kwargs)
+        jac.append(time.perf_counter() - t0 + lin[0])
+        lin[0] = 0.0
+        return out
+
+    prob.run_model = timed_run_model
+    prob._linearize_all = timed_linearize
+    prob.compute_totals = timed_compute_totals
+    return fun, jac
+
+
+def phase_om_mi(dev, ref):
+    """The MI T-beam through the port demo's OpenMDAO graph: the cold
+    run_model and totals against the JAX reference (the counted path),
+    then SLSQP through run_driver."""
+    from goldfish_tpu_torch import _cuda
+    from goldfish_tpu_torch.demos import om_tbeam_shopt_mi as demo
+
+    W, X = "int_energy_comp.w_int", "inputs_comp.CPS_design"
+    XI, EDGE = "cpiga2xi_comp.int_para_coords", "int_xi_edge_comp.int_xi_edge"
+    PIN = "cpsurf_pin_comp.cps_pin"
+    t_phase = time.perf_counter()
+    prob, s, d2a = demo.build_problem(
+        num_el=ref["num_el"], p=ref["p"], n_pts=ref["n_pts"],
+        maxiter=ref["driver"]["maxiter"], device=dev)
+    op = prob.model._subs["disp_states_comp"].op
+    fac = op.factor
+    say(f"[setup] OM MI T-beam built in {time.perf_counter() - t_phase:.1f}"
+        f" s: N={s.cp.numel()} design {prob[X].size} seam (I, N)="
+        f"({s.mi.n_int}, {s.mi.n_max})")
+    if not np.array_equal(prob[X], np.asarray(ref["x_design"])):
+        raise RuntimeError("om-mi: the design start differs from the JAX "
+                           "demo's")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prob.run_model()
+    t_cold = time.perf_counter() - t0
+    w0 = float(prob[W][0])
+    e_xi = float(np.linalg.norm(prob[XI] - np.asarray(ref["xi"])))
+    say(f"[om-mi] cold run_model {t_cold:.3f} s: w_int {w0!r} (ref "
+        f"{ref['w_int']!r}); |xi - xi_ref| {e_xi:.3e} (gate 1e-10); |d| "
+        f"{float(np.linalg.norm(prob['disp_states_comp.displacements']))!r}"
+        f" (ref {ref['d_norm']!r}); newton its {op.solver.last_its}, "
+        f"xi-newton its {s.c2x.last_its}")
+    check_rel("om-mi", "w_int", w0, ref["w_int"], 1e-8)
+    if not e_xi <= 1e-10:
+        raise RuntimeError(f"om-mi: xi disagrees with the JAX CPU reference: "
+                           f"{e_xi:.3e} in norm")
+    t0 = time.perf_counter()
+    tot = prob.compute_totals([W], [X])
+    t_tot = time.perf_counter() - t0
+    check_rel("om-mi", f"dw_int/dCPS_design ({t_tot:.3f} s)",
+              tot[(W, X)].ravel(), ref["dw_int_dx"], 1e-6)
+    counts = dict(_cuda.launch_counts)
+    say_shapes("om-mi")
+    say(f"[om-mi] xi route {s.c2x.route} (seams of {s.mi.n_max} points); "
+        f"K7 launches "
+        f"{ {k: counts[k] for k in counts if k.startswith('c2x_res_jac/')} }")
+    check_counts("om-mi", counts, OM_MI_KERNELS)
+
+    want = ref["driver"]
+    fun, jac = timed_driver(prob)
+    t0 = time.perf_counter()
+    prob.run_driver()
+    wall = time.perf_counter() - t0
+    res = prob._driver_result
+    w1 = float(prob[W][0])
+    edge = float(np.max(np.abs(prob[EDGE])))
+    pin = float(np.max(np.abs(prob[PIN]
+                              - prob.model._constraints[PIN]["equals"])))
+    say(f"[om-mi] slsqp {wall:.2f} s: nit {res.nit} nfev {res.nfev} njev "
+        f"{res.njev}; {res.message} (ref nit {want['nit']} nfev "
+        f"{want['nfev']} njev {want['njev']}; {want['message']})")
+    say(f"[om-mi] w_int {w0!r} -> {w1!r} (ref {want['w_int_end']!r}); "
+        f"xi-edge residual {edge!r}; pin residual {pin!r} (ref "
+        f"{want['pin_residual_max']!r})")
+    say(f"[om-mi] wall per fun median {float(np.median(fun)):.3f} s (n "
+        f"{len(fun)}, max {max(fun):.3f}); per jac median "
+        f"{float(np.median(jac)):.3f} s (n {len(jac)}, max {max(jac):.3f})")
+    say(f"[om-mi] n_factor {fac.n_factor} (failed {fac.n_factor_failed}); "
+        f"refactor_log {fac.refactor_log}; cert_log tail "
+        f"{fac.cert_log[-8:]}")
+    check_rel("om-mi", "end w_int", w1, want["w_int_end"], 1e-8)
+    if not (w1 < w0 and edge <= 1e-6
+            and abs(pin - want["pin_residual_max"]) <= 1e-12
+            and res.nit == want["nit"]):
+        raise RuntimeError(f"om-mi: SLSQP does not end where the JAX demo's "
+                           f"does: w_int {w0!r} -> {w1!r}, xi-edge {edge!r}, "
+                           f"pin {pin!r}, nit {res.nit}")
+    counts = dict(_cuda.launch_counts)
+    say(f"[om-mi] phase {time.perf_counter() - t_phase:.1f} s; launch counts "
+        f"with the driver {counts}")
+    return counts
 
 
 # K4 group shape (nq, nj, nloc) -> launches since the last reset_counts()
@@ -2925,6 +3065,9 @@ def main():
     library += time_library("mi_tbeam40", fac, mi_sys.c2x)
     del mi_sys, fac
     torch.cuda.empty_cache()
+    with open(REF_OM_MI) as fh:
+        counts_om_mi = phase_om_mi(dev, json.load(fh)["full"])
+    torch.cuda.empty_cache()
 
     counts_tf, fac = phase_tube_fixed(dev, checks, ref_tube)
     library += time_library("tube16", fac)
@@ -3009,6 +3152,7 @@ def main():
     say(f"[contact] phases 20-22 {time.perf_counter() - t0:.1f} s")
 
     paths = {"wing": (counts, WING_KERNELS), "mi": (counts_mi, None),
+             "om_mi": (counts_om_mi, None),
              "tube": (counts_tf, None), "tube_mi": (counts_tm, None),
              "plate": (counts_pl, None), "pegasus_dense": (counts_pd, None),
              "pegasus_krylov": (counts_pk, None), "vlm": (counts_vlm, None),

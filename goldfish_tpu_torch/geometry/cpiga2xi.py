@@ -46,7 +46,8 @@ from goldfish_tpu_torch.ops.bspline_traced import (
 
 __all__ = ["MovingIntersections", "build_moving_intersections",
            "c2x_res_jac", "c2x_res_vjp", "c2x_step", "c2x_solve_adjoint",
-           "fused_route", "c2x_newton", "c2x_adjoint", "CPIGA2Xi"]
+           "fused_route", "c2x_newton", "c2x_adjoint", "CPIGA2Xi",
+           "xi_edge_constraints", "xi_interior_dofs"]
 
 
 class MovingIntersections(NamedTuple):
@@ -475,3 +476,81 @@ class CPIGA2Xi:
         r, _ = c2x_res_jac(self.ss, self.p, self.q, self.mi, cp, x,
                            jac=False)
         return _rnorm(r)
+
+
+# ------------------------------------------------------------ xi constraints
+def _host(mi: MovingIntersections):
+    """The host copies that the xi constraint functions read."""
+    xi0 = mi.xi0.cpu().numpy()
+    return xi0, mi.n_pts.cpu().numpy(), xi0.shape[0], xi0.shape[1]
+
+
+def xi_edge_constraints(mi: MovingIntersections, tol: float = 1e-9):
+    """Edge-type xi constraints (the reference's IntXiEdgeComp: xi_dof -
+    val = 0 with a constant 0/1 Jacobian).
+
+    For every intersection whose initial curve runs along a constant
+    parametric coordinate of side A or B at 0 or 1, the flat dof indices
+    (into the (I, N, 2, 2)-raveled xi vector) and target values pinning
+    that coordinate for all real points. Host NumPy on `mi`'s copies."""
+    xi0, n_pts, I, N = _host(mi)
+    dofs, vals = [], []
+    for i in range(I):
+        n = int(n_pts[i])
+        for side in (0, 1):
+            for c in (0, 1):
+                col = xi0[i, :n, side, c]
+                if np.all(np.abs(col - col[0]) < tol) and \
+                        (abs(col[0]) < tol or abs(col[0] - 1) < tol):
+                    for k in range(n):
+                        dofs.append(((i * N + k) * 2 + side) * 2 + c)
+                        vals.append(float(col[0]))
+    return np.asarray(dofs, dtype=np.int64), np.asarray(vals)
+
+
+def xi_interior_dofs(mi: MovingIntersections, tol: float = 1e-9):
+    """Flat dofs of the xi vector free to move strictly inside (0, 1): the
+    support of in-domain bound constraints (the reference's XiConsComp).
+
+    Excludes (a) padded points beyond each intersection's n_pts, (b) the
+    edge-pinned columns of `xi_edge_constraints`, (c) the end-pinned
+    coordinates (end_dir at the first and last point), and (d) side-B
+    endpoint coordinates on the 0/1 boundary at an end whose side-A pin
+    (`end_val`) is itself at 0/1: there the seam ends on patch A's edge and
+    coincidence holds the side-B coordinate on its own edge. A coordinate
+    that merely starts at 0/1 without that force stays in the set. Host
+    NumPy on `mi`'s copies."""
+    xi0, n_pts, I, N = _host(mi)
+    end_dir = mi.end_dir.cpu().numpy()
+    end_val = mi.end_val.cpu().numpy()
+    edge_dofs = set(xi_edge_constraints(mi, tol=tol)[0].tolist())
+
+    def boundary_end(i, k, n):
+        # which end (0/1) this point is, or None if interior; the end
+        # counts only if its side-A pin value is on the domain boundary
+        end = 0 if k == 0 else (1 if k == n - 1 else None)
+        if end is None:
+            return None
+        ev = float(end_val[i, end])
+        return end if (abs(ev) < tol or abs(ev - 1.0) < tol) else None
+
+    out = []
+    for i in range(I):
+        n = int(n_pts[i])
+        for k in range(n):
+            for side in (0, 1):
+                for c in (0, 1):
+                    dof = ((i * N + k) * 2 + side) * 2 + c
+                    if dof in edge_dofs:
+                        continue
+                    if side == 0 and (
+                            (k == 0 and c == int(end_dir[i, 0]))
+                            or (k == n - 1 and c == int(end_dir[i, 1]))):
+                        continue
+                    v = float(xi0[i, k, side, c])
+                    if (side == 1
+                            and boundary_end(i, k, n) is not None
+                            and (abs(v) < tol or abs(v - 1.0) < tol)):
+                        continue
+                    out.append(dof)
+    return np.asarray(out, dtype=np.int64)

@@ -1,13 +1,17 @@
 """OpenMDAO thin adapters over the port's framework-agnostic operations.
 
-Port of goldfish_tpu/om_comps/components.py, class for class, for the
-fixed-intersection thickness path: `DispStatesComp` (implicit), the
+Port of goldfish_tpu/om_comps/components.py, class for class: the
+fixed-intersection thickness path's `DispStatesComp` (implicit), the
 objective components (`IntEnergyComp`, `VolumeComp`, `ComplianceComp`,
 `MaxvMStressComp`) and the constant linear maps (`CPFE2IGAComp`,
 `HthFE2IGAComp`, `HthFFD2FEComp`, `CPFFD2SurfComp`, `CPFFDAlignComp`,
 `CPFFDPinComp`, `CPFFDReguComp`, `HthFFDAlignComp`, `HthFFDReguComp`,
-`HthMapComp`). Real OpenMDAO is used when installed, else the port's
-`om_shim` (the same API).
+`HthMapComp`); the moving-intersection shape path's implicit
+`CPIGA2XiComp` and `DispMintStatesComp`, the `IntXiEdgeComp` constraint
+and the design-surface pipeline over `CPSurfDesign2Analysis`
+(`CPSurfOrderElevationComp`, `CPSurfKnotRefienmentComp`, `CPSurfAlignComp`,
+`CPSurfReguComp`, `CPSurfPinComp`). Real OpenMDAO is used when installed,
+else the port's `om_shim` (the same API).
 
 Dof vectors are flat real IGA dofs (node-major xyz) in numpy, as in the
 JAX package; the operations move them to the system's device. There is no
@@ -25,7 +29,12 @@ except ModuleNotFoundError:  # pragma: no cover - environment-dependent
     from goldfish_tpu_torch.om_shim import api as om
 
 from goldfish_tpu_torch.design.pipeline import CPLayout
+from goldfish_tpu_torch.geometry.cpiga2xi import xi_edge_constraints
 from goldfish_tpu_torch.operations.disp_imop import DispImOperation
+from goldfish_tpu_torch.operations.disp_mi_imop import (
+    CPIGA2XiImOperation,
+    DispMintImOperation,
+)
 from goldfish_tpu_torch.operations.exops import (
     ComplianceExOperation,
     IntEnergyExOperation,
@@ -34,10 +43,13 @@ from goldfish_tpu_torch.operations.exops import (
 )
 
 __all__ = [
-    "DispStatesComp", "IntEnergyComp", "VolumeComp", "ComplianceComp",
+    "DispStatesComp", "DispMintStatesComp", "CPIGA2XiComp", "IntXiEdgeComp",
+    "IntEnergyComp", "VolumeComp", "ComplianceComp",
     "MaxvMStressComp", "CPFE2IGAComp", "HthFE2IGAComp", "HthFFD2FEComp",
     "HthMapComp", "CPFFD2SurfComp", "CPFFDAlignComp", "CPFFDPinComp",
     "CPFFDReguComp", "HthFFDAlignComp", "HthFFDReguComp",
+    "CPSurfAlignComp", "CPSurfOrderElevationComp", "CPSurfKnotRefienmentComp",
+    "CPSurfKnotRefinementComp", "CPSurfReguComp", "CPSurfPinComp",
 ]
 
 
@@ -101,6 +113,133 @@ class DispStatesComp(om.ImplicitComponent):
                 d_inputs[self.cp_name] += cp_b
             if self.h_name in d_inputs:
                 d_inputs[self.h_name] += h_b
+            if self.u_name in d_outputs:
+                d_outputs[self.u_name] += d_b
+
+    def solve_linear(self, d_outputs, d_residuals, mode):
+        if mode == "fwd":
+            d_outputs[self.u_name] = self.op.solve_linear_fwd(
+                d_residuals[self.u_name])
+        else:
+            d_residuals[self.u_name] = self.op.solve_linear_rev(
+                d_outputs[self.u_name])
+
+
+class CPIGA2XiComp(om.ImplicitComponent):
+    """Implicit CP -> xi solve (the reference's cpiga2xi_comp)."""
+
+    def initialize(self):
+        self.options.declare("nonmatching_sys")
+        self.options.declare("input_cp_name", default="CP_IGA")
+        self.options.declare("output_xi_name", default="int_para_coords")
+
+    def init_parameters(self):
+        self.op = CPIGA2XiImOperation(self.options["nonmatching_sys"])
+        self.cp_name = self.options["input_cp_name"]
+        self.xi_name = self.options["output_xi_name"]
+
+    def setup(self):
+        op = self.op
+        self.add_input(self.cp_name, shape=op.layout.n_flat * 3,
+                       val=_flat(op.layout, op.sys.cp))
+        self.add_output(self.xi_name, shape=op.xi_size,
+                        val=op.c2x.xi0_flat.reshape(-1).cpu().numpy())
+        self.declare_partials(self.xi_name, self.cp_name)
+        self.declare_partials(self.xi_name, self.xi_name)
+
+    def apply_nonlinear(self, inputs, outputs, residuals):
+        residuals[self.xi_name] = self.op.apply_nonlinear(
+            inputs[self.cp_name], outputs[self.xi_name])
+
+    def solve_nonlinear(self, inputs, outputs):
+        outputs[self.xi_name] = self.op.solve_nonlinear(
+            inputs[self.cp_name])
+
+    def linearize(self, inputs, outputs, partials):
+        self.op.linearize(inputs[self.cp_name], outputs[self.xi_name])
+
+    def apply_linear(self, inputs, outputs, d_inputs, d_outputs,
+                     d_residuals, mode):
+        if mode == "fwd":
+            d_residuals[self.xi_name] += self.op.apply_linear_fwd(
+                d_inputs.get(self.cp_name), d_outputs.get(self.xi_name))
+        else:
+            cp_b, xi_b = self.op.apply_linear_rev(
+                d_residuals[self.xi_name])
+            if self.cp_name in d_inputs:
+                d_inputs[self.cp_name] += cp_b
+            if self.xi_name in d_outputs:
+                d_outputs[self.xi_name] += xi_b
+
+    def solve_linear(self, d_outputs, d_residuals, mode):
+        if mode == "fwd":
+            d_outputs[self.xi_name] = self.op.solve_linear_fwd(
+                d_residuals[self.xi_name])
+        else:
+            d_residuals[self.xi_name] = self.op.solve_linear_rev(
+                d_outputs[self.xi_name])
+
+
+class DispMintStatesComp(om.ImplicitComponent):
+    """Implicit displacement states with moving intersections (the
+    reference's disp_states_mi_comp: its update_xi and transfer-matrix
+    machinery is the xi-parametrized residual of solver/system_mi.py)."""
+
+    def initialize(self):
+        self.options.declare("nonmatching_sys")
+        self.options.declare("input_cp_name", default="CP_IGA")
+        self.options.declare("input_h_th_name", default="thickness_IGA")
+        self.options.declare("input_xi_name", default="int_para_coords")
+        self.options.declare("output_u_name", default="displacements")
+        self.options.declare("rtol", default=1e-10)
+
+    def init_parameters(self, save_files=False):
+        self.op = DispMintImOperation(self.options["nonmatching_sys"],
+                                      rtol=self.options["rtol"])
+        self.cp_name = self.options["input_cp_name"]
+        self.h_name = self.options["input_h_th_name"]
+        self.xi_name = self.options["input_xi_name"]
+        self.u_name = self.options["output_u_name"]
+
+    def setup(self):
+        op = self.op
+        sys = op.sys
+        self.add_input(self.cp_name, shape=op.vec_size,
+                       val=_flat(op.layout, sys.cp))
+        self.add_input(self.h_name, shape=op.h_size,
+                       val=_flat(op.layout, sys.h_init))
+        self.add_input(self.xi_name, shape=int(np.prod(op.xi_shape)),
+                       val=sys.c2x.xi0_flat.reshape(-1).cpu().numpy())
+        self.add_output(self.u_name, shape=op.vec_size)
+        self.declare_partials(self.u_name, "*")
+
+    def apply_nonlinear(self, inputs, outputs, residuals):
+        residuals[self.u_name] = self.op.apply_nonlinear(
+            inputs[self.cp_name], inputs[self.h_name],
+            inputs[self.xi_name], outputs[self.u_name])
+
+    def solve_nonlinear(self, inputs, outputs):
+        outputs[self.u_name] = self.op.solve_nonlinear(
+            inputs[self.cp_name], inputs[self.h_name],
+            inputs[self.xi_name], outputs[self.u_name])
+
+    def linearize(self, inputs, outputs, partials):
+        self.op.linearize(inputs[self.cp_name], inputs[self.h_name],
+                          inputs[self.xi_name], outputs[self.u_name])
+
+    def apply_linear(self, inputs, outputs, d_inputs, d_outputs,
+                     d_residuals, mode):
+        if mode == "fwd":
+            d_residuals[self.u_name] += self.op.apply_linear_fwd(
+                d_inputs.get(self.cp_name), d_inputs.get(self.h_name),
+                d_inputs.get(self.xi_name), d_outputs.get(self.u_name))
+        else:
+            cp_b, h_b, xi_b, d_b = self.op.apply_linear_rev(
+                d_residuals[self.u_name])
+            for name, bar in ((self.cp_name, cp_b), (self.h_name, h_b),
+                              (self.xi_name, xi_b)):
+                if name in d_inputs:
+                    d_inputs[name] += bar
             if self.u_name in d_outputs:
                 d_outputs[self.u_name] += d_b
 
@@ -276,3 +415,117 @@ class HthMapComp(_LinearMapComp):
             off += m.n_cp
         self.options["A"] = A
         super().init_parameters()
+
+
+class IntXiEdgeComp(om.ExplicitComponent):
+    """Edge-type xi equality constraint: xi[edge dofs] - edge vals = 0 with
+    a constant 0/1 Jacobian (the reference's int_xi_edge_comp)."""
+
+    def initialize(self):
+        self.options.declare("nonmatching_sys")
+        self.options.declare("input_xi_name", default="int_para_coords")
+        self.options.declare("output_name", default="int_xi_edge")
+
+    def init_parameters(self):
+        sys = self.options["nonmatching_sys"]
+        self.xi_name = self.options["input_xi_name"]
+        self.out_name = self.options["output_name"]
+        self.xi_size = int(sys.c2x.xi0_flat.numel())
+        self.dofs, self.vals = xi_edge_constraints(sys.mi)
+        self.output_shape = len(self.dofs)
+
+    def setup(self):
+        n = max(self.output_shape, 1)
+        self.add_input(self.xi_name, shape=self.xi_size)
+        self.add_output(self.out_name, shape=n)
+        A = np.zeros((n, self.xi_size))
+        A[np.arange(self.output_shape), self.dofs] = 1.0
+        self.declare_partials(self.out_name, self.xi_name, val=A)
+
+    def compute(self, inputs, outputs):
+        if self.output_shape:
+            outputs[self.out_name] = (
+                inputs[self.xi_name][self.dofs] - self.vals)
+
+
+class _SurfPipelineComp(_LinearMapComp):
+    """Base of the CPSurfDesign2Analysis comps (the reference's
+    surf_comps): a constant per-surface operator, block-diagonal over the
+    optimized surfaces and stacked over fields. `matrix_of(d2a, i)` gives
+    surface i's matrix."""
+
+    matrix_of = None
+
+    def initialize(self):
+        super().initialize()
+        self.options.declare("design2analysis")
+        self.options.declare("fields", default=(0, 1, 2))
+
+    def init_parameters(self):
+        d2a = self.options["design2analysis"]
+        mats = [np.asarray(self.matrix_of(d2a, i)) for i in d2a.surf_inds]
+        blk = np.zeros((sum(m.shape[0] for m in mats),
+                        sum(m.shape[1] for m in mats)))
+        ro = co = 0
+        for m in mats:
+            blk[ro:ro + m.shape[0], co:co + m.shape[1]] = m
+            ro += m.shape[0]
+            co += m.shape[1]
+        self.options["A"] = np.kron(np.eye(len(self.options["fields"])), blk)
+        super().init_parameters()
+
+
+class CPSurfAlignComp(_SurfPipelineComp):
+    """Design-grid CP alignment rows along `align_axis`."""
+
+    def initialize(self):
+        super().initialize()
+        self.options.declare("align_axis", default=0)
+
+    def init_parameters(self):
+        axis = self.options["align_axis"]
+        self.matrix_of = lambda d2a, i: d2a.align_rows(i, axis)
+        super().init_parameters()
+
+
+class CPSurfOrderElevationComp(_SurfPipelineComp):
+    """Design CP -> order-elevated CP."""
+
+    matrix_of = staticmethod(lambda d2a, i: d2a.elevation_matrix(i))
+
+
+class CPSurfKnotRefienmentComp(_SurfPipelineComp):
+    """Elevated CP -> analysis CP (the reference's file name kept:
+    cpsurf_knot_refienment_comp)."""
+
+    matrix_of = staticmethod(lambda d2a, i: d2a.refinement_matrix(i))
+
+
+class CPSurfReguComp(_SurfPipelineComp):
+    """Consecutive-difference regularization rows along `regu_axis` (use
+    as >= eps)."""
+
+    def initialize(self):
+        super().initialize()
+        self.options.declare("regu_axis", default=0)
+
+    def init_parameters(self):
+        axis = self.options["regu_axis"]
+        self.matrix_of = lambda d2a, i: d2a.regu_rows(i, axis)
+        super().init_parameters()
+
+
+class CPSurfPinComp(_SurfPipelineComp):
+    """Pinned design-dof selection rows (`pinned`: surface -> dofs)."""
+
+    def initialize(self):
+        super().initialize()
+        self.options.declare("pinned", default={})
+
+    def init_parameters(self):
+        pinned = self.options["pinned"]
+        self.matrix_of = lambda d2a, i: d2a.pin_rows(i, pinned.get(i, ()))
+        super().init_parameters()
+
+
+CPSurfKnotRefinementComp = CPSurfKnotRefienmentComp  # corrected-name alias

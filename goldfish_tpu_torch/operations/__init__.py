@@ -1,4 +1,8 @@
 from goldfish_tpu_torch.operations.disp_imop import DispImOperation
+from goldfish_tpu_torch.operations.disp_mi_imop import (
+    CPIGA2XiImOperation,
+    DispMintImOperation,
+)
 from goldfish_tpu_torch.operations.exops import (
     ComplianceExOperation,
     IntEnergyExOperation,
@@ -8,6 +12,8 @@ from goldfish_tpu_torch.operations.exops import (
 
 __all__ = [
     "DispImOperation",
+    "DispMintImOperation",
+    "CPIGA2XiImOperation",
     "IntEnergyExOperation",
     "VolumeExOperation",
     "ComplianceExOperation",

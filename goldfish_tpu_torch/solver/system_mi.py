@@ -65,7 +65,8 @@ from goldfish_tpu_torch.solver.system import (
 
 __all__ = ["MINonMatchingSystem", "data_at", "total_potential_mi",
            "residual_mi", "assemble_K_mi", "PersistentDeviceFactorMI",
-           "newton_solve_mi_host", "adjoint_solve_mi", "build_solve_fn_mi"]
+           "newton_solve_mi_host", "adjoint_lambda_mi", "adjoint_solve_mi",
+           "build_solve_fn_mi"]
 
 
 def data_at(data: SystemData, mi, co, ss, p, q, xi) -> SystemData:
@@ -342,10 +343,10 @@ def newton_solve_mi_host(data, mi, co, ss, p, q, cp, h, xi, d0,
 
 
 # ------------------------------------------------------------ adjoint
-def adjoint_solve_mi(data, mi, co, ss, p, q, d, cp, h, xi, g,
-                     device_fac=None, lam_ws=None):
-    """MI adjoint on the persistent factor: K(d) lam = g by certificate-
-    gated IR, then (dcp, dh, dxi) = -lam^T dR/d(cp, h, xi).
+def adjoint_lambda_mi(data, mi, co, ss, p, q, d, cp, h, xi, g,
+                      device_fac=None, lam_ws=None):
+    """K(d) lam = g on the free dofs (lam masked) on the persistent MI
+    factor, by certificate-gated IR.
 
     Plain and sequential: refresh the seam correction; one IR solve seeded
     from `lam_ws` (a SecantWarmStart over (cp, h, xi, g)) when it has a
@@ -382,6 +383,15 @@ def adjoint_solve_mi(data, mi, co, ss, p, q, d, cp, h, xi, g,
         lam = fac.exact_solve(cp, h, xi, d, b) * data.free
     if lam_ws is not None:
         lam_ws.update(key, lam)
+    return lam
+
+
+def adjoint_solve_mi(data, mi, co, ss, p, q, d, cp, h, xi, g,
+                     device_fac=None, lam_ws=None):
+    """MI adjoint on the persistent factor: lam = `adjoint_lambda_mi`, then
+    (dcp, dh, dxi) = -lam^T dR/d(cp, h, xi)."""
+    lam = adjoint_lambda_mi(data, mi, co, ss, p, q, d, cp, h, xi, g,
+                            device_fac=device_fac, lam_ws=lam_ws)
     return _res_vjp_mi(data, mi, co, ss, p, q, d, cp, h, xi, lam)
 
 
@@ -400,19 +410,26 @@ class _SolverMI:
         self.shared = {}
         self.last_its = None
 
+    def solve(self, cp, h, xi, d0):
+        """Newton solve from d0 on the persistent factor
+        (`newton_solve_mi_host`) with the floor hint; returns d."""
+        d, its, rn = newton_solve_mi_host(
+            *self.args, cp, h, xi, d0, rtol=self.rtol,
+            atol=max(self.atol, self.floor_hint), max_it=self.max_it,
+            device_fac=self.factor, shared=self.shared)
+        self.last_its = its
+        if its < self.max_it and rn <= 1e-2 * self.shared["r_ref"]:
+            # converged or floored in the Newton basin
+            self.floor_hint = max(self.atol, 1.5 * rn)
+        return d
+
 
 class _ImplicitSolveMI(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, solver: _SolverMI, cp, h, xi, d0):
         cp, h, xi = cp.detach(), h.detach(), xi.detach()
-        d, its, rn = newton_solve_mi_host(
-            *solver.args, cp, h, xi, d0.detach(), rtol=solver.rtol,
-            atol=max(solver.atol, solver.floor_hint), max_it=solver.max_it,
-            device_fac=solver.factor, shared=solver.shared)
-        solver.last_its = its
-        if its < solver.max_it and rn <= 1e-2 * solver.shared["r_ref"]:
-            solver.floor_hint = max(solver.atol, 1.5 * rn)
+        d = solver.solve(cp, h, xi, d0.detach())
         ctx.solver = solver
         # the very (cp, xi) objects of the forward: the factor's Woodbury
         # update is cached on their identity, so the adjoint reuses it

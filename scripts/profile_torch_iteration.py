@@ -25,6 +25,15 @@ driver's totals at the start untimed, then fun (run_model) and jac
 (linearize + compute_totals of the objective and constraints) at a thickness
 design moved by 1e-4 relative, each under torch.profiler.
 
+--om-mi: one warm SLSQP evaluation of the moving-intersection T-beam
+shape optimization through its OpenMDAO graph
+(goldfish_tpu_torch/demos/om_tbeam_shopt_mi.py at num_el=40, p=3,
+n_pts=17: N = 6072, 18 design CPs; CPIGA2XiComp -> DispMintStatesComp ->
+IntEnergyComp on the port's om_shim): run_model and the driver's totals
+(w_int, the pin and the 17 xi-edge rows) at the start untimed, then fun
+(run_model) and jac (linearize + compute_totals) at a design moved by
+1e-4 relative, each under torch.profiler.
+
 --pegasus: the pegasus-91 box-wing thickness optimization
 (goldfish_tpu_torch/demos/pegasus_thickness_opt.py at full size: 91
 patches, N = 11466): on its Newton-Krylov route (GMRES-IR forward and
@@ -56,7 +65,7 @@ top device operations by self time. Chrome traces go to
 <trace_dir>/profile_<tag>.json (a fresh temporary directory by default).
 
     python scripts/profile_torch_iteration.py [trace_dir]
-        [--mi | --tube | --plate | --pegasus | --vlm | --press]
+        [--mi | --tube | --plate | --om-mi | --pegasus | --vlm | --press]
 """
 
 from __future__ import annotations
@@ -175,14 +184,14 @@ def main_tube(out):
                    f"{solve.device_factor.n_factor - nf}")
 
 
-def main_plate(out):
+def profile_om_graph(out, tag, prob, design):
+    """An OpenMDAO graph's SLSQP fun (run_model) and jac (linearize +
+    compute_totals of the objective and constraints w.r.t. `design`): both
+    at the start untimed, then both at a design moved by 1e-4 relative,
+    each under torch.profiler."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
-    from goldfish_tpu_torch.demos import plate_var_th_opt_stress as demo
-
-    dev = torch.device("cuda", 0)
-    prob, sys_, th, _, _ = demo.build_problem(num_el=32, device=dev)
     model = prob.model
     of = [model._objective[0]] + list(model._constraints)
     fac = model._subs["disp_states_comp"].op.factor
@@ -191,12 +200,12 @@ def main_plate(out):
         prob.run_model()
 
     def jac():
-        prob.compute_totals(of, [demo.FFD], jacs=prob._linearize_all())
+        prob.compute_totals(of, [design], jacs=prob._linearize_all())
 
     fun()
     jac()
-    x0 = np.asarray(prob[demo.FFD]).copy()
-    prob[demo.FFD] = x0 * (1.0 + 1e-4 * np.random.default_rng(0).normal(
+    x0 = np.asarray(prob[design]).copy()
+    prob[design] = x0 * (1.0 + 1e-4 * np.random.default_rng(0).normal(
         size=x0.size))
     for what, fn in (("fun", fun), ("jac", jac)):
         nf = fac.n_factor
@@ -206,8 +215,23 @@ def main_plate(out):
             fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        report(f"plate_{what}", prof, wall, out,
+        report(f"{tag}_{what}", prof, wall, out,
                f"factorizations {fac.n_factor - nf}")
+
+
+def main_plate(out):
+    from goldfish_tpu_torch.demos import plate_var_th_opt_stress as demo
+
+    prob = demo.build_problem(num_el=32, device=torch.device("cuda", 0))[0]
+    profile_om_graph(out, "plate", prob, demo.FFD)
+
+
+def main_om_mi(out):
+    from goldfish_tpu_torch.demos import om_tbeam_shopt_mi as demo
+
+    prob = demo.build_problem(num_el=40, p=3, n_pts=17,
+                              device=torch.device("cuda", 0))[0]
+    profile_om_graph(out, "om_mi", prob, "inputs_comp.CPS_design")
 
 
 def main_pegasus(out):
@@ -352,8 +376,9 @@ def main():
     from torch.profiler import ProfilerActivity, profile
 
     args = [a for a in sys.argv[1:] if a not in ("--mi", "--tube",
-                                                   "--plate", "--pegasus",
-                                                   "--vlm", "--press")]
+                                                   "--plate", "--om-mi",
+                                                   "--pegasus", "--vlm",
+                                                   "--press")]
     out = args[0] if args else tempfile.mkdtemp()
     os.makedirs(out, exist_ok=True)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -363,6 +388,8 @@ def main():
         return main_tube(out)
     if "--plate" in sys.argv[1:]:
         return main_plate(out)
+    if "--om-mi" in sys.argv[1:]:
+        return main_om_mi(out)
     if "--pegasus" in sys.argv[1:]:
         return main_pegasus(out)
     if "--vlm" in sys.argv[1:]:

@@ -205,7 +205,10 @@ def test_port_imports_without_jax():
             "goldfish_tpu_torch.demos.pegasus_thickness_opt, "
             "goldfish_tpu_torch.physics.vlm, "
             "goldfish_tpu_torch.models.slr, "
-            "goldfish_tpu_torch.demos.vlm_aeroelastic_wing; "
+            "goldfish_tpu_torch.demos.vlm_aeroelastic_wing, "
+            "goldfish_tpu_torch.design.cp_design, "
+            "goldfish_tpu_torch.operations.disp_mi_imop, "
+            "goldfish_tpu_torch.demos.om_tbeam_shopt_mi; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'goldfish_tpu' "
             "or m.startswith('goldfish_tpu.')]; "
