@@ -84,6 +84,27 @@ Phases (any failure raises: non-zero exit, no result line):
    and the pin residual the reference's (the clip, 0.05); its walls per fun
    and jac evaluation, nfev/njev, the factorizations and the xi route are
    printed, not gated;
+6c. eVTOL MI path: the wing box with moving spar and rib seams of
+   goldfish_tpu_torch/demos/evtol_wing_shopt_mi.py at the demo's own size
+   (`build_problem(num_el=4, p=3)`, variant rspar_rrib: 3 design dofs,
+   four seams of 11 points): K5-K7 and K1-K4 at its shapes against their
+   plain versions (1e-11; `phase_mi_kernels`), then the counted path: the
+   cold `run_model` and `compute_totals` against
+   tests/data/torch_port_om_mi_5b_reference.json (w_int 1e-8, xi 1e-10 in
+   norm, totals 1e-6), K1's four modes, K2's three, K3, K4, K5, K6 and K7's
+   modes 0, 1 and 2 launched on it; then `run_driver` (SLSQP, maxiter 6):
+   w_int lower by more than 25%, the spar moved by more than 0.05, the
+   design within 1e-4 of the JAX run's, the xi-edge invariant within
+   1e-8; its walls per fun and jac, nit/nfev/njev beside JAX's and the
+   factorizations are printed;
+6d. the 4-patch moving-seam tube with multi-block FFD through the OpenMDAO
+   graph of goldfish_tpu_torch/demos/tube_shopt_mi_4patch_wffd.py at the
+   tube phases' size and pressure (num_el=16, p=3, 1e2 Pa; its kernels
+   are checked at these shapes in phase 7): the cold `run_model` and
+   totals of int_E w.r.t. both design fields against the same file (J
+   1e-8, xi 1e-10, totals 1e-6), the OM MI kernels and K8's three modes
+   launched; then `run_driver` (SLSQP, maxiter 3): J lower and within 1e-6
+   of the JAX run's end, the designs within 1e-4, every free xi in (0, 1);
 7. tube kernels: the pressurized tube at the size and follower pressure of
    tests/data/torch_port_tube16_reference.json (num_el=16, p=3: 4 patches,
    degree (3, 2), 12 qps, N = 8436) on the card, at d = the pressure's linear
@@ -242,6 +263,8 @@ REF_OM_MI = os.path.join(ROOT, "tests", "data",
                          "torch_port_om_mi_reference.json")
 REF_CONTACT = os.path.join(ROOT, "tests", "data",
                            "torch_port_contact_reference.json")
+REF_5B = os.path.join(ROOT, "tests", "data",
+                      "torch_port_om_mi_5b_reference.json")
 CONTACT_TOL = {"contact_pairs/value_grad": 1e-11, "contact_pairs/hvp": 1e-11,
                "contact_pairs/hess": 1e-11, "contact_pairs/cull": 0.0}
 VLM_WIDE = dict(n_chord=4, n_span=5, num_el=6, p=3, mc=16, ns=64)
@@ -513,6 +536,9 @@ OM_MI_KERNELS = WING_KERNELS + (
     "c2x_res_jac/res_jac", "c2x_res_jac/adjoint", "c2x_res_jac/step")
 PRESSURE_KERNELS = ("pressure_qp/value_grad", "pressure_qp/hess",
                     "pressure_qp/adjoint")
+# the 4-patch tube through the OpenMDAO graph: the OM MI kernels and the
+# follower pressure's
+TUBE_OM_MI_KERNELS = OM_MI_KERNELS + PRESSURE_KERNELS
 TUBE_KERNELS = WING_KERNELS + ("shell_qp/geom_grad",) + PRESSURE_KERNELS
 TUBE_MI_KERNELS = MI_PATH_KERNELS + PRESSURE_KERNELS
 PLATE_KERNELS = WING_KERNELS + ("vm_stress_qp/value", "vm_stress_qp/vjp")
@@ -1221,11 +1247,11 @@ def k6_reproducible(sys_, runs=5):
                            "to launch")
 
 
-def mi_kernel_cases(sys_, edge=True):
+def mi_kernel_cases(sys_, edge=True, label="mi-kernel"):
     """(name, case...) -> (kernel fn, plain fn, flops, inputs) of an MI
     system; the first case of each name is the one the MI path runs.
     `edge` adds K7's edge-to-edge variant on a synthetic seam (for a system
-    whose own seams do not take it)."""
+    whose own seams do not take it); `label` prefixes the printed lines."""
     from goldfish_tpu_torch.geometry import cpiga2xi
     from goldfish_tpu_torch.ops import bspline_traced as bt
     from goldfish_tpu_torch.physics import coupling_mi
@@ -1313,16 +1339,15 @@ def mi_kernel_cases(sys_, edge=True):
     dn = d + T(1e-3 * float(d.abs().max())
                * rng.normal(size=tuple(cp.shape))) * data.free
     v = T(rng.normal(size=tuple(cp.shape)))
-    tag = "mi-kernel" if edge else "tube-mi-kernel"
-    for name, case in fixed_cases(dx, dn, cp, h, lam, v, tag).items():
+    for name, case in fixed_cases(dx, dn, cp, h, lam, v, label).items():
         cases[(name, "mi")] = case
     # K3 through the Woodbury seam-slot map: every dof outside the seam
     # subspace lands in one padding slot whose free entry is 0
     fac = system_mi.PersistentDeviceFactorMI(*sys_.mi_args)
     fac.ensure(cp, h, xi, d, force=True, why="smoke")
     H_i, tab = fac._interface_hessians((cp, h, xi, d))
-    k3_runs(tag + " seam-slots", [("interface", fac._slot[tab.gi_i.long()])],
-            fac._free_m)
+    k3_runs(label + " seam-slots",
+            [("interface", fac._slot[tab.gi_i.long()])], fac._free_m)
     cases[("jet_assemble", "seam-slots")] = (
         lambda: fac._compact_K(H_i, tab),
         lambda: fac._compact_K(H_i, tab, system._assemble_plain),
@@ -1373,23 +1398,25 @@ def merge(checks, name, got, suffix=None):
                      or k.startswith(("ms_", "bound_ms_"))})
 
 
-def phase_mi_kernels(sys_, checks, reps=5, tube=False):
+def phase_mi_kernels(sys_, checks, reps=5, system="mi"):
     """Check every MI case of `sys_` and merge it into `checks`. On the
-    T-beam the MI path's case of K1-K4 adds its times as *_mi; on the tube
-    (`tube`) those add *_tube_mi and K5-K7's own cases *_tube."""
+    T-beam (`system` "mi") the MI path's case of K1-K4 adds its times as
+    *_mi; on another system ("tube", "evtol") those add *_<system>_mi and
+    K5-K7's own cases *_<system>."""
     seam_conditioning(sys_)
-    tag = "tube-mi-kernel" if tube else "mi-kernel"
-    for key, case in mi_kernel_cases(sys_, edge=not tube).items():
+    tbeam_ = system == "mi"
+    tag = "mi-kernel" if tbeam_ else f"{system}-mi-kernel"
+    for key, case in mi_kernel_cases(sys_, edge=tbeam_, label=tag).items():
         name = key[0]
         got = check_kernels({name: case}, tag + " " + "/".join(
             str(k) for k in key[1:]), reps, tol=FUSED_TOL)[name]
         suffix = None
         if key[1:] == ("mi",):
-            suffix = "tube_mi" if tube else "mi"
-        elif tube and key[1:] in ((), ("moved",)):
-            suffix = "tube"
+            suffix = "mi" if tbeam_ else f"{system}_mi"
+        elif not tbeam_ and key[1:] in ((), ("moved",)):
+            suffix = system
         merge(checks, name, got, suffix)
-    if not tube:
+    if tbeam_:
         c7_reproducible(sys_)
         k6_reproducible(sys_)
     return checks
@@ -1739,27 +1766,14 @@ def phase_om_mi(dev, ref):
     check_counts("om-mi", counts, OM_MI_KERNELS)
 
     want = ref["driver"]
-    fun, jac = timed_driver(prob)
-    t0 = time.perf_counter()
-    prob.run_driver()
-    wall = time.perf_counter() - t0
-    res = prob._driver_result
-    w1 = float(prob[W][0])
+    res, w1 = om_driver("om-mi", prob, fac, W, w0)
     edge = float(np.max(np.abs(prob[EDGE])))
     pin = float(np.max(np.abs(prob[PIN]
                               - prob.model._constraints[PIN]["equals"])))
-    say(f"[om-mi] slsqp {wall:.2f} s: nit {res.nit} nfev {res.nfev} njev "
-        f"{res.njev}; {res.message} (ref nit {want['nit']} nfev "
-        f"{want['nfev']} njev {want['njev']}; {want['message']})")
-    say(f"[om-mi] w_int {w0!r} -> {w1!r} (ref {want['w_int_end']!r}); "
-        f"xi-edge residual {edge!r}; pin residual {pin!r} (ref "
+    say(f"[om-mi] JAX: nit {want['nit']} nfev {want['nfev']} njev "
+        f"{want['njev']}; {want['message']}; w_int -> {want['w_int_end']!r}")
+    say(f"[om-mi] xi-edge residual {edge!r}; pin residual {pin!r} (ref "
         f"{want['pin_residual_max']!r})")
-    say(f"[om-mi] wall per fun median {float(np.median(fun)):.3f} s (n "
-        f"{len(fun)}, max {max(fun):.3f}); per jac median "
-        f"{float(np.median(jac)):.3f} s (n {len(jac)}, max {max(jac):.3f})")
-    say(f"[om-mi] n_factor {fac.n_factor} (failed {fac.n_factor_failed}); "
-        f"refactor_log {fac.refactor_log}; cert_log tail "
-        f"{fac.cert_log[-8:]}")
     check_rel("om-mi", "end w_int", w1, want["w_int_end"], 1e-8)
     if not (w1 < w0 and edge <= 1e-6
             and abs(pin - want["pin_residual_max"]) <= 1e-12
@@ -1770,6 +1784,167 @@ def phase_om_mi(dev, ref):
     counts = dict(_cuda.launch_counts)
     say(f"[om-mi] phase {time.perf_counter() - t_phase:.1f} s; launch counts "
         f"with the driver {counts}")
+    return counts
+
+
+def om_driver(tag, prob, fac, J, w0):
+    """run_driver with its fun and jac walls: prints the outcome, the
+    walls, the factorizations; returns (SciPy's result, the end J)."""
+    fun, jac = timed_driver(prob)
+    t0 = time.perf_counter()
+    prob.run_driver()
+    wall = time.perf_counter() - t0
+    res = prob._driver_result
+    w1 = float(np.asarray(prob[J]).ravel()[0])
+    say(f"[{tag}] slsqp {wall:.2f} s: nit {res.nit} nfev {res.nfev} njev "
+        f"{res.njev}; {res.message}; J {w0!r} -> {w1!r} "
+        f"({100 * (1 - w1 / w0):.1f}% lower)")
+    say(f"[{tag}] wall per fun median {float(np.median(fun)):.3f} s (n "
+        f"{len(fun)}, max {max(fun):.3f}); per jac median "
+        f"{float(np.median(jac)):.3f} s (n {len(jac)}, max {max(jac):.3f})")
+    say(f"[{tag}] n_factor {fac.n_factor} (failed {fac.n_factor_failed}); "
+        f"refactor_log {fac.refactor_log}; cert_log tail "
+        f"{fac.cert_log[-8:]}")
+    return res, w1
+
+
+def om_cold(tag, prob, op, s, ref, J, X, XI, dJ, t_phase):
+    """The cold run_model and compute_totals of an OpenMDAO MI graph
+    against the JAX reference (J 1e-8, xi 1e-10 in norm, totals 1e-6 a
+    design input); X: the design inputs, dJ their reference totals."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prob.run_model()
+    t_cold = time.perf_counter() - t0
+    w0 = float(np.asarray(prob[J]).ravel()[0])
+    e_xi = float(np.linalg.norm(np.asarray(prob[XI]).ravel()
+                                - np.asarray(ref["xi"])))
+    say(f"[{tag}] cold run_model {t_cold:.3f} s: J {w0!r} (ref "
+        f"{ref['J']!r}); |xi - xi_ref| {e_xi:.3e} (gate 1e-10); newton its "
+        f"{op.solver.last_its}, xi-newton its {s.c2x.last_its}")
+    check_rel(tag, "J", w0, ref["J"], 1e-8)
+    if not e_xi <= 1e-10:
+        raise RuntimeError(f"{tag}: xi disagrees with the JAX CPU "
+                           f"reference: {e_xi:.3e} in norm")
+    t0 = time.perf_counter()
+    tot = prob.compute_totals([J], list(X))
+    t_tot = time.perf_counter() - t0
+    for x, want in zip(X, dJ):
+        check_rel(tag, f"dJ/d{x.split('.')[-1]} ({t_tot:.3f} s)",
+                  tot[(J, x)].ravel(), want, 1e-6)
+    say(f"[{tag}] phase so far {time.perf_counter() - t_phase:.1f} s")
+    return w0
+
+
+def phase_evtol_mi(dev, checks, ref):
+    """The eVTOL wing with moving spar and rib seams through the port
+    demo's OpenMDAO graph at the demo's own size: K1-K7 at its shapes
+    against their plain versions, then the counted path: the cold
+    run_model and totals against the JAX reference and SLSQP through
+    run_driver against the JAX run's outcome."""
+    from goldfish_tpu_torch import _cuda
+    from goldfish_tpu_torch.demos import evtol_wing_shopt_mi as demo
+
+    W, X = "int_energy_comp.w_int", "inputs_comp.spar_rib_design"
+    XI, EDGE = "cpiga2xi_comp.int_para_coords", "int_xi_edge_comp.int_xi_edge"
+    t_phase = time.perf_counter()
+    prob, s = demo.build_problem(num_el=ref["num_el"], p=ref["p"],
+                                 maxiter=ref["maxiter"],
+                                 variant=ref["variant"], device=dev)
+    op = prob.model._subs["disp_states_comp"].op
+    fac = op.factor
+    say(f"[setup] eVTOL MI wing built in {time.perf_counter() - t_phase:.1f}"
+        f" s: N={s.cp.numel()} design {prob[X].size} seams (I, N)="
+        f"({s.mi.n_int}, {s.mi.n_max}) degree ({s.pdeg}, {s.qdeg})")
+    if not np.max(np.abs(prob[X] - np.asarray(ref["x"]))) <= 1e-15:
+        raise RuntimeError("evtol-mi: the design start differs from the "
+                           "JAX demo's")
+    phase_mi_kernels(s, checks, system="evtol")
+    torch.cuda.empty_cache()
+
+    reset_counts()
+    w0 = om_cold("evtol-mi", prob, op, s, dict(ref, J=ref["w_int"]), W,
+                 (X,), XI, (ref["dw_int_dx"],), t_phase)
+    counts = dict(_cuda.launch_counts)
+    say_shapes("evtol-mi")
+    say(f"[evtol-mi] xi route {s.c2x.route} (seams of {s.mi.n_max} "
+        f"points); K7 launches "
+        f"{ {k: counts[k] for k in counts if k.startswith('c2x_res_jac/')} }")
+    check_counts("evtol-mi", counts, OM_MI_KERNELS)
+
+    want = ref["driver"]
+    res, w1 = om_driver("evtol-mi", prob, fac, W, w0)
+    x1 = np.asarray(prob[X]).ravel()
+    ex = float(np.max(np.abs(x1 - np.asarray(want["x_end"][0]))))
+    edge = float(np.max(np.abs(prob[EDGE])))
+    say(f"[evtol-mi] JAX: nit {want['nit']} nfev {want['nfev']} njev "
+        f"{want['njev']}; {want['message']}; J -> {want['J_end']!r}")
+    say(f"[evtol-mi] design {x1.tolist()} (JAX {want['x_end'][0]}); max "
+        f"|x - x_JAX| {ex:.3e} (gate 1e-4); xi-edge {edge:.3e}")
+    if not (w1 < 0.75 * w0 and ex <= 1e-4 and edge <= 1e-8
+            and abs(x1[0] - 0.30) > 0.05):
+        raise RuntimeError(f"evtol-mi: SLSQP does not end where the JAX "
+                           f"demo's does: J {w0!r} -> {w1!r}, design "
+                           f"{x1.tolist()} ({ex:.3e} from JAX's), xi-edge "
+                           f"{edge:.3e}")
+    counts = dict(_cuda.launch_counts)
+    say(f"[evtol-mi] phase {time.perf_counter() - t_phase:.1f} s; launch "
+        f"counts with the driver {counts}")
+    return counts
+
+
+def phase_tube_om_mi(dev, ref):
+    """The 4-patch moving-seam tube with multi-block FFD through the port
+    demo's OpenMDAO graph, at the tube phases' size and pressure (their
+    kernels are checked at these shapes in phase 7): the cold run_model
+    and totals against the JAX reference, then SLSQP through run_driver
+    against the JAX run's outcome."""
+    from goldfish_tpu_torch import _cuda
+    from goldfish_tpu_torch.demos import tube_shopt_mi_4patch_wffd as demo
+
+    J = "internal_energy_comp.int_E"
+    X = ("inputs_comp.CP_design_FFD0", "inputs_comp.CP_design_FFD1")
+    XI = "cpiga2xi_comp.int_para"
+    t_phase = time.perf_counter()
+    prob, s, _ = demo.build_problem(num_el=ref["num_el"], p=ref["p"],
+                                    maxiter=ref["maxiter"],
+                                    pressure=ref["pressure"], device=dev)
+    op = prob.model._subs["disp_states_comp"].op
+    fac = op.factor
+    say(f"[setup] OM 4-patch tube built in "
+        f"{time.perf_counter() - t_phase:.1f} s: N={s.cp.numel()} design "
+        f"{sum(prob[x].size for x in X)} seams (I, N)=({s.mi.n_int}, "
+        f"{s.mi.n_max}) pressure {ref['pressure']:g}")
+    for x, want in zip(X, ref["x0"]):
+        if not np.max(np.abs(prob[x] - np.asarray(want))) <= 1e-15:
+            raise RuntimeError("tube-om-mi: the design start differs from "
+                               "the JAX demo's")
+    reset_counts()
+    w0 = om_cold("tube-om-mi", prob, op, s, dict(ref, J=ref["J0"]), J, X, XI,
+                 ref["dJ_dx"], t_phase)
+    counts = dict(_cuda.launch_counts)
+    say_shapes("tube-om-mi")
+    check_counts("tube-om-mi", counts, TUBE_OM_MI_KERNELS)
+
+    want = ref["driver"]
+    res, w1 = om_driver("tube-om-mi", prob, fac, J, w0)
+    ex = max(float(np.max(np.abs(np.asarray(prob[x]).ravel()
+                                 - np.asarray(w)))) for x, w
+             in zip(X, want["x_end"]))
+    xi = np.asarray(prob[XI]).ravel()[prob.model.xi_free]
+    say(f"[tube-om-mi] JAX: nit {want['nit']} nfev {want['nfev']} njev "
+        f"{want['njev']}; {want['message']}; J -> {want['J_end']!r}")
+    say(f"[tube-om-mi] max |x - x_JAX| {ex:.3e} (gate 1e-4); free xi in "
+        f"[{float(xi.min())!r}, {float(xi.max())!r}]")
+    check_rel("tube-om-mi", "end J", w1, want["J_end"], 1e-6)
+    if not (w1 < w0 and ex <= 1e-4 and 0.0 < xi.min() and xi.max() < 1.0):
+        raise RuntimeError(f"tube-om-mi: SLSQP does not end where the JAX "
+                           f"demo's does: J {w0!r} -> {w1!r}, design "
+                           f"{ex:.3e} from JAX's, free xi in "
+                           f"[{float(xi.min())!r}, {float(xi.max())!r}]")
+    counts = dict(_cuda.launch_counts)
+    say(f"[tube-om-mi] phase {time.perf_counter() - t_phase:.1f} s; launch "
+        f"counts with the driver {counts}")
     return counts
 
 
@@ -1910,7 +2085,7 @@ def phase_tube_mi(dev, checks, ref):
                                    "tube-mi-kernel").items():
         merge(checks, name, got, "tube_mi")
     del d, lam
-    phase_mi_kernels(s, checks, tube=True)
+    phase_mi_kernels(s, checks, system="tube")
     torch.cuda.empty_cache()
 
     fac = ns.forward.solve_d.device_factor
@@ -3068,6 +3243,14 @@ def main():
     with open(REF_OM_MI) as fh:
         counts_om_mi = phase_om_mi(dev, json.load(fh)["full"])
     torch.cuda.empty_cache()
+    with open(REF_5B) as fh:
+        ref_5b = json.load(fh)
+    t0 = time.perf_counter()
+    counts_evtol = phase_evtol_mi(dev, checks, ref_5b["evtol_card"])
+    torch.cuda.empty_cache()
+    counts_tube_om = phase_tube_om_mi(dev, ref_5b["tube_card"])
+    torch.cuda.empty_cache()
+    say(f"[om-mi-5b] phases 6c-6d {time.perf_counter() - t0:.1f} s")
 
     counts_tf, fac = phase_tube_fixed(dev, checks, ref_tube)
     library += time_library("tube16", fac)
@@ -3153,6 +3336,8 @@ def main():
 
     paths = {"wing": (counts, WING_KERNELS), "mi": (counts_mi, None),
              "om_mi": (counts_om_mi, None),
+             "evtol_mi": (counts_evtol, None),
+             "tube_om_mi": (counts_tube_om, None),
              "tube": (counts_tf, None), "tube_mi": (counts_tm, None),
              "plate": (counts_pl, None), "pegasus_dense": (counts_pd, None),
              "pegasus_krylov": (counts_pk, None), "vlm": (counts_vlm, None),

@@ -1,8 +1,9 @@
 """Linear design-space constraint operators on FFD / surface CP grids.
 
 A NumPy copy of goldfish_tpu/design/constraints.py (`grid_dof`,
-`align_operator`, `pin_operator`, `regu_operator`): small dense host
-matrices, applied as matrix products inside constraint functions.
+`align_operator`, `align_expansion_operator`, `pin_operator`,
+`regu_operator`): small dense host matrices, applied as matrix products
+inside constraint functions.
 
 Grid dof order is x-fastest (dof = i + j*nx + k*nx*ny).
 """
@@ -11,7 +12,8 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["grid_dof", "align_operator", "pin_operator", "regu_operator"]
+__all__ = ["grid_dof", "align_operator", "align_expansion_operator",
+           "pin_operator", "regu_operator"]
 
 
 def grid_dof(i, j, k, nx, ny):
@@ -57,6 +59,30 @@ def align_operator(shape, axis) -> np.ndarray:
             r[other] = -1.0
             rows.append(r)
     return np.stack(rows) if rows else np.zeros((0, n))
+
+
+def align_expansion_operator(shape, axis):
+    """The alignment constraint in expansion form: one design dof per
+    aligned grid line (or slab), broadcast to every member, as the
+    reference's multi-FFD drivers do it (the design space has fewer dofs
+    instead of A @ x = 0 rows). Returns (A, reps): A is (n_full, n_design);
+    `reps` are the representative full-grid dofs (x-fastest order) whose
+    initial values seed the design vector (x_full0[reps] == design0)."""
+    nx, ny, nz = shape
+    axes = (axis,) if np.ndim(axis) == 0 else tuple(axis)
+    groups = {}
+    for k in range(nz):
+        for j in range(ny):
+            for i in range(nx):
+                key = tuple(c for a, c in enumerate((i, j, k))
+                            if a not in axes)
+                groups.setdefault(key, []).append(grid_dof(i, j, k, nx, ny))
+    A = np.zeros((nx * ny * nz, len(groups)))
+    reps = np.empty(len(groups), dtype=int)
+    for col, dofs in enumerate(groups.values()):
+        A[dofs, col] = 1.0
+        reps[col] = dofs[0]
+    return A, reps
 
 
 def pin_operator(shape, pinned) -> np.ndarray:

@@ -1,10 +1,12 @@
 """Design-variable pipelines: flat design vectors -> padded system tensors.
 
 Port of goldfish_tpu/design/pipeline.py (`CPLayout`, `ThicknessFFD`,
-`PatchConstantThickness`, `ShapeFFD`). The FFD basis evaluation is one
-constant dense matrix F built on the host (design/ffd.py, NumPy); the maps
-h_ffd -> F h_ffd -> padded (P, C) and p_ffd -> padded (P, C, 3) are
-matrix-vector products and index gathers, differentiable by autograd.
+`PatchConstantThickness`, `ShapeFFD`, `MultiThicknessFFD`,
+`MultiShapeFFD`). The FFD basis evaluation is one constant dense matrix F
+a block, built on the host (design/ffd.py, NumPy); the maps h_ffd -> F
+h_ffd -> padded (P, C) and p_ffd -> padded (P, C, 3) are matrix-vector
+products, index gathers and (multi-block) row scatters, differentiable by
+autograd.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from goldfish_tpu_torch.design.ffd import FFDBlock, create_3D_block
 from goldfish_tpu_torch.geometry.patch_stack import PatchMeta
 
 __all__ = ["CPLayout", "ThicknessFFD", "PatchConstantThickness",
-           "ShapeFFD"]
+           "ShapeFFD", "MultiThicknessFFD", "MultiShapeFFD"]
 
 
 class CPLayout:
@@ -99,8 +101,8 @@ class PatchConstantThickness:
 
 
 def _block_around(metas, num_els, p, lims):
-    """FFDBlock around all surface CPs (bounding box padded by 1e-6 unless
-    `lims` is given)."""
+    """FFDBlock around all surface CPs of `metas` (bounding box padded by
+    1e-6 unless `lims` is given)."""
     pts = np.concatenate([m.surf.points.reshape(-1, 3) for m in metas],
                          axis=0)
     if lims is None:
@@ -142,3 +144,79 @@ class ShapeFFD:
             cols[f] = self.layout.to_padded(
                 self.F @ p_ffd_flat[a * n:(a + 1) * n])
         return torch.stack(cols, dim=-1)
+
+
+class _MultiFFDBase:
+    """Multi-block FFD: each block controls a subset of patches (the
+    reference's `set_shopt_multiFFD` / `set_thopt_multiFFD`). The design
+    vector concatenates the blocks' coefficient vectors; block k's
+    evaluation matrix `Fs[k]` acts on its patches' rows `rows[k]` of the
+    flat CP vector (`F @ x` on the system's device, a small dense
+    product)."""
+
+    def __init__(self, system, groups):
+        """groups: list of dicts with keys 'patches' (indices), 'num_els',
+        'p' and optionally 'lims'."""
+        device = system.device
+        metas = system.metas
+        self.layout = CPLayout(metas, system.stack.max_cp, device)
+        off = self.layout.offsets
+        self.blocks, self.Fs, self.rows = [], [], []
+        self.sizes, self.shapes = [], []
+        for g in groups:
+            _, ffd = _block_around([metas[i] for i in g["patches"]],
+                                   g["num_els"], g["p"], g.get("lims"))
+            rows = np.concatenate([np.arange(off[i], off[i + 1])
+                                   for i in g["patches"]])
+            self.blocks.append(ffd)
+            self.Fs.append(tensor(ffd.F, device))
+            self.rows.append(tensor(rows, device, torch.int64))
+            self.sizes.append(ffd.n_ffd)
+            self.shapes.append(ffd.shape)
+        self.offsets = np.cumsum([0] + self.sizes)
+        self.n_design = int(self.offsets[-1])
+
+    def _block_field(self, k, xk, base):
+        """`base` (n_flat,) with block k's rows set to F_k @ xk."""
+        return base.index_copy(0, self.rows[k], self.Fs[k] @ xk)
+
+
+class MultiThicknessFFD(_MultiFFDBase):
+    """Concatenated per-block thickness coefficients -> padded (P, C)."""
+
+    def init_h_ffd(self, h0) -> np.ndarray:
+        return np.full(self.n_design, float(h0))
+
+    def __call__(self, x):
+        flat = x.new_zeros(self.layout.n_flat)
+        for k in range(len(self.Fs)):
+            flat = self._block_field(
+                k, x[self.offsets[k]:self.offsets[k + 1]], flat)
+        return self.layout.to_padded(flat)
+
+
+class MultiShapeFFD(_MultiFFDBase):
+    """Concatenated per-block, per-field coefficients -> (P, C, 3).
+
+    Design layout: block by block, and field by field within a block
+    ([block0_field_a, block0_field_b, ..., block1_...]). The CPs of the
+    patches no block controls keep their initial values."""
+
+    def __init__(self, system, groups, opt_fields=(0, 1, 2)):
+        super().__init__(system, groups)
+        self.opt_fields = tuple(opt_fields)
+        self._cp0_flat = self.layout.to_flat(system.cp)
+        self.n_design = self.n_design * len(self.opt_fields)
+
+    def init_p_ffd(self) -> np.ndarray:
+        return np.concatenate([ffd.p0[:, f] for ffd in self.blocks
+                               for f in self.opt_fields])
+
+    def __call__(self, x):
+        cols = [self._cp0_flat[:, f] for f in range(3)]
+        pos = 0
+        for k, n in enumerate(self.sizes):
+            for f in self.opt_fields:
+                cols[f] = self._block_field(k, x[pos:pos + n], cols[f])
+                pos += n
+        return self.layout.to_padded(torch.stack(cols, dim=-1))

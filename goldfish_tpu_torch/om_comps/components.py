@@ -8,10 +8,12 @@ objective components (`IntEnergyComp`, `VolumeComp`, `ComplianceComp`,
 `CPFFDPinComp`, `CPFFDReguComp`, `HthFFDAlignComp`, `HthFFDReguComp`,
 `HthMapComp`); the moving-intersection shape path's implicit
 `CPIGA2XiComp` and `DispMintStatesComp`, the `IntXiEdgeComp` constraint
-and the design-surface pipeline over `CPSurfDesign2Analysis`
+the design-surface pipeline over `CPSurfDesign2Analysis`
 (`CPSurfOrderElevationComp`, `CPSurfKnotRefienmentComp`, `CPSurfAlignComp`,
-`CPSurfReguComp`, `CPSurfPinComp`). Real OpenMDAO is used when installed,
-else the port's `om_shim` (the same API).
+`CPSurfReguComp`, `CPSurfPinComp`, `CPSurfDistanceComp`); the KS
+aggregations (`MaxIntXiComp`, `MinIntXiComp`, `CPFFDReguCompAgg`) and the
+regularized objective `IntEnergyReguComp`. Real OpenMDAO is used when
+installed, else the port's `om_shim` (the same API).
 
 Dof vectors are flat real IGA dofs (node-major xyz) in numpy, as in the
 JAX package; the operations move them to the system's device. There is no
@@ -38,18 +40,20 @@ from goldfish_tpu_torch.operations.disp_mi_imop import (
 from goldfish_tpu_torch.operations.exops import (
     ComplianceExOperation,
     IntEnergyExOperation,
+    IntEnergyReguExOperation,
     MaxvMStressExOperation,
     VolumeExOperation,
 )
 
 __all__ = [
     "DispStatesComp", "DispMintStatesComp", "CPIGA2XiComp", "IntXiEdgeComp",
-    "IntEnergyComp", "VolumeComp", "ComplianceComp",
+    "IntEnergyComp", "IntEnergyReguComp", "VolumeComp", "ComplianceComp",
     "MaxvMStressComp", "CPFE2IGAComp", "HthFE2IGAComp", "HthFFD2FEComp",
     "HthMapComp", "CPFFD2SurfComp", "CPFFDAlignComp", "CPFFDPinComp",
     "CPFFDReguComp", "HthFFDAlignComp", "HthFFDReguComp",
     "CPSurfAlignComp", "CPSurfOrderElevationComp", "CPSurfKnotRefienmentComp",
     "CPSurfKnotRefinementComp", "CPSurfReguComp", "CPSurfPinComp",
+    "CPSurfDistanceComp", "MaxIntXiComp", "MinIntXiComp", "CPFFDReguCompAgg",
 ]
 
 
@@ -302,6 +306,15 @@ class IntEnergyComp(_ObjectiveComp):
     default_out = "w_int"
 
 
+class IntEnergyReguComp(_ObjectiveComp):
+    """W_int + the CP-smoothness regularization (the reference eVTOL
+    driver's objective); op_kwargs=dict(regu_para=...) sets the penalty
+    weight."""
+
+    op_cls = IntEnergyReguExOperation
+    default_out = "w_int_regu"
+
+
 class VolumeComp(_ObjectiveComp):
     op_cls = VolumeExOperation
     default_out = "volume"
@@ -448,6 +461,94 @@ class IntXiEdgeComp(om.ExplicitComponent):
                 inputs[self.xi_name][self.dofs] - self.vals)
 
 
+class _KSAggComp(om.ExplicitComponent):
+    """Scalar KS (log-sum-exp) aggregation of a vector input, the shared
+    body of `MaxIntXiComp`, `MinIntXiComp` and `CPFFDReguCompAgg`:
+
+        sign = +1: smooth max  KS(x) = m + log(sum exp(rho (x - m))) / rho
+        sign = -1: smooth min  -KS(-x)
+
+    with m the largest entry (max-shifted, so no exponential overflows),
+    optionally of the rows A @ x of a constant operator A. The partials are
+    the softmax weights (times A). Host NumPy."""
+
+    sign = 1.0
+
+    def initialize(self):
+        self.options.declare("input_name", default="int_para_coords")
+        self.options.declare("output_name", default="ks_agg")
+        self.options.declare("input_shape", default=None)
+        self.options.declare("rho", default=50.0)
+        self.options.declare("A", default=None)
+
+    def init_parameters(self, input_shape=None):
+        if input_shape is not None:
+            self.options["input_shape"] = int(input_shape)
+        self.in_name = self.options["input_name"]
+        self.out_name = self.options["output_name"]
+        self.rho = float(self.options["rho"])
+        A = self.options["A"]
+        self._A = None if A is None else np.asarray(A, dtype=np.float64)
+        if self._A is not None:
+            self.options["input_shape"] = self._A.shape[1]
+
+    def setup(self):
+        self.add_input(self.in_name, shape=self.options["input_shape"])
+        self.add_output(self.out_name)
+        self.declare_partials(self.out_name, self.in_name)
+
+    def _shifted(self, inputs):
+        x = inputs[self.in_name]
+        y = self.sign * (x if self._A is None else self._A @ x)
+        m = y.max()
+        return m, np.exp(self.rho * (y - m))
+
+    def compute(self, inputs, outputs):
+        m, e = self._shifted(inputs)
+        outputs[self.out_name] = self.sign * (m + np.log(e.sum()) / self.rho)
+
+    def compute_partials(self, inputs, partials):
+        _, e = self._shifted(inputs)
+        w = e / e.sum()  # softmax weights; the sign cancels (sign^2 = 1)
+        partials[self.out_name, self.in_name] = \
+            w if self._A is None else w @ self._A
+
+
+class MaxIntXiComp(_KSAggComp):
+    """Smooth max over the moving intersections' parametric coordinates;
+    constrain <= 1 - eps to keep every xi inside its patch."""
+
+    sign = 1.0
+
+    def initialize(self):
+        super().initialize()
+        self.options["output_name"] = "max_int_xi"
+
+
+class MinIntXiComp(_KSAggComp):
+    """Smooth min of the xi vector; constrain >= eps."""
+
+    sign = -1.0
+
+    def initialize(self):
+        super().initialize()
+        self.options["output_name"] = "min_int_xi"
+
+
+class CPFFDReguCompAgg(_KSAggComp):
+    """Aggregated FFD regularization: the smooth min over the
+    first-difference rows A @ p_ffd (A from
+    `design.constraints.regu_operator`), constrained >= eps; one scalar
+    row replaces the per-difference inequality block."""
+
+    sign = -1.0
+
+    def initialize(self):
+        super().initialize()
+        self.options["input_name"] = "p_ffd"
+        self.options["output_name"] = "cpffd_regu_agg"
+
+
 class _SurfPipelineComp(_LinearMapComp):
     """Base of the CPSurfDesign2Analysis comps (the reference's
     surf_comps): a constant per-surface operator, block-diagonal over the
@@ -525,6 +626,22 @@ class CPSurfPinComp(_SurfPipelineComp):
     def init_parameters(self):
         pinned = self.options["pinned"]
         self.matrix_of = lambda d2a, i: d2a.pin_rows(i, pinned.get(i, ()))
+        super().init_parameters()
+
+
+class CPSurfDistanceComp(_LinearMapComp):
+    """Design-CP distance rows between one surface pair (`pair`), from
+    `CPSurfDesign2Analysis.dist_rows`."""
+
+    def initialize(self):
+        super().initialize()
+        self.options.declare("design2analysis")
+        self.options.declare("pair", default=(0, 1))
+
+    def init_parameters(self):
+        d2a = self.options["design2analysis"]
+        i, j = self.options["pair"]
+        self.options["A"] = d2a.dist_rows(i, j)
         super().init_parameters()
 
 

@@ -6,6 +6,7 @@ from goldfish_tpu_torch.operations.disp_mi_imop import (
 from goldfish_tpu_torch.operations.exops import (
     ComplianceExOperation,
     IntEnergyExOperation,
+    IntEnergyReguExOperation,
     MaxvMStressExOperation,
     VolumeExOperation,
 )
@@ -15,6 +16,7 @@ __all__ = [
     "DispMintImOperation",
     "CPIGA2XiImOperation",
     "IntEnergyExOperation",
+    "IntEnergyReguExOperation",
     "VolumeExOperation",
     "ComplianceExOperation",
     "MaxvMStressExOperation",

@@ -1,7 +1,8 @@
 """Explicit operations: objectives with their partials, adapter-ready.
 
 Port of goldfish_tpu/operations/exops.py (`IntEnergyExOperation`,
-`VolumeExOperation`, `ComplianceExOperation`, `MaxvMStressExOperation`):
+`VolumeExOperation`, `ComplianceExOperation`, `MaxvMStressExOperation`,
+`IntEnergyReguExOperation`):
 the explicit-operation protocol (`compute` + per-input `gradients`) over
 flat real-dof numpy vectors (node-major xyz). Inside, the vectors become
 padded tensors on the system's device; each gradient is one torch autograd
@@ -17,7 +18,8 @@ from goldfish_tpu_torch.design.pipeline import CPLayout
 from goldfish_tpu_torch.physics import objectives
 
 __all__ = ["IntEnergyExOperation", "VolumeExOperation",
-           "ComplianceExOperation", "MaxvMStressExOperation"]
+           "ComplianceExOperation", "MaxvMStressExOperation",
+           "IntEnergyReguExOperation"]
 
 
 class _ExOpBase:
@@ -81,3 +83,16 @@ class MaxvMStressExOperation(_ExOpBase):
                          objectives.max_vm_stress(data, d, cp, h, rho=rho,
                                                   method=method,
                                                   through=through))
+
+
+class IntEnergyReguExOperation(_ExOpBase):
+    """W_int + the per-patch CP-smoothness regularization (the reference
+    eVTOL driver's objective); the regularization's reference state is
+    the system's initial control net."""
+
+    def __init__(self, system, regu_para=1.0, field=2, h_regu=1e-3):
+        cp_init = system.cp
+        super().__init__(system, lambda data, d, cp, h:
+                         objectives.internal_energy_regu(
+                             data, d, cp, h, cp_init, regu_para,
+                             field=field, h_regu=h_regu))

@@ -34,6 +34,14 @@ IntEnergyComp on the port's om_shim): run_model and the driver's totals
 (run_model) and jac (linearize + compute_totals) at a design moved by
 1e-4 relative, each under torch.profiler.
 
+--evtol-mi: one warm SLSQP evaluation of the eVTOL wing with moving
+spar and rib seams through its OpenMDAO graph
+(goldfish_tpu_torch/demos/evtol_wing_shopt_mi.py at its own size, num_el=4,
+p=3, variant rspar_rrib: 3 design dofs, four seams of 11 points): run_model
+and the driver's totals (w_int) at the start untimed, then fun (run_model)
+and jac (linearize + compute_totals) at a design moved by 1e-4 relative,
+each under torch.profiler.
+
 --pegasus: the pegasus-91 box-wing thickness optimization
 (goldfish_tpu_torch/demos/pegasus_thickness_opt.py at full size: 91
 patches, N = 11466): on its Newton-Krylov route (GMRES-IR forward and
@@ -65,7 +73,8 @@ top device operations by self time. Chrome traces go to
 <trace_dir>/profile_<tag>.json (a fresh temporary directory by default).
 
     python scripts/profile_torch_iteration.py [trace_dir]
-        [--mi | --tube | --plate | --om-mi | --pegasus | --vlm | --press]
+        [--mi | --tube | --plate | --om-mi | --evtol-mi | --pegasus | --vlm
+         | --press]
 """
 
 from __future__ import annotations
@@ -234,6 +243,14 @@ def main_om_mi(out):
     profile_om_graph(out, "om_mi", prob, "inputs_comp.CPS_design")
 
 
+def main_evtol_mi(out):
+    from goldfish_tpu_torch.demos import evtol_wing_shopt_mi as demo
+
+    prob = demo.build_problem(num_el=4, p=3, variant="rspar_rrib",
+                              device=torch.device("cuda", 0))[0]
+    profile_om_graph(out, "evtol_mi", prob, "inputs_comp.spar_rib_design")
+
+
 def main_pegasus(out):
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
@@ -377,6 +394,7 @@ def main():
 
     args = [a for a in sys.argv[1:] if a not in ("--mi", "--tube",
                                                    "--plate", "--om-mi",
+                                                   "--evtol-mi",
                                                    "--pegasus", "--vlm",
                                                    "--press")]
     out = args[0] if args else tempfile.mkdtemp()
@@ -390,6 +408,8 @@ def main():
         return main_plate(out)
     if "--om-mi" in sys.argv[1:]:
         return main_om_mi(out)
+    if "--evtol-mi" in sys.argv[1:]:
+        return main_evtol_mi(out)
     if "--pegasus" in sys.argv[1:]:
         return main_pegasus(out)
     if "--vlm" in sys.argv[1:]:

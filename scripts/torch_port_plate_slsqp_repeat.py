@@ -7,9 +7,12 @@ of chip_smoke.py's phase 11) stops after 11 SLSQP iterations in some runs
 and runs to its 30-iteration limit in others, the runs differing only in
 the rounding order of the f64-atomic kernels. This script repeats the
 demo's SLSQP `--runs` times in one process (a fresh problem each time) and
-prints each run's iterations, evaluations, end volume, wall and the median
-host walls of its fun and jac evaluations (as chip_smoke.py phase 11 prints
-them), so that two trees can be compared in one chip call: `--root` names
+prints each run's iterations, evaluations, end volume (and its distance
+from the JAX package's end volume in
+tests/data/torch_port_plate32_reference.json), the demo's three
+assertions, the wall and the median host walls of its fun and jac
+evaluations (as chip_smoke.py phase 11 prints them), so that two trees can
+be compared in one chip call: `--root` names
 the tree whose `goldfish_tpu_torch` is imported (default: this checkout),
 e.g. a `git archive` of the parent commit unpacked into a gitignored
 directory.
@@ -112,10 +115,14 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     from goldfish_tpu_torch.demos import plate_var_th_opt_stress as demo
 
+    with open(os.path.join(ROOT, "tests", "data",
+                           "torch_port_plate32_reference.json")) as fh:
+        v_ref = json.load(fh)["slsqp"]["volume_end"]
     dev = torch.device("cuda", 0)
     rows, traces = [], []
     for k in range(args.runs):
-        prob, *_ = demo.build_problem(num_el=32, maxiter=30, device=dev)
+        prob, _, _, sigma_allow, _ = demo.build_problem(
+            num_el=32, maxiter=30, device=dev)
         if args.trace:
             traces.append(trace(prob, demo))
         torch.cuda.synchronize()
@@ -125,6 +132,10 @@ def main():
         res = out.result
         rows.append({"run": k, "nit": int(res.nit), "nfev": int(res.nfev),
                      "njev": int(res.njev), "volume_end": float(out.V1),
+                     "volume_rel_jax": abs(out.V1 - v_ref) / v_ref,
+                     "assertions": bool(out.V1 < out.V0
+                                        and out.s1 <= 1.02 * sigma_allow
+                                        and out.s1 >= 0.95 * sigma_allow),
                      "seconds": time.perf_counter() - t0,
                      "fun_median": float(np.median(out.log.fun_wall)),
                      "jac_median": float(np.median(out.log.jac_wall))})
@@ -144,7 +155,10 @@ def main():
         with open(args.trace, "w") as fh:
             json.dump({"runs": rows, "events": traces}, fh)
     print(json.dumps({"root": os.path.abspath(args.root),
-                      "nit": [r["nit"] for r in rows]}))
+                      "nit": [r["nit"] for r in rows],
+                      "volume_rel_jax_max": max(r["volume_rel_jax"]
+                                                for r in rows),
+                      "assertions": all(r["assertions"] for r in rows)}))
 
 
 if __name__ == "__main__":

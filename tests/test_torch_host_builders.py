@@ -208,7 +208,10 @@ def test_port_imports_without_jax():
             "goldfish_tpu_torch.demos.vlm_aeroelastic_wing, "
             "goldfish_tpu_torch.design.cp_design, "
             "goldfish_tpu_torch.operations.disp_mi_imop, "
-            "goldfish_tpu_torch.demos.om_tbeam_shopt_mi; "
+            "goldfish_tpu_torch.demos.om_tbeam_shopt_mi, "
+            "goldfish_tpu_torch.operations.exops, "
+            "goldfish_tpu_torch.demos.tube_shopt_mi_4patch_wffd, "
+            "goldfish_tpu_torch.demos.evtol_wing_shopt_mi; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'goldfish_tpu' "
             "or m.startswith('goldfish_tpu.')]; "
