@@ -11,8 +11,8 @@ Phases (any failure raises: non-zero exit, no result line):
    then the registers, spill and stack bytes of the redesigned kernels:
    K1's four modes, K2's three, every K4 instantiation, K12's cull and
    work kernels, every K3 instantiation, K8's three, K11's two, K5 and
-   K7's four modes and its cross-intersection sum, K6, K9's value, VJP
-   and gather kernels (it fails if any of K1, K2, K12, K3, K8, K11, K5,
+   K7's four modes and its cross-intersection sum, K6, K9's value, VJP,
+   gather and rows kernels (it fails if any of K1, K2, K12, K3, K8, K11, K5,
    K7, K6 or K9 spills, or K5, K7 or K6 has a stack frame); then K2's
    three modes on the small wing's interface stack unrolled so that no two
    qps share a node (no two atomics meet) against the outputs the parent
@@ -126,12 +126,14 @@ Phases (any failure raises: non-zero exit, no result line):
 10. plate kernels: the stress-constrained plate of tests/data/
    torch_port_plate32_reference.json (num_el=32, p=2: 2 patches, C = 1190,
    N = 7140, 9 qps, the first L = 9 model on the card) at d = its Newton
-   solution plus seeded noise: K9 vm_stress_qp in both modes (top and
-   bottom; value 1e-12, VJP 1e-11) and K1-K4 (1e-11) against their plain
-   versions, with both times; the smallest stress of a real qp at the
-   solution (K9 and its plain version give no derivative at sigma = 0);
-   K9's VJP over 5 launches on one input must give dd, dcp and dh bit for
-   bit (`[kernel C2] vm vjp`: no atomics);
+   solution plus seeded noise: K9 vm_stress_qp in its three modes (top
+   and bottom; value 1e-12, VJP 1e-11, rows 1e-12) and K1-K4 (1e-11)
+   against their plain versions, with both times; the smallest stress of
+   a real qp at the solution (K9 and its plain version give no derivative
+   at sigma = 0); K9's VJP over 5 launches on one input must give dd, dcp
+   and dh bit for bit (`[kernel C2] vm vjp`: no atomics), and so must its
+   rows, which summed against the cotangent must give the VJP (1e-13 of
+   the summands' magnitude);
 11. plate path (goldfish_tpu_torch/demos/plate_var_th_opt_stress.py through
    the port's OpenMDAO graph and om_shim): the cold run_model (KS stress at
    rho = 100 and volume, 1e-8 against the reference), compute_totals of
@@ -218,7 +220,44 @@ Phases (any failure raises: non-zero exit, no result line):
    (lam_peak > lam_valley + 0.2) and end at more than 3x the pre-limit
    |d|; the final d (1e-6) and lam_peak (1e-3) against the same file; then
    K1-K4 at the panel's shapes and `lu_factor_ex` at N = 2028 beside its
-   bound.
+   bound;
+23. the stress field (goldfish_tpu_torch/om_comps/components.VMStressComp)
+   at the small plate (num_el=3, p=2) at the card's Newton solution: the
+   counted path is run_model, compute_partials (the dense Jacobians from
+   K9 mode 2's rows) and the operation's VJP (K9 mode 1), against the
+   same on CPU tensors at the same inputs, each gated at how far the
+   CPU's own result moves when CP_IGA and the displacements move by one
+   ulp (the worst of three seeded moves), never below 1e-12;
+24. the trimmed plate (goldfish_tpu_torch/demos/plate_hole_thickness_opt.py
+   at its defaults: num_el=8, a circular hole, 4 x 4 sub-cells a knot
+   span, cut-cell weights, void elements dropped): K1-K4 and K9's three
+   modes at its stack against their plain versions (K3 summing runs of 16
+   sub-cells on one dof map, printed; K9 gated at the worst of three
+   one-ulp moves of its plain version, never below 4.2e-12 or its
+   STRESS_TOL where tighter: ROADMAP C14), K9's rows against its VJP; the
+   start J and gradient against tests/data/torch_port_cad_reference.json
+   (1e-8, 1e-6); then the counted path, the demo's `main` (20 SLSQP
+   iterations): J lowered, the end J within 1e-6 of the
+   JAX run's, near > 1.05 far where the JAX run meets it (ROADMAP C12);
+25. the variable-thickness plate (demos/thickness_opt_plate.py, num_el=4,
+   30 iterations, its checkpoint and VTK files): start (1e-8, 1e-6), then
+   the counted `main`: end J 1e-4 of the JAX run's;
+26. the eVTOL wing (demos/evtol_wing_shopt.py, 3 sections, num_el=3, p=3):
+   the IGES round trip, the preprocessor's intersections equal to the CPU
+   port's (1e-10; its walls and whether the native kernel ran), K1-K4, K2
+   and K8's three modes at its stack against their plain versions (1e-11),
+   start (J 1e-4, gradient 1e-2: ROADMAP C13), then the counted path (the
+   setup and 5 SLSQP iterations): J lowered, end 1e-3;
+27. the curved moving-seam T-beam (demos/shape_opt_mint_tbeam_curved.py,
+   num_el=4, p=3): the preprocessor's traced seam polished by CPIGA2Xi on
+   the card against the CPU port's (1e-10), K5-K7 and K1-K4 at its shapes
+   (`phase_mi_kernels`), start (1e-8, 1e-6), then the counted path (the
+   setup with its preprocessor and 4 SLSQP iterations): J lowered, end
+   1e-4, the fused xi route;
+28. the CADDEE wing (demos/caddee_aeroelastic_wing.py, 3 sections,
+   num_el=3, p=3, 4 fixed-point passes): W_int and the tip displacement
+   (1e-8) and dW_int/dh through the coupled adjoint (1e-6) against the
+   JAX demo's.
 
 Wherever K3 is checked, the smoke prints its groups, the runs of equal dof
 maps it sums before adding (`jet_runs`) and the atomics into K one per
@@ -265,6 +304,8 @@ REF_CONTACT = os.path.join(ROOT, "tests", "data",
                            "torch_port_contact_reference.json")
 REF_5B = os.path.join(ROOT, "tests", "data",
                       "torch_port_om_mi_5b_reference.json")
+REF_CAD = os.path.join(ROOT, "tests", "data",
+                       "torch_port_cad_reference.json")
 CONTACT_TOL = {"contact_pairs/value_grad": 1e-11, "contact_pairs/hvp": 1e-11,
                "contact_pairs/hess": 1e-11, "contact_pairs/cull": 0.0}
 VLM_WIDE = dict(n_chord=4, n_span=5, num_el=6, p=3, mc=16, ns=64)
@@ -277,7 +318,8 @@ PEG = dict(n_sections=18, num_el=3, p=3)   # the reference's full box wing
 # tree of the extended penalty_sweep.cuh gave them
 K2_BITS = os.path.join(ROOT, "tests", "data", "torch_port_k2_bits.json")
 KERNEL_TOL = 1e-11
-STRESS_TOL = {"vm_stress_qp/value": 1e-12, "vm_stress_qp/vjp": 1e-11}
+STRESS_TOL = {"vm_stress_qp/value": 1e-12, "vm_stress_qp/vjp": 1e-11,
+              "vm_stress_qp/rows": 1e-12}
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, the f64 rate outside the
 # tensor cores and the f64 tensor-core (DMMA) rate: the bound of the dense
 # factorizations and of K10, whose per-group B^T H B is a block product
@@ -413,7 +455,7 @@ def phase_build():
 # K2's three, K4, K12's cull and work kernels, K3, K8's three modes (the
 # template `pressure_grad_block` is modes 0 and 2), K11's two, K5, K7's four
 # modes (the template `c2x_kernel`) and its cross-intersection sum, K6, K9's
-# value, VJP and gather kernels, K10's two stages (each instantiated for 1
+# value, VJP, gather and rows kernels, K10's two stages (each instantiated for 1
 # and 3 (l, m) pairs a thread)), and those of them that must not spill;
 # K5's, K7's and K6's also have no stack frame
 K1K2_ENTRIES = ("shell_value_grad", "shell_hess", "shell_adjoint",
@@ -423,7 +465,7 @@ K8K11_ENTRIES = ("pressure_grad_block", "pressure_hess", "aic_value_kernel",
                  "aic_vjp_kernel")
 K5K7_ENTRIES = ("traced_rows_kernel", "c2x_kernel", "c2x_reduce_dcp")
 K6_ENTRIES = ("mi_penalty_xi_kernel",)
-K9_ENTRIES = ("vm_value", "vm_vjp_elements", "vm_gather")
+K9_ENTRIES = ("vm_value", "vm_vjp_elements", "vm_gather", "vm_rows")
 K10_ENTRIES = ("patch_assemble_kernel", "pair_assemble_kernel")
 REDESIGNED = K1K2_ENTRIES + K8K11_ENTRIES + K5K7_ENTRIES + K6_ENTRIES + \
     K9_ENTRIES + K10_ENTRIES + (
@@ -504,6 +546,8 @@ KERNELS = [
      "goldfish_tpu/physics/kl_shell.py:339"),
     ("vm_stress_qp/vjp", "goldfish_tpu_torch/csrc/vm_stress_qp.cu",
      "goldfish_tpu/physics/objectives.py:97"),
+    ("vm_stress_qp/rows", "goldfish_tpu_torch/csrc/vm_stress_qp.cu",
+     "goldfish_tpu/operations/exops.py:135"),
     ("pair_assemble/pairs", "goldfish_tpu_torch/csrc/pair_assemble.cu",
      "goldfish_tpu/solver/krylov.py:177"),
     ("pair_assemble/patches", "goldfish_tpu_torch/csrc/pair_assemble.cu",
@@ -553,6 +597,12 @@ PRESS_KERNELS = ("shell_qp/value_grad", "shell_qp/hess", "shell_qp/adjoint",
                  "contact_pairs/value_grad",
                  "contact_pairs/hvp", "contact_pairs/hess")
 RIKS_KERNELS = ("shell_qp/value_grad", "shell_qp/hess", "jet_assemble")
+# one trimmed patch: no interfaces
+TRIM_KERNELS = ("shell_qp/value_grad", "shell_qp/hess", "shell_qp/adjoint",
+                "jet_assemble", "jet_matvec")
+# the stress field's operation: its value, dense Jacobians and VJP
+VMSTRESS_KERNELS = ("vm_stress_qp/value", "vm_stress_qp/rows",
+                    "vm_stress_qp/vjp")
 
 # f64 operations of one density evaluation (counted from the sources); a
 # dual-number kernel mode's count is that times the dual components it
@@ -2134,7 +2184,48 @@ def stress_cases(st, E, nu, d, cp, h, gbar, through):
             lambda: kl_shell._stress_vjp_plain(st, d, cp, h, E, nu, z, gbar),
             vjp, ins + [gbar],
             {"flops_dual": nqp * (jets + 33 * DENS_VM + 62 * L)}),
+        # the rows: the forward pass, the sweep at a cotangent of 1 and B^T
+        # of the 31 jet cotangents a qp, written (no sums over qps)
+        "vm_stress_qp/rows": (
+            lambda: kl_shell.vm_stress_rows(st, d, cp, h, E, nu, z),
+            lambda: kl_shell._stress_rows_plain(st, d, cp, h, E, nu, z),
+            nqp * (jets + DENS_VM + SWEEP_VM + 62 * L), ins),
     }
+
+
+def rows_against_vjp(st, E, nu, d, cp, h, gbar, tag, tol=1e-13):
+    """K9 mode 2's rows over 5 launches bit for bit, and summed against
+    gbar over the qps and scattered through conn (in plain PyTorch) equal
+    to mode 1's VJP: the difference, in norm, within tol of the norm of
+    the same sums of the terms' magnitudes (the two sum in other orders,
+    and the cp gradient's terms cancel: its relative error in norm is
+    printed beside it)."""
+    from goldfish_tpu_torch.physics import kl_shell
+
+    outs = [kl_shell.vm_stress_rows(st, d, cp, h, E, nu, 0.5)
+            for _ in range(5)]
+    same = all(torch.equal(o, outs[0]) for o in outs[1:])
+    P, C = cp.shape[:2]
+    contrib = torch.einsum("peqlc,peq->pelc", outs[0], gbar)
+    tot = kl_shell._index_add_nodes(st.conn, contrib, P, C)
+    mag = kl_shell._index_add_nodes(st.conn, torch.einsum(
+        "peqlc,peq->pelc", outs[0].abs(), gbar.abs()), P, C)
+    vjp = kl_shell.vm_stress_vjp(st, d, cp, h, E, nu, 0.5, gbar)
+    parts = [(tot[..., 0:3], mag[..., 0:3]), (tot[..., 3:6], mag[..., 3:6]),
+             (tot[..., 6], mag[..., 6])]
+    errs = [float(torch.linalg.norm(t_ - v) / torch.linalg.norm(m))
+            for (t_, m), v in zip(parts, vjp)]
+    rels = [rel_err(t_, v)[0] for (t_, _), v in zip(parts, vjp)]
+    say(f"[{tag}] vm_stress_qp/rows over 5 launches bit-identical {same}; "
+        f"rows . gbar against vm_stress_qp/vjp (dd, dcp, dh): against the "
+        f"summands' magnitude " + " ".join(f"{e:.3e}" for e in errs)
+        + f" (gate {tol:g}), relative " + " ".join(f"{e:.3e}" for e in rels))
+    if not same:
+        raise RuntimeError("vm_stress_qp/rows: its output changes from "
+                           "launch to launch")
+    if not max(errs) <= tol:
+        raise RuntimeError(f"vm_stress_qp/rows summed against a cotangent "
+                           f"disagrees with vm_stress_qp/vjp: {errs}")
 
 
 def phase_plate_kernels(s, checks, seed=8):
@@ -2177,6 +2268,7 @@ def phase_plate_kernels(s, checks, seed=8):
     if not same:
         raise RuntimeError("vm_stress_qp/vjp: its output changes from launch "
                            "to launch")
+    rows_against_vjp(s.stack, s.E, s.nu, dn, cp, h, gbar, "plate-kernel")
     lam = T(rng.normal(size=tuple(cp.shape))) * s.data.free
     v = T(rng.normal(size=tuple(cp.shape)))
     for name, got in check_kernels(fixed_cases(s.data, dn, cp, h, lam, v,
@@ -2303,6 +2395,440 @@ def phase_plate_sibling(dev, ref):
               tot[(w, ffd)].ravel(), ref["dw_int_dh_ffd"], 1e-6)
     check_rel("plate-sibling", "dvolume/dh_ffd", tot[(vol, ffd)].ravel(),
               ref["dvolume_dh_ffd"], 1e-6)
+
+
+# ------------------------------------------------------------ CAD path
+def phase_vmstress(dev):
+    """The stress field's OM component at the small plate (num_el=3, p=2,
+    2 patches) on the card, at the card's Newton solution: the counted
+    path is run_model, compute_partials (the dense Jacobians from K9 mode
+    2's rows) and the operation's VJP (mode 1), each against the same at
+    the same inputs on CPU tensors (the plain versions), gated at how far
+    the CPU's own results move when CP_IGA and the displacements move by
+    one ulp (the worst of three seeded moves: at the exact solution some
+    qps' sigma is small and the sweep's 1 / sigma amplifies the rounding),
+    never below 1e-12."""
+    from goldfish_tpu_torch import _cuda
+    from goldfish_tpu_torch.models import plate
+    from goldfish_tpu_torch.om_comps.components import VMStressComp, om
+
+    def component(device):
+        s = plate.build(num_el=3, p=2, num_patches=2, device=device)
+        comp = VMStressComp(nonmatching_sys=s)
+        comp.init_parameters()
+        model = om.Group()
+        model.add_subsystem("vm", comp)
+        prob = om.Problem(model=model)
+        prob.setup()
+        return s, comp, prob
+
+    def run(comp, prob, cp, u):
+        prob["vm.CP_IGA"] = cp
+        prob["vm.displacements"] = u
+        prob.run_model()
+        partials = {}
+        comp.compute_partials(
+            {n: prob["vm." + n] for n in ("CP_IGA", "thickness_IGA",
+                                          "displacements")}, partials)
+        ct = np.random.default_rng(14).normal(size=comp.op.out_size)
+        vjp = comp.op.vjp(prob["vm.CP_IGA"], prob["vm.thickness_IGA"], u, ct)
+        J = [partials["von_mises_stress", n] for n in
+             ("CP_IGA", "thickness_IGA", "displacements")]
+        return [np.array(prob["vm.von_mises_stress"])] + J + list(vjp)
+
+    s, comp, prob = component(dev)
+    d = s.solve_nonlinear(rtol=1e-12)
+    u = comp.op.layout.to_flat(d).reshape(-1).cpu().numpy()
+    cp = np.array(prob["vm.CP_IGA"])
+    reset_counts()
+    t0 = time.perf_counter()
+    got = run(comp, prob, cp, u)
+    dt = time.perf_counter() - t0
+    counts = dict(_cuda.launch_counts)
+    _, comp_c, prob_c = component("cpu")
+    t0 = time.perf_counter()
+    want = run(comp_c, prob_c, cp, u)
+    dt_c = time.perf_counter() - t0
+    keys = {"field": [0], "dS/dcp": [1], "dS/dh": [2], "dS/dd": [3],
+            "vjp": [4, 5, 6]}
+    errs, gates = {}, {}
+    for k, ix in keys.items():
+        errs[k] = max(rel_err(got[i], want[i])[0] for i in ix)
+        gates[k] = max(1e-12, ulp_moves(
+            lambda c, uu, ix=ix: [run(comp_c, prob_c, c, uu)[i]
+                                  for i in ix], [cp, u]))
+    J = got[1:4]
+    say(f"[vmstress] VMStressComp run_model + compute_partials + vjp "
+        f"{dt:.3f} s on the card ({dt_c:.3f} s on the CPU): field "
+        f"{got[0].size} qps, Jacobians {J[0].shape} {J[1].shape} "
+        f"{J[2].shape}; against the CPU " + " ".join(
+            f"{k} {v:.3e} (gate {gates[k]:.3e})" for k, v in errs.items()))
+    bad = {k: v for k, v in errs.items() if not v <= gates[k]}
+    if bad:
+        raise RuntimeError(f"VMStressComp on the card disagrees with the "
+                           f"CPU: {bad}")
+    check_counts("vmstress", counts, VMSTRESS_KERNELS)
+    return counts
+
+
+def check_start(tag, prob, want, tol_J=1e-8, tol_g=1e-6):
+    """The scaled objective and its gradient at the start design (the
+    OptProblem callables at x0) against the JAX demo's."""
+    fun, jac, _ = prob._build_callables()
+    x0 = prob._x0()
+    t0 = time.perf_counter()
+    g = jac(x0)
+    J = fun(x0)
+    dt = time.perf_counter() - t0
+    check_cold(tag, J, g, dt, dict(J=want["J"], grad=want["grad"]),
+               tol_J, tol_g, key="grad")
+    return J
+
+
+def end_vs_ref(tag, res, want, tol):
+    """SLSQP's end against the JAX run's: J lower than its first
+    iterate's, the end J within tol (relative)."""
+    e = abs(res.fun - want["fun"]) / abs(want["fun"])
+    say(f"[{tag}] slsqp nit {res.nit} nfev {res.nfev} njev {res.njev} "
+        f"(ref {want['nit']}/{want['nfev']}/{want['njev']}): J "
+        f"{res.history[0] if res.history else float('nan')!r} -> "
+        f"{res.fun!r} (ref {want['fun']!r}, rel {e:.3e}, gate {tol:g})")
+    if not (res.history and res.fun < res.history[0]):
+        raise RuntimeError(f"{tag}: SLSQP did not lower J")
+    if not e <= tol:
+        raise RuntimeError(f"{tag}: end J {res.fun!r} is not the JAX run's "
+                           f"{want['fun']!r} (rel {e:.3e} > {tol:g})")
+
+
+# K9 at the trimmed plate in tension: its membrane strain a - A, formed
+# from the positions as x . x - X . X in both the kernel and its plain
+# version (the JAX package's formula), keeps eps |X|^2 / |2 X . z| of
+# relative accuracy (ROADMAP C14), so the plain version's own rows move by
+# ~8e-12 when cp moves by one ulp. There each mode is gated at the worst
+# of three seeded one-ulp moves of its plain version
+# (`stress_conditioning`), never below TRIM_BAR, the bar that K1-K4 meet
+# at this stack, or the mode's STRESS_TOL where that is tighter
+TRIM_BAR = 4.2e-12
+
+
+def ulp_moves(fn, args, seeds=(6, 7, 8)):
+    """The worst relative change (in norm, over fn's outputs) of fn(*args)
+    when every array in args is moved by one ulp with seeded signs."""
+    def out(a):
+        a = fn(*a)
+        return a if isinstance(a, (tuple, list)) else (a,)
+
+    def move(x, rng):
+        sign = rng.choice([-1.0, 1.0], size=tuple(x.shape))
+        if torch.is_tensor(x):
+            sign = torch.tensor(sign, dtype=x.dtype, device=x.device)
+        return x * (1.0 + 2.2e-16 * sign)
+
+    base = out(args)
+    worst = 0.0
+    for seed in seeds:
+        rng = np.random.default_rng(seed)
+        moved = out([move(x, rng) for x in args])
+        worst = max(worst, max(rel_err(m, b)[0]
+                               for m, b in zip(moved, base)))
+    return worst
+
+
+def stress_conditioning(st, E, nu, d, cp, h, gbar):
+    """K9's gates at the trimmed plate: how far each mode's plain version
+    itself moves (relative in norm, the worst of three seeded moves of cp
+    by one ulp), each floored at min(STRESS_TOL, TRIM_BAR)."""
+    from goldfish_tpu_torch.physics import kl_shell
+
+    plain = {"vm_stress_qp/value": (kl_shell._stress_plain, ()),
+             "vm_stress_qp/vjp": (kl_shell._stress_vjp_plain, (gbar,)),
+             "vm_stress_qp/rows": (kl_shell._stress_rows_plain, ())}
+    moves = {name: ulp_moves(lambda c, fn=fn, extra=extra:
+                             fn(st, d, c, h, E, nu, 0.5, *extra), [cp])
+             for name, (fn, extra) in plain.items()}
+    tol = {name: max(min(STRESS_TOL[name], TRIM_BAR), m)
+           for name, m in moves.items()}
+    say("[trim-kernel conditioning] K9's plain version at cp moved by one "
+        "ulp (worst of 3): " + " ".join(
+            f"{n.split('/')[1]} {m:.3e} (gate {tol[n]:.3e})"
+            for n, m in moves.items()))
+    return tol
+
+
+def phase_trim_kernels(s, checks, seed=23):
+    """K1-K4 and K9 (its three modes, top fiber; `stress_conditioning`'s
+    gates) at the
+    trimmed plate's stack (cut-cell weights, void qps with real geometry,
+    runs of 16 sub-cells on one dof map for K3), at d = the Newton
+    solution plus seeded noise; K9 mode 2 also against mode 1 and bit for
+    bit."""
+    dev = s.cp.device
+    rng = np.random.default_rng(seed)
+    T = lambda a: torch.tensor(a, device=dev)  # noqa: E731
+    cp, h = s.cp, s.h_init
+    d = s.solve_nonlinear(rtol=1e-10)
+    dn = d + T(1e-3 * float(d.abs().max())
+               * rng.normal(size=tuple(cp.shape))) * s.data.free
+    wq = s.stack.wq
+    say(f"[trim-kernel] stack {tuple(s.stack.R00.shape)}: "
+        f"{int((wq == 0).sum())} void qps (real geometry, weight 0)")
+    gbar = T(rng.normal(size=tuple(wq.shape)))
+    tol = stress_conditioning(s.stack, s.E, s.nu, dn, cp, h, gbar)
+    got = check_kernels(stress_cases(s.stack, s.E, s.nu, dn, cp, h, gbar,
+                                     "top"), "trim-kernel", tol=tol)
+    for name, g in got.items():
+        merge(checks, name, g, "trim")
+    rows_against_vjp(s.stack, s.E, s.nu, dn, cp, h, gbar, "trim-kernel")
+    lam = T(rng.normal(size=tuple(cp.shape))) * s.data.free
+    v = T(rng.normal(size=tuple(cp.shape)))
+    for name, g in check_kernels(fixed_cases(s.data, dn, cp, h, lam, v,
+                                             "trim-kernel"),
+                                 "trim-kernel").items():
+        merge(checks, name, g, "trim")
+
+
+def phase_plate_hole(dev, checks, ref):
+    """The trimmed plate demo at its defaults (num_el=8, trim_subdiv=4,
+    maxiter 20): its kernels at the trimmed stack, then the counted path:
+    the start J and gradient against the JAX demo's (1e-8, 1e-6), the
+    demo's `main`: J lowered, the end J within 1e-6 of the JAX run's, and
+    near > 1.05 far where the JAX run meets it (at num_el=8 it does not:
+    ROADMAP C12)."""
+    from goldfish_tpu_torch import _cuda
+    from goldfish_tpu_torch.demos import plate_hole_thickness_opt as demo
+
+    kw = ref["kw"]
+    t0 = time.perf_counter()
+    ns = demo.setup(kw["num_el"], device=dev)
+    s = ns.sys
+    say(f"[setup] trimmed plate built in {time.perf_counter() - t0:.1f} s: "
+        f"stack {tuple(s.stack.R00.shape)} N={s.stack.max_cp * 3}, free "
+        f"dofs {int(s.data.free.sum())}")
+    phase_trim_kernels(s, checks)
+    del ns, s
+    torch.cuda.empty_cache()
+    check_start("plate-hole", demo.setup(kw["num_el"], device=dev).prob,
+                ref["start"])
+    reset_counts()
+    t0 = time.perf_counter()
+    res, s, th, (near, far) = demo.main(**kw, results="", verbose=False,
+                                        device=dev)
+    wall = time.perf_counter() - t0
+    counts = dict(_cuda.launch_counts)
+    say_shapes("plate-hole")
+    say(f"[plate-hole] main {wall:.2f} s; near {near!r} far {far!r} "
+        f"(ref {ref['run']['near']!r} {ref['run']['far']!r}), ratio "
+        f"{near / far:.3f}")
+    end_vs_ref("plate-hole", res, ref["run"], 1e-6)
+    # tests/test_demos.py's criterion (at num_el=4), gated where the JAX
+    # run at this size meets it
+    need = ref["run"]["near"] > 1.05 * ref["run"]["far"]
+    say(f"[plate-hole] near > 1.05 far: {near > 1.05 * far} (the JAX run: "
+        f"{need})")
+    if need and not near > 1.05 * far:
+        raise RuntimeError("plate-hole: the hole band did not thicken")
+    check_counts("plate-hole", counts, TRIM_KERNELS)
+    return counts
+
+
+def phase_thickness_plate(dev, ref):
+    """The variable-thickness plate demo at its defaults (num_el=4,
+    maxiter 30): the start against the JAX demo's, then `main` with its
+    checkpoint and VTK output: J lowered and its end against the JAX
+    run's (1e-4)."""
+    import tempfile
+
+    from goldfish_tpu_torch import _cuda
+    from goldfish_tpu_torch.demos import thickness_opt_plate as demo
+
+    kw = ref["kw"]
+    check_start("thickness-plate", demo.setup(kw["num_el"], device=dev).prob,
+                ref["start"])
+    reset_counts()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        res, s, th = demo.main(**kw, results=out, verbose=False, device=dev)
+        files = sorted(os.listdir(out))
+    wall = time.perf_counter() - t0
+    counts = dict(_cuda.launch_counts)
+    say(f"[thickness-plate] main {wall:.2f} s, wrote {files}")
+    end_vs_ref("thickness-plate", res, ref["run"], 1e-4)
+    check_counts("thickness-plate", counts, WING_KERNELS)
+    return counts
+
+
+def preprocessor_vs_cpu(tag, surfs, pre, dev, **kw):
+    """The same intersections computed with the CPIGA2Xi polish on the
+    CPU: the card's parametric points within 1e-10."""
+    from goldfish_tpu_torch.geometry import native
+    from goldfish_tpu_torch.geometry.preprocessing import Preprocessor
+
+    t0 = time.perf_counter()
+    cpu = Preprocessor(surfs, device="cpu").compute_intersections(**kw)
+    t_cpu = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    Preprocessor(surfs, device=dev).compute_intersections(**kw)
+    t_dev = time.perf_counter() - t0
+    same = (cpu.mapping_list == pre.mapping_list
+            and cpu.intersections_type == pre.intersections_type)
+    err = max(float(np.abs(a[k] - b[k]).max()) for a, b in zip(
+        pre.intersections_para_coords, cpu.intersections_para_coords)
+        for k in (0, 1))
+    say(f"[{tag}] preprocessor: {pre.num_intersections} intersections "
+        f"{sorted(set(pre.intersections_type))}, {t_dev:.3f} s with the "
+        f"polish on the card, {t_cpu:.3f} s on the CPU; geometry through "
+        f"{'the native kernel' if native.available() else 'NumPy'}; xi "
+        f"against the CPU max abs {err:.3e} (gate 1e-10)")
+    if not same or not err <= 1e-10:
+        raise RuntimeError(f"{tag}: the preprocessor on the card disagrees "
+                           f"with the CPU")
+
+
+def phase_evtol_kernels(s, checks, seed=26):
+    """K1-K4, K2 and K8 (its three modes) at the eVTOL wing's stack (16
+    patches, p = 3, 44 edge seams) against their plain versions (at
+    KERNEL_TOL), at d = seeded noise (1e-3 of the CP scale on free dofs:
+    the hinged wing's tangent is singular in f64, ROADMAP C13, so no
+    solve), lam and v random."""
+    dev = s.cp.device
+    rng = np.random.default_rng(seed)
+    cp, h = s.cp, s.h_init
+    scale = float(torch.linalg.norm(cp)) / np.sqrt(cp.numel())
+    T = lambda a: torch.tensor(a, dtype=torch.float64, device=dev)  # noqa
+    d = T(1e-3 * scale * rng.normal(size=tuple(cp.shape))) * s.data.free
+    lam = T(rng.normal(size=tuple(cp.shape))) * s.data.free
+    v = T(rng.normal(size=tuple(cp.shape)))
+    for name, got in check_kernels(pressure_cases(s.data, d, cp, lam),
+                                   "evtol-kernel").items():
+        merge(checks, name, got, "evtol_cad")
+    cases = fixed_cases(s.data, d, cp, h, lam, v, "evtol-kernel")
+    cases["shell_qp/geom_grad"] = geom_grad_case(s.stack, d, cp, h, s.E,
+                                                 s.nu)
+    for name, got in check_kernels(cases, "evtol-kernel").items():
+        merge(checks, name, got, "evtol_cad")
+
+
+def phase_evtol(dev, checks, ref):
+    """The eVTOL wing demo at its defaults (3 sections, num_el=3, p=3,
+    maxiter 5): the IGES round trip and the preprocessor (against the CPU
+    port's), its kernels at the wing's stack (`phase_evtol_kernels`), the
+    start J and gradient against the JAX demo's, then the counted path
+    (the setup and SLSQP): J lowered, the end against the JAX run's. The
+    wing is clamped along one edge of its root rib only, a hinge that only
+    the follower pressure resists: at this size the equilibrated tangent's
+    smallest eigenvalue is -1.5e-14 against 4.5 (singular in f64; ROADMAP
+    C13), and J moves by 1.4e-5 between the port's own CPU and card runs:
+    J 1e-4, the gradient 1e-2, the end J 1e-3."""
+    import tempfile
+
+    from goldfish_tpu_torch import _cuda
+    from goldfish_tpu_torch.demos import evtol_wing_shopt as demo
+
+    kw = dict(ref["kw"])
+    maxiter = kw.pop("maxiter")
+    with tempfile.TemporaryDirectory() as tmp:
+        tempfile.tempdir = tmp
+        try:
+            ns = demo.setup(**kw, verbose=False, device=dev)
+            preprocessor_vs_cpu("evtol", ns.sys.surfs, ns.pre, dev,
+                                rtol=2e-4, mortar_refine=2)
+            phase_evtol_kernels(ns.sys, checks)
+            check_start("evtol", ns.prob, ref["start"], 1e-4, 1e-2)
+            del ns
+            torch.cuda.empty_cache()
+            reset_counts()
+            t0 = time.perf_counter()
+            ns = demo.setup(**kw, verbose=False, device=dev)
+            t_setup = time.perf_counter() - t0
+        finally:
+            tempfile.tempdir = None
+    say(f"[evtol] setup {t_setup:.2f} s (IGES round trip, preprocessor, "
+        f"system): {ns.sys.num_splines} patches, N = "
+        f"{ns.sys.num_splines * ns.sys.stack.max_cp * 3}, "
+        f"{len(ns.sys.specs)} interfaces")
+    t0 = time.perf_counter()
+    res = ns.prob.run_slsqp(maxiter=maxiter, tol=1e-12)
+    wall = time.perf_counter() - t0
+    counts = dict(_cuda.launch_counts)
+    fac = ns.solve.device_factor
+    say(f"[evtol] slsqp {wall:.2f} s; n_factor {fac.n_factor} (failed "
+        f"{fac.n_factor_failed}, kind {fac.kind})")
+    end_vs_ref("evtol", res, ref["run"], 1e-3)
+    check_counts("evtol", counts, TUBE_KERNELS)
+    return counts
+
+
+def phase_curved(dev, checks, ref):
+    """The curved moving-seam T-beam at its defaults (num_el=4, p=3,
+    maxiter 4): the preprocessor's traced seam polished by CPIGA2Xi on the
+    card (K5, K7) against the CPU port's, K5-K7 and K1-K4 at its shapes
+    (`phase_mi_kernels`), the start J and gradient against the JAX
+    demo's, then the counted path (the setup, its preprocessor included,
+    and SLSQP): J lowered, the end within 1e-4 of the JAX run's."""
+    from goldfish_tpu_torch import _cuda
+    from goldfish_tpu_torch.demos import shape_opt_mint_tbeam_curved as demo
+
+    kw = dict(ref["kw"])
+    maxiter = kw.pop("maxiter")
+    reset_counts()
+    t0 = time.perf_counter()
+    ns = demo.setup(**kw, device=dev)
+    say(f"[curved] setup {time.perf_counter() - t0:.2f} s; preprocessor "
+        f"launches {{traced_rows: {_cuda.launch_counts['traced_rows']}, "
+        f"c2x step: {_cuda.launch_counts['c2x_res_jac/step']}}}")
+    preprocessor_vs_cpu("curved", ns.sys.surfs, ns.pre, dev, rtol=2e-4,
+                        mortar_refine=2)
+    phase_mi_kernels(ns.sys, checks, system="curved")
+    torch.cuda.empty_cache()
+    check_start("curved", demo.setup(**kw, device=dev).prob, ref["start"])
+    reset_counts()
+    t0 = time.perf_counter()
+    ns = demo.setup(**kw, device=dev)
+    t_setup = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = ns.prob.run_slsqp(maxiter=maxiter, tol=1e-14)
+    wall = time.perf_counter() - t0
+    counts = dict(_cuda.launch_counts)
+    say(f"[curved] setup {t_setup:.2f} s, slsqp {wall:.2f} s")
+    say_route("curved", ns.sys.c2x, counts)
+    end_vs_ref("curved", res, ref["run"], 1e-4)
+    check_counts("curved", counts, MI_PATH_KERNELS)
+    return counts
+
+
+def phase_caddee(dev, ref):
+    """The CADDEE wing at its defaults (3 sections, num_el=3, p=3, 4
+    fixed-point passes): `main` (the intersection cache written and read
+    back, KLShellModel, the coupled solves and their adjoint): W_int and
+    the tip displacement (1e-8) and dW_int/dh (1e-6) against the JAX
+    demo's."""
+    import tempfile
+
+    from goldfish_tpu_torch import _cuda
+    from goldfish_tpu_torch.demos import caddee_aeroelastic_wing as demo
+
+    reset_counts()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tempfile.tempdir = tmp
+        try:
+            J0, tip, gh, model = demo.main(**ref["kw"], verbose=False,
+                                           device=dev)
+        finally:
+            tempfile.tempdir = None
+    wall = time.perf_counter() - t0
+    counts = dict(_cuda.launch_counts)
+    its = model.field_solver().solver.its_log
+    say(f"[caddee] main {wall:.2f} s: {model.num_surfs} surfaces, "
+        f"{model.preprocessor.num_intersections} intersections; Newton "
+        f"iterations per pass {its}; W_int {J0!r} (ref {ref['J0']!r}), tip "
+        f"u_z {float(tip[2])!r} (ref {ref['tip'][2]!r})")
+    check_rel("caddee", "W_int", J0, ref["J0"], 1e-8)
+    check_rel("caddee", "tip displacement", tip, ref["tip"], 1e-8)
+    check_rel("caddee", "dW_int/dh (coupled adjoint)", gh.cpu().numpy(),
+              ref["gh"], 1e-6)
+    check_counts("caddee", counts, WING_KERNELS)
+    return counts
 
 
 # ------------------------------------------------------------ pegasus-91
@@ -3333,6 +3859,19 @@ def main():
     counts_riks, rows = phase_riks(dev, ref_contact["riks24"], checks)
     library += rows
     say(f"[contact] phases 20-22 {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    with open(REF_CAD) as fh:
+        ref_cad = json.load(fh)
+    t0 = time.perf_counter()
+    counts_vms = phase_vmstress(dev)
+    counts_hole = phase_plate_hole(dev, checks, ref_cad["plate_hole_card"])
+    counts_thp = phase_thickness_plate(dev, ref_cad["plate_card"])
+    counts_evtol_cad = phase_evtol(dev, checks, ref_cad["evtol_card"])
+    torch.cuda.empty_cache()
+    counts_curved = phase_curved(dev, checks, ref_cad["curved_card"])
+    counts_caddee = phase_caddee(dev, ref_cad["caddee_card"])
+    say(f"[cad] phases 23-28 {time.perf_counter() - t0:.1f} s")
 
     paths = {"wing": (counts, WING_KERNELS), "mi": (counts_mi, None),
              "om_mi": (counts_om_mi, None),
@@ -3342,7 +3881,12 @@ def main():
              "plate": (counts_pl, None), "pegasus_dense": (counts_pd, None),
              "pegasus_krylov": (counts_pk, None), "vlm": (counts_vlm, None),
              "slr": (counts_slr, None), "press": (counts_press, None),
-             "riks": (counts_riks, None)}
+             "riks": (counts_riks, None), "vmstress": (counts_vms, None),
+             "plate_hole": (counts_hole, None),
+             "thickness_plate": (counts_thp, None),
+             "evtol": (counts_evtol_cad, None),
+             "curved_mi": (counts_curved, None),
+             "caddee": (counts_caddee, None)}
     record = {"kernels": []}
     for name, src, rep in KERNELS:
         per = {f"launches_{p}": (c.get(name, 0) if keep is None

@@ -46,7 +46,7 @@ COUNTERS = ("shell_qp/value_grad", "shell_qp/hess", "shell_qp/adjoint",
             "c2x_res_jac/step", "c2x_res_jac/solve_adjoint",
             "pressure_qp/value_grad", "pressure_qp/hess",
             "pressure_qp/adjoint",
-            "vm_stress_qp/value", "vm_stress_qp/vjp",
+            "vm_stress_qp/value", "vm_stress_qp/vjp", "vm_stress_qp/rows",
             "pair_assemble/pairs", "pair_assemble/patches",
             "vlm_aic/value", "vlm_aic/vjp",
             "contact_pairs/cull", "contact_pairs/value_grad",

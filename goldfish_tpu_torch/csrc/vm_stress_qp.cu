@@ -31,6 +31,15 @@
 //     over its incident (element, local) pairs in a fixed order (a CSR
 //     built once per stack by the wrapper). No atomics: the same bits on
 //     every launch.
+//   mode 2 rows: every qp's own Jacobian row, the dense field Jacobian's
+//     building block. Each thread runs mode 1's forward pass and sweep
+//     with a cotangent of 1 at its qp (replacing the JAX device program
+//     jax.jacrev of qp_stress_vm in goldfish_tpu/operations/exops.py:
+//     VMStressExOperation); the block then writes B^T of each qp's jet
+//     cotangents, (L, 7) = (d xyz, cp xyz, h) a local node, into
+//     (P, E, Q, L, 7): no sum over the element, no gather. Consecutive
+//     threads write consecutive (qp, local) rows of 7. Every entry is
+//     written once: the same bits on every launch.
 //
 // sigma = 0 at a qp (a strain-free point) has no derivative; mode 1 gives
 // that qp a zero pullback, as it does a qp with gbar = 0 (no sweep). No
@@ -40,7 +49,9 @@
 // What bounds it on the H100: the value mode reads the six tables (8 MB at
 // the num_el=32 plate), so bytes, then a qp's ~300 dependent operations;
 // the VJP adds its sweep, ~800 dependent f64 operations a qp at one thread
-// a qp, and the gather's dependent loads, batched GCH pairs at a time.
+// a qp, and the gather's dependent loads, batched GCH pairs at a time. The
+// rows mode writes 7/6 of the tables' bytes again (L 7 doubles a qp
+// against 6 L read), so bytes bound it.
 #include <cuda_pipeline.h>
 
 #include "dual.cuh"
@@ -432,6 +443,47 @@ __global__ void vm_vjp_elements(Args a, double* part) {
   }
 }
 
+// the sweep at every qp of the block's elements with a cotangent of 1,
+// then each qp's B^T of its own cotangents: rows (P, E, Q, L, 7)
+__global__ void vm_rows(Args a, double* rows) {
+  extern __shared__ double sm[];
+  int e0;
+  const int nE = block_elements(a, e0);
+  const int TB = blockDim.x * a.L;
+  double* sR = sm;
+  double* sN = sR + NT * TB;
+  double* sG = sN + (blockDim.x / a.Q) * a.L * NP;  // (EB Q, NG)
+  double X[NJ], z[NJ], h;
+  stage_and_jets(a, e0, nE, sR, sN, X, z, h);
+  if (int(threadIdx.x) < nE * a.Q) {
+    const int p = (e0 + int(threadIdx.x) / a.Q) / a.Ne;
+    vm_sweep(X, z, h, a.E[p], a.nu[p], a.zeta, 1.0, sG + threadIdx.x * NG);
+  }
+  __syncthreads();
+  // one (qp, local) a task: its 7 entries
+  for (int task = threadIdx.x; task < nE * a.Q * a.L; task += blockDim.x) {
+    const int qp = task / a.L, l = task - qp * a.L;
+    const double* r = sR + qp * a.L + l;
+    const double* gq = sG + qp * NG;
+    double acc[NP];
+#pragma unroll
+    for (int c = 0; c < NP; ++c) acc[c] = 0.0;
+#pragma unroll
+    for (int j = 0; j < 5; ++j) {
+      const double rj = r[(j + 1) * TB];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        acc[c] += rj * gq[3 * j + c];
+        acc[3 + c] += rj * gq[NJ + 3 * j + c];
+      }
+    }
+    acc[6] = r[0] * gq[2 * NJ];
+    double* out = rows + (size_t(e0) * a.Q * a.L + task) * NP;
+#pragma unroll
+    for (int c = 0; c < NP; ++c) out[c] = acc[c];
+  }
+}
+
 // every node's partials over its incident (element, local) pairs, in the
 // CSR's order: dd, dcp (P, C, 3), dh (P, C)
 __global__ void vm_gather(const int* ptr, const int* idx, const double* part,
@@ -470,7 +522,7 @@ __global__ void vm_gather(const int* ptr, const int* idx, const double* part,
 // the VJP, the qps' cotangents
 size_t smem_bytes(int mode, int EB, int Q, int L) {
   size_t n = size_t(NT) * EB * Q * L + size_t(EB) * L * NP;
-  if (mode == 1) n += size_t(EB) * Q * NG;
+  if (mode != 0) n += size_t(EB) * Q * NG;
   return n * sizeof(double);
 }
 
@@ -513,6 +565,9 @@ extern "C" int gf_vm_stress_qp(
     const int nodes = P * C;
     vm_gather<<<unsigned((nodes + 127) / 128), 128, 0, s>>>(
         inc_ptr, inc_idx, part, nodes, out_dd, out_dcp, out_dh);
+  } else if (mode == 2) {
+    if ((rc = opt_in(vm_rows, smem))) return rc;
+    vm_rows<<<blocks, EB * Q, smem, s>>>(a, part);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -21,6 +21,7 @@ import torch
 
 from goldfish_tpu_torch.config import DTYPE, INDEX_DTYPE, as_device, tensor
 from goldfish_tpu_torch.geometry.nurbs import NURBS
+from goldfish_tpu_torch.geometry.trim import apply_trim, compress_voided
 from goldfish_tpu_torch.ops.quadrature import (
     PatchQuadrature,
     build_patch_quadrature,
@@ -78,22 +79,30 @@ def side_dofs(n_u: int, n_v: int, direction: int, side: int,
 
 
 def build_patch_stack(surfs: list[NURBS], nq: int | None = None,
-                      device=None, trims=None):
+                      device=None, trims=None, trim_subdiv: int = 3):
     """Build (PatchStack, [PatchMeta]) from NURBS surfaces.
 
     nq: Gauss points per direction (default degree+1 per patch).
-    Trimmed patches are not ported yet and raise."""
+    trims: optional per-patch trim spec (len P list; None entries =
+    untrimmed): each entry is `(outer, inners)` with loops as accepted
+    by geometry/trim.sample_loop (param-space NURBS curve(s) or (M, 2)
+    polygons; outer may be None for the natural domain). Trimmed
+    patches get a `trim_subdiv`-subdivided rule, cut-cell coverage
+    weights (`trim.apply_trim`) and their void elements dropped
+    (`trim.compress_voided`)."""
     device = as_device(device)
-    if trims is not None:
-        raise NotImplementedError(
-            "trimmed patches are not ported yet (ROADMAP Queue A7)")
     metas = []
     quads = []
-    for s in surfs:
+    for i, s in enumerate(surfs):
         p, q = s.degree
+        tr = trims[i] if trims is not None else None
         quad = build_patch_quadrature(
             s.knots[0], s.knots[1], p, q, s.weights,
-            nq_u=nq or (p + 1), nq_v=nq or (q + 1))
+            nq_u=nq or (p + 1), nq_v=nq or (q + 1),
+            subdiv=trim_subdiv if tr is not None else 1)
+        if tr is not None:
+            outer, inners = tr
+            quad = compress_voided(apply_trim(quad, outer, inners))
         metas.append(PatchMeta(s, quad))
         quads.append(quad)
 

@@ -3,7 +3,7 @@
 Port of goldfish_tpu/om_comps/components.py, class for class: the
 fixed-intersection thickness path's `DispStatesComp` (implicit), the
 objective components (`IntEnergyComp`, `VolumeComp`, `ComplianceComp`,
-`MaxvMStressComp`) and the constant linear maps (`CPFE2IGAComp`,
+`MaxvMStressComp`), the stress field `VMStressComp` and the constant linear maps (`CPFE2IGAComp`,
 `HthFE2IGAComp`, `HthFFD2FEComp`, `CPFFD2SurfComp`, `CPFFDAlignComp`,
 `CPFFDPinComp`, `CPFFDReguComp`, `HthFFDAlignComp`, `HthFFDReguComp`,
 `HthMapComp`); the moving-intersection shape path's implicit
@@ -42,13 +42,14 @@ from goldfish_tpu_torch.operations.exops import (
     IntEnergyExOperation,
     IntEnergyReguExOperation,
     MaxvMStressExOperation,
+    VMStressExOperation,
     VolumeExOperation,
 )
 
 __all__ = [
     "DispStatesComp", "DispMintStatesComp", "CPIGA2XiComp", "IntXiEdgeComp",
     "IntEnergyComp", "IntEnergyReguComp", "VolumeComp", "ComplianceComp",
-    "MaxvMStressComp", "CPFE2IGAComp", "HthFE2IGAComp", "HthFFD2FEComp",
+    "MaxvMStressComp", "VMStressComp", "CPFE2IGAComp", "HthFE2IGAComp", "HthFFD2FEComp",
     "HthMapComp", "CPFFD2SurfComp", "CPFFDAlignComp", "CPFFDPinComp",
     "CPFFDReguComp", "HthFFDAlignComp", "HthFFDReguComp",
     "CPSurfAlignComp", "CPSurfOrderElevationComp", "CPSurfKnotRefienmentComp",
@@ -328,6 +329,50 @@ class ComplianceComp(_ObjectiveComp):
 class MaxvMStressComp(_ObjectiveComp):
     op_cls = MaxvMStressExOperation
     default_out = "max_vmstress"
+
+
+class VMStressComp(om.ExplicitComponent):
+    """Per-quadrature-point von Mises stress VECTOR output, with dense
+    partials (K9 modes 0 and 2 on the card)."""
+
+    def initialize(self):
+        self.options.declare("nonmatching_sys")
+        self.options.declare("input_cp_name", default="CP_IGA")
+        self.options.declare("input_h_th_name", default="thickness_IGA")
+        self.options.declare("input_u_name", default="displacements")
+        self.options.declare("output_name", default="von_mises_stress")
+        self.options.declare("through", default="top")
+
+    def init_parameters(self):
+        self.op = VMStressExOperation(self.options["nonmatching_sys"],
+                                      through=self.options["through"])
+        self.cp_name = self.options["input_cp_name"]
+        self.h_name = self.options["input_h_th_name"]
+        self.u_name = self.options["input_u_name"]
+        self.out_name = self.options["output_name"]
+
+    def setup(self):
+        op = self.op
+        sys_ = self.options["nonmatching_sys"]
+        n = op.layout.n_flat
+        self.add_input(self.cp_name, shape=n * 3,
+                       val=_flat(op.layout, sys_.cp))
+        self.add_input(self.h_name, shape=n,
+                       val=_flat(op.layout, sys_.h_init[..., None]))
+        self.add_input(self.u_name, shape=n * 3)
+        self.add_output(self.out_name, shape=op.out_size)
+        self.declare_partials(self.out_name, "*")
+
+    def compute(self, inputs, outputs):
+        outputs[self.out_name] = self.op.compute(
+            inputs[self.cp_name], inputs[self.h_name], inputs[self.u_name])
+
+    def compute_partials(self, inputs, partials):
+        Jcp, Jh, Ju = self.op.jacobians(
+            inputs[self.cp_name], inputs[self.h_name], inputs[self.u_name])
+        partials[self.out_name, self.cp_name] = Jcp
+        partials[self.out_name, self.h_name] = Jh
+        partials[self.out_name, self.u_name] = Ju
 
 
 class _LinearMapComp(om.ExplicitComponent):

@@ -20,8 +20,9 @@ callback and its next fun(x) at an accepted point cost nothing).
 Warm starting: the objective may thread a non-differentiated state
 (typically the previous displacement) through successive evaluations; the
 state commits only when it is finite, so a diverged trial design cannot
-poison later warm starts. The pyOptSparse route of `run` and the
-checkpointing of `iter_callback` are not ported yet (ROADMAP Queue A11).
+poison later warm starts. `iter_callback(dvs, J)` runs after every SLSQP
+iteration (`utils.checkpoint.Checkpointer.attach` saves there). The
+pyOptSparse route of `run` is not ported yet (ROADMAP Queue A11).
 """
 
 from __future__ import annotations

@@ -28,8 +28,9 @@ The von Mises stress at the qps (`qp_stress_vm`, the stress constraint's
 field) is K9 `vm_stress_qp` (csrc/vm_stress_qp.cu) on CUDA tensors: mode 0
 the value, mode 1 its VJP in (d, cp, h) (a hand-written reverse sweep a
 qp, per-element partials, then each node's sum over the stack's
-`node_incidence` in a fixed order); `stress_density` with autograd on CPU
-tensors.
+`node_incidence` in a fixed order), mode 2 every qp's own Jacobian row
+(the same sweep with a cotangent of 1, the field's dense Jacobian);
+`stress_density` with autograd or torch.func on CPU tensors.
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ __all__ = ["gather", "shell_density", "shell_density_increments",
            "shell_value_grad", "shell_hessians",
            "shell_adjoint", "shell_geom_grad", "internal_energy", "element_hessians",
            "stress_density", "vm_stress_value", "vm_stress_vjp",
+           "vm_stress_rows",
            "qp_stress_vm", "volume", "external_work_dead_load",
            "dead_load_force"]
 
@@ -435,6 +437,29 @@ def _stress_plain(stack, d, cp, h, E, nu, zeta):
                           Eq, nuq, zeta)
 
 
+def _stress_rows_plain(stack, d, cp, h, E, nu, zeta):
+    """Every qp's own Jacobian row B^T dsigma/d(z, X, h): (P, E, Q, L, 7)
+    as (d xyz, cp xyz, h) a local node (torch.func.jacrev of
+    `stress_density`, vmapped over the qps)."""
+    X, z, hq = jets(stack, cp), jets(stack, d), h_at_qps(stack, h)
+    Eq, nuq, _ = _qp_params(stack, E, nu)
+    P, Ne, Q = hq.shape
+    jac = torch.func.vmap(torch.func.jacrev(
+        lambda X, z, h, E, nu: stress_density(X, z, h, E, nu, zeta),
+        argnums=(0, 1, 2)))
+    gX, gz, gh = jac(X.reshape(-1, NJ), z.reshape(-1, NJ), hq.reshape(-1),
+                     Eq.reshape(-1), nuq.reshape(-1))
+    Rj = torch.stack(_jet_tables(stack), dim=3)  # (P, E, Q, 5, L)
+
+    def rows(g):
+        return torch.einsum("peqjl,peqjc->peqlc", Rj,
+                            g.reshape(P, Ne, Q, 5, 3))
+
+    return torch.cat([rows(gz), rows(gX),
+                      stack.R00[..., None] * gh.reshape(P, Ne, Q, 1, 1)],
+                     dim=-1)
+
+
 def _stress_vjp_plain(stack, d, cp, h, E, nu, zeta, gbar):
     with torch.enable_grad():
         args = tuple(t.detach().requires_grad_(True) for t in (d, cp, h))
@@ -477,13 +502,15 @@ def _check_stress(stack, d, cp, h, E, nu, gbar=None):
 
 
 def _launch_stress(mode, counter, stack, d, cp, h, E, nu, zeta, gbar, out_s,
-                   out_dd, out_dcp, out_dh, dims):
+                   out_dd, out_dcp, out_dh, dims, rows=None):
     p = _cuda.ptr
     ptr = idx = part = None
     if mode == 1:
         P, Ne, _, L, C = dims
         ptr, idx = node_incidence(stack.conn, C)
         part = torch.empty(P, Ne, L, 7, dtype=DTYPE, device=d.device)
+    elif mode == 2:
+        part = rows
     _cuda.launch(counter, "gf_vm_stress_qp", mode,
                  p(stack.R00), p(stack.R10), p(stack.R01), p(stack.R20),
                  p(stack.R11), p(stack.R02), p(stack.conn), p(d), p(cp), p(h),
@@ -515,6 +542,22 @@ def vm_stress_vjp(stack: PatchStack, d, cp, h, E, nu, zeta, gbar):
     _launch_stress(1, "vm_stress_qp/vjp", stack, d, cp, h, E, nu, zeta, gbar,
                    None, dd, dcp, dh, dims)
     return dd, dcp, dh
+
+
+def vm_stress_rows(stack: PatchStack, d, cp, h, E, nu, zeta):
+    """K9 mode 2: every qp's own row of dsigma/d(d, cp, h), (P, E, Q, L, 7)
+    as (d xyz, cp xyz, h) a local node (the local node's coefficient is
+    conn[p, e, l]). Row (p, e, q) summed against a cotangent gbar over the
+    qps and scattered through conn is mode 1's VJP; each entry is written
+    once, so the rows are the same bits on every launch."""
+    dims = _check_stress(stack, d, cp, h, E, nu)
+    if not _cuda.on_cuda(d):
+        return _stress_rows_plain(stack, d, cp, h, E, nu, zeta)
+    P, Ne, Q, L, _ = dims
+    rows = torch.empty(P, Ne, Q, L, 7, dtype=DTYPE, device=d.device)
+    _launch_stress(2, "vm_stress_qp/rows", stack, d, cp, h, E, nu, zeta,
+                   None, None, None, None, None, dims, rows=rows)
+    return rows
 
 
 class _VMStress(torch.autograd.Function):

@@ -326,12 +326,12 @@ class _Solver:
     """State shared by the forward and backward of one solve function:
     the persistent factor, the Newton floor hint and the cached |r(0)|."""
 
-    def __init__(self, data, rtol, atol, max_it):
+    def __init__(self, data, rtol, atol, max_it, kind="cholesky"):
         self.data = data
         self.rtol = rtol
         self.atol = atol
         self.max_it = max_it
-        self.factor = PersistentDeviceFactor(data)
+        self.factor = PersistentDeviceFactor(data, kind=kind)
         # adaptive floor hint: a warm solve stops once it reaches the
         # residual floor the previous solve achieved
         self.floor_hint = atol
@@ -374,13 +374,15 @@ class _ImplicitSolve(torch.autograd.Function):
         return None, dcp, dh, None
 
 
-def build_solve_fn(data: SystemData, rtol=1e-10, atol=1e-14, max_it=30):
+def build_solve_fn(data: SystemData, rtol=1e-10, atol=1e-14, max_it=30,
+                   kind="cholesky"):
     """Return a differentiable `solve(cp, h, d0) -> d`.
 
     `data` is non-differentiable; design variables reach the physics only
-    through cp and h. The persistent factor is exposed as
-    `solve.device_factor`."""
-    solver = _Solver(data, rtol, atol, max_it)
+    through cp and h. The persistent factor (`kind` "cholesky", or "lu" for
+    a tangent that is indefinite by nature, as a hinged structure under
+    follower pressure is at d = 0) is exposed as `solve.device_factor`."""
+    solver = _Solver(data, rtol, atol, max_it, kind)
 
     def solve(cp, h, d0):
         return _ImplicitSolve.apply(solver, cp, h, d0)

@@ -37,6 +37,7 @@ import torch
 from goldfish_tpu_torch import _cuda
 from goldfish_tpu_torch.config import DTYPE, INDEX_DTYPE, as_device, tensor
 from goldfish_tpu_torch.geometry.nurbs import NURBS
+from goldfish_tpu_torch.geometry.trim import support_weights
 from goldfish_tpu_torch.geometry.patch_stack import (
     PatchStack,
     build_patch_stack,
@@ -448,12 +449,13 @@ class NonMatchingSystem:
 
     def __init__(self, surfs: list[NURBS], E, nu, h_th,
                  specs: list[InterfaceSpec] | None = None,
-                 penalty_coefficient: float = 1.0e3, device=None):
+                 penalty_coefficient: float = 1.0e3, device=None,
+                 trims=None, trim_subdiv: int = 3):
         self.device = as_device(device)
         self.surfs = surfs
         self.num_splines = len(surfs)
-        self.stack, self.metas = build_patch_stack(surfs,
-                                                   device=self.device)
+        self.stack, self.metas = build_patch_stack(
+            surfs, device=self.device, trims=trims, trim_subdiv=trim_subdiv)
         self.specs = specs or []
         self.penalty_coefficient = penalty_coefficient
         self.ifs = coupling.build_interfaces(
@@ -473,6 +475,13 @@ class NonMatchingSystem:
         self._free = np.array(
             self.stack.cp_mask.cpu().numpy()[..., None] * np.ones(3),
             dtype=np.float64)
+        if trims is not None:
+            # a CP whose entire basis support was trimmed away has an
+            # exactly-zero stiffness row: pin it or the tangent is
+            # singular. Relative threshold: clipping roundoff can leave
+            # eps-mass supports that are numerically as singular.
+            w = support_weights(self.stack)
+            self._free *= (w > 1e-12 * w.max())[..., None]
         self.f_areal = None
         self.point_load_entries = []
         self.edge_load_entries = []

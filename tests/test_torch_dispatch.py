@@ -171,6 +171,8 @@ def _calls(data, d, cp, h, lam, v):
             st, d, cp, h, data.E, data.nu, 0.5),
         "vm_stress_qp/vjp": lambda: kl_shell.vm_stress_vjp(
             st, d, cp, h, data.E, data.nu, -0.5, st.wq * 1e-3),
+        "vm_stress_qp/rows": lambda: kl_shell.vm_stress_rows(
+            st, d, cp, h, data.E, data.nu, 0.5),
         "pair_assemble/pairs": lambda: _k10(data, d, cp, h, "pairs"),
         "pair_assemble/patches": lambda: _k10(data, d, cp, h, "patches"),
     }

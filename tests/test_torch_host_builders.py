@@ -211,7 +211,20 @@ def test_port_imports_without_jax():
             "goldfish_tpu_torch.demos.om_tbeam_shopt_mi, "
             "goldfish_tpu_torch.operations.exops, "
             "goldfish_tpu_torch.demos.tube_shopt_mi_4patch_wffd, "
-            "goldfish_tpu_torch.demos.evtol_wing_shopt_mi; "
+            "goldfish_tpu_torch.demos.evtol_wing_shopt_mi, "
+            "goldfish_tpu_torch.geometry.trim, "
+            "goldfish_tpu_torch.geometry.igs_io, "
+            "goldfish_tpu_torch.geometry.step_io, "
+            "goldfish_tpu_torch.geometry.native, "
+            "goldfish_tpu_torch.geometry.preprocessing, "
+            "goldfish_tpu_torch.caddee, "
+            "goldfish_tpu_torch.utils.vtk_io, "
+            "goldfish_tpu_torch.utils.checkpoint, "
+            "goldfish_tpu_torch.demos.plate_hole_thickness_opt, "
+            "goldfish_tpu_torch.demos.thickness_opt_plate, "
+            "goldfish_tpu_torch.demos.evtol_wing_shopt, "
+            "goldfish_tpu_torch.demos.shape_opt_mint_tbeam_curved, "
+            "goldfish_tpu_torch.demos.caddee_aeroelastic_wing; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'goldfish_tpu' "
             "or m.startswith('goldfish_tpu.')]; "
