@@ -20,7 +20,9 @@ Phases (any failure raises: non-zero exit, no result line):
    tests/data/torch_port_k2_bits.json: the extended penalty_sweep.cuh
    must leave K2 as it was);
 3. wing kernels: at the full 20-patch wing (6600 dofs) on the card, at a
-   seeded nonzero d, K1 shell_qp and K2 penalty_qp in their three modes,
+   seeded nonzero d, K1 shell_qp and K2 penalty_qp in their three modes
+   and their forward design-tangent modes (K1 mode 4, K2 mode 3, along a
+   seeded (tcp, th); so wherever K1-K4 are checked below),
    K3 jet_assemble and K4 jet_matvec against their plain PyTorch versions
    (relative error in norm <= 1e-11; f64 atomics sum in a run-dependent
    order), with both times; K4 also timed with the L2 flushed before each
@@ -42,7 +44,9 @@ Phases (any failure raises: non-zero exit, no result line):
    the tip load, lambda random): K5 traced_rows (also at the unperturbed
    seam that lies on a knot; conn equal, R 1e-13), K6 mi_penalty_xi (also
    at the unperturbed seam on the knot; then over 5 launches on one input
-   bit for bit, `[kernel C2] mi_penalty_xi`), K7
+   bit for bit, `[kernel C2] mi_penalty_xi`), K6 mode 1 (the xi-forward
+   tangent of the penalty residual), K7 mode 4 (the cp-forward tangent of
+   its residual, also at the edge seam), K7
    c2x_res_jac in its four modes (residual and Jacobian, the given-lambda
    adjoint, the fused Newton step: dx 1e-10, |r(x)| and |r(x + dx)|
    1e-12 of |r(x)|, and the fused adjoint: dcp 1e-12, each beside the
@@ -84,6 +88,15 @@ Phases (any failure raises: non-zero exit, no result line):
    and the pin residual the reference's (the clip, 0.05); its walls per fun
    and jac evaluation, nfev/njev, the factorizations and the xi route are
    printed, not gated;
+6e. the forward design tangents: the three implicit operations'
+   apply_linear_fwd (CPIGA2Xi in (cp, xi), the displacement in (cp, h, xi,
+   d)) at the small OM MI T-beam (num_el=3, p=2, 7 points) against the JAX
+   operations' stored products (tests/data/torch_port_om_mi_reference.json
+   `fwd_*`, 1e-10); then the counted path, check_partials of phase 6b's
+   num_el=40 graph at step 1e-7 (explicit components past FD_COLUMNS_MAX
+   input entries left out: w_int's and the CP embedding's), held to
+   tests/test_torch_om_mi.py's bar (rel < 1e-4, at least 10 blocks); K1
+   mode 4, K2 mode 3, K6 mode 1 and K7 mode 4 must have launched on it;
 6c. eVTOL MI path: the wing box with moving spar and rib seams of
    goldfish_tpu_torch/demos/evtol_wing_shopt_mi.py at the demo's own size
    (`build_problem(num_el=4, p=3)`, variant rspar_rrib: 3 design dofs,
@@ -111,7 +124,11 @@ Phases (any failure raises: non-zero exit, no result line):
    response plus seeded noise, lambda random: K8 pressure_qp in its three
    modes and K1-K4 (K3/K4 with the pressure group) on the fixed-seam
    elliptic tube, then, printed and not gated, how much K8's mode 0
-   outputs change over 5 launches on one input (`[tube-kernel C2]`); K8 in
+   outputs change over 5 launches on one input (`[tube-kernel C2]`); the
+   follower pressure's forward design product (K8 mode c at lambda = tcp)
+   against the plain jvp of its residual, and the tube's whole forward
+   product (`residual_jvp`, counted: K1 mode 4, K2 mode 3 and K8 mode c
+   launched, `[design-tube]`); K8 in
    its three modes (at d = seeded noise) and K5-K7 and K1-K4 (K3 also
    through the seam-slot map) on the moving-seam tube (four edge seams of
    35 points, xi moved inside its edges); each against its plain version
@@ -140,7 +157,11 @@ Phases (any failure raises: non-zero exit, no result line):
    the volume and of the KS stress at rho = 50/m w.r.t. the thickness FFD
    (1e-6), then the demo's SLSQP (run_driver, maxiter 30): it must lower
    the volume and meet each of the demo's assertions that the JAX
-   reference meets at this size; then the sibling demo
+   reference meets at this size; then, counted apart, check_partials of
+   the graph at its end state (step 1e-7; tests/test_om_adapters.py's
+   bars: rel < 5e-5, zero blocks abs < 1e-8; the volume, KS stress and
+   FE-to-IGA components, past FD_COLUMNS_MAX columns, left out), which
+   must launch K1 mode 4 and K2 mode 3; then the sibling demo
    (om_plate_var_th_opt_wint.py) at the same size: cold run_model and
    totals against the reference's sibling numbers;
 12. library calls: cholesky_ex, cholesky_solve, the Woodbury capacitance
@@ -459,12 +480,12 @@ def phase_build():
 # and 3 (l, m) pairs a thread)), and those of them that must not spill;
 # K5's, K7's and K6's also have no stack frame
 K1K2_ENTRIES = ("shell_value_grad", "shell_hess", "shell_adjoint",
-                "shell_geom_grad", "penalty_value_grad", "penalty_hess",
-                "penalty_adjoint")
+                "shell_geom_grad", "shell_design_jvp", "penalty_value_grad",
+                "penalty_hess", "penalty_adjoint", "penalty_design_jvp")
 K8K11_ENTRIES = ("pressure_grad_block", "pressure_hess", "aic_value_kernel",
                  "aic_vjp_kernel")
 K5K7_ENTRIES = ("traced_rows_kernel", "c2x_kernel", "c2x_reduce_dcp")
-K6_ENTRIES = ("mi_penalty_xi_kernel",)
+K6_ENTRIES = ("mi_penalty_xi_kernel", "mi_penalty_xi_fwd_kernel")
 K9_ENTRIES = ("vm_value", "vm_vjp_elements", "vm_gather", "vm_rows")
 K10_ENTRIES = ("patch_assemble_kernel", "pair_assemble_kernel")
 REDESIGNED = K1K2_ENTRIES + K8K11_ENTRIES + K5K7_ENTRIES + K6_ENTRIES + \
@@ -520,6 +541,14 @@ KERNELS = [
      "goldfish_tpu/physics/coupling.py:318"),
     ("penalty_qp/adjoint", "goldfish_tpu_torch/csrc/penalty_qp.cu",
      "goldfish_tpu/solver/implicit.py:516"),
+    ("shell_qp/design_fwd", "goldfish_tpu_torch/csrc/shell_qp.cu",
+     "goldfish_tpu/operations/disp_imop.py:68"),
+    ("penalty_qp/design_fwd", "goldfish_tpu_torch/csrc/penalty_qp.cu",
+     "goldfish_tpu/operations/disp_mi_imop.py:221"),
+    ("mi_penalty_xi/xi_fwd", "goldfish_tpu_torch/csrc/mi_penalty_xi.cu",
+     "goldfish_tpu/operations/disp_mi_imop.py:221"),
+    ("c2x_res_jac/cp_fwd", "goldfish_tpu_torch/csrc/c2x_res_jac.cu",
+     "goldfish_tpu/operations/disp_mi_imop.py:115"),
     ("jet_assemble", "goldfish_tpu_torch/csrc/jet_assemble.cu",
      "goldfish_tpu/solver/system.py:194"),
     ("jet_matvec", "goldfish_tpu_torch/csrc/jet_matvec.cu",
@@ -713,6 +742,8 @@ def fixed_cases(data, d, cp, h, lam, v, tag=None):
     P, Ne, Q, L = st.R00.shape
     nqp = P * Ne * Q
     jets_s = 2 * 15 * L * 2 + 2 * L          # X, z jets + h per qp
+    # the design tangent (tcp, th): v and lam's first component (seeded)
+    tcp, th = v, lam[..., 0].contiguous()
     # K3: T = H B and B^T T per qp (`assemble_ops`); K4: gather, H z,
     # scatter
     asm = sum(assemble_ops(R) for _, R, _ in groups)
@@ -751,6 +782,14 @@ def fixed_cases(data, d, cp, h, lam, v, tag=None):
             nqp * (jets_s * 3 // 2 + 32 * L + TANGENT * SWEEP_SHELL_GEO),
             shell_in + [lam],
             {"flops_dual": nqp * (jets_s * 3 // 2 + 34 * DENS_SHELL)}),
+        # the forward design tangent along (tcp, th): mode a's sweep with
+        # X's jets and h as a Dual<double, 1> tangent
+        "shell_qp/design_fwd": (
+            lambda: kl_shell.shell_design_jvp(st, d, cp, h, E, nu, tcp, th),
+            lambda: kl_shell._design_jvp_plain(st, d, cp, h, E, nu, tcp,
+                                               th),
+            nqp * (jets_s * 3 // 2 + L + 30 * L + TANGENT * SWEEP_SHELL),
+            shell_in + [tcp, th]),
         "jet_assemble": (lambda: assemble(system.jet_assemble),
                          lambda: assemble(system._assemble_plain), asm,
                          jet_in),
@@ -784,6 +823,11 @@ def fixed_cases(data, d, cp, h, lam, v, tag=None):
             nip * (jets_p * 3 // 2 + scat_p + TANGENT * SWEEP_PEN_GEO),
             pen_in + [lam],
             {"flops_dual": nip * (jets_p * 3 // 2 + 30 * DENS_PEN)}),
+        "penalty_qp/design_fwd": (
+            lambda: coupling.penalty_design_jvp(ifs, d, cp, h, E, tcp, th),
+            lambda: coupling._design_jvp_plain(ifs, d, cp, h, E, tcp, th),
+            nip * (jets_p * 3 // 2 + scat_p + TANGENT * SWEEP_PEN),
+            pen_in + [tcp, th]),
     })
     return cases
 
@@ -1176,6 +1220,18 @@ def k6_ops(I, N, L):
                     + TANGENT * (SWEEP_PEN_GEO + 30))
 
 
+# K6 mode 1 a point: the same rows, the rows' tangents (~9 a basis
+# function), the jets and their tangents (2 x 32), the sweep without the
+# geometry part (SWEEP_PEN) in a Dual<double, 1>, and each lane's dR^T g +
+# R^T dg (~36)
+K6_FWD_LANE = 9 + 64 + 36
+
+
+def k6_fwd_ops(I, N, L):
+    return I * N * (2 * (2 * K6_ROWS_DIR + L * (K6_ROWS_BASIS + K6_FWD_LANE))
+                    + TANGENT * SWEEP_PEN)
+
+
 def k7_ops(I, N, L):
     """f64 operations of K7's modes at I seams of N points, {counter
     suffix: (ops, the parent's dual-number count of the same work)}: the
@@ -1346,7 +1402,26 @@ def mi_kernel_cases(sys_, edge=True, label="mi-kernel"):
             k6_ops(I, N, L), sv + [x4, tA, tB, co.w_s, d, cp, h, lam],
             {"flops_dual": I * N * (2 * BASIS_OPS * 9 + 2 * L * 6 * 9 * 3
                                     + 18 * DENS_PEN)})
+    # K6 mode 1, the xi-forward tangent of r_pen along a seeded txi
+    tx = torch.tensor(np.random.default_rng(3).normal(size=(I, 4 * N)),
+                      device=cp.device)
+    x4 = xi.reshape(I, N, 2, 2).contiguous()
+    t4 = tx.reshape(I, N, 2, 2).contiguous()
+    tg = [coupling_mi._curve_tangents(x[:, :, k], mi.n_pts).contiguous()
+          for x in (x4, t4) for k in (0, 1)]
+    fwd_args = (ss, p, q, mi, co, x4, tg[0], tg[1], d, cp, h, E, t4, tg[2],
+                tg[3])
+    cases[("mi_penalty_xi/xi_fwd",)] = (
+        lambda: coupling_mi.mi_penalty_xi_fwd(*fwd_args),
+        lambda: coupling_mi._xi_fwd_plain(*fwd_args),
+        k6_fwd_ops(I, N, L), sv + [x4, t4, *tg, co.w_s, d, cp, h])
     ops = k7_ops(I, N, L)
+    tcp = torch.tensor(np.random.default_rng(5).normal(size=tuple(cp.shape)),
+                       device=cp.device)
+    cases[("c2x_res_jac/cp_fwd",)] = (
+        lambda: cpiga2xi.c2x_res_jvp(ss, p, q, mi, cp, xi, tcp),
+        lambda: cpiga2xi._res_jvp_plain(ss, p, q, mi, cp, xi, tcp),
+        ops["adjoint"][0], sv + mi_in + [cp, xi, tcp])
     cases[("c2x_res_jac/res_jac",)] = (
         lambda: cpiga2xi.c2x_res_jac(ss, p, q, mi, cp, xi),
         lambda: cpiga2xi._res_jac_plain(ss, p, q, mi, cp, xi, True),
@@ -1375,6 +1450,13 @@ def mi_kernel_cases(sys_, edge=True, label="mi-kernel"):
             lambda: cpiga2xi._res_vjp_plain(ex.ss, p, q, ex.mi, ecp, ex_x,
                                             eg),
             0, e_in + [eg])
+        etcp = torch.tensor(np.random.default_rng(6).normal(
+            size=tuple(ecp.shape)), device=ecp.device)
+        cases[("c2x_res_jac/cp_fwd", "edge")] = (
+            lambda: cpiga2xi.c2x_res_jvp(ex.ss, p, q, ex.mi, ecp, ex_x, etcp),
+            lambda: cpiga2xi._res_jvp_plain(ex.ss, p, q, ex.mi, ecp, ex_x,
+                                            etcp),
+            0, e_in + [etcp])
         cases.update({k + ("edge",): v for k, v in fused_cases(
             ex.ss, p, q, ex.mi, ecp, ex_x, eg, e_in[:-2]).items()})
     cases[("shell_qp/geom_grad",)] = geom_grad_case(st, d, cp, h, E, data.nu)
@@ -1834,6 +1916,113 @@ def phase_om_mi(dev, ref):
     counts = dict(_cuda.launch_counts)
     say(f"[om-mi] phase {time.perf_counter() - t_phase:.1f} s; launch counts "
         f"with the driver {counts}")
+    return counts, prob
+
+
+# the forward design tangents' modes (phase 6e and the counted design runs)
+DESIGN_KERNELS = ("shell_qp/design_fwd", "penalty_qp/design_fwd")
+DESIGN_MI_KERNELS = DESIGN_KERNELS + ("mi_penalty_xi/xi_fwd",
+                                      "c2x_res_jac/cp_fwd")
+# launch counts of the counted design-tangent runs, by path: the OM MI
+# graph's and the plate's check_partials, the tube's forward product
+DESIGN_COUNTS = {}
+# explicit components with more input entries than this are left out of
+# check_partials on the card: their finite differences take a model
+# evaluation a column (12144 at the OM MI graph's w_int, 9520 at the plate's
+# KS stress) and they have no forward design mode
+FD_COLUMNS_MAX = 512
+
+
+def costly_fd(prob):
+    """The explicit components of `prob` past FD_COLUMNS_MAX columns."""
+    from goldfish_tpu_torch.om_shim import ExplicitComponent
+
+    return [n for n, c in prob.model._subs.items()
+            if isinstance(c, ExplicitComponent)
+            and sum(np.size(v) for v in c._inputs.values()) > FD_COLUMNS_MAX]
+
+
+def gate_partials(tag, report, bar, zero_abs=None, min_checked=0):
+    """The JAX tests' check_partials criteria: every block whose FD
+    Jacobian is not zero within rel `bar` (|J_fd| < 1e-10 skipped, or with
+    `zero_abs` < 1e-14 held to abs error < zero_abs), at least
+    `min_checked` blocks checked. Prints every block."""
+    checked = 0
+    for comp, pairs in report.items():
+        for (of, wrt), e in pairs.items():
+            nfd = float(np.linalg.norm(e["J_fd"]))
+            say(f"[{tag}] {comp} d{of}/d{wrt}: rel {e['rel error']:.3e} abs "
+                f"{e['abs error']:.3e} |J_fd| {nfd:.3e}")
+            if nfd < (1e-14 if zero_abs is not None else 1e-10):
+                if zero_abs is not None and not e["abs error"] < zero_abs:
+                    raise RuntimeError(f"{tag}: {comp} d{of}/d{wrt} zero "
+                                       f"block off by {e['abs error']:.3e}")
+                continue
+            checked += 1
+            if not e["rel error"] < bar:
+                raise RuntimeError(f"{tag}: {comp} d{of}/d{wrt} rel error "
+                                   f"{e['rel error']:.3e} >= {bar:g}")
+    say(f"[{tag}] {checked} blocks checked (rel < {bar:g})")
+    if checked < min_checked:
+        raise RuntimeError(f"{tag}: {checked} blocks checked, fewer than "
+                           f"{min_checked}")
+
+
+def phase_design_tangents(dev, ref_om_mi, prob):
+    """6e: the three implicit operations' forward design products at the
+    small OM MI T-beam against the JAX operations' (1e-10), then the
+    counted path: check_partials of the num_el=40 OM MI graph `prob` (the
+    JAX test's bars: rel < 1e-4, at least 10 blocks), which runs K1 mode 4,
+    K2 mode 3, K6 mode 1 and K7 mode 4. The modes against their plain
+    versions run in phases 3, 5, 7 and 10 (`fixed_cases`,
+    `mi_kernel_cases`, the tube's route); the plate graph's check_partials
+    in phase 11."""
+    from goldfish_tpu_torch import _cuda
+    from goldfish_tpu_torch.models import tbeam
+    from goldfish_tpu_torch.operations import (
+        CPIGA2XiImOperation,
+        DispMintImOperation,
+    )
+
+    t_phase = time.perf_counter()
+    ops = ref_om_mi["small"]["ops"]
+    inp = {k: np.asarray(v) for k, v in ops["inputs"].items()}
+    want_x = ops["cpiga2xi"]
+    want_d = ops["disp_mint"]
+    s = tbeam.build_mi(num_el=ref_om_mi["small"]["num_el"],
+                       p=ref_om_mi["small"]["p"],
+                       n_pts=ref_om_mi["small"]["n_pts"], device=dev)
+    xop = CPIGA2XiImOperation(s)
+    xop.linearize(inp["cp"], inp["xi"])
+    dop = DispMintImOperation(s, rtol=1e-11)
+    xi = np.asarray(want_x["solve_nonlinear"])
+    dop.solve_nonlinear(inp["cp"], inp["h"], xi)
+    dop.linearize(inp["cp"], inp["h"], xi,
+                  np.asarray(want_d["solve_nonlinear"]))
+    for op, combos, want in (
+            (xop, (("d_xi",), ("d_cp",), ("d_cp", "d_xi")), want_x),
+            (dop, (("d_d",), ("d_cp",), ("d_h",), ("d_xi",),
+                   ("d_cp", "d_h", "d_xi", "d_d")), want_d)):
+        for combo in combos:
+            got = op.apply_linear_fwd(**{k: inp["t" + k[1:]] for k in combo})
+            key = "fwd_" + "+".join(combo)
+            check_rel("design-ops", f"{type(op).__name__} {key}", got,
+                      want[key], 1e-10)
+    del xop, dop, s
+
+    excl = costly_fd(prob)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    report = prob.check_partials(step=1e-7, excludes=excl)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(_cuda.launch_counts)
+    say(f"[design-om-mi] check_partials {dt:.3f} s (left out: {excl})")
+    gate_partials("design-om-mi", report, 1e-4, min_checked=10)
+    check_counts("design-om-mi", counts, DESIGN_MI_KERNELS)
+    say(f"[design] phase 6e {time.perf_counter() - t_phase:.1f} s; launches "
+        f"{ {k: counts[k] for k in DESIGN_MI_KERNELS} }")
     return counts
 
 
@@ -2082,6 +2271,29 @@ def phase_tube_fixed(dev, checks, ref):
     reproducibility("tube-kernel", pcases, ("pressure_qp/value_grad",),
                     outputs="(W, dW/dd)")
     del pcases
+    # the follower pressure's forward design product: K8 mode c at lambda =
+    # tcp (its cp-Jacobian is symmetric), against the plain jvp in cp of the
+    # pressure residual; then the tube's whole forward product, counted
+    from goldfish_tpu_torch.physics import loads
+    from goldfish_tpu_torch.solver.system import residual_jvp
+
+    st, pr = s.stack, s.data.pressure
+    route = {"pressure_qp/adjoint": (
+        lambda: loads.pressure_design_jvp(st, d, cp, pr, v),
+        lambda: loads._pressure_design_jvp_plain(st, d, cp, pr, v),
+        pressure_cases(s.data, d, cp, v)["pressure_qp/adjoint"][2],
+        [st.R00, st.R10, st.R01, st.conn, st.wq, d, cp, pr, v])}
+    merge(checks, "pressure_qp/adjoint",
+          check_kernels(route, "tube-kernel design route")[
+              "pressure_qp/adjoint"], "route")
+    reset_counts()
+    jv = residual_jvp(s.data, d, cp, h, v, lam[..., 0].contiguous())
+    torch.cuda.synchronize()
+    DESIGN_COUNTS["design_tube"] = dict(_cuda.launch_counts)
+    say(f"[design-tube] residual_jvp |dR| {float(torch.linalg.norm(jv))!r}")
+    check_counts("design-tube", DESIGN_COUNTS["design_tube"],
+                 DESIGN_KERNELS + ("pressure_qp/adjoint",))
+    del route, jv
     cases = fixed_cases(s.data, d, cp, h, lam, v, "tube-kernel")
     cases["shell_qp/geom_grad"] = geom_grad_case(s.stack, d, cp, h, s.E,
                                                  s.nu)
@@ -2369,6 +2581,22 @@ def phase_plate(dev, checks, ref):
         raise RuntimeError(f"plate SLSQP misses {missed} (the reference "
                            f"meets them)")
     check_counts("plate", counts, PLATE_KERNELS)
+    # the plate graph's check_partials (phase 6e's counted design run on the
+    # plate): the JAX test's bars, rel < 5e-5 at step 1e-7, zero blocks abs
+    # < 1e-8 (tests/test_om_adapters.py:43-58), at SLSQP's end state
+    excl = costly_fd(prob)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    report = prob.check_partials(step=1e-7, excludes=excl)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    DESIGN_COUNTS["design_plate"] = dict(_cuda.launch_counts)
+    say(f"[design-plate] check_partials {dt:.3f} s (left out: {excl})")
+    gate_partials("design-plate", report, 5e-5, zero_abs=1e-8,
+                  min_checked=4)
+    check_counts("design-plate", DESIGN_COUNTS["design_plate"],
+                 DESIGN_KERNELS)
     return counts, fac
 
 
@@ -3767,7 +3995,12 @@ def main():
     del mi_sys, fac
     torch.cuda.empty_cache()
     with open(REF_OM_MI) as fh:
-        counts_om_mi = phase_om_mi(dev, json.load(fh)["full"])
+        ref_om_mi = json.load(fh)
+    counts_om_mi, prob40 = phase_om_mi(dev, ref_om_mi["full"])
+    torch.cuda.empty_cache()
+    DESIGN_COUNTS["design_om_mi"] = phase_design_tangents(dev, ref_om_mi,
+                                                          prob40)
+    del prob40
     torch.cuda.empty_cache()
     with open(REF_5B) as fh:
         ref_5b = json.load(fh)
@@ -3886,7 +4119,8 @@ def main():
              "thickness_plate": (counts_thp, None),
              "evtol": (counts_evtol_cad, None),
              "curved_mi": (counts_curved, None),
-             "caddee": (counts_caddee, None)}
+             "caddee": (counts_caddee, None),
+             **{k: (c, None) for k, c in DESIGN_COUNTS.items()}}
     record = {"kernels": []}
     for name, src, rep in KERNELS:
         per = {f"launches_{p}": (c.get(name, 0) if keep is None

@@ -38,12 +38,14 @@ _BUILD = os.path.join(_PKG, "_build")
 
 # kernel wrapper name -> launches since the last reset
 COUNTERS = ("shell_qp/value_grad", "shell_qp/hess", "shell_qp/adjoint",
-            "shell_qp/geom_grad",
+            "shell_qp/geom_grad", "shell_qp/design_fwd",
             "penalty_qp/value_grad", "penalty_qp/hess", "penalty_qp/adjoint",
+            "penalty_qp/design_fwd",
             "jet_assemble", "jet_matvec",
-            "traced_rows", "mi_penalty_xi",
+            "traced_rows", "mi_penalty_xi", "mi_penalty_xi/xi_fwd",
             "c2x_res_jac/res_jac", "c2x_res_jac/adjoint",
             "c2x_res_jac/step", "c2x_res_jac/solve_adjoint",
+            "c2x_res_jac/cp_fwd",
             "pressure_qp/value_grad", "pressure_qp/hess",
             "pressure_qp/adjoint",
             "vm_stress_qp/value", "vm_stress_qp/vjp", "vm_stress_qp/rows",
@@ -58,13 +60,14 @@ build_info: dict = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "gf_shell_qp": [_I] + [_P] * 17 + [_I] * 5 + [_P],
-    "gf_penalty_qp": [_I] + [_P] * 23 + [_I] * 4 + [_P],
+    "gf_shell_qp": [_I] + [_P] * 18 + [_I] * 5 + [_P],
+    "gf_penalty_qp": [_I] + [_P] * 24 + [_I] * 4 + [_P],
     "gf_jet_assemble": [_P] * 5 + [_I] * 4 + [ctypes.c_longlong, _P],
     "gf_jet_matvec": [_P] * 6 + [_I] * 4 + [_P],
     "gf_jet_matvec_variant": [_I] * 3,
     "gf_traced_rows": [_P] * 12 + [_I] * 8 + [_P],
     "gf_mi_penalty_xi": [_P] * 22 + [_I] * 9 + [_P],
+    "gf_mi_penalty_xi_fwd": [_P] * 24 + [_I] * 9 + [_P],
     "gf_c2x_res_jac": [_I] + [_P] * 26 + [_I] * 10 + [_P],
     "gf_pressure_qp": [_I] + [_P] * 11 + [_I] * 5 + [_P],
     "gf_vm_stress_qp": [_I] + [_P] * 20 + [ctypes.c_double] + [_I] * 5 + [_P],

@@ -10,7 +10,13 @@
 //   mode 2  _c2x_step: one full Newton step, fused: r(x) and dr/dx, the
 //           solve dr/dx dx = -r, r(x + dx); writes x + dx and the two
 //           per-intersection norms (I, 2) = |r(x)|, |r(x + dx)|;
-//   mode 3  _c2x_adjoint_direct: dr/dx^T lam = g, then mode 1's pullback.
+//   mode 3  _c2x_adjoint_direct: dr/dx^T lam = g, then mode 1's pullback;
+//   mode 4  the cp-forward tangent dr/dcp . tcp (I, 4N) for a given tcp
+//           (P, C, 3), for the same rows as mode 0 (jax.jvp of _c2x_res in
+//           cp, the JAX package's operations/disp_mi_imop.py): the points'
+//           tangents dP = sum R0 tcp by the same half-warps, then each
+//           owner contracts its rows' derivatives in the points with them
+//           (a pin's tangent is 0), every slot written once.
 //
 // Unknowns per intersection (padded to N points): x = xi (N, 2, 2)
 // flattened, x[(k * 2 + side) * 2 + c]. Residual slots (4N), as in
@@ -87,18 +93,19 @@ struct Args {
   const double* epin_val;    // (I, 2)
   const double* cp;      // (P, C, 3)
   const double* x;       // (I, 4N)
-  const double* vec;     // (I, 4N): lam (mode 1) or g (mode 3)
+  const double* vec;     // (I, 4N): lam (mode 1) or g (mode 3); tcp
+                         // (P, C, 3) in mode 4
   int I, N;
 };
 
 // A block's shared memory by mode (doubles, then ints)
 struct Layout {
   size_t a = 0, xs = 0, pts = 0, res = 0, sol = 0, GA = 0, GB = 0, gP = 0,
-         R0 = 0, redv = 0, nd = 0;
+         R0 = 0, tp = 0, redv = 0, nd = 0;
   size_t redi = 0, order = 0, spans = 0, ni = 0;
   __host__ __device__ constexpr Layout(int N, int mode) {
     const size_t n = 4 * size_t(N);
-    const bool lu = mode >= 2, adj = mode == 1 || mode == 3;
+    const bool lu = mode == 2 || mode == 3, adj = mode == 1 || mode == 3;
     size_t o = 0;
     a = o;     o += lu ? n * (n + 1) : 0;  // [J | rhs], row-major, ld n + 1
     xs = o;    o += 4 * size_t(N);         // the coordinates evaluated at
@@ -109,6 +116,7 @@ struct Layout {
     GB = o;    o += adj ? 3 * size_t(N) : 0;
     gP = o;    o += adj ? 6 * size_t(N) : 0;   // (2N, 3)
     R0 = o;    o += adj ? 32 * size_t(N) : 0;  // (2N, 16)
+    tp = o;    o += mode == 4 ? 6 * size_t(N) : 0;  // tangents of PA, PB
     redv = o;  o += 2 * WARPS;             // pivot offers, two buffers
     nd = o;
     size_t q = 0;
@@ -129,7 +137,7 @@ static_assert(4 * FUSED_N_MAX <= WARPS * ROWS_MAX,
 
 struct Sm {
   double *a, *xs, *PA, *dPA, *PB, *dPB, *res, *sol, *GA, *GB, *gP, *R0,
-      *redv;
+      *tPA, *tPB, *redv;
   int *redi, *order, *spans;
   __device__ Sm(double* d, const Layout& L, int N) {
     a = d + L.a;
@@ -144,6 +152,8 @@ struct Sm {
     GB = d + L.GB;
     gP = d + L.gP;
     R0 = d + L.R0;
+    tPA = d + L.tp;
+    tPB = tPA + 3 * N;
     redv = d + L.redv;
     int* b = reinterpret_cast<int*>(d + L.nd);
     redi = b + L.redi;
@@ -158,7 +168,9 @@ __device__ __forceinline__ int col_of(int k, int side, int c) {
 
 // S and dS/dxi of the 2N side-points (side-point sp = side * N + k) at
 // xs, by half-warps; with `keep`, also their R0 rows and knot spans for
-// the adjoint's pullback
+// the adjoint's pullback; with TAN, also the points' tangents sum R0 tcp
+// (tcp in a.vec)
+template <bool TAN = false>
 __device__ __forceinline__ void
 eval_points(const Args& a, int i, const Sm& s, bool keep) {
   const int N = a.N, C = a.ss.C;
@@ -182,6 +194,14 @@ eval_points(const Args& a, int i, const Sm& s, bool keep) {
     }
 #pragma unroll
     for (int t = 0; t < 9; ++t) v[t] = half_sum(v[t]);
+    double tv[3] = {0.0, 0.0, 0.0};
+    if constexpr (TAN) {
+#pragma unroll
+      for (int m = 0; m < 3; ++m)
+        tv[m] = half_sum(
+            r.conn >= 0 ? r.R0 * a.vec[(size_t(ip) * C + r.conn) * 3 + m]
+                        : 0.0);
+    }
     if (!act) continue;
     if (l == 0) {
       double* P = (side ? s.PB : s.PA) + 3 * k;
@@ -191,6 +211,11 @@ eval_points(const Args& a, int i, const Sm& s, bool keep) {
         P[m] = v[m];
         dP[2 * m] = v[3 + 2 * m];
         dP[2 * m + 1] = v[4 + 2 * m];
+      }
+      if constexpr (TAN) {
+        double* tP = (side ? s.tPB : s.tPA) + 3 * k;
+#pragma unroll
+        for (int m = 0; m < 3; ++m) tP[m] = tv[m];
       }
     }
     if (keep) {
@@ -294,6 +319,38 @@ struct AdjSink {
     if (!bside) return;
 #pragma unroll
     for (int m = 0; m < 3; ++m) GB[m] += l * gB[m];
+  }
+};
+
+// the tangents of the owner's rows along the points' tangents tPA, tPB
+// (mode 4): each slot written once, a pin's 0
+struct TanSink {
+  double* out;
+  const double *tPA, *tPB;
+  int k;
+  __device__ __forceinline__ void pin(int slot, int, double) {
+    out[slot] = 0.0;
+  }
+  __device__ __forceinline__ void coin_row(int slot, double, int m) {
+    out[slot] = tPA[3 * k + m] - tPB[3 * k + m];
+  }
+  __device__ __forceinline__ void row(int slot, double,
+                                      const double (&gA)[4][3],
+                                      const double (&gB)[3], int wmask,
+                                      bool bside) {
+    double t = 0.0;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      if (!((wmask >> w) & 1)) continue;
+      const int j = k - 2 + w;
+#pragma unroll
+      for (int m = 0; m < 3; ++m) t += gA[w][m] * tPA[3 * j + m];
+    }
+    if (bside) {
+#pragma unroll
+      for (int m = 0; m < 3; ++m) t += gB[m] * tPB[3 * k + m];
+    }
+    out[slot] = t;
   }
 };
 
@@ -580,7 +637,7 @@ c2x_kernel(Args a, double* res_g, double* J_g, double* xnew_g,
   const double* x = a.x + size_t(i) * n;
   // phase 0: stage x; zero what is filled sparsely
   for (int t = tid; t < n; t += THREADS) s.xs[t] = x[t];
-  if (MODE >= 2) {
+  if (MODE == 2 || MODE == 3) {
     for (size_t t = tid; t < size_t(n) * ld; t += THREADS) s.a[t] = 0.0;
   }
   if (MODE == 0 && J_g) {
@@ -591,9 +648,16 @@ c2x_kernel(Args a, double* res_g, double* J_g, double* xnew_g,
   if (MODE == 1 || MODE == 3)
     for (int t = tid; t < 6 * a.ss.C; t += THREADS) part[t] = 0.0;
   __syncthreads();
-  eval_points(a, i, s, MODE == 1 || MODE == 3);
+  eval_points<MODE == 4>(a, i, s, MODE == 1 || MODE == 3);
   __syncthreads();
 
+  if (MODE == 4) {
+    for (int k = tid; k < N; k += THREADS) {
+      TanSink sink{res_g + size_t(i) * n, s.tPA, s.tPB, k};
+      owner_rows(a, i, k, s, sink);
+    }
+    return;
+  }
   if (MODE == 1) {
     for (int k = tid; k < N; k += THREADS) {
       AdjSink sink{a.vec + size_t(i) * n, {}, {}};
@@ -714,10 +778,10 @@ extern "C" int gf_c2x_res_jac(
     int Su, int Sv, int C, int p, int q, int P, int I, int N, void* stream) {
   using namespace gf;
   if (p < 1 || q < 1 || p > PMAX || q > PMAX || N < 3 || mode < 0 ||
-      mode > 3)
+      mode > 4)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = Layout(N, mode).bytes();
-  if (smem > SMEM_MAX || (mode >= 2 && N > FUSED_N_MAX))
+  if (smem > SMEM_MAX || ((mode == 2 || mode == 3) && N > FUSED_N_MAX))
     return static_cast<int>(cudaErrorInvalidValue);
   if (I == 0) return 0;
   Args a{{knots_u, knots_v, su_vals, su_ids, sv_vals, sv_ids, w, n_v, Ku, Kv,
@@ -730,9 +794,10 @@ extern "C" int gf_c2x_res_jac(
     case 0: rc = launch_mode<0>(a, smem, st, res, J, xnew, norms, part); break;
     case 1: rc = launch_mode<1>(a, smem, st, res, J, xnew, norms, part); break;
     case 2: rc = launch_mode<2>(a, smem, st, res, J, xnew, norms, part); break;
-    default: rc = launch_mode<3>(a, smem, st, res, J, xnew, norms, part);
+    case 3: rc = launch_mode<3>(a, smem, st, res, J, xnew, norms, part); break;
+    default: rc = launch_mode<4>(a, smem, st, res, J, xnew, norms, part);
   }
-  if (rc != 0 || mode == 0 || mode == 2) return rc;
+  if (rc != 0 || mode == 0 || mode == 2 || mode == 4) return rc;
   const size_t total = size_t(P) * C * 3;
   c2x_reduce_dcp<<<unsigned((total + 255) / 256), 256, 0, st>>>(
       pairA, pairB, part, I, P, C, dcp);

@@ -36,6 +36,23 @@
 //    is written once a point: no atomics, the same bits on every launch. A
 //    padded point (w = 0) writes zeros.
 //
+// Mode 1 (`mi_penalty_xi_fwd_kernel`, entry gf_mi_penalty_xi_fwd): the
+// xi-forward tangent of the penalty residual r_pen = B^T dF/dz (P, C, 3),
+// given t_xi (I, N, 2, 2) and the curve tangents' tangents (I, N, 2) a
+// side (coupling_mi._curve_tangents is linear: theirs is its value at
+// t_xi). Both the rows and the jets move: d(B^T g) = dB^T g + B^T dg, with
+// dB the rows' xi-derivatives (lane_row2's second derivatives) along t_xi
+// and dg the tangent of dF/dz through X, z, hA, hB and dxiA, dxiB. The
+// same layout: a warp a point, half a warp a side, lane l its basis
+// function's rows and their tangents; the halves sum and swap X, z and h
+// with their tangents (32 numbers a side); every lane runs one
+// penalty_sweep with S = R = Dual<double, 1> (not GEO: the forward
+// tangent of dF/dz) and adds its node's dR^T g + R^T dg with three f64
+// atomics (as K2 mode 0 scatters; the run-to-run order of the sums
+// differs in the last bits). Padded points (w = 0) write nothing. The
+// jvp in xi of the JAX package's residual_mi (operations/disp_mi_imop.py,
+// jax.jvp of system_mi.py:56).
+//
 // What bounds it on the H100: latency, at 17-140 points a launch: the
 // rows' dependent loads (span starts, knots, weights, nodes) and divisions
 // (more than half of a launch when one half-warp took both sides in
@@ -66,7 +83,10 @@ struct Args {
   const double* cp;
   const double* h;     // (P, C)
   const double* E;     // (P,)
-  const double* lam;   // (P, C, 3)
+  const double* lam;   // (P, C, 3), mode 0
+  const double* txi;   // (I, N, 2, 2), mode 1: the tangent of xi
+  const double* tdxA;  // (I, N, 2), mode 1: the tangent of dxiA
+  const double* tdxB;
   int I, N;
 };
 
@@ -193,6 +213,98 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
+// Mode 1: a warp a point, half a warp a side (see the head of the file)
+__global__ void __launch_bounds__(THREADS, 1)
+    mi_penalty_xi_fwd_kernel(Args a, double* out) {
+  __shared__ double sRow[THREADS][6];
+  const size_t n = size_t(a.I) * a.N;
+  const size_t pt = (size_t(blockIdx.x) * THREADS + threadIdx.x) >> 5;
+  const bool live = pt < n;
+  const size_t ik = live ? pt : n - 1;
+  const int side = (threadIdx.x >> 4) & 1;
+  const int i = int(ik / a.N);
+  const int pA = a.pairA[i], pB = a.pairB[i];
+  const int ip = side == 0 ? pA : pB;
+  const size_t xo = (ik * 2 + side) * 2;
+  const LaneRow2 r = lane_row2(a.ss, ip, a.xi[xo], a.xi[xo + 1]);
+  const long node = r.conn < 0 ? -1 : long(ip) * a.ss.C + r.conn;
+  const double tu = a.txi[xo], tv = a.txi[xo + 1];
+  // the rows (R0, R_u, R_v) and their tangents along t_xi
+  double* rw = sRow[threadIdx.x];
+  rw[0] = r.R0;
+  rw[1] = r.Ru;
+  rw[2] = r.Rv;
+  rw[3] = r.Ru * tu + r.Rv * tv;
+  rw[4] = r.Ruu * tu + r.Ruv * tv;
+  rw[5] = r.Ruv * tu + r.Rvv * tv;
+  // this lane's share of X (Xu, Xv), z (value, u, v) and h, and of their
+  // tangents (rows 3-5 in place of 0-2)
+  double X[PEN_NX], tX[PEN_NX];
+  T zt[PEN_NZ], Xt[PEN_NX], hA, hB;
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    const int c = k % 3, j = 1 + k / 3;
+    const double cpc = node < 0 ? 0.0 : a.cp[node * 3 + c];
+    swap_halves(half_sum(rw[j] * cpc), side, X[k], X[6 + k]);
+    swap_halves(half_sum(rw[3 + j] * cpc), side, tX[k], tX[6 + k]);
+  }
+#pragma unroll
+  for (int k = 0; k < PEN_NX; ++k) {
+    Xt[k] = T(X[k]);
+    Xt[k].g[0] = tX[k];
+  }
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    const int c = k % 3, j = k / 3;
+    const double dc = node < 0 ? 0.0 : a.d[node * 3 + c];
+    double zA, zB, tA, tB;
+    swap_halves(half_sum(rw[j] * dc), side, zA, zB);
+    swap_halves(half_sum(rw[3 + j] * dc), side, tA, tB);
+    zt[k] = T(zA);
+    zt[k].g[0] = tA;
+    zt[9 + k] = T(zB);
+    zt[9 + k].g[0] = tB;
+  }
+  {
+    const double hc = node < 0 ? 0.0 : a.h[node];
+    double vA, vB, tA, tB;
+    swap_halves(half_sum(rw[0] * hc), side, vA, vB);
+    swap_halves(half_sum(rw[3] * hc), side, tA, tB);
+    hA = T(vA);
+    hA.g[0] = tA;
+    hB = T(vB);
+    hB.g[0] = tB;
+  }
+  T dA[2], dB[2];
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    dA[c] = T(a.dxiA[2 * ik + c]);
+    dA[c].g[0] = a.tdxA[2 * ik + c];
+    dB[c] = T(a.dxiB[2 * ik + c]);
+    dB[c].g[0] = a.tdxB[2 * ik + c];
+  }
+  const double w = a.w[ik];
+  T val, g[PEN_NZ], gh;
+  penalty_sweep<T, false, false, T>(Xt, zt, hA, hB, dA, dB,
+                                    fmax(a.E[pA], a.E[pB]), a.ad[i], a.ar[i],
+                                    w, val, g, gh);
+  if (!live || node < 0 || w == 0.0) return;
+  // this node's dR^T g + R^T dg over its side's 9-jet
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    double acc = 0.0;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      // this side's cotangent, selected without a runtime index
+      const double gv = side == 0 ? g[3 * j + c].v : g[9 + 3 * j + c].v;
+      const double gt =
+          side == 0 ? g[3 * j + c].g[0] : g[9 + 3 * j + c].g[0];
+      acc += rw[3 + j] * gv + rw[j] * gt;
+    }
+    atomicAdd(out + node * 3 + c, acc);
+  }
+}
+
 }  // namespace
 }  // namespace gf
 
@@ -211,9 +323,35 @@ extern "C" int gf_mi_penalty_xi(
   if (n == 0) return 0;
   Args a{{knots_u, knots_v, su_vals, su_ids, sv_vals, sv_ids, w_cp, n_v, Ku,
           Kv, Su, Sv, C, p, q},
-         pairA, pairB, xi, dxiA, dxiB, w, ad, ar, d, cp, h, E, lam, I, N};
+         pairA, pairB, xi, dxiA, dxiB, w, ad, ar, d, cp, h, E, lam,
+         nullptr, nullptr, nullptr, I, N};
   const unsigned blocks = unsigned((32 * n + THREADS - 1) / THREADS);
   mi_penalty_xi_kernel<<<blocks, THREADS, 0,
                          static_cast<cudaStream_t>(stream)>>>(a, out);
+  return launch_status();
+}
+
+// mode 1: out (P, C, 3), zeroed by the caller, += d r_pen/dxi . t_xi
+extern "C" int gf_mi_penalty_xi_fwd(
+    const double* knots_u, const double* knots_v, const double* su_vals,
+    const int* su_ids, const double* sv_vals, const int* sv_ids,
+    const double* w_cp, const int* n_v, const int* pairA, const int* pairB,
+    const double* xi, const double* dxiA, const double* dxiB,
+    const double* txi, const double* tdxA, const double* tdxB,
+    const double* w, const double* ad, const double* ar, const double* d,
+    const double* cp, const double* h, const double* E, double* out, int Ku,
+    int Kv, int Su, int Sv, int C, int p, int q, int I, int N, void* stream) {
+  using namespace gf;
+  if (p < 1 || q < 1 || p > PMAX || q > PMAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t n = size_t(I) * N;
+  if (n == 0) return 0;
+  Args a{{knots_u, knots_v, su_vals, su_ids, sv_vals, sv_ids, w_cp, n_v, Ku,
+          Kv, Su, Sv, C, p, q},
+         pairA, pairB, xi, dxiA, dxiB, w, ad, ar, d, cp, h, E, nullptr,
+         txi, tdxA, tdxB, I, N};
+  const unsigned blocks = unsigned((32 * n + THREADS - 1) / THREADS);
+  mi_penalty_xi_fwd_kernel<<<blocks, THREADS, 0,
+                             static_cast<cudaStream_t>(stream)>>>(a, out);
   return launch_status();
 }

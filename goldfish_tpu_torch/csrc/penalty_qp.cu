@@ -23,9 +23,15 @@
 //     [[I, -I], [-I, I]], u against the first jets is exactly zero, and the
 //     12 first-jet columns are tangents (Dual<double, 1>) through the sweep;
 //   2 adjoint: -d/d(cp,h) of lambda^T r_pen: the sweep extended back to the
-//     geometry jets and h, with lambda's jets as the tangent of z.
+//     geometry jets and h, with lambda's jets as the tangent of z;
+//   3 design tangent: given tcp (P,C,3) and th (P,C), d/de of r_pen(cp +
+//     e tcp, h + e th) (P,C,3): mode 0's sweep with both sides' X jets and
+//     hA, hB as Dual<double, 1> tangents (z plain), the tangent of dF/dz
+//     scattered as mode 0 scatters dF/dz (f64 atomics). It serves the fixed
+//     interfaces and the moving ones' rows at xi (K5) alike (jax.jvp of the
+//     residual in (cp, h) in the JAX package's operations).
 //
-// Layout. Modes 0 and 2: a block holds PCH consecutive qps; 6 PCH threads
+// Layout. Modes 0, 2, 3: a block holds PCH consecutive qps; 6 PCH threads
 // gather their jets into shared memory (one (qp, side, basis row) each),
 // PCH threads sweep (one a qp), then all scatter B^T g (one (qp, side,
 // local) each). Mode 1: a block holds HQB
@@ -56,7 +62,8 @@ struct Args {
   const double* cp;
   const double* h;      // (P, C)
   const double* E;      // (P,)
-  const double* lam;    // (P, C, 3), mode 2 only
+  const double* lam;    // (P, C, 3): lambda (mode 2), tcp (mode 3)
+  const double* th;     // (P, C), mode 3 only
   int I, N, L, C;
 };
 
@@ -67,7 +74,8 @@ __device__ inline const double* row(const Args& a, int side, int j) {
 
 // The jets of qp t through basis row j of one side into shared memory:
 // X (rows 1, 2: sX[6 side + 3 (j - 1)]), z (sZ[9 side + 3 j]), lambda's z
-// (mode 2) and h (row 0: sH[side]).
+// (mode 2) and h (row 0: sH[side]); mode 3 puts tcp's X jets in sL[6 side +
+// 3 (j - 1)] and th's value in sL[12 + side].
 template <int MODE>
 __device__ void gather(const Args& a, size_t t, int side, int j, double* sX,
                        double* sZ, double* sL, double* sH) {
@@ -76,7 +84,7 @@ __device__ void gather(const Args& a, size_t t, int side, int j, double* sX,
   const double* R = row(a, side, j) + t * a.L;
   const int* conn = (side == 0 ? a.connA : a.connB) + t * a.L;
   double x[3] = {0.0, 0.0, 0.0}, z[3] = {0.0, 0.0, 0.0},
-         l[3] = {0.0, 0.0, 0.0}, hh = 0.0;
+         l[3] = {0.0, 0.0, 0.0}, hh = 0.0, th = 0.0;
 #pragma unroll 4
   for (int k = 0; k < a.L; ++k) {
     const double r = R[k];
@@ -85,32 +93,36 @@ __device__ void gather(const Args& a, size_t t, int side, int j, double* sX,
     for (int c = 0; c < 3; ++c) {
       if (j > 0) x[c] += r * a.cp[node * 3 + c];
       z[c] += r * a.d[node * 3 + c];
-      if (MODE == 2) l[c] += r * a.lam[node * 3 + c];
+      if (MODE == 2 || (MODE == 3 && j > 0)) l[c] += r * a.lam[node * 3 + c];
     }
     if (j == 0) hh += r * a.h[node];
+    if (MODE == 3 && j == 0) th += r * a.th[node];
   }
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     if (j > 0) sX[6 * side + 3 * (j - 1) + c] = x[c];
     sZ[9 * side + 3 * j + c] = z[c];
     if (MODE == 2) sL[9 * side + 3 * j + c] = l[c];
+    if (MODE == 3 && j > 0) sL[6 * side + 3 * (j - 1) + c] = l[c];
   }
   if (j == 0) sH[side] = hh;
+  if (MODE == 3 && j == 0) sL[12 + side] = th;
 }
 
-constexpr int PCH = 16;        // qps a block (modes 0, 2)
+constexpr int PCH = 16;        // qps a block (modes 0, 2, 3)
 constexpr int PTH = 6 * PCH;   // threads a block: one gather task each
 // doubles of shared memory a qp: X, z, lambda's z, hA hB, g, gh
 constexpr int PSM = NX + NZ + NZ + 2 + NZ + 1;
 
-// modes 0 and 2: PCH consecutive qps a block
+// modes 0, 2, 3: PCH consecutive qps a block
 template <int MODE>
 __device__ void grad_block(const Args& a, double* Wq, double* out_f,
                            double* out_h) {
   extern __shared__ double sm[];
   double* sX = sm;                 // (PCH, 12)
   double* sZ = sX + PCH * NX;      // (PCH, 18)
-  double* sL = sZ + PCH * NZ;      // (PCH, 18)
+  double* sL = sZ + PCH * NZ;      // (PCH, 18): lambda's z (mode 2), or
+                                   // tcp's X jets and th (mode 3)
   double* sH = sL + PCH * NZ;      // (PCH, 2)
   double* sG = sH + PCH * 2;       // (PCH, 18): dF/dz, or the adjoint's
                                    // X-gradient in z's layout
@@ -118,7 +130,7 @@ __device__ void grad_block(const Args& a, double* Wq, double* out_f,
   const size_t nqp = size_t(a.I) * a.N;
   const size_t t0 = size_t(blockIdx.x) * PCH;
   const int nc = int(nqp - t0 < size_t(PCH) ? nqp - t0 : PCH);
-  const double sign = MODE == 0 ? 1.0 : -1.0;
+  const double sign = MODE == 2 ? -1.0 : 1.0;
   for (int task = threadIdx.x; task < 6 * nc; task += blockDim.x) {
     const int qq = task / 6, side = (task % 6) / 3, j = task % 3;
     gather<MODE>(a, t0 + qq, side, j, sX + qq * NX, sZ + qq * NZ,
@@ -138,6 +150,30 @@ __device__ void grad_block(const Args& a, double* Wq, double* out_f,
                                    a.dxiB + 2 * t, E, a.ad[i], a.ar[i],
                                    a.w[t], Wq[t], G, gh);
       sGh[qq] = gh;
+    } else if (MODE == 3) {
+      // the geometry (X, hA, hB) carries the design tangent, z none
+      typedef Dual<double, 1> T;
+      T Xt[NX], z[NZ], g[NZ], val, gh, dA[2], dB[2];
+      const double* tL = sL + qq * NZ;
+#pragma unroll
+      for (int k = 0; k < NX; ++k) {
+        Xt[k] = T(X[k]);
+        Xt[k].g[0] = tL[k];
+      }
+#pragma unroll
+      for (int k = 0; k < NZ; ++k) z[k] = T(sZ[qq * NZ + k]);
+      T hA(sH[2 * qq]), hB(sH[2 * qq + 1]);
+      hA.g[0] = tL[12];
+      hB.g[0] = tL[13];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        dA[c] = T(a.dxiA[2 * t + c]);
+        dB[c] = T(a.dxiB[2 * t + c]);
+      }
+      penalty_sweep<T, false, false, T>(Xt, z, hA, hB, dA, dB, E, a.ad[i],
+                                        a.ar[i], a.w[t], val, g, gh);
+#pragma unroll
+      for (int k = 0; k < NZ; ++k) G[k] = g[k].g[0];
     } else {
       typedef Dual<double, 1> T;
       T z[NZ], g[NX], val, gh;
@@ -184,7 +220,8 @@ __device__ void grad_block(const Args& a, double* Wq, double* out_f,
     }
 #pragma unroll
     for (int c = 0; c < 3; ++c) atomicAdd(out_f + node * 3 + c, sign * acc[c]);
-    atomicAdd(out_h + node, sign * row(a, side, 0)[t * a.L + k] * sGh[qq]);
+    if (MODE != 3)
+      atomicAdd(out_h + node, sign * row(a, side, 0)[t * a.L + k] * sGh[qq]);
   }
 }
 
@@ -197,6 +234,10 @@ __global__ void penalty_value_grad(Args a, double* Wq, double* r,
 
 __global__ void penalty_adjoint(Args a, double* dcp, double* dh) {
   grad_block<2>(a, nullptr, dcp, dh);
+}
+
+__global__ void penalty_design_jvp(Args a, double* dr) {
+  grad_block<3>(a, nullptr, dr, nullptr);
 }
 
 // ---------------------------------------------------------------- mode 1
@@ -276,22 +317,25 @@ extern "C" int gf_penalty_qp(int mode, const double* RA00, const double* RA10,
                              const double* dxiB, const double* ad,
                              const double* ar, const double* d,
                              const double* cp, const double* h,
-                             const double* E, const double* lam, double* out_w,
+                             const double* E, const double* lam,
+                             const double* th, double* out_w,
                              double* out_f, double* out_h, int I, int N, int L,
                              int C, void* stream) {
   using namespace gf;
   Args a{{RA00, RA10, RA01}, {RB00, RB10, RB01}, connA, connB, pairA, pairB,
-         w, dxiA, dxiB, ad, ar, d, cp, h, E, lam, I, N, L, C};
+         w, dxiA, dxiB, ad, ar, d, cp, h, E, lam, th, I, N, L, C};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   size_t nqp = size_t(I) * N;
   if (nqp == 0) return 0;
-  if (mode == 0 || mode == 2) {
+  if (mode == 0 || mode == 2 || mode == 3) {
     const unsigned blocks = unsigned((nqp + PCH - 1) / PCH);
     const size_t smem = size_t(PCH) * PSM * sizeof(double);
     if (mode == 0)
       penalty_value_grad<<<blocks, PTH, smem, s>>>(a, out_w, out_f, out_h);
-    else
+    else if (mode == 2)
       penalty_adjoint<<<blocks, PTH, smem, s>>>(a, out_f, out_h);
+    else
+      penalty_design_jvp<<<blocks, PTH, smem, s>>>(a, out_f);
   } else if (mode == 1) {
     const size_t smem = size_t(HQB) * HSM * sizeof(double);  // 22.8 KB
     penalty_hess<<<unsigned((nqp + HQB - 1) / HQB), NM * HQB, smem, s>>>(

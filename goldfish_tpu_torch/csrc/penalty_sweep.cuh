@@ -26,9 +26,18 @@
 // and ALL, the tangent of every cotangent y is d/dy (lambda . dF/dz) and
 // the value part of g is dF/dz (K6's forward-over-reverse sweep).
 //
+// The geometry's inputs (X, hA, hB, dxA, dxB) are of type R: double, or,
+// for the forward design tangents (K2 mode 3, K6 mode 1: S = R =
+// Dual<double, 1>, not GEO), carrying the tangents of cp, h and the curve
+// tangents; the tangent part of g is then the forward product
+// d(dF/dz)/d(X, h, dx) applied to them (plus d2F/dz2 dz where z carries
+// one).
+//
 // Every output carries the factor w (the adjoints start from w dl), so a
 // padded point (w = 0, real geometry) gives exact zeros.
 #pragma once
+
+#include <type_traits>
 
 #include "dual.cuh"
 
@@ -41,28 +50,29 @@ constexpr int PEN_NX = 12;  // (XAu, XAv, XBu, XBv) x 3
 // Out: val = F; g (18) = dF/dz, or with GEO (12) = dF/dX in X's layout;
 // gh = dF/dhA = dF/dhB. With ALL (and GEO): g (18) = dF/dz, gX (12) =
 // dF/dX, gdx (4) = dF/d(dxA, dxB).
-template <class S, bool GEO, bool ALL = false>
-__device__ void penalty_sweep(const double* X, const S* z, double hA,
-                              double hB, const double* dxA,
-                              const double* dxB, double E, double ad,
+template <class S, bool GEO, bool ALL = false, class R = double>
+__device__ void penalty_sweep(const R* X, const S* z, R hA, R hB,
+                              const R* dxA, const R* dxB, double E, double ad,
                               double ar, double w, S& val, S* g, S& gh,
                               S* gX = nullptr, S* gdx = nullptr) {
   static_assert(GEO || !ALL, "ALL sweeps the geometry too");
-  const double h = 0.5 * (hA + hB);
-  const double ald = (ad * E) * h;
-  const double alr = (ar * E) * (h * h * h) / 12.0;
+  static_assert(!GEO || std::is_same<R, double>::value,
+                "the geometry sweep takes plain geometry");
+  const R h = 0.5 * (hA + hB);
+  const R ald = (ad * E) * h;
+  const R alr = (ar * E) * (h * h * h) / 12.0;
   // geometry: dl, A3A, A3B, TB, AnB
-  double dX[3], A3A[3], A3B[3], TB[3], AnB[3];
+  R dX[3], A3A[3], A3B[3], TB[3], AnB[3];
 #pragma unroll
   for (int i = 0; i < 3; ++i) dX[i] = X[i] * dxA[0] + X[3 + i] * dxA[1];
-  const double dl = sqrt(dot3(dX, dX));
+  const R dl = dsqrt(dot3(dX, dX));
   cross3(X, X + 3, A3A);
-  const double lNA = sqrt(dot3(A3A, A3A));
+  const R lNA = dsqrt(dot3(A3A, A3A));
   cross3(X + 6, X + 9, A3B);
-  const double lNB = sqrt(dot3(A3B, A3B));
+  const R lNB = dsqrt(dot3(A3B, A3B));
 #pragma unroll
   for (int i = 0; i < 3; ++i) TB[i] = X[6 + i] * dxB[0] + X[9 + i] * dxB[1];
-  const double lTB = sqrt(dot3(TB, TB));
+  const R lTB = dsqrt(dot3(TB, TB));
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
     A3A[i] = A3A[i] / lNA;
@@ -106,7 +116,7 @@ __device__ void penalty_sweep(const double* X, const S* z, double hA,
   gh = 0.5 * ((w * dl) * (0.5 * ((ad * E) * du2) +
                           ((ar * E) * (h * h) / 8.0) * rot));
   // back: dF/ddu, dF/ddphi, dF/ddbeta
-  const double K = w * dl;
+  const R K = w * dl;
   S pb = (K * alr) * dphi, bb = (K * alr) * dbeta;
   if (!GEO || ALL) {
 #pragma unroll
@@ -153,7 +163,7 @@ __device__ void penalty_sweep(const double* X, const S* z, double hA,
     gAv[i] = S(0.0);
   }
   cross3_rev(xAu, xAv, vb, gAu, gAv);
-  if (GEO) {
+  if constexpr (GEO) {
     // the X-layout gradient: the m-gradient itself, or (ALL) a copy of it
     S* hAu = gAu;
     S* hAv = gAv;

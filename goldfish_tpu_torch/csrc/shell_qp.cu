@@ -27,7 +27,11 @@
 //     (P,C,3) and (P,C);
 //   3 geometry gradient: dW/dcp (P,C,3), the energy's direct dependence on
 //     the control points (shape optimization; kl_shell.internal_energy's
-//     gradient w.r.t. cp in the JAX package).
+//     gradient w.r.t. cp in the JAX package);
+//   4 design tangent: given tcp (P,C,3) and th (P,C), d/de of r_shell(cp +
+//     e tcp, h + e th) into (P,C,3) (the forward design product of the
+//     residual; jax.jvp of the residual in (cp, h) in the JAX package's
+//     operations/disp_imop.py).
 //
 // Mode 1, the structured jet Hessian. Split z = (m, s): m = (x_u, x_v) the
 // 6 first-jet components, s = (x_uu, x_uv, x_vv) the 9 second-jet ones.
@@ -44,12 +48,16 @@
 // R_(k+1), thread 5: h), and stages the 225 outputs of every qp there, so
 // the store of the block's contiguous H rows is coalesced.
 //
-// Modes 0, 2, 3 (`shell_sweep`): mode 0 sweeps back in plain doubles with
-// dpsi/dh in closed form; mode 3 carries the sweep on through the reference
-// quantities (a, b, Aup in M, J, A3) to X; mode 2 does the same with
-// lambda's jets as the tangent of z (Dual<double, 1>), so the tangent of
-// the X-gradient is (d^2 F / dX dz) lambda, about 7 density evaluations a
-// qp in place of the 34 of the Dual<Dual<double, 1>, 16> pass it replaced.
+// Modes 0, 2, 3, 4 (`shell_sweep`): mode 0 sweeps back in plain doubles
+// with dpsi/dh in closed form; mode 3 carries the sweep on through the
+// reference quantities (a, b, Aup in M, J, A3) to X; mode 2 does the same
+// with lambda's jets as the tangent of z (Dual<double, 1>), so the tangent
+// of the X-gradient is (d^2 F / dX dz) lambda, about 7 density evaluations
+// a qp in place of the 34 of the Dual<Dual<double, 1>, 16> pass it
+// replaced; mode 4 runs mode 0's sweep with X's jets and h in
+// Dual<double, 1>, seeded with tcp's jets and th (z carries no tangent),
+// so the tangent of the z-gradient is (d^2 F / dz dX) tX + (d^2 F / dz dh)
+// th, scattered as mode 0 scatters the gradient.
 // A block holds whole elements (at most 64 qps); its 128 threads gather the
 // jets into shared memory (one (qp, basis row) a task), sweep one qp each,
 // then sum B^T g over each element's qps in a fixed order and add it with
@@ -64,6 +72,8 @@
 // and took 1.08 ms at wing20; a column thread now takes 128 registers and
 // spills nothing, and the kernel takes 0.035 ms, 2.5x its byte bound (NVIDIA
 // H100 80GB HBM3, 700 W; scripts/torch_port_kernel_ab.py, PERF.md).
+#include <type_traits>
+
 #include "dual.cuh"
 
 namespace gf {
@@ -80,15 +90,18 @@ struct Args {
   const double* h;     // (P, C)
   const double* E;     // (P,)
   const double* nu;    // (P,)
-  const double* lam;   // (P, C, 3), mode 2 only
+  const double* lam;   // (P, C, 3): lambda (mode 2), tcp (mode 4)
+  const double* th;    // (P, C), mode 4 only
   int P, Ne, Q, L, C;
 };
 
-__device__ double gather_h(const Args& a, int p, int ei, int qi) {
+// R00 . c_e at qp qi of element ei of patch p for a (P, C) field c
+__device__ double gather_h(const Args& a, int p, int ei, int qi,
+                           const double* c) {
   double s = 0.0;
   for (int l = 0; l < a.L; ++l)
     s += a.R[0][size_t(qi) * a.L + l] *
-         a.h[size_t(p) * a.C + a.conn[size_t(ei) * a.L + l]];
+         c[size_t(p) * a.C + a.conn[size_t(ei) * a.L + l]];
   return s;
 }
 
@@ -100,18 +113,22 @@ constexpr int HESS_SM = 2 * NJ + 1 + HQ;
 
 // Reference-state quantities of one qp (independent of d): the metric a,
 // the curvature b, the SVK form's matrix M (quad_form(Aup, s) = s^T M s,
-// stored 00, 01, 02, 11, 12, 22) and J w.
-struct RefQp {
-  double a[3], b[3], M[6], Jw;
+// stored 00, 01, 02, 11, 12, 22) and J w; R = double, or Dual<double, 1>
+// carrying a design tangent (mode 4).
+template <class R>
+struct RefQpT {
+  R a[3], b[3], M[6], Jw;
 };
+typedef RefQpT<double> RefQp;
 
-__device__ void ref_qp(const double* X, double E, double nu, double wq,
-                       RefQp& r) {
-  const double* A1 = X;
-  const double* A2 = X + 3;
-  double A3[3];
+template <class R>
+__device__ void ref_qp(const R* X, double E, double nu, double wq,
+                       RefQpT<R>& r) {
+  const R* A1 = X;
+  const R* A2 = X + 3;
+  R A3[3];
   cross3(A1, A2, A3);
-  double J = dsqrt(dot3(A3, A3));
+  R J = dsqrt(dot3(A3, A3));
   A3[0] = A3[0] / J;
   A3[1] = A3[1] / J;
   A3[2] = A3[2] / J;
@@ -121,14 +138,14 @@ __device__ void ref_qp(const double* X, double E, double nu, double wq,
   r.b[0] = dot3(X + 6, A3);
   r.b[1] = dot3(X + 9, A3);
   r.b[2] = dot3(X + 12, A3);
-  double det = r.a[0] * r.a[2] - r.a[1] * r.a[1];
-  double A[3] = {r.a[2] / det, -r.a[1] / det, r.a[0] / det};
+  R det = r.a[0] * r.a[2] - r.a[1] * r.a[1];
+  R A[3] = {r.a[2] / det, -r.a[1] / det, r.a[0] / det};
   double c = E / (1.0 - nu * nu);
   // quad_form = c [nu (t.s)^2 + (1 - nu) s^T F s], t = (A0, 2 A1, A2)
-  double t[3] = {A[0], 2.0 * A[1], A[2]};
-  double F[6] = {A[0] * A[0], 2.0 * A[0] * A[1], A[1] * A[1],
-                 2.0 * (A[1] * A[1] + A[0] * A[2]), 2.0 * A[1] * A[2],
-                 A[2] * A[2]};
+  R t[3] = {A[0], 2.0 * A[1], A[2]};
+  R F[6] = {A[0] * A[0], 2.0 * A[0] * A[1], A[1] * A[1],
+            2.0 * (A[1] * A[1] + A[0] * A[2]), 2.0 * A[1] * A[2],
+            A[2] * A[2]};
   r.M[0] = c * (nu * (t[0] * t[0]) + (1.0 - nu) * F[0]);
   r.M[1] = c * (nu * (t[0] * t[1]) + (1.0 - nu) * F[1]);
   r.M[2] = c * (nu * (t[0] * t[2]) + (1.0 - nu) * F[2]);
@@ -139,8 +156,8 @@ __device__ void ref_qp(const double* X, double E, double nu, double wq,
 }
 
 // y = M s for the symmetric M of RefQp
-template <class S>
-__device__ void sym3_apply(const double* M, const S* s, S* y) {
+template <class R, class S>
+__device__ void sym3_apply(const R* M, const S* s, S* y) {
   y[0] = M[0] * s[0] + M[1] * s[1] + M[2] * s[2];
   y[1] = M[1] * s[0] + M[3] * s[1] + M[4] * s[2];
   y[2] = M[2] * s[0] + M[4] * s[1] + M[5] * s[2];
@@ -238,7 +255,7 @@ __global__ void shell_hess(Args a, double* H, int epb) {
       X[0] = x0; X[1] = x1; X[2] = x2;
       Z[0] = z0; Z[1] = z1; Z[2] = z2;
     } else {
-      sh[qq] = gather_h(a, p, ei, qi);
+      sh[qq] = gather_h(a, p, ei, qi, a.h);
     }
   }
   __syncthreads();
@@ -291,11 +308,15 @@ __global__ void shell_hess(Args a, double* H, int epb) {
 // J w, gh = its h-derivative, J w (1/2 eps^T M eps + h^2/8 kap^T M kap),
 // and g (15) = its z-gradient, the same sweep as `density_grad`; with GEO
 // g is instead its X-gradient: the z-gradient (x = X + z) plus the sweep
-// back through the reference quantities a, b, Aup (in M), J and A3.
-template <class S, bool GEO>
-__device__ void shell_sweep(const double* X, const S* z, double h, double E,
+// back through the reference quantities a, b, Aup (in M), J and A3. X and
+// h are of type R: double, or (mode 4, with S = R = Dual<double, 1> and
+// not GEO) carrying a design tangent.
+template <class S, bool GEO, class R = double>
+__device__ void shell_sweep(const R* X, const S* z, R h, double E,
                             double nu, double wq, S& val, S* g, S& gh) {
-  RefQp r;
+  static_assert(!GEO || std::is_same<R, double>::value,
+                "the geometry sweep takes plain reference jets");
+  RefQpT<R> r;
   ref_qp(X, E, nu, wq, r);
   S xm[NM], xs[NJ - NM];
 #pragma unroll
@@ -320,11 +341,11 @@ __device__ void shell_sweep(const double* X, const S* z, double h, double E,
   sym3_apply(r.M, eps, acb);
   sym3_apply(r.M, kap, bcb);
   const S qe = dot3(eps, acb), qk = dot3(kap, bcb);
-  const double h3 = h * h * h;
+  const R h3 = h * h * h;
   const S psi = (0.5 * h) * qe + (h3 / 24.0) * qk;
   val = psi * r.Jw;
   gh = r.Jw * (0.5 * qe + ((h * h) / 8.0) * qk);
-  const double ce = 0.5 * r.Jw * h, ck = -r.Jw * h3 / 12.0;
+  const R ce = 0.5 * r.Jw * h, ck = -r.Jw * h3 / 12.0;
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
     acb[i] = ce * acb[i];   // d/d(ac_i)
@@ -347,7 +368,7 @@ __device__ void shell_sweep(const double* X, const S* z, double h, double E,
     g[x] = 2.0 * (acb[0] * xm[x]) + acb[1] * xm[3 + x] + cu[x];
     g[3 + x] = acb[1] * xm[x] + 2.0 * (acb[2] * xm[3 + x]) + cv[x];
   }
-  if (!GEO) return;
+  if constexpr (GEO) {
   // The reference quantities. F = J w [h/2 eps^T M eps + h^3/24 kap^T M
   // kap], eps = (ac - a)/2, kap = b - bc: dF/da = -dF/dac, dF/db = -dF/dbc,
   // dF/dJ = psi w, and dF/dM (M stored 00 01 02 11 12 22, an off-diagonal
@@ -407,6 +428,7 @@ __device__ void shell_sweep(const double* X, const S* z, double h, double E,
     g[x] = g[x] + 2.0 * (ab0 * A1[x]) + ab1 * A2[x] + cu[x];
     g[3 + x] = g[3 + x] + ab1 * A1[x] + 2.0 * (ab2 * A2[x]) - cv[x];
   }
+  }
 }
 
 constexpr int GQB = 64;    // qps a block at most (whole elements), modes 0/2/3
@@ -414,10 +436,10 @@ constexpr int GTH = 128;   // threads a block: with the sweep's 100-240
                            // registers a thread, 2-4 blocks an SM
 
 // doubles of shared memory a qp: X, z, g, h, gh, value (and in mode 2
-// lambda's z)
+// lambda's z; in mode 4 tcp's jets and th)
 constexpr int GRAD_SM = 3 * NJ + 3;
 
-// Modes 0, 2, 3: `epb` whole elements a block. The block gathers its qps'
+// Modes 0, 2, 3, 4: `epb` whole elements a block. The block gathers its qps'
 // jets into shared memory (one (qp, basis row) a task), sweeps each qp
 // (one a thread), then sums B^T g over each element's qps in a fixed order
 // and adds it with one f64 atomic per (element, local node, component).
@@ -432,7 +454,8 @@ __device__ void grad_block(const Args& a, int epb, double* W, double* out_f,
   double* sh = sG + nqb * NJ;                       // (nqb,)
   double* sGh = sh + nqb;                           // (nqb,)
   double* sV = sGh + nqb;                           // (nqb,)
-  double* sL = sV + nqb;                            // (nqb, 15), mode 2
+  double* sL = sV + nqb;                            // (nqb, 15), modes 2, 4
+  double* sTh = sL + nqb * NJ;                      // (nqb,), mode 4
   const int e0 = blockIdx.x * epb;
   const int ne = min(epb, a.P * a.Ne - e0);
   const int nq = ne * a.Q;
@@ -441,7 +464,8 @@ __device__ void grad_block(const Args& a, int epb, double* W, double* out_f,
     const int qq = task / 6, k = task % 6;
     const int qi = int(q0) + qq, ei = qi / a.Q, p = ei / a.Ne;
     if (k == 5) {
-      sh[qq] = gather_h(a, p, ei, qi);
+      sh[qq] = gather_h(a, p, ei, qi, a.h);
+      if (MODE == 4) sTh[qq] = gather_h(a, p, ei, qi, a.th);
       continue;
     }
     // the jet through R_(k+1) of the geometry, the displacement and lambda
@@ -458,14 +482,14 @@ __device__ void grad_block(const Args& a, int epb, double* W, double* out_f,
       for (int y = 0; y < 3; ++y) {
         x[y] += r * a.cp[c + y];
         z[y] += r * a.d[c + y];
-        if (MODE == 2) l[y] += r * a.lam[c + y];
+        if (MODE == 2 || MODE == 4) l[y] += r * a.lam[c + y];
       }
     }
 #pragma unroll
     for (int y = 0; y < 3; ++y) {
       sX[qq * NJ + 3 * k + y] = x[y];
       sZ[qq * NJ + 3 * k + y] = z[y];
-      if (MODE == 2) sL[qq * NJ + 3 * k + y] = l[y];
+      if (MODE == 2 || MODE == 4) sL[qq * NJ + 3 * k + y] = l[y];
     }
   }
   __syncthreads();
@@ -486,6 +510,22 @@ __device__ void grad_block(const Args& a, int epb, double* W, double* out_f,
 #pragma unroll
       for (int i = 0; i < NJ; ++i) G[i] = g[i].g[0];
       sGh[qq] = gh.g[0];
+    } else if (MODE == 4) {
+      // X and h carry the design tangent (tcp's jets, th), z none
+      typedef Dual<double, 1> T;
+      T Xt[NJ], z[NJ], g[NJ], val, gh;
+#pragma unroll
+      for (int i = 0; i < NJ; ++i) {
+        Xt[i] = T(X[i]);
+        Xt[i].g[0] = sL[qq * NJ + i];
+        z[i] = T(sZ[qq * NJ + i]);
+      }
+      T hq(sh[qq]);
+      hq.g[0] = sTh[qq];
+      shell_sweep<T, false, T>(Xt, z, hq, a.E[p], a.nu[p], a.wq[qi], val, g,
+                               gh);
+#pragma unroll
+      for (int i = 0; i < NJ; ++i) G[i] = g[i].g[0];
     } else {
       double val, gh;
       shell_sweep<double, MODE == 3>(X, sZ + qq * NJ, sh[qq], a.E[p],
@@ -513,11 +553,11 @@ __device__ void grad_block(const Args& a, int epb, double* W, double* out_f,
         acc[1] += r * G[3 * j + 1];
         acc[2] += r * G[3 * j + 2];
       }
-      if (MODE != 3) acc[3] += a.R[0][o] * sGh[qq];
+      if (MODE == 0 || MODE == 2) acc[3] += a.R[0][o] * sGh[qq];
     }
 #pragma unroll
     for (int y = 0; y < 3; ++y) atomicAdd(out_f + node * 3 + y, sign * acc[y]);
-    if (MODE != 3) atomicAdd(out_h + node, sign * acc[3]);
+    if (MODE == 0 || MODE == 2) atomicAdd(out_h + node, sign * acc[3]);
   }
   if (MODE == 0) {
     for (int e = threadIdx.x; e < ne; e += blockDim.x) {
@@ -544,6 +584,11 @@ __global__ void shell_geom_grad(Args a, int epb, double*, double* dcp,
   grad_block<3>(a, epb, nullptr, dcp, nullptr);
 }
 
+__global__ void shell_design_jvp(Args a, int epb, double*, double* dr,
+                                 double*) {
+  grad_block<4>(a, epb, nullptr, dr, nullptr);
+}
+
 // dynamic shared memory above the default 48 KB needs the attribute
 template <class K>
 int allow_smem(K kernel, size_t smem) {
@@ -559,23 +604,24 @@ extern "C" int gf_shell_qp(int mode, const double* R00, const double* R10,
                            const double* R11, const double* R02,
                            const int* conn, const double* wq, const double* d,
                            const double* cp, const double* h, const double* E,
-                           const double* nu, const double* lam, double* out_w,
+                           const double* nu, const double* lam,
+                           const double* th, double* out_w,
                            double* out_f, double* out_h, int P, int Ne, int Q,
                            int L, int C, void* stream) {
   using namespace gf;
-  Args a{{R00, R10, R01, R20, R11, R02}, conn, wq, d, cp, h, E, nu, lam,
+  Args a{{R00, R10, R01, R20, R11, R02}, conn, wq, d, cp, h, E, nu, lam, th,
          P, Ne, Q, L, C};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   size_t nqp = size_t(P) * Ne * Q;
   if (nqp == 0) return 0;
   if (Q > 1024) return static_cast<int>(cudaErrorInvalidValue);
-  if (mode == 0 || mode == 2 || mode == 3) {
+  if (mode == 0 || mode == 2 || mode == 3 || mode == 4) {
     void (*kernel)(Args, int, double*, double*, double*) =
         mode == 0 ? shell_value_grad : mode == 2 ? shell_adjoint
-                                                 : shell_geom_grad;
+                    : mode == 3 ? shell_geom_grad : shell_design_jvp;
     const int epb = Q >= GQB ? 1 : GQB / Q;
-    const size_t smem = size_t(epb) * Q *
-                        (GRAD_SM + (mode == 2 ? NJ : 0)) * sizeof(double);
+    const int extra = mode == 2 ? NJ : mode == 4 ? NJ + 1 : 0;
+    const size_t smem = size_t(epb) * Q * (GRAD_SM + extra) * sizeof(double);
     int e = allow_smem(kernel, smem);
     if (e != 0) return e;
     const unsigned nb = unsigned((size_t(P) * Ne + epb - 1) / epb);

@@ -22,7 +22,9 @@ solve in the block's shared memory, the trial residual and both norms;
 the reference's `_c2x_step`) and mode 3 the fused adjoint (the transposed
 solve and the cp pullback; `_c2x_adjoint_direct`), for seams of up to
 FUSED_N_MAX = 39 points (`fused_route`); longer seams take the composed
-route: mode 0, the batched solve, mode 0 or mode 1. The reference's
+route: mode 0, the batched solve, mode 0 or mode 1. Mode 4 is the
+forward tangent dR/dcp . tcp (`c2x_res_jvp`, the CP -> xi operation's
+`apply_linear_fwd` in cp). The reference's
 f32-LU + IR path exists only because the TPU has no batched f64 LU, and
 does not cross.
 """
@@ -45,7 +47,8 @@ from goldfish_tpu_torch.ops.bspline_traced import (
 )
 
 __all__ = ["MovingIntersections", "build_moving_intersections",
-           "c2x_res_jac", "c2x_res_vjp", "c2x_step", "c2x_solve_adjoint",
+           "c2x_res_jac", "c2x_res_vjp", "c2x_res_jvp", "c2x_step",
+           "c2x_solve_adjoint",
            "fused_route", "c2x_newton", "c2x_adjoint", "CPIGA2Xi",
            "xi_edge_constraints", "xi_interior_dofs"]
 
@@ -201,6 +204,13 @@ def _res_jac_plain(ss, p, q, mi, cp, x, jac):
     return r, Jf[ii, :, ii, :]
 
 
+def _res_jvp_plain(ss, p, q, mi, cp, x, tcp):
+    """Plain version of K7 mode 4: torch.func.jvp of the residual in
+    cp."""
+    return torch.func.jvp(lambda c: _residual_plain(ss, p, q, mi, c, x),
+                          (cp,), (tcp,))[1]
+
+
 def _res_vjp_plain(ss, p, q, mi, cp, x, lam):
     with torch.enable_grad():
         cpv = cp.detach().requires_grad_(True)
@@ -314,6 +324,20 @@ def c2x_res_vjp(ss: SurfSet, p: int, q: int, mi: MovingIntersections, cp,
     _launch(1, "c2x_res_jac/adjoint", ss, p, q, mi, cp, x, vec=lam,
             part=_partial(mi, cp), dcp=dcp)
     return dcp
+
+
+def c2x_res_jvp(ss: SurfSet, p: int, q: int, mi: MovingIntersections, cp,
+                x, tcp):
+    """K7 mode 4: dR/dcp . tcp (I, 4N) at x for a tangent tcp (P, C, 3),
+    for the rows of mode 0 (not linear in cp: the edge rows' unit chord
+    and the spacing rows' squared lengths); every entry written."""
+    I, N = _check_inputs(ss, mi, cp, x)
+    _cuda.check(tcp, "tcp", DTYPE, tuple(cp.shape), x.device)
+    if not _cuda.on_cuda(x):
+        return _res_jvp_plain(ss, p, q, mi, cp, x, tcp)
+    res = torch.empty(I, 4 * N, dtype=DTYPE, device=x.device)
+    _launch(4, "c2x_res_jac/cp_fwd", ss, p, q, mi, cp, x, vec=tcp, res=res)
+    return res
 
 
 def c2x_step(ss: SurfSet, p: int, q: int, mi: MovingIntersections, cp, x):

@@ -28,6 +28,8 @@ Implemented semantics (matching OpenMDAO where it matters):
 
 from __future__ import annotations
 
+import fnmatch
+
 import numpy as np
 
 __all__ = ["IndepVarComp", "ExplicitComponent", "ImplicitComponent",
@@ -840,8 +842,10 @@ class Problem:
 
     # ---------- verification ----------
     def check_partials(self, compact_print=False, step=1e-6,
-                       method="fd", out_stream=None):
+                       method="fd", out_stream=None, excludes=None):
         """FD-verify every component's declared partials / linear ops.
+        `excludes`: glob patterns of component names to skip (OpenMDAO's
+        argument of the same name).
 
         Returns {comp: {(of, wrt): {'J_fwd':..., 'J_fd':...,
         'rel error': namedtuple-like}}} approximating OpenMDAO."""
@@ -851,6 +855,9 @@ class Problem:
         for name in self._order:
             comp = self.model._subs[name]
             if isinstance(comp, IndepVarComp):
+                continue
+            if excludes is not None and any(
+                    fnmatch.fnmatchcase(name, g) for g in excludes):
                 continue
             report[name] = {}
             if isinstance(comp, ExplicitComponent):

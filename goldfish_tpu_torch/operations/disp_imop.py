@@ -16,16 +16,13 @@ clamped dofs included), as in the JAX package; inside they are padded
 tensors on the system's device. dR/dd products are kernel K4 on the jet
 Hessians (K1/K2 mode b) at the linearized state, unmasked on the input side
 as the JAX package's jvp of the masked residual is; (dR/d(cp, h))^T is
-`system.residual_vjp` (K1/K2 mode c), with the JAX package's + sign. The
-linear solves are the certificate-gated refinement on the persistent factor
+`system.residual_vjp` (K1/K2 mode c), with the JAX package's + sign, and
+dR/d(cp, h) applied forward `system.residual_jvp` (K1/K2's design-tangent
+modes, K8 mode c; the plain versions on CPU tensors). The linear solves are
+the certificate-gated refinement on the persistent factor
 (`implicit.adjoint_lambda`), with the identity on clamped dofs (the JAX
-package's BC-reduced K).
-
-dR/d(cp, h) applied forward has no kernel mode: on CPU tensors it is a
-plain torch forward-over-reverse derivative of the whole potential (contact
-and follower pressure included, as the JAX package's jvp of its residual);
-on the card it raises (the reverse-mode totals of the OpenMDAO driver never
-call it).
+package's BC-reduced K). With contact, a cp tangent on the card raises:
+K12 has no forward mode yet (ROADMAP Queue B 3b-ii).
 """
 
 from __future__ import annotations
@@ -35,48 +32,17 @@ import torch
 
 from goldfish_tpu_torch.design.pipeline import CPLayout
 from goldfish_tpu_torch.opt.warmstart import SecantWarmStart
-from goldfish_tpu_torch.physics import contact, coupling, kl_shell
-from goldfish_tpu_torch.physics.loads import external_work, pressure_work_plain
 from goldfish_tpu_torch.solver.implicit import _Solver, adjoint_lambda
 from goldfish_tpu_torch.solver.system import (
     jet_hessians,
     jet_tables,
     residual,
+    residual_jvp,
     residual_vjp,
     tangent_matvec_from,
 )
 
 __all__ = ["DispImOperation"]
-
-
-def _potential_plain(data, d, cp, h):
-    """Pi(d, cp, h) in plain torch (shell + penalty + contact - the dead,
-    point, edge, field and follower-pressure work): the CPU path of the
-    design tangent, the JAX package's `total_potential` term for term."""
-    st = data.stack
-    Eq, nuq, wq = kl_shell._qp_params(st, data.E, data.nu)
-    W = kl_shell.shell_density(kl_shell.jets(st, cp), kl_shell.jets(st, d),
-                               kl_shell.h_at_qps(st, h), Eq, nuq, wq).sum()
-    if data.ifs is not None:
-        ifs = data.ifs
-        X, z, hA, hB, Ei, ad, ar = coupling._qp_inputs(ifs, d, cp, h, data.E)
-        W = W + coupling.penalty_density(X, z, hA, hB, ifs.dxiA, ifs.dxiB,
-                                         Ei, ad, ar, ifs.w).sum()
-    if data.contact is not None:
-        W = W + contact.energy_plain(data.contact,
-                                     *contact.contact_qps(st, d, cp))
-    if data.pressure is not None:
-        W = W - pressure_work_plain(st, d, cp, data.pressure)
-    return W - external_work(st, d, cp, data.f_areal, data.point_loads, None,
-                             data.edge_loads, data.f_field)
-
-
-def _design_jvp_plain(data, d, cp, h, tcp, th):
-    """free * (dR/dcp tcp + dR/dh th) on CPU tensors."""
-    grad_d = torch.func.grad(_potential_plain, argnums=1)
-    _, jv = torch.func.jvp(lambda c, hh: grad_d(data, d, c, hh), (cp, h),
-                           (tcp, th))
-    return jv * data.free
 
 
 class DispImOperation:
@@ -159,15 +125,10 @@ class DispImOperation:
         design = [a is not None and np.any(np.asarray(a) != 0.0)
                   for a in (d_cp, d_h)]
         if any(design):
-            if d.is_cuda:
-                raise NotImplementedError(
-                    "apply_linear_fwd in (cp, h) has no kernel mode (ROADMAP "
-                    "Queue B: a forward design-tangent mode of K1/K2)")
             tcp = self._pad3(d_cp) if design[0] else torch.zeros_like(cp)
             th = (self.layout.to_padded(self._t(d_h)) if design[1]
                   else torch.zeros_like(h))
-            with torch.enable_grad():
-                out = out + _design_jvp_plain(self.data, d, cp, h, tcp, th)
+            out = out + residual_jvp(self.data, d, cp, h, tcp, th)
         return self._flat(out)
 
     @torch.no_grad()

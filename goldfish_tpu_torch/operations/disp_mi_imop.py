@@ -15,7 +15,8 @@ padded points included); inside they are tensors on the system's device.
     apply_nonlinear   R from K7 mode 0 (residual only)
     vjp               dxi/dcp^T xi_bar (`c2x_adjoint`: K7 mode 3)
     linearize         R and J = dR/dxi once (K7 mode 0), J kept
-    apply_linear_*    dR/dxi from the kept J; (dR/dcp)^T d_r by K7 mode 1
+    apply_linear_*    dR/dxi from the kept J; dR/dcp dcp by K7 mode 4,
+                      (dR/dcp)^T d_r by K7 mode 1
     solve_linear_*    J or J^T by batched f64 `torch.linalg.solve`
 
 `DispMintImOperation` (R(d; cp, h, xi) = 0, the MI residual at xi):
@@ -23,6 +24,9 @@ padded points included); inside they are tensors on the system's device.
     solve_nonlinear   `newton_solve_mi_host` on one persistent MI factor
                       with the Woodbury seam correction (`_SolverMI`),
                       secant warm start over (cp, h, xi)
+    apply_linear_fwd  dR/d(cp, h) (dcp, dh) by K1/K2's design-tangent
+                      modes on K5's rows, dR/dxi dxi by K6 mode 1
+                      (`residual_jvp_mi`), dR/dd dd by K4
     apply_linear_rev  (dR/d(cp, h, xi))^T d_r by K1/K2 mode c on K5's rows
                       and K6 (`_res_vjp_mi`), with the JAX package's + sign;
                       (dR/dd)^T d_r by K4 on the MI jet Hessians at the
@@ -31,11 +35,7 @@ padded points included); inside they are tensors on the system's device.
                       (`adjoint_lambda_mi`), the identity on clamped dofs
                       (the JAX package's BC-reduced K)
 
-The design tangents applied forward, dR/dcp of both operations and
-dR/d(h, xi) of the displacement one, have no kernel mode: on CPU tensors
-they are a plain torch forward derivative of the plain residual, on the
-card they raise (the reverse-mode totals of the OpenMDAO driver never
-call them).
+On CPU tensors every product runs the kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -45,30 +45,23 @@ import torch
 
 from goldfish_tpu_torch.design.pipeline import CPLayout
 from goldfish_tpu_torch.geometry.cpiga2xi import (
-    _residual_plain,
     c2x_adjoint,
     c2x_res_jac,
+    c2x_res_jvp,
     c2x_res_vjp,
 )
-from goldfish_tpu_torch.operations.disp_imop import _potential_plain
 from goldfish_tpu_torch.opt.warmstart import SecantWarmStart
-from goldfish_tpu_torch.physics.coupling_mi import interface_stack_mi
 from goldfish_tpu_torch.solver.system import jet_hessians, tangent_matvec_from
 from goldfish_tpu_torch.solver.system_mi import (
     _res_vjp_mi,
     _SolverMI,
     adjoint_lambda_mi,
     adjoint_solve_mi,
+    residual_jvp_mi,
     residual_mi,
 )
 
 __all__ = ["CPIGA2XiImOperation", "DispMintImOperation"]
-
-
-def _no_forward_mode(what):
-    return NotImplementedError(
-        f"apply_linear_fwd in {what} has no kernel mode (ROADMAP Queue B "
-        f"3b: a forward design-tangent mode)")
 
 
 def _nonzero(a):
@@ -184,13 +177,7 @@ class CPIGA2XiImOperation:
         if d_xi is not None:
             out = out + (self._J @ self._xi(d_xi)[..., None])[..., 0]
         if _nonzero(d_cp):
-            if x.is_cuda:
-                raise _no_forward_mode("cp (CPIGA2XiImOperation)")
-            tcp = self._io.cp(d_cp)
-            with torch.enable_grad():
-                out = out + torch.autograd.functional.jvp(
-                    lambda c: _residual_plain(*self._args(), c, x), cp,
-                    tcp)[1]
+            out = out + c2x_res_jvp(*self._args(), cp, x, self._io.cp(d_cp))
         return out.reshape(-1).cpu().numpy()
 
     @torch.no_grad()
@@ -213,19 +200,6 @@ class CPIGA2XiImOperation:
         r = self._xi(rhs)
         return torch.linalg.solve(self._J.transpose(-1, -2), r[..., None]) \
             [..., 0].reshape(-1).cpu().numpy()
-
-
-def _residual_plain_mi(sys_, d, cp, h, xi):
-    """free * dPi/dd at xi in plain torch, differentiable in (cp, h, xi):
-    the plain potential on the plain rows at xi (CPU path of the design
-    tangent)."""
-    data, mi, co, ss, p, q = sys_.mi_args
-    dx = data._replace(ifs=interface_stack_mi(ss, p, q, mi, co, xi,
-                                              plain=True))
-    dv = d.detach().requires_grad_(True)
-    g = torch.autograd.grad(_potential_plain(dx, dv, cp, h), dv,
-                            create_graph=True)[0]
-    return g * data.free
 
 
 class DispMintImOperation:
@@ -301,19 +275,12 @@ class DispMintImOperation:
         out = torch.zeros_like(d)
         if d_d is not None:
             out = out + self._H_v(io.cp(d_d)) * free
-        design = [_nonzero(a) for a in (d_cp, d_h, d_xi)]
-        if any(design):
-            if d.is_cuda:
-                raise _no_forward_mode("(cp, h, xi) (DispMintImOperation)")
-            tans = (io.cp(d_cp) if design[0] else torch.zeros_like(cp),
-                    io.h(d_h) if design[1] else torch.zeros_like(h),
-                    io.t(d_xi).reshape(self.xi_shape) if design[2]
-                    else torch.zeros_like(xi))
-            with torch.enable_grad():
-                out = out + torch.autograd.functional.jvp(
-                    lambda c, hh, x: _residual_plain_mi(self.sys, d, c, hh,
-                                                        x),
-                    (cp, h, xi), tans)[1]
+        tcp = io.cp(d_cp) if _nonzero(d_cp) else None
+        th = io.h(d_h) if _nonzero(d_h) else None
+        txi = io.t(d_xi).reshape(self.xi_shape) if _nonzero(d_xi) else None
+        if tcp is not None or th is not None or txi is not None:
+            out = out + residual_jvp_mi(*self.sys.mi_args, d, cp, h, xi, tcp,
+                                        th, txi)
         return io.flat(out)
 
     @torch.no_grad()

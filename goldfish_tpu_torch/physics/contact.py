@@ -50,6 +50,7 @@ from goldfish_tpu_torch.physics.kl_shell import (
 __all__ = ["ContactPairs", "ContactCells", "build_contact", "qp_field",
            "qp_scatter", "qp_weights", "contact_cells", "candidate_pairs",
            "energy_plain", "contact_value_grad", "contact_hvp",
+           "contact_design_jvp",
            "contact_hess", "contact_assemble", "contact_energy",
            "contact_value_force", "contact_adjoint"]
 
@@ -434,3 +435,25 @@ def contact_adjoint(contact: ContactPairs, stack: PatchStack, d, cp, lam):
         cpv = cp.detach().requires_grad_(True)
         gw = torch.autograd.grad((qp_weights(stack, cpv) * T).sum(), cpv)[0]
     return -(qp_scatter(stack, Y, cp.shape[1]) + gw)
+
+
+def contact_design_jvp(contact: ContactPairs, stack: PatchStack, d, cp,
+                       tcp):
+    """d/de r_c(d; cp + e tcp) (P, C, 3), r_c = dW_c/dd (tcp unmasked; the
+    caller masks). The qp weights depend on cp apart from x = X + u, so
+    this needs a weight-tangent mode of K12, which is not written yet
+    (ROADMAP Queue B 3b-ii): on CUDA tensors it raises; on CPU tensors it
+    is the forward derivative of the dense formula's force (autograd)."""
+    if _cuda.on_cuda(d):
+        raise NotImplementedError(
+            "the contact force's forward design tangent in cp has no kernel "
+            "mode yet (ROADMAP Queue B 3b-ii: K12's weight-tangent mode)")
+
+    def force(c):
+        dv = d.detach().requires_grad_(True)
+        x, w = contact_qps(stack, dv, c)
+        return torch.autograd.grad(energy_plain(contact, x, w), dv,
+                                   create_graph=True)[0]
+
+    with torch.enable_grad():
+        return torch.autograd.functional.jvp(force, cp, tcp)[1]

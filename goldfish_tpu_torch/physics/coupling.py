@@ -14,7 +14,8 @@ shell, every derivative is a per-qp jet derivative:
 
 - `penalty_value_grad`: per-interface energy, r_pen = dW/dd, dW/dh;
 - `penalty_hessians`: the per-qp 18x18 jet Hessian (I, N, 18, 18);
-- `penalty_adjoint`: -d/d(cp, h) of lambda^T r_pen.
+- `penalty_adjoint`: -d/d(cp, h) of lambda^T r_pen;
+- `penalty_design_jvp`: d r_pen along a design tangent (tcp, th).
 
 Each runs the CUDA kernel K2 `penalty_qp` (csrc/penalty_qp.cu) on CUDA
 tensors and its plain PyTorch version on CPU tensors.
@@ -36,7 +37,8 @@ from goldfish_tpu_torch.physics.kl_shell import _cross, _dot
 
 __all__ = ["InterfaceStack", "InterfaceSpec", "build_interfaces",
            "penalty_density", "penalty_value_grad", "penalty_hessians",
-           "penalty_adjoint", "penalty_energy", "interface_hessians"]
+           "penalty_adjoint", "penalty_design_jvp", "penalty_energy",
+           "interface_hessians"]
 
 NZ = 18  # (uA, uAu, uAv, uB, uBu, uBv) x 3
 
@@ -347,11 +349,17 @@ def _adjoint_plain(ifs, d, cp, h, E, lam):
     return -f, -hh
 
 
+def _design_jvp_plain(ifs, d, cp, h, E, tcp, th):
+    return torch.func.jvp(lambda c, hh: _value_grad_plain(ifs, d, c, hh,
+                                                          E)[1],
+                          (cp, h), (tcp, th))[1]
+
+
 # ------------------------------------------------------------ K2 wrappers
 _TABLES = ("RA00", "RA10", "RA01", "RB00", "RB10", "RB01")
 
 
-def _check_inputs(ifs, d, cp, h, E, lam=None):
+def _check_inputs(ifs, d, cp, h, E, lam=None, th=None):
     I_, N, L = ifs.RA00.shape
     P, C = d.shape[0], d.shape[1]
     dev = d.device
@@ -372,16 +380,19 @@ def _check_inputs(ifs, d, cp, h, E, lam=None):
     _cuda.check(E, "E", DTYPE, (P,), dev)
     if lam is not None:
         _cuda.check(lam, "lam", DTYPE, (P, C, 3), dev)
+    if th is not None:
+        _cuda.check(th, "th", DTYPE, (P, C), dev)
     return I_, N, L, C
 
 
-def _launch(mode, counter, ifs, d, cp, h, E, lam, out_w, out_f, out_h, dims):
+def _launch(mode, counter, ifs, d, cp, h, E, lam, out_w, out_f, out_h, dims,
+            th=None):
     p = _cuda.ptr
     _cuda.launch(counter, "gf_penalty_qp", mode,
                  *(p(getattr(ifs, n)) for n in _TABLES),
                  p(ifs.connA), p(ifs.connB), p(ifs.pairA), p(ifs.pairB),
                  p(ifs.w), p(ifs.dxiA), p(ifs.dxiB), p(ifs.ad_scale),
-                 p(ifs.ar_scale), p(d), p(cp), p(h), p(E), p(lam),
+                 p(ifs.ar_scale), p(d), p(cp), p(h), p(E), p(lam), p(th),
                  p(out_w), p(out_f), p(out_h), *dims)
 
 
@@ -420,6 +431,19 @@ def penalty_adjoint(ifs: InterfaceStack, d, cp, h, E, lam):
     _launch(2, "penalty_qp/adjoint", ifs, d, cp, h, E, lam, None, dcp, dh,
             dims)
     return dcp, dh
+
+
+def penalty_design_jvp(ifs: InterfaceStack, d, cp, h, E, tcp, th):
+    """K2 mode (d): d/de r_pen(d; cp + e tcp, h + e th) (P, C, 3) at fixed
+    d and fixed rows (tcp, th unmasked; the caller masks). The plain
+    version is torch.func.jvp of mode (a)'s plain r in (cp, h)."""
+    dims = _check_inputs(ifs, d, cp, h, E, tcp, th)
+    if not _cuda.on_cuda(d):
+        return _design_jvp_plain(ifs, d, cp, h, E, tcp, th)
+    dr = torch.zeros_like(d)
+    _launch(3, "penalty_qp/design_fwd", ifs, d, cp, h, E, tcp, None, dr,
+            None, dims, th=th)
+    return dr
 
 
 # ------------------------------------------------------------ public API

@@ -11,7 +11,9 @@ the residual, the 18x18 jet Hessians and the (cp, h) adjoint, and K3/K4
 assemble and multiply, exactly as for fixed intersections. The one new
 derivative, d(lambda^T r_pen)/dxi, is kernel K6 `mi_penalty_xi`
 (csrc/mi_penalty_xi.cu) per point, chained through the tangents' linear
-neighbour map by torch autograd.
+neighbour map by torch autograd. Its forward counterpart, d r_pen/dxi
+applied to a tangent t_xi, is K6's mode 1 (`penalty_xi_jvp`: the curve
+tangents' tangent is `_curve_tangents(t_xi)`, the map being linear).
 
 Quadrature: the xi sample points themselves, trapezoid weights in the
 curve parameter s in [0, 1]; curve tangents dxi/ds from neighbour
@@ -41,7 +43,7 @@ from goldfish_tpu_torch.physics.coupling import InterfaceStack
 
 __all__ = ["MICoupling", "build_mi_coupling", "interface_stack_mi",
            "penalty_energy_mi", "interface_hessians_mi", "mi_penalty_xi",
-           "penalty_xi_vjp"]
+           "penalty_xi_vjp", "mi_penalty_xi_fwd", "penalty_xi_jvp"]
 
 
 class MICoupling(NamedTuple):
@@ -220,3 +222,71 @@ def penalty_xi_vjp(ss: SurfSet, p: int, q: int, mi: MovingIntersections,
         g_t = torch.autograd.grad(
             (dA * g8[..., 4:6]).sum() + (dB * g8[..., 6:8]).sum(), xv)[0]
     return -(g8[..., :4].reshape(I, N, 2, 2) + g_t).reshape(I, 4 * N)
+
+
+def _xi_fwd_plain(ss, p, q, mi, co, xi4, dxiA, dxiB, d, cp, h, E, txi4,
+                  tdxA, tdxB):
+    """Plain K6 mode 1: torch.func.jvp of the plain r_pen on the plain rows
+    in (xi, dxiA, dxiB)."""
+    I, N = mi.n_int, mi.n_max
+
+    def r_pen(x4, dA, dB):
+        ifs = interface_stack_mi(ss, p, q, mi, co, x4.reshape(I, 4 * N),
+                                 plain=True)._replace(dxiA=dA, dxiB=dB)
+        return coupling._value_grad_plain(ifs, d, cp, h, E)[1]
+
+    return torch.func.jvp(r_pen, (xi4, dxiA, dxiB), (txi4, tdxA, tdxB))[1]
+
+
+def mi_penalty_xi_fwd(ss: SurfSet, p: int, q: int, mi: MovingIntersections,
+                      co: MICoupling, xi, dxiA, dxiB, d, cp, h, E, txi, tdxA,
+                      tdxB):
+    """K6 mode 1: d r_pen/d(xi, dxiA, dxiB) along (txi, tdxA, tdxB), (P, C,
+    3) (unmasked). xi, txi (I, N, 2, 2); dxiA, dxiB and their tangents
+    tdxA, tdxB (I, N, 2). A warp a point: the rows' xi-derivatives and the
+    penalty sweep's forward tangent, one f64 atomic a node and component;
+    its plain version (`_xi_fwd_plain`) on CPU tensors."""
+    I, N = mi.n_int, mi.n_max
+    P, C = d.shape[0], d.shape[1]
+    dev = d.device
+    for name, t in (("xi", xi), ("txi", txi)):
+        _cuda.check(t, name, DTYPE, (I, N, 2, 2), dev)
+    for name, t in (("dxiA", dxiA), ("dxiB", dxiB), ("tdxA", tdxA),
+                    ("tdxB", tdxB)):
+        _cuda.check(t, name, DTYPE, (I, N, 2), dev)
+    _cuda.check(co.w_s, "w_s", DTYPE, (I, N), dev)
+    _cuda.check(co.ad_scale, "ad_scale", DTYPE, (I,), dev)
+    _cuda.check(co.ar_scale, "ar_scale", DTYPE, (I,), dev)
+    _cuda.check(mi.pairA, "pairA", INDEX_DTYPE, (I,), dev)
+    _cuda.check(mi.pairB, "pairB", INDEX_DTYPE, (I,), dev)
+    for name, t in (("d", d), ("cp", cp)):
+        _cuda.check(t, name, DTYPE, (P, C, 3), dev)
+    _cuda.check(h, "h", DTYPE, (P, C), dev)
+    _cuda.check(E, "E", DTYPE, (P,), dev)
+    if not _cuda.on_cuda(d):
+        return _xi_fwd_plain(ss, p, q, mi, co, xi, dxiA, dxiB, d, cp, h, E,
+                             txi, tdxA, tdxB)
+    out = torch.zeros_like(d)
+    P_ = _cuda.ptr
+    _cuda.launch("mi_penalty_xi/xi_fwd", "gf_mi_penalty_xi_fwd",
+                 *_surf_set_args(ss), P_(mi.pairA), P_(mi.pairB), P_(xi),
+                 P_(dxiA), P_(dxiB), P_(txi), P_(tdxA), P_(tdxB),
+                 P_(co.w_s), P_(co.ad_scale), P_(co.ar_scale), P_(d),
+                 P_(cp), P_(h), P_(E), P_(out), *_surf_set_dims(ss, p, q), I,
+                 N)
+    return out
+
+
+def penalty_xi_jvp(ss: SurfSet, p: int, q: int, mi: MovingIntersections,
+                   co: MICoupling, xi, d, cp, h, E, txi):
+    """d r_pen/dxi . txi (P, C, 3), r_pen = dW_pen/dd at xi (I, 4N), for a
+    tangent txi (I, 4N) (unmasked; the caller masks): K6 mode 1
+    (`mi_penalty_xi_fwd`) with the curve tangents at xi and theirs,
+    `_curve_tangents(txi)` (the map is linear)."""
+    I, N = mi.n_int, mi.n_max
+    xi4 = xi.reshape(I, N, 2, 2).contiguous()
+    t4 = txi.reshape(I, N, 2, 2).contiguous()
+    tang = [_curve_tangents(x[:, :, k], mi.n_pts).contiguous()
+            for x in (xi4, t4) for k in (0, 1)]
+    return mi_penalty_xi_fwd(ss, p, q, mi, co, xi4, tang[0], tang[1], d, cp,
+                             h, E, t4, tang[2], tang[3])

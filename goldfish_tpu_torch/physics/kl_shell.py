@@ -17,9 +17,11 @@ basis rows:
 - `shell_hessians`: the per-qp 15x15 jet Hessian H_q (K = sum B^T H_q B);
 - `shell_adjoint`: -d/d(cp, h) of lambda^T r_shell;
 - `shell_geom_grad`: dW/dcp, the energy's direct control-point gradient
-  (shape optimization).
+  (shape optimization);
+- `shell_design_jvp`: d r_shell along a design tangent (tcp, th), the
+  forward product of the implicit operations' `apply_linear_fwd`.
 
-Each of the four runs the CUDA kernel K1 `shell_qp`
+Each of the five runs the CUDA kernel K1 `shell_qp`
 (csrc/shell_qp.cu: hand-written reverse sweeps of the density) on CUDA
 tensors and its plain PyTorch version (torch.func on `shell_density`) on
 CPU tensors.
@@ -45,7 +47,8 @@ from goldfish_tpu_torch.geometry.patch_stack import PatchStack
 
 __all__ = ["gather", "shell_density", "shell_density_increments",
            "shell_value_grad", "shell_hessians",
-           "shell_adjoint", "shell_geom_grad", "internal_energy", "element_hessians",
+           "shell_adjoint", "shell_geom_grad", "shell_design_jvp",
+           "internal_energy", "element_hessians",
            "stress_density", "vm_stress_value", "vm_stress_vjp",
            "vm_stress_rows",
            "qp_stress_vm", "volume", "external_work_dead_load",
@@ -242,8 +245,14 @@ def _geom_grad_plain(stack, d, cp, h, E, nu):
     return _scatter_jets(stack, gX, d.shape[1])
 
 
+def _design_jvp_plain(stack, d, cp, h, E, nu, tcp, th):
+    return torch.func.jvp(
+        lambda c, hh: _value_grad_plain(stack, d, c, hh, E, nu)[1],
+        (cp, h), (tcp, th))[1]
+
+
 # ------------------------------------------------------------ K1 wrappers
-def _check_inputs(stack, d, cp, h, E, nu, lam=None):
+def _check_inputs(stack, d, cp, h, E, nu, lam=None, th=None):
     P, Ne, Q, L = stack.R00.shape
     C = d.shape[1]
     dev = d.device
@@ -258,16 +267,18 @@ def _check_inputs(stack, d, cp, h, E, nu, lam=None):
     _cuda.check(nu, "nu", DTYPE, (P,), dev)
     if lam is not None:
         _cuda.check(lam, "lam", DTYPE, (P, C, 3), dev)
+    if th is not None:
+        _cuda.check(th, "th", DTYPE, (P, C), dev)
     return P, Ne, Q, L, C
 
 
 def _launch(mode, counter, stack, d, cp, h, E, nu, lam, out_w, out_f, out_h,
-            dims):
+            dims, th=None):
     p = _cuda.ptr
     _cuda.launch(counter, "gf_shell_qp", mode,
                  p(stack.R00), p(stack.R10), p(stack.R01), p(stack.R20),
                  p(stack.R11), p(stack.R02), p(stack.conn), p(stack.wq),
-                 p(d), p(cp), p(h), p(E), p(nu), p(lam),
+                 p(d), p(cp), p(h), p(E), p(nu), p(lam), p(th),
                  p(out_w), p(out_f), p(out_h), *dims)
 
 
@@ -321,6 +332,19 @@ def shell_geom_grad(stack: PatchStack, d, cp, h, E, nu):
     _launch(3, "shell_qp/geom_grad", stack, d, cp, h, E, nu, None, None, dcp,
             None, dims)
     return dcp
+
+
+def shell_design_jvp(stack: PatchStack, d, cp, h, E, nu, tcp, th):
+    """K1 mode (e): d/de r_shell(d; cp + e tcp, h + e th) (P, C, 3) at
+    fixed d (tcp, th unmasked; the caller masks). The plain version is
+    torch.func.jvp of mode (a)'s plain r in (cp, h)."""
+    dims = _check_inputs(stack, d, cp, h, E, nu, tcp, th)
+    if not _cuda.on_cuda(d):
+        return _design_jvp_plain(stack, d, cp, h, E, nu, tcp, th)
+    dr = torch.zeros_like(d)
+    _launch(4, "shell_qp/design_fwd", stack, d, cp, h, E, nu, tcp, None, dr,
+            None, dims, th=th)
+    return dr
 
 
 # ------------------------------------------------------------ public API

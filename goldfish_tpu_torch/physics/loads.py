@@ -16,11 +16,13 @@ The follower pressure is not linear in d: its work per qp is
 a function of the 9-jet (u, u_u, u_v) through (R00, R10, R01). Its value
 and d-gradient, its per-qp 9x9 jet Hessian and its adjoint run the CUDA
 kernel K8 `pressure_qp` (csrc/pressure_qp.cu) on CUDA tensors and their
-plain PyTorch versions (torch.func on `pressure_density`) on CPU tensors;
-`pressure_work_plain` is its work alone in plain torch, differentiable by
-autograd in d and cp. The areal field load (a force-density coefficient
-field, the aeroelastic coupling's input) is linear in d: its work and force
-are plain contractions (`areal_field_work`, `areal_field_force`).
+plain PyTorch versions (torch.func on `pressure_density`) on CPU tensors.
+Its forward design product (`pressure_design_jvp`) needs no mode of its
+own: W_p is f(X + z) - f(X) summed, so the cp-Jacobian of dW_p/dd is the
+symmetric B^T H_f(X + z) B, and mode (c) at lambda = tcp gives it. The
+areal field load (a force-density coefficient field, the aeroelastic
+coupling's input) is linear in d: its work and force are plain
+contractions (`areal_field_work`, `areal_field_force`).
 """
 
 from __future__ import annotations
@@ -48,9 +50,9 @@ from goldfish_tpu_torch.physics.kl_shell import (
 
 __all__ = ["PointLoads", "build_point_loads", "point_load_work",
            "EdgeLoads", "build_edge_loads", "edge_load_work",
-           "pressure_density", "pressure_work_plain", "pressure_value_grad",
+           "pressure_density", "pressure_value_grad",
            "pressure_hessians",
-           "pressure_adjoint", "follower_pressure_work",
+           "pressure_adjoint", "pressure_design_jvp", "follower_pressure_work",
            "areal_field_work", "areal_field_force",
            "external_work_and_force", "external_work"]
 
@@ -230,13 +232,6 @@ def _pr_qp(stack, pressure):
     return pressure[:, None, None].expand(stack.wq.shape)
 
 
-def pressure_work_plain(stack: PatchStack, d, cp, pressure):
-    """W_p (0-dim) in plain torch: differentiable (twice) by autograd and
-    torch.func in d, cp and the pressure."""
-    return pressure_density(pressure_jets(stack, cp), pressure_jets(stack, d),
-                            _pr_qp(stack, pressure), stack.wq).sum()
-
-
 def _pressure_value_grad_plain(stack, d, cp, pressure):
     X, z = pressure_jets(stack, cp), pressure_jets(stack, d)
     prq = _pr_qp(stack, pressure)
@@ -336,6 +331,23 @@ def pressure_adjoint(stack: PatchStack, d, cp, pressure, lam):
     _launch_pressure(2, "pressure_qp/adjoint", stack, d, cp, pressure, lam,
                      None, dcp, dims)
     return dcp
+
+
+def pressure_design_jvp(stack: PatchStack, d, cp, pressure, tcp):
+    """d/de r_p(d; cp + e tcp) (P, C, 3), r_p = -dW_p/dd the pressure's
+    residual term (tcp unmasked; the caller masks). With x = X + z, r_p =
+    -B^T grad f(x) and dr_p/dcp = -B^T H_f(x) B is symmetric (the
+    reference term f(X) has no z-gradient), so this is K8 mode (c) at
+    lambda = tcp, negated: no kernel mode of its own."""
+    return -pressure_adjoint(stack, d, cp, pressure, tcp)
+
+
+def _pressure_design_jvp_plain(stack, d, cp, pressure, tcp):
+    """torch.func.jvp in cp of mode (a)'s plain r_p: the yardstick of
+    `pressure_design_jvp`'s symmetry route."""
+    return -torch.func.jvp(
+        lambda c: _pressure_value_grad_plain(stack, d, c, pressure)[1],
+        (cp,), (tcp,))[1]
 
 
 def follower_pressure_work(stack: PatchStack, d, cp, pressure):

@@ -55,9 +55,11 @@ from goldfish_tpu_torch.physics.loads import (
     areal_field_work,
     build_edge_loads,
     build_point_loads,
+    edge_load_force,
     edge_load_work,
     external_work_and_force,
     pressure_adjoint,
+    pressure_design_jvp,
     pressure_hessians,
 )
 
@@ -66,7 +68,7 @@ __all__ = ["SystemData", "NonMatchingSystem", "JetTables", "JetHessians",
            "jet_hessians", "jet_runs", "jet_assemble", "jet_matvec",
            "assemble_K_from",
            "tangent_matvec_from", "potential_and_residual", "residual_vjp",
-           "residual_vjp_field",
+           "residual_vjp_field", "residual_jvp",
            "total_potential", "residual", "tangent_matvec", "assemble_K",
            "element_global_dofs"]
 
@@ -170,6 +172,41 @@ def residual_vjp(data: SystemData, d, cp, h, lam):
                 w = w + areal_field_work(data.stack, lam, cpv, data.f_field)
             dcp = dcp + torch.autograd.grad(w, cpv)[0]
     return dcp, dh
+
+
+def residual_jvp(data: SystemData, d, cp, h, tcp, th):
+    """free * (dR/dcp tcp + dR/dh th): the forward design product, with
+    `residual_vjp`'s composition: K1 and K2 in their design-tangent modes,
+    the follower pressure by K8 mode (c) at lambda = tcp (its cp-Jacobian
+    is symmetric, `loads.pressure_design_jvp`), the dead, edge and field
+    loads' cp-dependence by torch.func.jvp, and contact's where tcp is
+    nonzero (on CUDA tensors that raises: K12 has no forward mode yet,
+    ROADMAP Queue B 3b-ii). tcp and th are unmasked (a clamped dof still
+    moves the geometry); only the output is masked. The loads and contact
+    do not depend on h."""
+    st = data.stack
+    out = kl_shell.shell_design_jvp(st, d, cp, h, data.E, data.nu, tcp, th)
+    if data.ifs is not None:
+        out = out + coupling.penalty_design_jvp(data.ifs, d, cp, h, data.E,
+                                                tcp, th)
+    if data.pressure is not None:
+        out = out + pressure_design_jvp(st, d, cp, data.pressure, tcp)
+    if data.contact is not None and bool(torch.any(tcp != 0)):
+        out = out + contact_.contact_design_jvp(data.contact, st, d, cp, tcp)
+    if (data.f_areal is not None or data.edge_loads is not None
+            or data.f_field is not None):
+        def f_ext(c):
+            f = torch.zeros_like(c)
+            if data.f_areal is not None:
+                f = f + kl_shell.dead_load_force(st, c, data.f_areal)
+            if data.edge_loads is not None:
+                f = f + edge_load_force(data.edge_loads, c)
+            if data.f_field is not None:
+                f = f + areal_field_force(st, c, data.f_field)
+            return f
+
+        out = out - torch.func.jvp(f_ext, (cp,), (tcp,))[1]
+    return out * data.free
 
 
 def residual_vjp_field(data: SystemData, d, cp, h, lam):

@@ -10,7 +10,8 @@ and `J.backward()` composes the two implicit-function adjoints. At a given
 xi the moving-intersection system is a fixed-intersection one whose
 interface rows K5 evaluates at xi (`data_at`), so its energy, residual,
 tangent, jet Hessians and (cp, h) adjoint are the fixed-intersection
-kernels' (K1-K4); the xi cotangent of the residual is K6.
+kernels' (K1-K4); the xi cotangent of the residual is K6 (mode 0), its xi
+tangent K6's mode 1 (`residual_jvp_mi`).
 
 `PersistentDeviceFactorMI` shares the policy of devicechol.
 PersistentDeviceFactor (subclass over the state (cp, h, xi, d)) and adds
@@ -46,6 +47,7 @@ from goldfish_tpu_torch.physics import coupling
 from goldfish_tpu_torch.physics.coupling_mi import (
     build_mi_coupling,
     interface_stack_mi,
+    penalty_xi_jvp,
     penalty_xi_vjp,
 )
 from goldfish_tpu_torch.solver.devicechol import PersistentDeviceFactor
@@ -59,12 +61,13 @@ from goldfish_tpu_torch.solver.system import (
     jet_assemble,
     jet_hessians,
     potential_and_residual,
+    residual_jvp,
     residual_vjp,
     tangent_matvec_from,
 )
 
 __all__ = ["MINonMatchingSystem", "data_at", "total_potential_mi",
-           "residual_mi", "assemble_K_mi", "PersistentDeviceFactorMI",
+           "residual_mi", "residual_jvp_mi", "assemble_K_mi", "PersistentDeviceFactorMI",
            "newton_solve_mi_host", "adjoint_lambda_mi", "adjoint_solve_mi",
            "build_solve_fn_mi"]
 
@@ -111,6 +114,24 @@ def _res_vjp_mi(data, mi, co, ss, p, q, d, cp, h, xi, lam):
     dxi = penalty_xi_vjp(ss, p, q, mi, co, xi, d, cp, h, data.E,
                          (lam * data.free).contiguous())
     return dcp, dh, dxi
+
+
+def residual_jvp_mi(data, mi, co, ss, p, q, d, cp, h, xi, tcp=None, th=None,
+                    txi=None):
+    """free * (dR/dcp tcp + dR/dh th + dR/dxi txi) at xi, the forward
+    design product: `residual_jvp` (K1 and K2 design modes, K8) on the rows
+    at xi, and K6's mode 1 for xi. A tangent that is None is zero (its part
+    is skipped; tcp and th go together)."""
+    out = torch.zeros_like(d)
+    if tcp is not None or th is not None:
+        out = out + residual_jvp(
+            data_at(data, mi, co, ss, p, q, xi), d, cp, h,
+            torch.zeros_like(cp) if tcp is None else tcp,
+            torch.zeros_like(h) if th is None else th)
+    if txi is not None:
+        out = out + penalty_xi_jvp(ss, p, q, mi, co, xi, d, cp, h, data.E,
+                                   txi) * data.free
+    return out
 
 
 # ------------------------------------------------------------ factor

@@ -310,3 +310,35 @@ def port_panel(num_el=6, p=2, device="cpu"):
     s.add_side_bc(0, direction=0, side=1, n_layers=1)
     s.add_point_load(0, [0.5, 0.5], [0.0, -4000.0, 0.0])
     return s
+
+
+# The forward design tangents (tests/test_torch_design_jvp.py and
+# scripts/torch_port_design_jvp_reference.py): standard-normal tangents of
+# cp and h, and the OpenMDAO MI T-beam's CPU test size.
+OM_MI_SMALL = dict(num_el=3, p=2, n_pts=7)
+
+
+def design_tangents(cp, h, seed):
+    """(tcp, th) standard normal, as numpy, shaped as cp and h."""
+    rng = np.random.default_rng(seed)
+    return rng.normal(size=np.shape(cp)), rng.normal(size=np.shape(h))
+
+
+def om_mi_design_state(system, seed=12):
+    """(cp, h, xi, d, tcp, th, txi) as numpy on an OM MI T-beam of either
+    package: xi the initial seam moved by up to 1e-3 (clipped to [0, 1]),
+    d ~ 1e-3 |cp| on free dofs, the tangents standard normal."""
+    def host(a):
+        if isinstance(a, torch.Tensor):
+            a = a.detach().cpu()
+        return np.asarray(a, dtype=np.float64)
+
+    cp, h = host(system.cp), host(system.h_init)
+    free, xi0 = host(system.data.free), host(system.c2x.xi0_flat)
+    rng = np.random.default_rng(seed)
+    xi = np.clip(xi0 + 1e-3 * rng.uniform(-1, 1, size=xi0.shape), 0.0, 1.0)
+    scale = np.linalg.norm(cp) / np.sqrt(cp.size)
+    d = 1e-3 * scale * rng.normal(size=cp.shape) * free
+    tcp, th = design_tangents(cp, h, seed + 1)
+    txi = rng.normal(size=xi.shape)
+    return cp, h, xi, d, tcp, th, txi

@@ -22,7 +22,7 @@ from _torch_port_common import (
 
 def _mi_calls(s, d, cp, h, lam):
     """The moving-intersection kernels' wrappers on system s (K1's
-    geometry gradient, K5-K7)."""
+    geometry gradient, K5-K7, K6's and K7's forward modes)."""
     from goldfish_tpu_torch.geometry import cpiga2xi
     from goldfish_tpu_torch.ops import bspline_traced
     from goldfish_tpu_torch.physics import coupling_mi, kl_shell
@@ -41,6 +41,10 @@ def _mi_calls(s, d, cp, h, lam):
     dA = coupling_mi._curve_tangents(xi4[:, :, 0], mi.n_pts).contiguous()
     dB = coupling_mi._curve_tangents(xi4[:, :, 1], mi.n_pts).contiguous()
     g = torch.ones_like(xi)
+    t4 = torch.cos(2.0 * torch.arange(xi4.numel(), device=xi.device,
+                                      dtype=xi.dtype)).reshape(xi4.shape)
+    tA = coupling_mi._curve_tangents(t4[:, :, 0], mi.n_pts).contiguous()
+    tB = coupling_mi._curve_tangents(t4[:, :, 1], mi.n_pts).contiguous()
     return {
         "shell_qp/geom_grad": lambda: kl_shell.shell_geom_grad(
             s.stack, d, cp, h, s.E, s.nu),
@@ -54,6 +58,10 @@ def _mi_calls(s, d, cp, h, lam):
         "c2x_res_jac/step": lambda: cpiga2xi.c2x_step(ss, p, q, mi, cp, xi),
         "c2x_res_jac/solve_adjoint": lambda: cpiga2xi.c2x_solve_adjoint(
             ss, p, q, mi, cp, xi, g),
+        "mi_penalty_xi/xi_fwd": lambda: coupling_mi.mi_penalty_xi_fwd(
+            ss, p, q, mi, co, xi4, dA, dB, d, cp, h, s.E, t4, tA, tB),
+        "c2x_res_jac/cp_fwd": lambda: cpiga2xi.c2x_res_jvp(
+            ss, p, q, mi, cp, xi, lam),
     }
 
 
@@ -154,12 +162,16 @@ def _calls(data, d, cp, h, lam, v):
             st, d, cp, h, data.E, data.nu),
         "shell_qp/adjoint": lambda: kl_shell.shell_adjoint(
             st, d, cp, h, data.E, data.nu, lam),
+        "shell_qp/design_fwd": lambda: kl_shell.shell_design_jvp(
+            st, d, cp, h, data.E, data.nu, v, lam[..., 0].contiguous()),
         "penalty_qp/value_grad": lambda: coupling.penalty_value_grad(
             ifs, d, cp, h, data.E),
         "penalty_qp/hess": lambda: coupling.penalty_hessians(
             ifs, d, cp, h, data.E),
         "penalty_qp/adjoint": lambda: coupling.penalty_adjoint(
             ifs, d, cp, h, data.E, lam),
+        "penalty_qp/design_fwd": lambda: coupling.penalty_design_jvp(
+            ifs, d, cp, h, data.E, v, lam[..., 0].contiguous()),
         "jet_assemble": lambda: system.assemble_K(data, d, cp, h),
         "jet_matvec": lambda: system.tangent_matvec(data, d, cp, h, v),
         "pressure_qp/value_grad": lambda: loads.pressure_value_grad(

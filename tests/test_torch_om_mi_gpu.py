@@ -1,10 +1,9 @@
 """The moving-intersection operations of the OpenMDAO graph on the card:
 on CUDA tensors every protocol method runs on the kernels and agrees with
-the same operation on CPU tensors (its plain versions), and the design
-tangents applied forward, which have no kernel mode, raise: dR/dcp of both
-operations and dR/d(h, xi) of the displacement one. The xi part of the
-CP -> xi operation (J d_xi from K7 mode 0's Jacobian) and the d part of the
-displacement one (K4) run.
+the same operation on CPU tensors (its plain versions), the design tangents
+applied forward included: dR/dcp of the CP -> xi operation (K7 mode 4) and
+dR/d(cp, h, xi) of the displacement one (K1 mode 4 and K2 mode 3 on K5's
+rows, K6 mode 1), each to 1e-10, with every new mode launched.
 
 Needs no JAX, so it runs where only the port is installed:
 
@@ -74,13 +73,16 @@ def test_cuda_mi_operations_match_cpu_and_raise_without_a_forward_mode():
         assert _rel(got, want) <= 1e-10
     assert _rel(dop.solve_linear_rev(r_d), cpu[1].solve_linear_rev(r_d)) \
         <= 1e-8
+    t_cp = rng.normal(size=d.size)
+    assert _rel(xop.apply_linear_fwd(d_cp=t_cp, d_xi=t_xi),
+                cpu[0].apply_linear_fwd(d_cp=t_cp, d_xi=t_xi)) <= 1e-10
+    for kw in (dict(d_cp=t_cp), dict(d_h=t_h), dict(d_xi=t_xi),
+               dict(d_cp=t_cp, d_h=t_h, d_xi=t_xi, d_d=t_d)):
+        assert _rel(dop.apply_linear_fwd(**kw),
+                    cpu[1].apply_linear_fwd(**kw)) <= 1e-10, sorted(kw)
     for name in ("c2x_res_jac/res_jac", "c2x_res_jac/adjoint",
                  "c2x_res_jac/step", "jet_matvec", "mi_penalty_xi",
-                 "shell_qp/adjoint", "penalty_qp/adjoint", "traced_rows"):
+                 "shell_qp/adjoint", "penalty_qp/adjoint", "traced_rows",
+                 "shell_qp/design_fwd", "penalty_qp/design_fwd",
+                 "mi_penalty_xi/xi_fwd", "c2x_res_jac/cp_fwd"):
         assert _cuda.launch_counts[name] >= 1, name
-    with pytest.raises(NotImplementedError):
-        xop.apply_linear_fwd(d_cp=rng.normal(size=d.size))
-    for kw in (dict(d_cp=rng.normal(size=d.size)), dict(d_h=t_h),
-               dict(d_xi=t_xi)):
-        with pytest.raises(NotImplementedError):
-            dop.apply_linear_fwd(**kw)
