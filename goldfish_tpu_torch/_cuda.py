@@ -52,7 +52,8 @@ COUNTERS = ("shell_qp/value_grad", "shell_qp/hess", "shell_qp/adjoint",
             "pair_assemble/pairs", "pair_assemble/patches",
             "vlm_aic/value", "vlm_aic/vjp",
             "contact_pairs/cull", "contact_pairs/value_grad",
-            "contact_pairs/hvp", "contact_pairs/hess")
+            "contact_pairs/hvp", "contact_pairs/hess",
+            "contact_pairs/design_fwd")
 launch_counts: dict[str, int] = {k: 0 for k in COUNTERS}
 _lib = None
 build_info: dict = {}
@@ -75,7 +76,7 @@ _SIGNATURES = {
     "gf_pair_assemble": [_P] * 13 + [_I] * 8 + [_P],
     "gf_vlm_aic": [_I] + [_P] * 11 + [_I] * 2 + [_P],
     "gf_contact_cull": [_P] * 9 + [_I] * 4 + [_P],
-    "gf_contact_pairs": [_I] + [_P] * 17 + [_I] * 5 + [ctypes.c_longlong,
+    "gf_contact_pairs": [_I] + [_P] * 18 + [_I] * 5 + [ctypes.c_longlong,
                                                        _P],
 }
 

@@ -1,12 +1,14 @@
 // K12 contact_pairs: the shell-shell contact pair potential, its force, its
-// Hessian-vector product and its stiffness, in closed form per qp pair.
+// Hessian-vector product, its stiffness and its forward design tangent, in
+// closed form per qp pair.
 //
 // Replaces the JAX device programs
 //   goldfish_tpu/physics/contact.py: contact_energy (:58) and
 //     contact_hessians (:79, jax.hessian: 6C forward-over-reverse passes of
 //     the pair energy per patch pair), the gradient of contact_energy inside
-//     jax.grad of the total potential (solver/system.py:76), and the contact
-//     quadrants of assemble_K (system.py:244-257).
+//     jax.grad of the total potential (solver/system.py:76), the contact
+//     quadrants of assemble_K (system.py:244-257), and the contact part of
+//     the residual's jax.jvp in cp (operations/disp_imop.py:68, :134-141).
 //
 // For a patch pair (A, B) with deformed qp positions x (cp + d on the R00
 // rows) and weights w = |X_u x X_v| wq (0 on padded qps):
@@ -42,6 +44,11 @@
 //        sum_a y; t = phi' rhat . (v_a - v_b): T_a += sum_b t w_b, T_b +=
 //        sum_a t w_a (T is the w-cotangent of v . dW_c/dx, the cp pullback
 //        of the adjoint through the weights);
+//     3: the force's tangent along (v, dw) = (dx, dw) of a design change
+//        that moves both the qps and their weights: y = H_ab (v_a - v_b) +
+//        (dw_a w_b + w_a dw_b) phi' rhat, Y_a += sum_b y, Y_b -= sum_a y
+//        (the contact part of the residual's forward tangent in cp; the
+//        list depends on x only, so the caller's list of mode 0 serves);
 //   2 hess: cells are elements; blocks of a fixed grid stride over the
 //     listed element pairs (e_A, e_B): the Q x Q blocks H_ab in shared
 //     memory; the own-side sums S_a += sum_b H_ab, S_b += sum_a H_ab (3 x 3
@@ -182,12 +189,19 @@ __global__ void cull_kernel(const double* __restrict__ box,
   }
 }
 
-// modes 0 and 1 over the listed cell pairs; `per` cell pairs a block at
-// once, each on WORK_THREADS / per threads
+// doubles of shared memory a cell pair of modes 0, 1 and 3 takes: x, w, v
+// (and dw in mode 3) of both cells, and nc^2 x 5 pair terms
+__host__ __device__ constexpr int list_slot(int mode, int nc) {
+  return (mode == 3 ? 16 : 14) * nc + 5 * nc * nc;
+}
+
+// modes 0, 1 and 3 over the listed cell pairs; `per` cell pairs a block
+// at once, each on WORK_THREADS / per threads
 template <int MODE>
 __global__ void pair_list_kernel(const double* __restrict__ x,
                                  const double* __restrict__ w,
                                  const double* __restrict__ v,
+                                 const double* __restrict__ dw,
                                  const int* __restrict__ pa,
                                  const int* __restrict__ pb,
                                  const double* __restrict__ kpen,
@@ -203,10 +217,11 @@ __global__ void pair_list_kernel(const double* __restrict__ x,
   const int tps = blockDim.x / per;
   const int slot = threadIdx.x / tps, lt = threadIdx.x % tps;
   const int nn = nc * nc;
-  double* sx = sm + size_t(min(slot, per - 1)) * (14 * nc + 5 * nn);
+  double* sx = sm + size_t(min(slot, per - 1)) * list_slot(MODE, nc);
   double* sw = sx + 6 * nc;  // 2 x nc (A, B)
   double* sv = sw + 2 * nc;  // 2 x 3 nc
   double* sh = sv + 6 * nc;  // nc x nc x 5
+  double* sd = sh + 5 * nn;  // 2 x nc (mode 3: dw)
   for (int base = blockIdx.x * per; base < n; base += gridDim.x * per) {
     const int e = base + slot;
     const bool live = slot < per && e < n;
@@ -231,9 +246,10 @@ __global__ void pair_list_kernel(const double* __restrict__ x,
                          (j < ns ? j : 0);
         for (int c = 0; c < 3; ++c) {
           sx[3 * t + c] = x[3 * q + c];
-          if (MODE == 1) sv[3 * t + c] = v[3 * q + c];
+          if (MODE != 0) sv[3 * t + c] = v[3 * q + c];
         }
         sw[t] = j < ns ? w[q] : 0.0;
+        if (MODE == 3) sd[t] = j < ns ? dw[q] : 0.0;
       }
     }
     __syncthreads();
@@ -251,6 +267,20 @@ __global__ void pair_list_kernel(const double* __restrict__ x,
             for (int i = 0; i < 3; ++i) loc[i] = c * dx[i];
             loc[3] = phi * wb;
             loc[4] = phi * wa;
+          } else if (MODE == 3) {
+            // a qp with itself (r ~ 1e-15, dx = dv = 0) adds exactly 0
+            double rh[3], dv[3];
+            for (int i = 0; i < 3; ++i) {
+              rh[i] = dx[i] / r;
+              dv[i] = sv[3 * ia + i] - sv[3 * ib + i];
+            }
+            const double s = (rh[0] * dv[0] + rh[1] * dv[1]) + rh[2] * dv[2];
+            const double ww = wa * wb;
+            const double t = dphi / r;
+            const double cw = (sd[ia] * wb + wa * sd[ib]) * t;
+            for (int i = 0; i < 3; ++i)
+              loc[i] = ww * (ddphi * s * rh[i] + t * (dv[i] - s * rh[i])) +
+                       cw * dx[i];
           } else {
             double rh[3], dv[3];
             for (int i = 0; i < 3; ++i) {
@@ -276,7 +306,7 @@ __global__ void pair_list_kernel(const double* __restrict__ x,
       for (int t = lt; t < 8 * nc; t += tps) {
         const bool col = t >= 4 * nc;
         const int i = (col ? t - 4 * nc : t) / 4, c = t % 4;
-        if (i >= (col ? nb : na)) continue;
+        if (i >= (col ? nb : na) || (MODE == 3 && c == 3)) continue;
         double s = 0.0;
         if (col)
           for (int j = 0; j < nc; ++j)
@@ -452,13 +482,15 @@ extern "C" int gf_contact_cull(const double* x, const double* w,
 }
 
 // The work on a cull's list. mode 0: vec = G (P, EQ, 3), scal = U (P, EQ);
-// mode 1: vec = Y, scal = T, from the qp field v; cells of nc qps, ncell a
+// mode 1: vec = Y, scal = T, from the qp field v; mode 3: vec = the force's
+// tangent along (v, dw) (P, EQ, 3), scal unused; cells of nc qps, ncell a
 // patch. mode 2: cells are elements (ncell = E, nc = Q, EQ = E Q): S (P,
 // E Q, 9) and the cross quadrants into K (N, N). Outputs are zeroed (S,
 // vec, scal) or hold the rest of K on entry. `active` (optional) gains the
 // list's length: the cell pairs that ran.
 extern "C" int gf_contact_pairs(int mode, const double* x, const double* w,
-                                const double* v, const int* pa,
+                                const double* v, const double* dw,
+                                const int* pa,
                                 const int* pb, const double* kpen,
                                 const double* rmax, const double* R,
                                 const int* gi, const double* free_,
@@ -469,26 +501,32 @@ extern "C" int gf_contact_pairs(int mode, const double* x, const double* w,
   using namespace gf;
   if (n_pairs == 0 || ncell == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (mode == 0 || mode == 1) {
+  if (mode == 0 || mode == 1 || mode == 3) {
     const int nn = nc * nc;
     const int per = nn >= WORK_THREADS ? 1 : WORK_THREADS / nn;
-    const size_t smem = size_t(per) * (14 * nc + 5 * nn) * sizeof(double);
-    const void* fn = mode == 0
-                         ? reinterpret_cast<const void*>(pair_list_kernel<0>)
-                         : reinterpret_cast<const void*>(pair_list_kernel<1>);
+    const size_t smem = size_t(per) * list_slot(mode, nc) * sizeof(double);
+    const void* fn =
+        mode == 0   ? reinterpret_cast<const void*>(pair_list_kernel<0>)
+        : mode == 1 ? reinterpret_cast<const void*>(pair_list_kernel<1>)
+                    : reinterpret_cast<const void*>(pair_list_kernel<3>);
     cudaError_t e = allow_smem(fn, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     const int grid = card_grid(4);
     if (mode == 0)
       pair_list_kernel<0><<<grid, WORK_THREADS, smem, st>>>(
-          x, w, v, pa, pb, kpen, rmax, list, count, EQ, nc, ncell, per, vec,
-          scal, active);
-    else
+          x, w, v, dw, pa, pb, kpen, rmax, list, count, EQ, nc, ncell, per,
+          vec, scal, active);
+    else if (mode == 1)
       pair_list_kernel<1><<<grid, WORK_THREADS, smem, st>>>(
-          x, w, v, pa, pb, kpen, rmax, list, count, EQ, nc, ncell, per, vec,
-          scal, active);
+          x, w, v, dw, pa, pb, kpen, rmax, list, count, EQ, nc, ncell, per,
+          vec, scal, active);
+    else
+      pair_list_kernel<3><<<grid, WORK_THREADS, smem, st>>>(
+          x, w, v, dw, pa, pb, kpen, rmax, list, count, EQ, nc, ncell, per,
+          vec, scal, active);
     return launch_status();
   }
+  if (mode != 2) return static_cast<int>(cudaErrorInvalidValue);
   const int Q = nc, E = ncell;
   const size_t smem = (size_t(8) * Q + 2 * size_t(Q) * L + 9 * size_t(Q) * Q +
                        9 * size_t(Q) * L) * sizeof(double) +

@@ -18,11 +18,14 @@ Hessians (K1/K2 mode b) at the linearized state, unmasked on the input side
 as the JAX package's jvp of the masked residual is; (dR/d(cp, h))^T is
 `system.residual_vjp` (K1/K2 mode c), with the JAX package's + sign, and
 dR/d(cp, h) applied forward `system.residual_jvp` (K1/K2's design-tangent
-modes, K8 mode c; the plain versions on CPU tensors). The linear solves are
-the certificate-gated refinement on the persistent factor
-(`implicit.adjoint_lambda`), with the identity on clamped dofs (the JAX
-package's BC-reduced K). With contact, a cp tangent on the card raises:
-K12 has no forward mode yet (ROADMAP Queue B 3b-ii).
+modes, K8 mode c, K12 mode 3 for contact; the plain versions on CPU
+tensors). The linear solves are the certificate-gated refinement on the
+persistent factor (`implicit.adjoint_lambda`), with the identity on clamped
+dofs (the JAX package's BC-reduced K), to the certificate `LINEAR_TOL`:
+forward-mode totals solve K against dR/d(cp, h) tangents, whose answers lie
+in the soft modes, and the adjoint gate of 1e-6 left them ~4e-7 from the
+reverse totals (the MI T-beam's CSDL graph); at 1e-10 the two agree to
+~5e-10.
 """
 
 from __future__ import annotations
@@ -42,7 +45,11 @@ from goldfish_tpu_torch.solver.system import (
     tangent_matvec_from,
 )
 
-__all__ = ["DispImOperation"]
+__all__ = ["DispImOperation", "LINEAR_TOL"]
+
+# IR certificate (last correction over the solution) of the operations'
+# solve_linear_* (the Newton directions keep their own forcing tolerance)
+LINEAR_TOL = 1e-10
 
 
 class DispImOperation:
@@ -58,6 +65,7 @@ class DispImOperation:
         self.h_size = self.layout.n_flat
         self.solver = _Solver(self.data, rtol, 1e-14, max_it)
         self.factor = self.solver.factor
+        self.factor._ADJOINT_TOL = LINEAR_TOL
         # secant extrapolation of successive converged states across
         # optimizer iterations (opt/warmstart.py)
         self._ws = SecantWarmStart() if warm_start else None

@@ -32,8 +32,9 @@ padded points included); inside they are tensors on the system's device.
                       (dR/dd)^T d_r by K4 on the MI jet Hessians at the
                       linearized state, unmasked on the input side
     solve_linear_*    certificate-gated IR on the persistent factor
-                      (`adjoint_lambda_mi`), the identity on clamped dofs
-                      (the JAX package's BC-reduced K)
+                      (`adjoint_lambda_mi`, to `disp_imop.LINEAR_TOL`), the
+                      identity on clamped dofs (the JAX package's
+                      BC-reduced K)
 
 On CPU tensors every product runs the kernels' plain versions.
 """
@@ -44,6 +45,7 @@ import numpy as np
 import torch
 
 from goldfish_tpu_torch.design.pipeline import CPLayout
+from goldfish_tpu_torch.operations.disp_imop import LINEAR_TOL
 from goldfish_tpu_torch.geometry.cpiga2xi import (
     c2x_adjoint,
     c2x_res_jac,
@@ -218,6 +220,7 @@ class DispMintImOperation:
         self.xi_shape = tuple(mi_system.c2x.xi0_flat.shape)
         self.solver = _SolverMI(*mi_system.mi_args, rtol, 1e-14, max_it)
         self.factor = self.solver.factor
+        self.factor._ADJOINT_TOL = LINEAR_TOL
         self._ws = SecantWarmStart() if warm_start else None
         self._state = None
         self._Hs = None

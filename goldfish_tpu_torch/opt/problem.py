@@ -21,8 +21,14 @@ Warm starting: the objective may thread a non-differentiated state
 (typically the previous displacement) through successive evaluations; the
 state commits only when it is finite, so a diverged trial design cannot
 poison later warm starts. `iter_callback(dvs, J)` runs after every SLSQP
-iteration (`utils.checkpoint.Checkpointer.attach` saves there). The
-pyOptSparse route of `run` is not ported yet (ROADMAP Queue A11).
+iteration (`utils.checkpoint.Checkpointer.attach` saves there).
+
+`run(optimizer=...)` is the optimizer front end: "SLSQP" is `run_slsqp`;
+any other name ("SNOPT", "IPOPT", ...) goes through pyOptSparse, the real
+package where it is installed, else the port's own API subset
+(`goldfish_tpu_torch.pyoptsparse_shim`, SciPy engines). Its `sens` callback
+hands pyOptSparse the same autograd gradient and `torch.func.jacrev`
+constraint Jacobians as the SLSQP route.
 """
 
 from __future__ import annotations
@@ -146,7 +152,156 @@ class OptProblem:
         return torch.tensor(np.asarray(x, dtype=np.float64), dtype=DTYPE,
                             device=self.device)
 
+    def _raw(self, x):
+        """(scaled J, new warm-start state or None) at the flat scaled
+        design tensor x."""
+        dvs = self._unflatten(x)
+        if self._state0 is not None:
+            J, new_state = self._obj(dvs, self.state_box[0])
+        else:
+            J, new_state = self._obj(dvs), None
+        return self._obj_scaler * J, new_state
+
+    def _commit(self, new_state):
+        """Keep the warm-start state only when it is finite: a diverged
+        trial design must not poison later warm starts."""
+        if self._state0 is not None and _finite(new_state):
+            self.state_box[0] = new_state.detach()
+
+    def _value_and_grad(self, x):
+        """(scaled J, its gradient (numpy), x's tensor) by autograd; commits
+        the state."""
+        xt = self._tensor(x).requires_grad_(True)
+        J, new_state = self._raw(xt)
+        (g,) = torch.autograd.grad(J, xt)
+        self._commit(new_state)
+        return float(J.detach()), g.cpu().numpy().astype(np.float64), \
+            xt.detach()
+
+    def _con_value(self, x, c):
+        return c.scaler * torch.atleast_1d(c.fn(self._unflatten(x)))
+
     # ------------------------------------------------------------- run
+    def run(self, optimizer="SLSQP", maxiter=100, tol=1e-9, verbose=False,
+            opt_settings=None):
+        """Pluggable optimizer front end (the reference's SNOPT/SLSQP
+        switch, reference: demos_om/thickness_opt/plate/
+        plate_var_th_opt_wint.py:342-361): "SLSQP" runs `run_slsqp`; any
+        other name runs that pyOptSparse optimizer."""
+        if optimizer.upper() == "SLSQP":
+            return self.run_slsqp(maxiter=maxiter, tol=tol, verbose=verbose)
+        return self._run_pyoptsparse(optimizer, maxiter=maxiter, tol=tol,
+                                     verbose=verbose,
+                                     opt_settings=opt_settings or {})
+
+    @staticmethod
+    def _import_pyoptsparse():
+        """The real pyoptsparse where installed, else the port's shim."""
+        try:
+            import pyoptsparse
+            return pyoptsparse
+        except ModuleNotFoundError:
+            from goldfish_tpu_torch import pyoptsparse_shim
+            return pyoptsparse_shim
+
+    def _run_pyoptsparse(self, optimizer, maxiter, tol, verbose,
+                         opt_settings):
+        """The pyOptSparse route (SNOPT et al.). pyOptSparse sees the
+        scaled design space (value = scaler * init, as in run_slsqp); the
+        objective and constraints come from objfun, forward-only; `sens`
+        gives the autograd gradient (the warm-start state commits only when
+        finite, as in run_slsqp) and each constraint's jacrev. pyOptSparse
+        calls sens once per accepted major iteration, so `iter_callback`
+        fires there with the scaled objective, except at the first call
+        (the start point, before any step is accepted): the checkpointed
+        iteration count is then the number of accepted iterations."""
+        pyoptsparse = self._import_pyoptsparse()
+        names = [dv.name for dv in self._dvs]
+        slices, o = {}, 0
+        for dv in self._dvs:
+            slices[dv.name] = slice(o, o + dv.init.size)
+            o += dv.init.size
+
+        def flat(xdict):
+            return np.concatenate([np.asarray(xdict[n], dtype=np.float64)
+                                   .ravel() for n in names])
+
+        def objfun(xdict):
+            t0 = time.perf_counter()
+            xt = self._tensor(flat(xdict))
+            with torch.no_grad():
+                J, new_state = self._raw(xt)
+                self._commit(new_state)
+                funcs = {"obj": float(J)}
+                for c in self._cons:
+                    funcs[c.name] = self._con_value(xt, c).cpu().numpy()
+            self.eval_wall["fun"].append(time.perf_counter() - t0)
+            return funcs, False
+
+        n_sens = [0]
+
+        def sens(xdict, funcs):
+            t0 = time.perf_counter()
+            _, g, x = self._value_and_grad(flat(xdict))
+            out = {"obj": {n: g[slices[n]] for n in names}}
+            for c in self._cons:
+                Jc = torch.func.jacrev(
+                    lambda y, c=c: self._con_value(y, c))(x).cpu().numpy()
+                out[c.name] = {n: Jc[:, slices[n]] for n in names}
+            self.eval_wall["jac"].append(time.perf_counter() - t0)
+            n_sens[0] += 1
+            if self.iter_callback is not None and n_sens[0] > 1:
+                self.iter_callback(self._unflatten(x),
+                                   float(np.asarray(funcs["obj"]).ravel()[0]))
+            return out, False
+
+        prob = pyoptsparse.Optimization("goldfish_tpu_torch", objfun)
+        sc = lambda v, s: None if v is None else np.asarray(v) * s  # noqa
+        for dv in self._dvs:
+            prob.addVarGroup(dv.name, int(dv.init.size),
+                             value=dv.scaler * dv.init.ravel(),
+                             lower=sc(dv.lower, dv.scaler),
+                             upper=sc(dv.upper, dv.scaler))
+        prob.addObj("obj")
+        x0 = self._tensor(self._x0())
+        for c in self._cons:
+            with torch.no_grad():
+                n = int(self._con_value(x0, c).numel())
+            kw = {}
+            if c.equals is not None:
+                kw = dict(lower=c.scaler * c.equals,
+                          upper=c.scaler * c.equals)
+            else:
+                if c.lower is not None:
+                    kw["lower"] = c.scaler * c.lower
+                if c.upper is not None:
+                    kw["upper"] = c.scaler * c.upper
+            prob.addConGroup(c.name, n, **kw)
+        opt_cls = getattr(pyoptsparse, optimizer.upper())
+        # run()'s generic maxiter/tol in each wrapper's own option names;
+        # explicit opt_settings win
+        generic = {
+            "SNOPT": {"Major iterations limit": int(maxiter),
+                      "Major optimality tolerance": float(tol)},
+            "IPOPT": {"max_iter": int(maxiter), "tol": float(tol)},
+            "SLSQP": {"MAXIT": int(maxiter), "ACC": float(tol)},
+            "PSQP": {"MIT": int(maxiter), "TOLG": float(tol)},
+        }.get(optimizer.upper(), {})
+        opt = opt_cls(options={**generic, **dict(opt_settings)})
+        sol = opt(prob, sens=sens)
+        x = np.concatenate([np.asarray(sol.xStar[n], dtype=np.float64)
+                            .ravel() for n in names])
+        xdict = {k: v.cpu().numpy() for k, v in
+                 self._unflatten(torch.from_numpy(x)).items()}
+        # descaled as in run_slsqp: callers see the same objective value
+        # whichever route ran
+        return OptResult(x=xdict,
+                         fun=float(np.asarray(sol.fStar).ravel()[0])
+                         / self._obj_scaler,
+                         nit=int(getattr(sol, "nIter", -1)),
+                         success=bool(getattr(sol, "success", True)),
+                         message=str(sol.optInform), history=[])
+
     def preflight(self):
         """One evaluation of every optimizer callable at x0 (forward-only
         objective, gradient, each constraint and its Jacobian): warms the
@@ -189,37 +344,19 @@ class OptProblem:
         """(fun, jac, constraints) with single-entry memos: the SciPy SLSQP
         surface, shared by run_slsqp and preflight."""
         assert self._obj is not None, "set_objective first"
-        has_state = self._state0 is not None
-        state_box = self.state_box
-
-        def raw(x):
-            dvs = self._unflatten(x)
-            if has_state:
-                J, new_state = self._obj(dvs, state_box[0])
-            else:
-                J, new_state = self._obj(dvs), None
-            return self._obj_scaler * J, new_state
-
-        def commit(new_state):
-            if has_state and _finite(new_state):
-                state_box[0] = new_state.detach()
 
         def f_fun(x):
             t0 = time.perf_counter()
             with torch.no_grad():
-                J, new_state = raw(self._tensor(x))
-            commit(new_state)
+                J, new_state = self._raw(self._tensor(x))
+            self._commit(new_state)
             J = float(J)
             self.eval_wall["fun"].append(time.perf_counter() - t0)
             return J
 
         def f_jac(x):
             t0 = time.perf_counter()
-            xt = self._tensor(x).requires_grad_(True)
-            J, new_state = raw(xt)
-            (g,) = torch.autograd.grad(J, xt)
-            commit(new_state)
-            out = float(J.detach()), g.cpu().numpy().astype(np.float64)
+            out = self._value_and_grad(x)[:2]
             self.eval_wall["jac"].append(time.perf_counter() - t0)
             return out
 
@@ -242,7 +379,7 @@ class OptProblem:
         cons = []
         for c in self._cons:
             def value(x, c=c):
-                return c.scaler * torch.atleast_1d(c.fn(self._unflatten(x)))
+                return self._con_value(x, c)
 
             def cfn(x, value=value):
                 with torch.no_grad():

@@ -16,7 +16,10 @@ the dead load's); the pair sums are kernel K12 `contact_pairs`
 - `contact_hvp`: the per-qp K_c v for a qp field v, and T, the w-cotangent
   of v . dW_c/dx (the adjoint's cp pullback through the weights);
 - `contact_assemble`: K_c into a dense K: the cross quadrants by K12, the
-  own-side 3x3 sums per qp through K3 as a one-jet group on the R00 rows.
+  own-side 3x3 sums per qp through K3 as a one-jet group on the R00 rows;
+- `contact_force_jvp`: the per-qp force's tangent along a design change
+  (dx, dw) of the qp positions and weights (`contact_design_jvp`, the
+  residual's forward tangent in cp).
 
 On the card each first lists the cell pairs that may hold a qp pair within
 r_max (`contact_cells`: K12's cull; cells of `q` consecutive qps, 16 by
@@ -42,6 +45,8 @@ from goldfish_tpu_torch import _cuda
 from goldfish_tpu_torch.config import DTYPE, INDEX_DTYPE, as_device, tensor
 from goldfish_tpu_torch.geometry.patch_stack import PatchStack
 from goldfish_tpu_torch.physics.kl_shell import (
+    _cross,
+    _dot,
     _index_add_nodes,
     _ref_area,
     gather,
@@ -50,7 +55,7 @@ from goldfish_tpu_torch.physics.kl_shell import (
 __all__ = ["ContactPairs", "ContactCells", "build_contact", "qp_field",
            "qp_scatter", "qp_weights", "contact_cells", "candidate_pairs",
            "energy_plain", "contact_value_grad", "contact_hvp",
-           "contact_design_jvp",
+           "contact_force_jvp", "qp_weights_jvp", "contact_design_jvp",
            "contact_hess", "contact_assemble", "contact_energy",
            "contact_value_force", "contact_adjoint"]
 
@@ -170,6 +175,25 @@ def _hvp_plain(contact, x, w, v):
     return Y, T
 
 
+def _design_jvp_plain(contact, x, w, v, dw):
+    """The force's tangent along (dx, dw) = (v, dw): H_x v plus the weights'
+    part, sum_b (dw_a w_b + w_a dw_b) phi' rhat."""
+    Y = torch.zeros_like(x)
+    for A, B, a0, a1, dx, r, _, dphi, ddphi, ww in _pairs(contact, x, w):
+        rh = dx / r[..., None]
+        dv = v[A, a0:a1, None, :] - v[B][None, :, :]
+        s = (rh * dv).sum(-1)
+        t = dphi / r
+        dww = dw[A, a0:a1, None] * w[B][None, :] \
+            + w[A, a0:a1, None] * dw[B][None, :]
+        y = ww[..., None] * ((ddphi * s)[..., None] * rh
+                             + t[..., None] * (dv - s[..., None] * rh)) \
+            + (dww * t)[..., None] * dx
+        Y[A, a0:a1] += y.sum(1)
+        Y[B] -= y.sum(0)
+    return Y
+
+
 def _hess_plain(K, contact, x, w, R, gi, free):
     """The closed-form block H_ab = d^2 W / dx_a^2 of every qp pair (a qp
     with itself left out of a self pair: its potential is constant), its
@@ -274,13 +298,15 @@ def contact_cells(contact: ContactPairs, x, w, q=None) -> ContactCells:
 
 
 # ------------------------------------------------------------ K12
-def _check(contact: ContactPairs, x, w, v=None):
+def _check(contact: ContactPairs, x, w, v=None, dw=None):
     dev = x.device
     P, EQ = w.shape
     _cuda.check(x, "x", DTYPE, (P, EQ, 3), dev)
     _cuda.check(w, "w", DTYPE, (P, EQ), dev)
     if v is not None:
         _cuda.check(v, "v", DTYPE, (P, EQ, 3), dev)
+    if dw is not None:
+        _cuda.check(dw, "dw", DTYPE, (P, EQ), dev)
     Kp = contact.pa.shape[0]
     for name in ("pa", "pb"):
         _cuda.check(getattr(contact, name), name, INDEX_DTYPE, (Kp,), dev)
@@ -302,12 +328,12 @@ def _list_of(contact, x, w, cells, q=None):
 
 
 def _launch(mode, counter, contact, x, w, v, R, gi, free, vec, scal, S, K,
-            cells, active, L, ndof):
+            cells, active, L, ndof, dw=None):
     p = _cuda.ptr
     c = contact
     EQ = w.shape[1]
     nc = int(cells.cell)
-    _cuda.launch(counter, "gf_contact_pairs", mode, p(x), p(w), p(v),
+    _cuda.launch(counter, "gf_contact_pairs", mode, p(x), p(w), p(v), p(dw),
                  p(c.pa), p(c.pb), p(c.k_pen), p(c.r_max), p(R), p(gi),
                  p(free), p(vec), p(scal), p(S), p(K), p(cells.index),
                  p(cells.count), p(active), c.pa.shape[0], -(-EQ // nc), nc,
@@ -343,6 +369,22 @@ def contact_hvp(contact: ContactPairs, x, w, v, cells=None, q=None):
     _launch(1, "contact_pairs/hvp", contact, x, w, v, None, None, None, Y,
             T, None, None, cells, None, 0, 0)
     return Y, T
+
+
+def contact_force_jvp(contact: ContactPairs, x, w, v, dw, cells=None,
+                      q=None):
+    """K12 mode 3: the tangent (P, EQ, 3) of the per-qp force G = dW_c/dx
+    along a change (v, dw) of the qp positions x and weights w: H_x v +
+    (dG/dw) dw. `cells`, `q` as for `contact_value_grad` (the list depends
+    on x only)."""
+    _check(contact, x, w, v, dw)
+    if not _cuda.on_cuda(x):
+        return _design_jvp_plain(contact, x, w, v, dw)
+    cells = _list_of(contact, x, w, cells, q)
+    Y = torch.zeros_like(x)
+    _launch(3, "contact_pairs/design_fwd", contact, x, w, v, None, None,
+            None, Y, None, None, None, cells, None, 0, 0, dw=dw)
+    return Y
 
 
 def contact_hess(K, contact: ContactPairs, x, w, R, gi, free, active=None,
@@ -437,23 +479,33 @@ def contact_adjoint(contact: ContactPairs, stack: PatchStack, d, cp, lam):
     return -(qp_scatter(stack, Y, cp.shape[1]) + gw)
 
 
+def qp_weights_jvp(stack: PatchStack, cp, tcp):
+    """The tangent of `qp_weights` along tcp (P, E*Q), in closed form:
+    dw = n . (dX_u x X_v + X_u x dX_v) wq with n = A3 / |A3|; 0 where
+    |A3| = 0 (no division there)."""
+    ce, te = gather(cp, stack.conn), gather(tcp, stack.conn)
+    Xu = torch.einsum("peql,pelk->peqk", stack.R10, ce)
+    Xv = torch.einsum("peql,pelk->peqk", stack.R01, ce)
+    dXu = torch.einsum("peql,pelk->peqk", stack.R10, te)
+    dXv = torch.einsum("peql,pelk->peqk", stack.R01, te)
+    A3 = _cross(Xu, Xv)
+    dA3 = _cross(dXu, Xv) + _cross(Xu, dXv)
+    nrm = torch.sqrt(_dot(A3, A3))
+    live = nrm > 0.0
+    dn = torch.where(live, _dot(A3, dA3)
+                     / torch.where(live, nrm, torch.ones_like(nrm)), 0.0)
+    return (dn * stack.wq).reshape(cp.shape[0], -1)
+
+
 def contact_design_jvp(contact: ContactPairs, stack: PatchStack, d, cp,
                        tcp):
     """d/de r_c(d; cp + e tcp) (P, C, 3), r_c = dW_c/dd (tcp unmasked; the
-    caller masks). The qp weights depend on cp apart from x = X + u, so
-    this needs a weight-tangent mode of K12, which is not written yet
-    (ROADMAP Queue B 3b-ii): on CUDA tensors it raises; on CPU tensors it
-    is the forward derivative of the dense formula's force (autograd)."""
-    if _cuda.on_cuda(d):
-        raise NotImplementedError(
-            "the contact force's forward design tangent in cp has no kernel "
-            "mode yet (ROADMAP Queue B 3b-ii: K12's weight-tangent mode)")
-
-    def force(c):
-        dv = d.detach().requires_grad_(True)
-        x, w = contact_qps(stack, dv, c)
-        return torch.autograd.grad(energy_plain(contact, x, w), dv,
-                                   create_graph=True)[0]
-
-    with torch.enable_grad():
-        return torch.autograd.functional.jvp(force, cp, tcp)[1]
+    caller masks): x = X + u moves by dx = the qp values of tcp and the
+    weights by `qp_weights_jvp`; K12 mode 3 gives the per-qp force's
+    tangent on CUDA tensors (its plain version on CPU tensors), scattered
+    back by R00^T."""
+    x, w = contact_qps(stack, d, cp)
+    Y = contact_force_jvp(contact, x, w, qp_field(stack, tcp),
+                          qp_weights_jvp(stack, cp, tcp),
+                          q=stack.R00.shape[2])
+    return qp_scatter(stack, Y, cp.shape[1])

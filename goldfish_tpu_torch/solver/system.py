@@ -180,8 +180,8 @@ def residual_jvp(data: SystemData, d, cp, h, tcp, th):
     the follower pressure by K8 mode (c) at lambda = tcp (its cp-Jacobian
     is symmetric, `loads.pressure_design_jvp`), the dead, edge and field
     loads' cp-dependence by torch.func.jvp, and contact's where tcp is
-    nonzero (on CUDA tensors that raises: K12 has no forward mode yet,
-    ROADMAP Queue B 3b-ii). tcp and th are unmasked (a clamped dof still
+    nonzero (K12 mode 3, `contact.contact_design_jvp`). tcp and th are
+    unmasked (a clamped dof still
     moves the geometry); only the output is masked. The loads and contact
     do not depend on h."""
     st = data.stack

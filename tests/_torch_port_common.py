@@ -342,3 +342,31 @@ def om_mi_design_state(system, seed=12):
     tcp, th = design_tangents(cp, h, seed + 1)
     txi = rng.normal(size=xi.shape)
     return cp, h, xi, d, tcp, th, txi
+
+
+def record_start(prob):
+    """Record the SLSQP surface's J and gradient at the start design x0 as
+    the run evaluates them (its first fun and jac calls at x0): no extra
+    cold evaluation. Returns the dict that fills in."""
+    x0 = prob._x0()
+    seen = {}
+    build = prob._build_callables
+
+    def recording():
+        fun, jac, cons = build()
+
+        def f(x):
+            J = fun(x)
+            if "J" not in seen and np.array_equal(x, x0):
+                seen["J"] = J
+            return J
+
+        def g(x):
+            out = jac(x)
+            if "g" not in seen and np.array_equal(x, x0):
+                seen["g"] = np.array(out)
+            return out
+        return f, g, cons
+
+    prob._build_callables = recording
+    return seen

@@ -149,6 +149,41 @@ def test_padded_qps_contribute_zero():
     assert bool((G[1][pad] == 0.0).all())
 
 
+def test_design_jvp_plain_matches_torch_jvp_of_the_force():
+    """K12 mode 3's plain version, the force's tangent along (dx, dw),
+    against torch.func.jvp of the plain force G = dW_c/dx in (x, w), on the
+    padded two-plate system (the coarse plate's padded qps have w = 0 and
+    get dw = 0): along a seeded (dx, dw) and with dx = 0 (the weights' term
+    alone), 1e-12."""
+    from goldfish_tpu_torch.geometry.cadkit import bilinear
+    from goldfish_tpu_torch.physics import contact
+    from goldfish_tpu_torch.solver.system import NonMatchingSystem
+
+    def plate(z, n):
+        srf = bilinear([0, 0, z], [1, 0, z], [0, 1, z], [1, 1, z])
+        nk = np.linspace(0, 1, n + 1)[1:-1]
+        return srf.elevate(0, 1).elevate(1, 1).refine(0, nk).refine(1, nk)
+
+    s = NonMatchingSystem([plate(0.05, 3), plate(0.0, 2)], E=1e7, nu=0.3,
+                          h_th=0.01, device="cpu")
+    s.set_contact([(0, 1)], k_pen=1e7, r_max=0.1)
+    c = s.data.contact
+    x, w = contact.contact_qps(s.stack, s.zero_displacement(), s.cp)
+    rng = np.random.default_rng(12)
+    dw = t(rng.normal(size=tuple(w.shape))) * (w != 0) * 1e-3
+    dx = t(rng.normal(size=tuple(x.shape))) * 1e-3
+
+    def force(xx, ww):
+        return torch.func.grad(contact.energy_plain, argnums=1)(c, xx, ww)
+
+    for tx in (dx, torch.zeros_like(dx)):
+        want = torch.func.jvp(force, (x, w), (tx, dw))[1]
+        got = contact._design_jvp_plain(c, x, w, tx, dw)
+        assert float(want.norm()) > 0.0
+        assert rel(got, want) <= 1e-12
+        assert bool((got[1][w[1] == 0.0] == 0.0).all())
+
+
 def test_press_matches_reference():
     """The press path at num_el=4 against the JAX package's numbers, and
     tests/test_contact.py's criteria: |r|/|r(0)| < 1e-8, W_c > 0, midspan

@@ -4,9 +4,8 @@ moved seam), K6 mode 1 (`penalty_xi_jvp`), K7 mode 4 (`c2x_res_jvp`) and
 the follower pressure's route through K8 mode c (`pressure_design_jvp`),
 each against its plain version on the same CUDA tensors (relative error in
 norm <= 1e-11: f64 atomics sum in a run-dependent order), and the
-displacement operation with contact: a cp tangent raises (K12 has no
-forward mode yet, ROADMAP Queue B 3b-ii), an h tangent runs and agrees
-with the CPU's.
+displacement operation with contact: a cp tangent (K12 mode 3,
+`contact_pairs/design_fwd`) and an h tangent agree with the CPU's.
 
 Needs no JAX, so it runs where only the port is installed:
 
@@ -146,6 +145,10 @@ def _press(num_el, device):
 
 @pytest.mark.gpu
 def test_disp_operation_with_contact_raises_for_a_cp_tangent(cuda):
+    """(The name is kept from when a cp tangent raised here.) With contact,
+    the cp-tangent product on the card (K12 mode 3, launched once) and the
+    h-tangent product agree with the CPU's (1e-10)."""
+    from goldfish_tpu_torch import _cuda
     from goldfish_tpu_torch.operations import DispImOperation
 
     ops = []
@@ -166,5 +169,8 @@ def test_disp_operation_with_contact_raises_for_a_cp_tangent(cuda):
     t_h = rng.normal(size=ops[0].h_size)
     assert _rel(ops[1].apply_linear_fwd(d_h=t_h),
                 ops[0].apply_linear_fwd(d_h=t_h)) <= 1e-10
-    with pytest.raises(NotImplementedError, match="3b-ii"):
-        ops[1].apply_linear_fwd(d_cp=rng.normal(size=ops[0].vec_size))
+    t_cp = rng.normal(size=ops[0].vec_size)
+    _cuda.reset_launch_counts()
+    got = ops[1].apply_linear_fwd(d_cp=t_cp)
+    assert _cuda.launch_counts["contact_pairs/design_fwd"] == 1
+    assert _rel(got, ops[0].apply_linear_fwd(d_cp=t_cp)) <= 1e-10

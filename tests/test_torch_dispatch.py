@@ -113,7 +113,7 @@ def _vlm_calls(colloc, nhat, A, B, wake, gbar):
 
 
 def _contact_calls(device):
-    """K12's cull (its sorted list of element pairs) and three modes on the
+    """K12's cull (its sorted list of element pairs) and four modes on the
     small press (num_el=3) at a contact-active seeded state."""
     from goldfish_tpu_torch.physics import contact
     from goldfish_tpu_torch.solver import system
@@ -128,6 +128,7 @@ def _contact_calls(device):
     x, w = (a.contiguous() for a in contact.contact_qps(s.stack, to(d),
                                                         to(cp)))
     vq = contact.qp_field(s.stack, to(v)).contiguous()
+    dw = contact.qp_weights_jvp(s.stack, to(cp), to(v)).contiguous()
     tabs = system.jet_tables(s.data)
 
     def hess():
@@ -146,6 +147,8 @@ def _contact_calls(device):
                                                                        w),
         "contact_pairs/hvp": lambda: contact.contact_hvp(c, x, w, vq),
         "contact_pairs/hess": hess,
+        "contact_pairs/design_fwd": lambda: contact.contact_force_jvp(
+            c, x, w, vq, dw),
     }
 
 

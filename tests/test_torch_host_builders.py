@@ -224,7 +224,20 @@ def test_port_imports_without_jax():
             "goldfish_tpu_torch.demos.thickness_opt_plate, "
             "goldfish_tpu_torch.demos.evtol_wing_shopt, "
             "goldfish_tpu_torch.demos.shape_opt_mint_tbeam_curved, "
-            "goldfish_tpu_torch.demos.caddee_aeroelastic_wing; "
+            "goldfish_tpu_torch.demos.caddee_aeroelastic_wing, "
+            "goldfish_tpu_torch.utils.profiling, "
+            "goldfish_tpu_torch.pyoptsparse_shim, "
+            "goldfish_tpu_torch.csdl_shim, "
+            "goldfish_tpu_torch.csdl_models, "
+            "goldfish_tpu_torch.csdl_models.models, "
+            "goldfish_tpu_torch.nonmatching_opt_csdl, "
+            "goldfish_tpu_torch.entry, "
+            "goldfish_tpu_torch.demos.wing_thickness_opt, "
+            "goldfish_tpu_torch.demos.tbeam_shape_opt, "
+            "goldfish_tpu_torch.demos.shape_opt_arch, "
+            "goldfish_tpu_torch.demos.shape_opt_mint_tbeam, "
+            "goldfish_tpu_torch.demos.aeroelastic_wing, "
+            "goldfish_tpu_torch.demos.csdl_plate_const_th_opt; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'goldfish_tpu' "
             "or m.startswith('goldfish_tpu.')]; "
