@@ -278,7 +278,32 @@ Phases (any failure raises: non-zero exit, no result line):
 28. the CADDEE wing (demos/caddee_aeroelastic_wing.py, 3 sections,
    num_el=3, p=3, 4 fixed-point passes): W_int and the tip displacement
    (1e-8) and dW_int/dh through the coupled adjoint (1e-6) against the
-   JAX demo's.
+   JAX demo's;
+29-32. the drivers, the CSDL layer, the contact force's forward design
+   tangent and the remaining demos (`[drivers] phases 29-32`);
+33. tbeam_stop: bench_mi's moving-seam T-beam at full width (num_el=40,
+   p=3, 17 seam points) with an upward areal field load on the flange and
+   a clamped stop plate above the outer 30% of the span, contact (flange,
+   stop): K1-K7 at its shapes (`phase_mi_kernels`) and K12's modes at its
+   equilibrium plus noise against their plain versions; the counted path:
+   four warm load levels on one persistent MI factor (|r| <= 1e-8 |r(0)|
+   each, W_c > 0 at the last), J = W_int with dJ/d(amp) and dJ/dh through
+   the CP -> xi and displacement solves, their central differences (1e-5),
+   and `DispMintImOperation`'s forward/reverse dot test with contact
+   (1e-10); then the same path without contact against the JAX package's
+   full-width field-load numbers (d and J 1e-8, gradients 1e-6) and at the
+   tests' small size with contact against the JAX package's (the same
+   gates, the operation's products 1e-10), both from
+   tests/data/torch_port_contact_routes_reference.json;
+34. press32_krylov: the press at num_el=32 without a dense factor on the
+   Newton path: each of four load levels by `newton_krylov_solve` warm
+   from the last (dense preconditioner), then the value and dJ/dh through
+   `build_solve_fn_krylov` for each preconditioner (dense, patch blocks;
+   pair-Schwarz refuses a model without interfaces, as the reference's
+   does), the GMRES cycles a Newton step, K10's patch blocks against their
+   plain version at the press's shapes; d and J (1e-8) and dJ/dh (1e-6)
+   against phase 21's dense route, and num_el=6 against the JAX dense
+   numbers of tests/data/torch_port_contact_reference.json.
 
 Wherever K3 is checked, the smoke prints its groups, the runs of equal dof
 maps it sums before adding (`jet_runs`) and the atomics into K one per
@@ -329,6 +354,8 @@ REF_CAD = os.path.join(ROOT, "tests", "data",
                        "torch_port_cad_reference.json")
 REF_DRIVERS = os.path.join(ROOT, "tests", "data",
                            "torch_port_drivers_reference.json")
+REF_ROUTES = os.path.join(ROOT, "tests", "data",
+                          "torch_port_contact_routes_reference.json")
 CONTACT_TOL = {"contact_pairs/value_grad": 1e-11, "contact_pairs/hvp": 1e-11,
                "contact_pairs/hess": 1e-11, "contact_pairs/cull": 0.0,
                "contact_pairs/design_fwd": 1e-11}
@@ -631,6 +658,18 @@ PRESS_KERNELS = ("shell_qp/value_grad", "shell_qp/hess", "shell_qp/adjoint",
                  "contact_pairs/value_grad",
                  "contact_pairs/hvp", "contact_pairs/hess")
 RIKS_KERNELS = ("shell_qp/value_grad", "shell_qp/hess", "jet_assemble")
+CONTACT_KERNELS = ("contact_pairs/cull", "contact_pairs/value_grad",
+                   "contact_pairs/hvp", "contact_pairs/hess")
+# the MI path with contact and the operation's forward products: K12's
+# four modes, the design-tangent modes of K1, K2, K6
+TBEAM_STOP_KERNELS = MI_PATH_KERNELS + CONTACT_KERNELS + (
+    "contact_pairs/design_fwd", "shell_qp/design_fwd", "penalty_qp/design_fwd",
+    "mi_penalty_xi/xi_fwd")
+# the Newton-Krylov press: K4 in every Arnoldi step, K3 into the dense
+# preconditioner, K10's patch blocks; no interface, so no K2
+PRESS_KRYLOV_KERNELS = ("shell_qp/value_grad", "shell_qp/hess",
+                        "shell_qp/adjoint", "jet_assemble", "jet_matvec",
+                        "pair_assemble/patches") + CONTACT_KERNELS
 # one trimmed patch: no interfaces
 TRIM_KERNELS = ("shell_qp/value_grad", "shell_qp/hess", "shell_qp/adjoint",
                 "jet_assemble", "jet_matvec")
@@ -2500,8 +2539,8 @@ def check_rel(tag, what, got, ref, tol):
                 torch.as_tensor(np.asarray(ref, dtype=np.float64)))[0]
     say(f"[{tag}] {what} rel {e:.3e} (gate {tol:g})")
     if not e <= tol:
-        raise RuntimeError(f"{tag}: {what} disagrees with the JAX CPU "
-                           f"reference: rel {e:.3e} > {tol:g}")
+        raise RuntimeError(f"{tag}: {what} disagrees with its reference: "
+                           f"rel {e:.3e} > {tol:g}")
 
 
 def phase_plate(dev, checks, ref):
@@ -3906,6 +3945,7 @@ def phase_press(dev, checks, ref, got16):
         merge(checks, name, got16[name], "press16")
     path_kernels(s, out["d"], checks, "press-kernel", "press", 24)
     counts_fwd = phase_contact_fwd(s, out["d"], checks)
+    dense = {k: out[k] for k in ("d", "J", "g")}
     del s, out, fac
     torch.cuda.empty_cache()
 
@@ -3918,7 +3958,7 @@ def phase_press(dev, checks, ref, got16):
     check_rel(tag, "d", out["d"].cpu(), ref["d"], 1e-8)
     check_rel(tag, "W_c", out["W_c"], ref["W_c"], 1e-8)
     check_rel(tag, "dJ/dh", out["g"], ref["dJ_dh"], 1e-6)
-    return counts, library, counts_fwd
+    return counts, library, counts_fwd, dense
 
 
 def phase_contact_fwd(s, d, checks, seed=31):
@@ -3978,6 +4018,451 @@ def phase_contact_fwd(s, d, checks, seed=31):
     if not e <= 1e-10:
         raise RuntimeError(f"contact-fwd: dot test rel {e:.3e} > 1e-10")
     check_counts("contact-fwd", counts, ("contact_pairs/design_fwd",))
+    return counts
+
+
+# ------------------------------------------------------------ contact routes
+# The T-beam driven into a stop plate (tests/_torch_port_common.py keeps the
+# same builder for the CPU tests): bench_mi's moving-seam T-beam with its
+# tip load replaced by an upward areal field load q on the flange, a flat
+# plate at z = gap over x in [-1.2, 1.2], y in [14, 20] (the outer 30% of
+# the span), clamped on its four sides and meshed no coarser than the
+# flange, contact (flange, stop). At full width r_max (0.25) is above both
+# patches' qp spacing (0.17 along the span) and the gap above r_max.
+TBEAM_STOP_CARD = dict(num_el=40, p=3, n_pts=17, q=40.0, gap=0.3,
+                       r_max=0.25, k_pen=1e7)
+TBEAM_STOP_SMALL = dict(num_el=4, p=2, n_pts=5, q=80.0, gap=1.6,
+                        r_max=1.5, k_pen=1e7)
+STOP_X, STOP_Y = 1.2, (14.0, 20.0)
+TBEAM_STOP_AMP = 0.05
+
+
+def tbeam_stop_problem(dev, num_el, p, n_pts, q, gap, r_max, k_pen):
+    """The T-beam and stop plate (see TBEAM_STOP_CARD) on `dev`."""
+    from goldfish_tpu_torch.models import tbeam
+    from goldfish_tpu_torch.solver.system_mi import MINonMatchingSystem
+
+    nx, ny = -(-12 * max(num_el // 2, 1) // 10), -(-3 * num_el // 10)
+    (y0, y1), x = STOP_Y, STOP_X
+    stop = tbeam.create_surf([[-x, y0, gap], [x, y0, gap], [-x, y1, gap],
+                              [x, y1, gap]], nx, ny, p)
+    s = MINonMatchingSystem(tbeam._surfs(num_el, p) + [stop], tbeam.E,
+                            tbeam.NU, tbeam.H_TH,
+                            specs=[tbeam._seam(n_pts - 1)],
+                            n_pts_list=[n_pts], device=dev)
+    s.add_side_bc(0, direction=1, side=0, n_layers=1)
+    s.add_side_bc(1, direction=1, side=0, n_layers=1)
+    for direction in (0, 1):
+        for side in (0, 1):
+            s.add_side_bc(2, direction=direction, side=side, n_layers=1)
+    f = np.zeros(tuple(s.cp.shape))
+    f[0, : s.metas[0].n_cp, 2] = q
+    s.set_areal_field(f)
+    s.set_contact([(0, 2)], k_pen=k_pen, r_max=r_max)
+    return s
+
+
+def tbeam_stop_path(s, fd=True, seed=33, adjoint_tol=None):
+    """Four warm load levels at cp(amp) on one persistent MI factor, then J
+    = W_int with dJ/d(amp) and dJ/dh through `build_forward` at full load
+    from the third level's d (its adjoint's certificate gate `adjoint_tol`
+    where given, else the factor's default), and (`fd`) their central
+    differences (amp step 1e-4, h along a seeded v at 1e-6)."""
+    from goldfish_tpu_torch.physics import kl_shell
+    from goldfish_tpu_torch.physics.contact import contact_energy
+    from goldfish_tpu_torch.solver.system import scale_loads
+    from goldfish_tpu_torch.solver.system_mi import (
+        PersistentDeviceFactorMI,
+        newton_solve_mi_host,
+        residual_mi,
+    )
+
+    dev = s.cp.device
+    m = s.metas[1]
+    bend = mi_bend(s, dev)
+
+    def cp_of(a):
+        cp = s.cp.clone()
+        cp[1, : m.n_cp, 0] = cp[1, : m.n_cp, 0] + a * bend
+        return cp
+
+    args = s.mi_args
+    h = s.h_init
+    cp = cp_of(TBEAM_STOP_AMP)
+    zero = s.zero_displacement()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xi = s.c2x.solve(cp).detach()
+    fac = PersistentDeviceFactorMI(*args)
+    d, levels, ds = zero, [], []
+    for k in range(1, 5):
+        data = scale_loads(s.data, k / 4)
+        r0 = float(torch.linalg.norm(residual_mi(data, *args[1:], zero, cp,
+                                                 h, xi)))
+        d, its, rn = newton_solve_mi_host(data, *args[1:], cp, h, xi, d,
+                                          rtol=1e-10, atol=0.0, max_it=40,
+                                          device_fac=fac)
+        Wc = 0.0 if s.data.contact is None else float(contact_energy(
+            s.data.contact, s.stack, d, cp))
+        levels.append(dict(its=int(its), r=float(rn), r0=r0, Wc=Wc))
+        ds.append(d)
+    torch.cuda.synchronize()
+    t_levels = time.perf_counter() - t0
+    forward = s.build_forward(rtol=1e-10, max_it=40)
+    solver = forward.solve_d.solver
+    if adjoint_tol is not None:
+        solver.factor._ADJOINT_TOL = adjoint_tol
+    t0 = time.perf_counter()
+    a = torch.tensor(TBEAM_STOP_AMP, dtype=torch.float64, device=dev,
+                     requires_grad=True)
+    hh = h.clone().requires_grad_(True)
+    cpa = cp_of(a)
+    dd, xx = forward(cpa, hh, ds[-2])
+    J = kl_shell.internal_energy(s.stack, dd, cpa, hh, s.E, s.nu)
+    J.backward()
+    torch.cuda.synchronize()
+    t_grad = time.perf_counter() - t0
+    out = dict(levels=levels, ds=ds, d=dd.detach(), xi=xx.detach(), cp=cp,
+               J=float(J.detach()), g_amp=float(a.grad), g_h=hh.grad.detach(),
+               t_levels=t_levels, t_grad=t_grad, fac=fac, solver=solver,
+               its_grad=solver.last_its,
+               Wc=0.0 if s.data.contact is None else float(contact_energy(
+                   s.data.contact, s.stack, dd.detach(), cp)),
+               tip=float(s.evaluate_displacement(dd.detach(), 0,
+                                                 [1.0, 1.0])[2]))
+    if fd:
+        def J_at(a_, h_):
+            c = cp_of(a_)
+            with torch.no_grad():
+                d_, _ = forward(c, h_, out["d"])
+            return float(kl_shell.internal_energy(s.stack, d_, c, h_, s.E,
+                                                  s.nu))
+
+        e = 1e-4
+        fd_amp = (J_at(TBEAM_STOP_AMP + e, h)
+                  - J_at(TBEAM_STOP_AMP - e, h)) / (2 * e)
+        v = torch.tensor(np.random.default_rng(seed).normal(
+            size=tuple(h.shape)), device=dev) * s.stack.cp_mask
+        fd_h = (J_at(TBEAM_STOP_AMP, h + 1e-6 * v)
+                - J_at(TBEAM_STOP_AMP, h - 1e-6 * v)) / 2e-6
+        ad_h = float((out["g_h"] * v).sum())
+        out.update(fd_amp_rel=abs(out["g_amp"] - fd_amp) / abs(fd_amp),
+                   fd_h_rel=abs(ad_h - fd_h) / abs(fd_h))
+    return out
+
+
+def disp_mint_dot(s, out, seed=34, tan=None, w=None):
+    """`DispMintImOperation` linearized at the path's equilibrium: the
+    forward product of seeded (d_cp, d_h, d_xi, d_d) (or `tan`) against
+    the reverse one of a seeded w: (fwd, rev, rel gap, counts of the first
+    forward call, wall)."""
+    from goldfish_tpu_torch import _cuda
+    from goldfish_tpu_torch.operations import DispMintImOperation
+
+    op = DispMintImOperation(s)
+    lay = op.layout
+    flat = lambda a: lay.to_flat(a).reshape(-1).cpu().numpy()  # noqa
+    xi_f = out["xi"].reshape(-1).cpu().numpy()
+    op.linearize(flat(out["cp"]), flat(s.h_init[..., None]), xi_f,
+                 flat(out["d"]))
+    rng = np.random.default_rng(seed)
+    if tan is None:
+        tan = {"d_cp": rng.normal(size=op.vec_size),
+               "d_h": 1e-2 * rng.normal(size=op.h_size),
+               "d_xi": 1e-3 * rng.normal(size=xi_f.shape),
+               "d_d": rng.normal(size=op.vec_size)}
+        w = rng.normal(size=op.vec_size)
+    before = dict(_cuda.launch_counts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fwd = op.apply_linear_fwd(**tan)
+    dt = time.perf_counter() - t0
+    counts = {k: v - before[k] for k, v in _cuda.launch_counts.items()}
+    rev = op.apply_linear_rev(w)
+    lhs = float(fwd @ w)
+    rhs = float(sum(a @ b for a, b in zip(
+        (tan["d_cp"], tan["d_h"], tan["d_xi"], tan["d_d"]), rev)))
+    return fwd, rev, abs(lhs - rhs) / abs(lhs), counts, dt
+
+
+def say_stop_path(tag, out):
+    fac = out["fac"]
+    lv = "; ".join(f"{k + 1}: {v['its']} its |r|/|r0| "
+                   f"{v['r'] / v['r0']:.2e} W_c {v['Wc']:.6g}"
+                   for k, v in enumerate(out["levels"]))
+    say(f"[{tag}] levels {out['t_levels']:.3f} s ({lv}); n_factor "
+        f"{fac.n_factor} (failed {fac.n_factor_failed}) refactor_log "
+        f"{fac.refactor_log}; J {out['J']!r} dJ/damp {out['g_amp']!r} "
+        f"(value and gradient {out['t_grad']:.3f} s, Newton its "
+        f"{out['its_grad']}, its factor's certificates "
+        f"{out['solver'].factor.cert_log[-3:]}); W_c {out['Wc']!r}, tip u_z "
+        f"{out['tip']!r}")
+
+
+def dec(e):
+    """A float64 array stored as {"shape", "b64"} (little-endian bytes) by
+    the reference scripts."""
+    import base64
+
+    return np.frombuffer(base64.b64decode(e["b64"]), "<f8").reshape(
+        e["shape"]).copy()
+
+
+def phase_tbeam_stop(dev, checks, ref):
+    """33: the T-beam driven into the stop plate at full width (see the
+    module docstring). Returns the counted path's launches."""
+    from goldfish_tpu_torch import _cuda
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    s = tbeam_stop_problem(dev, **TBEAM_STOP_CARD)
+    P, C = s.stack.n_patches, s.stack.max_cp
+    say(f"[setup] tbeam_stop built in {time.perf_counter() - t0:.1f} s: "
+        f"P={P} C={C} N={P * C * 3} stack {tuple(s.stack.R00.shape)} seam "
+        f"(I, N)=({s.mi.n_int}, {s.mi.n_max}); q {TBEAM_STOP_CARD['q']}, "
+        f"gap {TBEAM_STOP_CARD['gap']}, r_max {TBEAM_STOP_CARD['r_max']}")
+    phase_mi_kernels(s, checks, reps=3, system="tbeam_stop")
+    reset_counts()
+    out = tbeam_stop_path(s)
+    fwd, rev, gap, c_fwd, t_fwd = disp_mint_dot(s, out)
+    counts = dict(_cuda.launch_counts)
+    say_shapes("tbeam_stop")
+    say_stop_path("tbeam_stop", out)
+    k12 = {k: counts[k] for k in counts if k.startswith("contact_pairs/")}
+    say(f"[tbeam_stop] FD rel dJ/damp {out['fd_amp_rel']:.3e}, dJ/dh "
+        f"{out['fd_h_rel']:.3e} (gate 1e-5); operation dot test rel "
+        f"{gap:.3e} (gate 1e-10), apply_linear_fwd {t_fwd:.3f} s with "
+        f"launches {({k: v for k, v in c_fwd.items() if v})}; K12 launches "
+        f"by mode {k12}")
+    lv = out["levels"]
+    if not (all(v["r"] <= 1e-8 * v["r0"] for v in lv) and lv[-1]["Wc"] > 0
+            and out["Wc"] > 0 and out["fd_amp_rel"] <= 1e-5
+            and out["fd_h_rel"] <= 1e-5 and gap <= 1e-10
+            and bool(torch.isfinite(out["g_h"]).all())):
+        raise RuntimeError("tbeam_stop misses its criteria")
+    check_counts("tbeam_stop", counts, TBEAM_STOP_KERNELS)
+    say_route("tbeam_stop", s.c2x, counts)
+    for name, case in check_contact(s, out["d"],
+                                    "contact-kernel tbeam_stop").items():
+        merge(checks, name, case, "tbeam_stop")
+    del out
+    torch.cuda.empty_cache()
+
+    # the same model without contact against the JAX full-width numbers
+    t0 = time.perf_counter()
+    s.contact, s._data = None, None   # the data rebuilt without the pair
+    out = tbeam_stop_path(s, fd=False)
+    say_stop_path("tbeam_stop field", out)
+    stop_gap = TBEAM_STOP_CARD["gap"]
+    say(f"[tbeam_stop field] contact-free tip rise {out['tip']!r} (gate >= "
+        f"2 x the gap, {2 * stop_gap})")
+    if not out["tip"] >= 2 * stop_gap:
+        raise RuntimeError("tbeam_stop: the load does not drive the flange "
+                           "past twice the gap without contact")
+    want = ref["field_card"]
+    check_rel("tbeam_stop field", "J", out["J"], want["J"], 1e-8)
+    check_rel("tbeam_stop field", "dJ/damp", out["g_amp"], want["dJ_damp"],
+              1e-6)
+    check_rel("tbeam_stop field", "dJ/dh", out["g_h"].cpu(),
+              dec(want["dJ_dh"]), 1e-6)
+    check_rel("tbeam_stop field", "d", out["d"].cpu(), dec(want["d"]), 1e-8)
+    say(f"[tbeam_stop field] {time.perf_counter() - t0:.1f} s")
+    del s, out
+    torch.cuda.empty_cache()
+
+    # the tests' small size with contact against the JAX numbers. The JAX
+    # gradient is a direct solve; at the adjoint's default gate (1e-6, the
+    # reference's) this stiff small model's gradient reads 2e-7 to 6e-7
+    # from it on the card, run to run (ROADMAP C21), so the comparison
+    # takes the operations' gate
+    from goldfish_tpu_torch.operations.disp_imop import LINEAR_TOL
+
+    t0 = time.perf_counter()
+    want = ref["mi_small"]
+    s = tbeam_stop_problem(dev, **TBEAM_STOP_SMALL)
+    out = tbeam_stop_path(s, fd=False)
+    e_amp = abs(out["g_amp"] - want["dJ_damp"]) / abs(want["dJ_damp"])
+    e_h = rel_err(out["g_h"].cpu(), torch.as_tensor(dec(want["dJ_dh"])))[0]
+    say(f"[tbeam_stop small] at the default adjoint gate: dJ/damp rel "
+        f"{e_amp:.3e}, dJ/dh rel {e_h:.3e} (not gated, C21)")
+    out = tbeam_stop_path(s, fd=False, adjoint_tol=LINEAR_TOL)
+    say_stop_path("tbeam_stop small", out)
+    tag = "tbeam_stop small"
+    check_rel(tag, "J", out["J"], want["J"], 1e-8)
+    check_rel(tag, "dJ/damp", out["g_amp"], want["dJ_damp"], 1e-6)
+    check_rel(tag, "dJ/dh", out["g_h"].cpu(), dec(want["dJ_dh"]), 1e-6)
+    check_rel(tag, "d", out["d"].cpu(), dec(want["d"]), 1e-8)
+    check_rel(tag, "W_c", out["Wc"], want["Wc"], 1e-6)
+    for k, dk in enumerate(dec(want["d_levels"])):
+        check_rel(tag, f"d level {k + 1}", out["ds"][k].cpu(), dk, 1e-8)
+    o = want["op"]
+    tan = {k: dec(v) for k, v in o["tan"].items()}
+    fwd, rev, gap, _, _ = disp_mint_dot(s, out, tan=tan, w=dec(o["w"]))
+    check_rel(tag, "apply_linear_fwd", fwd, dec(o["fwd"]), 1e-10)
+    for name, a, b in zip(("cp", "h", "xi", "d"), rev, o["rev"]):
+        check_rel(tag, f"apply_linear_rev {name}", a, dec(b), 1e-10)
+    if not gap <= 1e-10:
+        raise RuntimeError(f"{tag}: dot test rel {gap:.3e} > 1e-10")
+    say(f"[{tag}] {time.perf_counter() - t0:.1f} s; phase 33 "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def patch_block_case(s, d):
+    """K10 stage 1 at the press's shapes (`patch_block_precond`'s blocks:
+    each plate's element Hessians, no interface, no contact) against its
+    plain version."""
+    from goldfish_tpu_torch.solver import krylov, system
+
+    bt = krylov._block_tables(s.data)
+    tables = system.jet_tables(s.data)
+    Hs = system.jet_hessians(s.data, d, s.cp, s.h_init)
+    _, Q, _, L = tables.R_e.shape
+    P, n = bt.free.shape
+
+    def plain():
+        Kp = torch.empty(P, n, n, dtype=torch.float64, device=d.device)
+        krylov._patch_assemble_plain(Kp, bt, tables, Hs)
+        return Kp
+
+    ge = torch.nonzero(s.stack.wq.reshape(-1, Q).sum(-1) > 0)[:, 0]
+    be = bt.patch
+    ins = [Hs[0][ge], tables.R_e[ge], bt.free, be.kind, be.group, be.nq,
+           be.cps, be.band_ptr, be.band_ent]
+    return {"pair_assemble/patches": (
+        lambda: krylov.assemble_blocks(bt, tables, Hs), plain,
+        k10_ops(be, L, 0), ins, PEAK_F64_TC)}
+
+
+def krylov_continuation(s):
+    """Four load levels by `newton_krylov_solve` (rtol 1e-9, GMRES 1e-8),
+    each warm from the last: (the levels' d, [(its, |r|, |r(0)|, GMRES
+    cycles a Newton step)], wall)."""
+    from goldfish_tpu_torch.solver.krylov import newton_krylov_solve
+    from goldfish_tpu_torch.solver.system import residual, scale_loads
+
+    d = s.zero_displacement()
+    levels, ds = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(1, 5):
+        data = scale_loads(s.data, k / 4)
+        r0 = float(torch.linalg.norm(residual(data, torch.zeros_like(d),
+                                              s.cp, s.h_init)))
+        log = []
+        d, its, rn = newton_krylov_solve(data, s.cp, s.h_init, d, rtol=1e-9,
+                                         cg_rtol=1e-8, log=log)
+        levels.append((int(its), float(rn), r0,
+                       [e[3] for e in log if len(e) == 4]))
+        ds.append(d)
+    torch.cuda.synchronize()
+    return ds, levels, time.perf_counter() - t0
+
+
+def krylov_gradients(s, d):
+    """J = W_int and dJ/dh through `build_solve_fn_krylov` at full load
+    from d (the third level's), for each preconditioner: {name: dict};
+    pair-Schwarz must refuse the press (no interface pairs) as the
+    reference's does."""
+    from goldfish_tpu_torch.physics import kl_shell
+    from goldfish_tpu_torch.solver.krylov import build_solve_fn_krylov
+
+    out = {}
+    for pre in ("full", "patch", "pair_schwarz"):
+        try:
+            solve = build_solve_fn_krylov(s.data, rtol=1e-10, cg_rtol=1e-10,
+                                          precond=pre)
+        except AssertionError as e:
+            if pre != "pair_schwarz" or s.data.ifs is not None:
+                raise
+            out[pre] = dict(refused=str(e))
+            continue
+        h = s.h_init.clone().requires_grad_(True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dd = solve(s.cp, h, d)
+        J = kl_shell.internal_energy(s.stack, dd, s.cp, h, s.E, s.nu)
+        J.backward()
+        torch.cuda.synchronize()
+        sv = solve.solver
+        out[pre] = dict(d=dd.detach(), J=float(J.detach()),
+                        g=h.grad.detach(), wall=time.perf_counter() - t0,
+                        its=sv.last_its, cycles=[e[3] for e in sv.last_log
+                                                 if len(e) == 4],
+                        adjoint_cycles=sv.adjoint_cycles[-1])
+    return out
+
+
+def say_krylov(tag, levels, t_cont, grads):
+    say(f"[{tag}] Newton-Krylov continuation {t_cont:.3f} s: " + "; ".join(
+        f"level {k + 1}: {its} its |r|/|r0| {rn / r0:.2e} GMRES cycles a "
+        f"step {cyc}" for k, (its, rn, r0, cyc) in enumerate(levels)))
+    for pre, g in grads.items():
+        if "refused" in g:
+            say(f"[{tag}] {pre}: refused ({g['refused']}), as the "
+                f"reference's")
+            continue
+        say(f"[{tag}] {pre}: value and adjoint gradient {g['wall']:.3f} s, "
+            f"Newton its {g['its']}, GMRES cycles a step {g['cycles']}, "
+            f"adjoint GMRES cycles {g['adjoint_cycles']}; J {g['J']!r}")
+
+
+def phase_press32_krylov(dev, checks, dense, ref6):
+    """34: the press at num_el=32 on the Newton-Krylov route (see the
+    module docstring) against the dense route's `dense` (phase 21) and, at
+    num_el=6, the JAX dense numbers `ref6`. Returns the counted path's
+    launches."""
+    from goldfish_tpu_torch import _cuda
+    from goldfish_tpu_torch.physics.contact import contact_energy
+
+    t_phase = time.perf_counter()
+    s = press_problem(32, dev)
+    reset_counts()
+    ds, levels, t_cont = krylov_continuation(s)
+    d = ds[-1]
+    grads = krylov_gradients(s, ds[-2])
+    counts = dict(_cuda.launch_counts)
+    say_shapes("press32_krylov")
+    say_krylov("press32_krylov", levels, t_cont, grads)
+    k12 = {k: counts[k] for k in counts if k.startswith("contact_pairs/")}
+    n_lu = sum(its for its, *_ in levels) + sum(
+        g["its"] + 1 for g in grads.values() if "refused" not in g)
+    say(f"[press32_krylov] K12 launches by mode {k12}; no persistent factor: "
+        f"{n_lu} preconditioner factorizations (dense LU or patch blocks, "
+        f"one a Newton step and one an adjoint)")
+    Wc = float(contact_energy(s.data.contact, s.stack, d, s.cp))
+    if not (all(rn <= 1e-9 * r0 for _, rn, r0, _ in levels) and Wc > 0):
+        raise RuntimeError(f"press32_krylov: levels {levels}, W_c {Wc!r}")
+    check_counts("press32_krylov", counts, PRESS_KRYLOV_KERNELS)
+    check_rel("press32_krylov", "continuation d", d.cpu(), dense["d"].cpu(),
+              1e-8)
+    for pre, g in grads.items():
+        if "refused" in g:
+            continue
+        tag = f"press32_krylov {pre}"
+        check_rel(tag, "d", g["d"].cpu(), dense["d"].cpu(), 1e-8)
+        check_rel(tag, "J", g["J"], dense["J"], 1e-8)
+        check_rel(tag, "dJ/dh", g["g"].cpu(), dense["g"].cpu(), 1e-6)
+    for name, got in check_kernels(patch_block_case(s, d),
+                                   "krylov-kernel press32").items():
+        merge(checks, name, got, "press32")
+    del s, grads, ds
+    torch.cuda.empty_cache()
+
+    n = ref6["num_el"]
+    s = press_problem(n, dev)
+    ds, levels, t_cont = krylov_continuation(s)
+    d = ds[-1]
+    grads = krylov_gradients(s, ds[-2])
+    tag = f"press{n}_krylov"
+    say_krylov(tag, levels, t_cont, grads)
+    check_rel(tag, "continuation d", d.cpu(), ref6["d"], 1e-8)
+    for pre, g in grads.items():
+        if "refused" in g:
+            continue
+        check_rel(f"{tag} {pre}", "d", g["d"].cpu(), ref6["d"], 1e-8)
+        check_rel(f"{tag} {pre}", "dJ/dh", g["g"].cpu(), ref6["dJ_dh"], 1e-6)
+    say(f"[press32_krylov] phase 34 {time.perf_counter() - t_phase:.1f} s")
     return counts
 
 
@@ -4568,7 +5053,7 @@ def main():
     t0 = time.perf_counter()
     got16 = phase_contact_kernels(dev)
     torch.cuda.empty_cache()
-    counts_press, rows, counts_cfwd = phase_press(
+    counts_press, rows, counts_cfwd, dense32 = phase_press(
         dev, checks, ref_contact["press6"], got16)
     library += rows
     torch.cuda.empty_cache()
@@ -4602,6 +5087,17 @@ def main():
     counts_demos = phase_demos_rest(dev, ref_drv)
     say(f"[drivers] phases 29-32 {time.perf_counter() - t0:.1f} s")
 
+    with open(REF_ROUTES) as fh:
+        ref_routes = json.load(fh)
+    t0 = time.perf_counter()
+    counts_stop = phase_tbeam_stop(dev, checks, ref_routes)
+    torch.cuda.empty_cache()
+    counts_pk32 = phase_press32_krylov(dev, checks, dense32,
+                                       ref_contact["press6"])
+    del dense32
+    torch.cuda.empty_cache()
+    say(f"[contact-routes] phases 33-34 {time.perf_counter() - t0:.1f} s")
+
     paths = {"wing": (counts, WING_KERNELS), "mi": (counts_mi, None),
              "om_mi": (counts_om_mi, None),
              "evtol_mi": (counts_evtol, None),
@@ -4618,6 +5114,8 @@ def main():
              "caddee": (counts_caddee, None),
              "wing_driver": (counts_wdrv, None),
              "contact_fwd": (counts_cfwd, None),
+             "tbeam_stop": (counts_stop, None),
+             "press32_krylov": (counts_pk32, None),
              **{k: (c, None) for k, c in counts_csdl.items()},
              **{k: (c, None) for k, c in counts_demos.items()},
              **{k: (c, None) for k, c in DESIGN_COUNTS.items()}}

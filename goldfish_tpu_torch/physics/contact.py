@@ -156,7 +156,9 @@ def _value_grad_plain(contact, x, w):
         G[B] -= g.sum(0)
         U[A, a0:a1] += (phi * w[B][None, :]).sum(1)
         U[B] += (phi * w[A, a0:a1, None]).sum(0)
-    return W, G, U
+    # as K12, which skips a pair with a zero weight: U = dW_c/dw is 0 on
+    # padded qps, whose weight has no tangent (wq = 0)
+    return W, G, U * (w != 0)
 
 
 def _hvp_plain(contact, x, w, v):
@@ -172,7 +174,7 @@ def _hvp_plain(contact, x, w, v):
         Y[B] -= y.sum(0)
         T[A, a0:a1] += (dphi * s * w[B][None, :]).sum(1)
         T[B] += (dphi * s * w[A, a0:a1, None]).sum(0)
-    return Y, T
+    return Y, T * (w != 0)
 
 
 def _design_jvp_plain(contact, x, w, v, dw):
@@ -184,8 +186,8 @@ def _design_jvp_plain(contact, x, w, v, dw):
         dv = v[A, a0:a1, None, :] - v[B][None, :, :]
         s = (rh * dv).sum(-1)
         t = dphi / r
-        dww = dw[A, a0:a1, None] * w[B][None, :] \
-            + w[A, a0:a1, None] * dw[B][None, :]
+        dww = (dw[A, a0:a1, None] * w[B][None, :]
+               + w[A, a0:a1, None] * dw[B][None, :]) * (ww != 0)
         y = ww[..., None] * ((ddphi * s)[..., None] * rh
                              + t[..., None] * (dv - s[..., None] * rh)) \
             + (dww * t)[..., None] * dx

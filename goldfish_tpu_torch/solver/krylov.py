@@ -22,7 +22,8 @@ solver/system.py is O((P*C*3)^2) memory; this path never assembles it:
     residual-bounded Armijo line search, as a host loop;
   - `build_solve_fn_krylov`: the differentiable solve, a
     `torch.autograd.Function` whose backward solves K lam = g by GMRES and
-    applies the residual VJP (K1/K2 mode c).
+    applies the residual VJP (K1/K2 mode c), with any of the three
+    preconditioners (`PRECONDS`).
 
 Where the reference factored in f32 (the TPU has no batched f64 LU), the
 port factors in f64: GMRES iteration counts differ from the JAX package's,
@@ -30,8 +31,14 @@ the solutions agree to the solver tolerances. GMRES reads the host once
 per restart cycle (its stop tests); the Arnoldi steps run without a host
 round trip.
 
-Contact (`SystemData.contact`) has no Krylov route in the JAX package's
-tests and none here: every entry point raises on it (ROADMAP Queue B).
+Contact (`SystemData.contact`) rides through `system`'s products as in
+the reference (krylov.py:318, 356-400 there): the GMRES matvec adds K12's
+hvp on the Newton step's cull list (`tangent_matvec_from` on one
+`jet_hessians`), the line search's potential and residual its value and
+force, the dense preconditioner its assembled blocks (K12 mode 2), the
+adjoint's residual VJP `contact_adjoint`. The patch blocks and the pair
+blocks leave contact out, as the reference's do (krylov.py:59-88, 178-195
+there): their tables have no contact entries.
 """
 
 from __future__ import annotations
@@ -188,22 +195,15 @@ def _entries(ents, n_dest, n, L, Li, dev):
                         tsz=tsz, kinds=kinds)
 
 
-def _no_contact(data: SystemData):
-    if data.contact is not None:
-        raise NotImplementedError(
-            "contact on the Newton-Krylov route is not ported yet (ROADMAP "
-            "Queue B); use the persistent-factor solves of solver/implicit")
-
-
 def _block_tables(data: SystemData, order=None):
     """BlockTables on the data's device: every patch block (its real
     elements, with a follower pressure also their pressure Hessians, then
     the runs of every interface side that touches it) and, given `order`
     (block k <- interface order[k]), the pair blocks' cross quadrants.
-    Bands hold about BAND_BYTES of rows. Raises where a group's locals
-    share a CP, a side has more than MAX_LOC locals, or a band of 3 rows
-    does not fit in a block's shared memory."""
-    _no_contact(data)
+    Contact has no entries (the reference's blocks leave it out). Bands
+    hold about BAND_BYTES of rows. Raises where a group's locals share a
+    CP, a side has more than MAX_LOC locals, or a band of 3 rows does not
+    fit in a block's shared memory."""
     stack, ifs = data.stack, data.ifs
     P, E, Q, L = stack.R00.shape
     n = 3 * stack.max_cp
@@ -439,15 +439,17 @@ def _factor(K):
 
 
 # ------------------------------------------------------------ preconditioners
-def patch_block_precond(data: SystemData, d, cp, h, tables=None, Hs=None):
+def patch_block_precond(data: SystemData, d, cp, h, tables=None, Hs=None,
+                        bt=None):
     """Factored per-patch diagonal blocks of K: (lu, piv, dsc) with lu
     (P, 3C, 3C) f64. The same-patch quadrants of the interface penalty
     Hessians are included: they anchor the rigid-body modes of patches
-    without Dirichlet BCs."""
+    without Dirichlet BCs. Contact is left out, as in the reference. `bt`:
+    the `_block_tables(data)` of earlier calls."""
     tables = jet_tables(data) if tables is None else tables
     Hs = jet_hessians(data, d, cp, h) if Hs is None else Hs
-    lu, piv, dsc, _ = _factor(assemble_blocks(_block_tables(data), tables,
-                                              Hs))
+    bt = _block_tables(data) if bt is None else bt
+    lu, piv, dsc, _ = _factor(assemble_blocks(bt, tables, Hs))
     return lu, piv, dsc
 
 
@@ -462,10 +464,9 @@ def _apply_precond(precond, r):
 
 
 def full_precond(data: SystemData, d, cp, h, tables=None, Hs=None):
-    """Equilibrated f64 LU of the full dense tangent (K3 assembly). Replaces
-    the reference's f32 variant (`full_f32_precond`), whose f32 assembly
-    only saved TPU memory."""
-    _no_contact(data)
+    """Equilibrated f64 LU of the full dense tangent (K3 assembly, with
+    contact K12 mode 2). Replaces the reference's f32 variant
+    (`full_f32_precond`), whose f32 assembly only saved TPU memory."""
     tables = jet_tables(data) if tables is None else tables
     Hs = jet_hessians(data, d, cp, h) if Hs is None else Hs
     K = assemble_K_from(tables, Hs)
@@ -501,8 +502,10 @@ class PairSchwarz:
     """
 
     def __init__(self, data: SystemData):
-        _no_contact(data)
-        assert data.ifs is not None and data.ifs.n_interfaces > 0
+        # the reference asserts the same: a model without interfaces (the
+        # contact press) has no pairs to sweep
+        assert data.ifs is not None and data.ifs.n_interfaces > 0, \
+            "PairSchwarz: the model has no interface pairs"
         self.P = data.stack.n_patches
         self.C = data.stack.max_cp
         self.pairA = data.ifs.pairA.cpu().numpy().astype(np.int64)
@@ -738,7 +741,6 @@ def gmres_solve(data: SystemData, d, cp, h, b, precond, rtol=1e-10,
     b - K x. `precond` is a patch-block factorization, a
     ("full", factor) tuple or a (PairSchwarz, factorization) tuple.
     Returns (x, total GMRES restart cycles)."""
-    _no_contact(data)
     tables = precond[0].tables if isinstance(precond[0], PairSchwarz) \
         else jet_tables(data)
     Hs = jet_hessians(data, d, cp, h)
@@ -751,9 +753,29 @@ class NewtonKrylovFailure(RuntimeError):
     """The Newton-Krylov solve ended without convergence."""
 
 
+PRECONDS = ("full", "patch", "pair_schwarz")
+
+
+def _precond_builder(data, precond, tables, schwarz=None):
+    """(d, cp, h, Hs) -> the GMRES preconditioner at d, by name: "full"
+    the dense LU (`full_precond`), "patch" the patch blocks
+    (`patch_block_precond`, K10's tables built here once), "pair_schwarz"
+    the factored pair blocks of `schwarz`."""
+    if precond == "pair_schwarz":
+        return lambda d, cp, h, Hs: (schwarz, schwarz.assemble(
+            data, d, cp, h, Hs=Hs))
+    if precond == "full":
+        return lambda d, cp, h, Hs: full_precond(data, d, cp, h,
+                                                 tables=tables, Hs=Hs)
+    if precond == "patch":
+        bt = _block_tables(data)
+        return lambda d, cp, h, Hs: patch_block_precond(
+            data, d, cp, h, tables=tables, Hs=Hs, bt=bt)
+    raise ValueError(f"precond: {precond!r}, expected one of {PRECONDS}")
+
+
 def _newton_once(data, cp, h, d0, rtol, cg_rtol, max_newton, max_cg,
-                 schwarz, tables, log):
-    _no_contact(data)
+                 make_pre, tables, log):
     free = data.free
     _, r_zero = potential_and_residual(data, torch.zeros_like(d0), cp, h)
     Pi, r = potential_and_residual(data, d0, cp, h)
@@ -770,10 +792,7 @@ def _newton_once(data, cp, h, d0, rtol, cg_rtol, max_newton, max_cg,
         rn0 = rn
         Hs = jet_hessians(data, d, cp, h)
         op = lambda v, Hs=Hs: tangent_matvec_from(tables, Hs, v)  # noqa
-        if schwarz is not None:
-            precond = (schwarz, schwarz.assemble(data, d, cp, h, Hs=Hs))
-        else:
-            precond = full_precond(data, d, cp, h, tables=tables, Hs=Hs)
+        precond = make_pre(d, cp, h, Hs)
         delta, cycles = _gmres_ir(op, _mop(precond, op), -r, cg_rtol, 32,
                                   maxiter, 3)
         delta = delta * free
@@ -826,13 +845,15 @@ def _newton_once(data, cp, h, d0, rtol, cg_rtol, max_newton, max_cg,
 
 def newton_krylov_solve(data: SystemData, cp, h, d0, rtol=1e-8,
                         cg_rtol=1e-6, max_newton=30, max_cg=500,
-                        schwarz: PairSchwarz | None = None, log=None):
+                        schwarz: PairSchwarz | None = None, log=None,
+                        precond="full"):
     """Matrix-free damped Newton-Krylov (large-model forward solve).
 
     The reference's globalization as a host loop: |r(0)| as the scale, a
     GMRES direction (restart 32, max_cg // 32 + 1 cycles, 3 refinement
     passes) with the preconditioner refreshed every iteration (pair-Schwarz
-    when `schwarz` is given, else the dense LU), the `done` slope test, and
+    when `schwarz` is given, else `precond`: "full", the dense LU, or
+    "patch", the patch blocks), the `done` slope test, and
     the Armijo line search bounded by 4 max(|r|, |r(0)|) with up to 30
     halvings. Returns (d, its, |r|); every iteration appends (it, |r|,
     alpha, GMRES cycles) to `log` when given.
@@ -846,8 +867,12 @@ def newton_krylov_solve(data: SystemData, cp, h, d0, rtol=1e-8,
     nor at that floor is run once more from d = 0 when it was warm-started,
     then raises `NewtonKrylovFailure`."""
     log = [] if log is None else log
-    tables = schwarz.tables if schwarz is not None else jet_tables(data)
-    args = (rtol, cg_rtol, max_newton, max_cg, schwarz, tables, log)
+    if schwarz is not None:
+        tables, precond = schwarz.tables, "pair_schwarz"
+    else:
+        tables = jet_tables(data)
+    make_pre = _precond_builder(data, precond, tables, schwarz)
+    args = (rtol, cg_rtol, max_newton, max_cg, make_pre, tables, log)
     d, it, rn, ok = _newton_once(data, cp, h, d0, *args)
     if not ok and bool(d0.any()):
         log.append(("retry from d = 0",))
@@ -862,19 +887,22 @@ def newton_krylov_solve(data: SystemData, cp, h, d0, rtol=1e-8,
 
 # ------------------------------------------------------------ adjoint
 class _KrylovSolver:
-    """State of one solve function: the preconditioner structure (the
-    pair-Schwarz one, or None for the dense LU), the tolerances and the
-    last solves' statistics."""
+    """State of one solve function: the preconditioner (`precond`, its
+    builder `make_pre`, the pair-Schwarz structure or None), the
+    tolerances and the last solves' statistics."""
 
     def __init__(self, data, rtol, cg_rtol, max_newton, max_cg, precond):
-        if precond not in ("pair_schwarz", "full"):
-            raise ValueError(f"precond: {precond!r}, expected "
-                             "'pair_schwarz' or 'full'")
+        if precond not in PRECONDS:
+            raise ValueError(f"precond: {precond!r}, expected one of "
+                             f"{PRECONDS}")
         self.data = data
         self.schwarz = PairSchwarz(data) if precond == "pair_schwarz" \
             else None
         self.tables = self.schwarz.tables if self.schwarz is not None \
             else jet_tables(data)
+        self.precond = precond
+        self.make_pre = _precond_builder(data, precond, self.tables,
+                                         self.schwarz)
         self.rtol, self.cg_rtol = rtol, cg_rtol
         self.max_newton, self.max_cg = max_newton, max_cg
         self.last_its = None
@@ -886,19 +914,16 @@ class _KrylovSolver:
         d, its, _ = newton_krylov_solve(
             self.data, cp, h, d0, rtol=self.rtol, cg_rtol=self.cg_rtol,
             max_newton=self.max_newton, max_cg=self.max_cg,
-            schwarz=self.schwarz, log=log)
+            schwarz=self.schwarz, log=log, precond=self.precond)
         self.last_its, self.last_log = its, log
         return d
 
     def adjoint(self, d, cp, h, g):
         """(dcp, dh) = -lam^T dR/d(cp, h) with K(d) lam = g by GMRES-IR."""
-        data, ps = self.data, self.schwarz
+        data = self.data
         Hs = jet_hessians(data, d, cp, h)
         op = lambda v: tangent_matvec_from(self.tables, Hs, v)  # noqa: E731
-        if ps is not None:
-            pre = (ps, ps.assemble(data, d, cp, h, Hs=Hs))
-        else:
-            pre = full_precond(data, d, cp, h, tables=self.tables, Hs=Hs)
+        pre = self.make_pre(d, cp, h, Hs)
         lam, cycles = _gmres_ir(op, _mop(pre, op), g * data.free,
                                 self.cg_rtol, 32, self.max_cg // 32 + 1, 3)
         self.adjoint_cycles.append(cycles)
@@ -930,13 +955,16 @@ def build_solve_fn_krylov(data: SystemData, rtol=1e-9, cg_rtol=1e-8,
 
     `precond` picks the GMRES preconditioner: "full" (the default), the
     dense f64 LU of K that the reference's `newton_krylov_solve(schwarz=
-    None)` uses (O(N^2) memory), or "pair_schwarz", the reference's
-    coloured multiplicative pair-Schwarz (no dense (N, N) matrix anywhere),
-    which converges only on models of a few patches (the 3-patch plate; on
-    wings and box wings its GMRES stalls and the solve raises
-    `NewtonKrylovFailure`). The solver state (`schwarz`, `last_its`,
+    None)` uses (O(N^2) memory), "patch", the patch blocks of
+    `patch_block_precond` (block Jacobi), or "pair_schwarz", the
+    reference's coloured multiplicative pair-Schwarz (no dense (N, N)
+    matrix anywhere), which converges only on models of a few patches (the
+    3-patch plate; on wings and box wings its GMRES stalls and the solve
+    raises `NewtonKrylovFailure`) and, as the reference's, refuses a model
+    without interfaces. With contact the matvec, the line search, the dense
+    preconditioner and the adjoint's VJP carry it; the block
+    preconditioners leave it out. The solver state (`schwarz`, `last_its`,
     `last_log`, `adjoint_cycles`) is `solve.solver`."""
-    _no_contact(data)
     solver = _KrylovSolver(data, rtol, cg_rtol, max_newton, max_cg, precond)
 
     def solve(cp, h, d0):

@@ -74,22 +74,16 @@ __all__ = ["MINonMatchingSystem", "data_at", "total_potential_mi",
 
 def data_at(data: SystemData, mi, co, ss, p, q, xi) -> SystemData:
     """The fixed-intersection SystemData of the MI system at xi (I, 4N):
-    its interface stack has K5's rows at xi. The MI path's areal field load
-    (the reference's system_mi.py:50-52) and contact are on no port path
-    yet and raise (ROADMAP Queue B)."""
-    if data.f_field is not None:
-        raise NotImplementedError(
-            "SystemData.f_field on the moving-intersection path is not "
-            "ported yet (ROADMAP Queue B)")
-    if data.contact is not None:
-        raise NotImplementedError(
-            "SystemData.contact on the moving-intersection path is not "
-            "ported yet (ROADMAP Queue B)")
+    its interface stack has K5's rows at xi. The loads (the areal field
+    load too) and contact ride along unchanged: contact pairs the shell
+    qps of whole patches, which xi does not move, so the reference's
+    total_potential_mi / assemble_K_mi with contact and the field load
+    (system_mi.py:44-110) are the fixed-intersection ones at these rows."""
     return data._replace(ifs=interface_stack_mi(ss, p, q, mi, co, xi))
 
 
 def total_potential_mi(data, mi, co, ss, p, q, d, cp, h, xi):
-    """Pi = W_int + W_penalty(xi) - W_ext."""
+    """Pi = W_int + W_penalty(xi) + W_contact - W_ext."""
     return potential_and_residual(data_at(data, mi, co, ss, p, q, xi), d,
                                   cp, h)[0]
 
@@ -102,13 +96,14 @@ def residual_mi(data, mi, co, ss, p, q, d, cp, h, xi):
 
 def assemble_K_mi(data, mi, co, ss, p, q, d, cp, h, xi):
     """Dense BC-reduced tangent at xi: element blocks + moving-interface
-    blocks, both through K3."""
+    blocks, both through K3, and with contact K12 mode 2's blocks."""
     return assemble_K(data_at(data, mi, co, ss, p, q, xi), d, cp, h)
 
 
 def _res_vjp_mi(data, mi, co, ss, p, q, d, cp, h, xi, lam):
     """(dcp, dh, dxi) = -lam^T dR/d(cp, h, xi): K1/K2 adjoint mode on the
-    rows at xi, and K6 for xi."""
+    rows at xi (with contact `contact_adjoint`, K12's hvp; with the field
+    load its cp-dependence), and K6 for xi (neither enters it)."""
     dcp, dh = residual_vjp(data_at(data, mi, co, ss, p, q, xi), d, cp, h,
                            lam)
     dxi = penalty_xi_vjp(ss, p, q, mi, co, xi, d, cp, h, data.E,
@@ -119,8 +114,9 @@ def _res_vjp_mi(data, mi, co, ss, p, q, d, cp, h, xi, lam):
 def residual_jvp_mi(data, mi, co, ss, p, q, d, cp, h, xi, tcp=None, th=None,
                     txi=None):
     """free * (dR/dcp tcp + dR/dh th + dR/dxi txi) at xi, the forward
-    design product: `residual_jvp` (K1 and K2 design modes, K8) on the rows
-    at xi, and K6's mode 1 for xi. A tangent that is None is zero (its part
+    design product: `residual_jvp` (K1 and K2 design modes, K8, with
+    contact K12 mode 3 where tcp != 0) on the rows at xi, and K6's mode 1
+    for xi. A tangent that is None is zero (its part
     is skipped; tcp and th go together)."""
     out = torch.zeros_like(d)
     if tcp is not None or th is not None:
@@ -144,12 +140,20 @@ class PersistentDeviceFactorMI(PersistentDeviceFactor):
     warm loop; solve entries (`newton_solve_mi_host`, `adjoint_solve_mi`)
     refresh it when the measured contraction exceeds `rho_refresh` (0.2:
     healthy post-step factors measure 0.15-0.18, the pinned-bad population
-    0.26 and up, system_mi.py:453-475 of the reference)."""
+    0.26 and up, system_mi.py:453-475 of the reference). A contact block
+    made stale by the contact set's change fails the same certificates.
+
+    With contact the factor is an LU (`kind="lu"`), as the reference's
+    direct MI Newton solves: the pair potential's transverse stiffness
+    (phi'/r < 0) leaves the tangent indefinite at Newton iterates that
+    press into the stop, where a Cholesky factor fails (ROADMAP C20)."""
 
     rho_refresh = 0.2
 
     def __init__(self, data: SystemData, mi, co, ss, p, q):
-        super().__init__(data)   # data.ifs is None: element tables only
+        # data.ifs is None: element tables only
+        super().__init__(data, kind="cholesky" if data.contact is None
+                         else "lu")
         self.args = (data, mi, co, ss)
         self.p, self.q = p, q
         self._at_key = None

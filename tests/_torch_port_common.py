@@ -279,6 +279,64 @@ def port_press(num_el=4, p=2, q=120.0, k_pen=1e7, device="cpu"):
     return s
 
 
+# The T-beam driven into a stop plate: bench_mi's moving-seam T-beam
+# (scripts/bench_mi.py:47-76) with its tip point load replaced by an upward
+# areal field load of q on the flange, and a flat plate at z = gap above the
+# outer 30% of the span (x in [-1.2, 1.2], y in [14, 20]), clamped on its
+# four sides, meshed no coarser than the flange, contact (flange, stop).
+# The small size is the CPU tests'; the card's is bench_mi's full width,
+# where r_max (0.25) is above both patches' qp spacing (0.17 along the
+# span) and the gap (0.3) above r_max, so W_c = 0 at d = 0. At the small
+# size the flange's qps are 1.9 apart along the span, so r_max is 1.5 and
+# the gap 1.6 (contact-free tip rise at q = 80: 2.1).
+TBEAM_STOP_SMALL = dict(num_el=4, p=2, n_pts=5, q=80.0, gap=1.6,
+                        r_max=1.5, k_pen=1e7)
+TBEAM_STOP_CARD = dict(num_el=40, p=3, n_pts=17, q=40.0, gap=0.3,
+                       r_max=0.25, k_pen=1e7)
+STOP_X, STOP_Y = 1.2, (14.0, 20.0)
+
+
+def stop_plate_els(num_el):
+    """(elements across, elements along) of the stop plate: no coarser than
+    the flange's num_el // 2 across 2 and num_el along 20."""
+    nx = -(-12 * max(num_el // 2, 1) // 10)
+    ny = -(-3 * num_el // 10)
+    return nx, ny
+
+
+def port_tbeam_stop(num_el, p, n_pts, q, gap, r_max, k_pen, device="cpu"):
+    from goldfish_tpu_torch.models import tbeam
+    from goldfish_tpu_torch.solver.system_mi import MINonMatchingSystem
+
+    nx, ny = stop_plate_els(num_el)
+    (y0, y1), x = STOP_Y, STOP_X
+    stop = tbeam.create_surf([[-x, y0, gap], [x, y0, gap], [-x, y1, gap],
+                              [x, y1, gap]], nx, ny, p)
+    surfs = tbeam._surfs(num_el, p) + [stop]
+    s = MINonMatchingSystem(surfs, tbeam.E, tbeam.NU, tbeam.H_TH,
+                            specs=[tbeam._seam(n_pts - 1)],
+                            n_pts_list=[n_pts], device=device)
+    s.add_side_bc(0, direction=1, side=0, n_layers=1)
+    s.add_side_bc(1, direction=1, side=0, n_layers=1)
+    for direction in (0, 1):
+        for side in (0, 1):
+            s.add_side_bc(2, direction=direction, side=side, n_layers=1)
+    f = np.zeros(tuple(s.cp.shape))
+    f[0, : s.metas[0].n_cp, 2] = q
+    s.set_areal_field(f)
+    s.set_contact([(0, 2)], k_pen=k_pen, r_max=r_max)
+    return s
+
+
+def dec(e):
+    """A float64 array stored as {"shape", "b64"} (little-endian bytes) by
+    the reference scripts."""
+    import base64
+
+    return np.frombuffer(base64.b64decode(e["b64"]), "<f8").reshape(
+        e["shape"]).copy()
+
+
 def press_state(system, seed=0, drop=0.03):
     """(cp, h, d, lam, v) as numpy on a press: d moves the upper plate down
     by `drop` (into contact range) plus seeded noise at 1e-3 on free dofs;

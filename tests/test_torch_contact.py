@@ -13,8 +13,9 @@ versions on the CPU) against the JAX package.
   scripts/torch_port_contact_reference.py: d and W_c 1e-8, dJ/dh 1e-6) and
   the JAX test's own criteria, FD included.
 - `scale_loads` on every load type and the bridge's ContactPairs against the
-  JAX package; continuation levels never rerun from d = 0; the moving-seam
-  and Newton-Krylov routes raise on contact.
+  JAX package; continuation levels never rerun from d = 0. (The
+  moving-seam and Newton-Krylov routes with contact: test_torch_mi_contact.py
+  and test_torch_krylov_contact.py.)
 
 CPU runs launch no kernel."""
 
@@ -279,25 +280,3 @@ def test_continuation_levels_never_rerun_from_zero(monkeypatch):
     implicit.newton_solve_host(s.data, fac, s.cp, s.h_init,
                                s.zero_displacement() + 1.0)
     assert starts == [True, False]
-
-
-def test_mi_and_krylov_routes_raise_on_contact():
-    from goldfish_tpu_torch.models import tbeam
-    from goldfish_tpu_torch.physics.contact import build_contact
-    from goldfish_tpu_torch.solver import krylov, system_mi
-
-    s = tbeam.build_mi(num_el=4, p=3, n_pts=17, device="cpu")
-    data = s.data._replace(contact=build_contact([(0, 1)], 1e7, 0.1,
-                                                 device="cpu"))
-    with pytest.raises(NotImplementedError, match="contact"):
-        system_mi.data_at(data, s.mi, s.co, s.ss, s.pdeg, s.qdeg,
-                          s.c2x.xi0_flat)
-    p = port_press(num_el=3)
-    d0 = p.zero_displacement()
-    for call in (lambda: krylov.PairSchwarz(p.data),
-                 lambda: krylov.full_precond(p.data, d0, p.cp, p.h_init),
-                 lambda: krylov.newton_krylov_solve(p.data, p.cp, p.h_init,
-                                                    d0),
-                 lambda: krylov.build_solve_fn_krylov(p.data)):
-        with pytest.raises(NotImplementedError, match="contact"):
-            call()

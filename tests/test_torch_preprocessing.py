@@ -9,9 +9,10 @@
   other, and `interface_specs` agree;
 - the NumPy closest-point projection agrees with the JAX package's.
 
-Both packages evaluate surfaces through their C++ geometry kernel when it
-builds (the JAX package's NumPy path takes minutes a wing; the port's
-NumPy path is held against the kernel in test_torch_cad_io.py)."""
+Both packages evaluate surfaces through their C++ geometry kernel (the JAX
+package's NumPy path takes minutes a wing; the port's NumPy path is held
+against the kernel in test_torch_cad_io.py); without a compiler the tests
+skip."""
 
 import numpy as np
 import pytest
@@ -22,9 +23,38 @@ from goldfish_tpu_torch.geometry import preprocessing as ppre
 
 
 @pytest.fixture
-def jax_native(monkeypatch):
-    if not jnative.available():
-        return
+def jax_native(monkeypatch, tmp_path_factory):
+    """Both packages on their C++ evaluators, never one on C++ and the
+    other on NumPy (whose results differ in the last bits). Where the JAX
+    package's kernel is unavailable while the port's builds (a parallel
+    worker may lose the race on the shared cache's one `.tmp` file, and
+    the module then keeps the kernel off for its lifetime), it is built
+    again into a private cache; if that fails too the test fails."""
+    from goldfish_tpu_torch.geometry import native as pnative
+
+    def jax_available():
+        try:
+            return jnative.available()
+        except OSError:
+            return False
+
+    if not pnative.available():
+        if not jax_available():
+            pytest.skip("no C++ compiler: neither package builds its "
+                        "geometry kernel")
+        pytest.fail("the JAX package's geometry kernel builds but the "
+                    "port's does not: the two would compare C++ against "
+                    "NumPy")
+    if not jax_available():
+        monkeypatch.setenv("GOLDFISH_TPU_NATIVE_CACHE",
+                           str(tmp_path_factory.mktemp("jax_native")))
+        monkeypatch.setattr(jnative, "_TRIED", False)
+        monkeypatch.setattr(jnative, "_LIB", None)
+        if not jax_available():
+            pytest.fail("the JAX package's geometry kernel did not build "
+                        "in a private cache (GOLDFISH_TPU_NATIVE=0?) while "
+                        "the port's did: the two would compare NumPy "
+                        "against C++")
     cpp = jpre.closest_point_projection
     monkeypatch.setattr(jpre, "_eval_many", lambda s, uv, nd=1:
                         jnative.surface_eval(s, uv, nd=nd))
