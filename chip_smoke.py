@@ -1135,6 +1135,7 @@ def phase_main_path(sys_, dev):
 
     reset_counts()
     J, d, g, t_cold = run(h0, sys_.zero_displacement())
+    MAIN_COLD.update(J=float(J), g=g.detach().cpu(), wall=t_cold)
     eJ = abs(float(J) - ref["J"]) / abs(ref["J"])
     g_ref = torch.tensor(ref["dJ_dh_ffd"], dtype=torch.float64)
     eg = rel_err(g.cpu(), g_ref)[0]
@@ -4928,6 +4929,142 @@ def phase_demos_rest(dev, ref):
     return counts
 
 
+# phase 1's cold iteration (J, dJ/dh_ffd, wall), for the sharded phase
+MAIN_COLD = {}
+# MULTICHIP_r05.json: the JAX package's sharded-vs-unsharded dJ on 8 CPU
+# devices, the yardstick of the port's two-rank legs
+JAX_MULTICHIP_DJ = {"wing": 6.31e-7, "boxwing": 4.62e-8, "mi": 5.66e-11}
+K1_TO_K4 = ("shell_qp/value_grad", "shell_qp/hess", "shell_qp/adjoint",
+            "penalty_qp/value_grad", "penalty_qp/hess", "penalty_qp/adjoint",
+            "jet_assemble", "jet_matvec")
+
+
+def offset_map_checks(sys_, th, h0, dev):
+    """K3 and K4 on rank 1 of a two-rank split of the full-width wing (a
+    PatchShard made by hand; the tables need no collective): the element
+    dof maps are offset by lo*C*3, the one input those kernels have not
+    seen before. Against their plain versions on the same inputs."""
+    from goldfish_tpu_torch.parallel.sharding import PatchMesh, shard_system
+    from goldfish_tpu_torch.solver import system as sy
+
+    ds = shard_system(sys_.data, PatchMesh(None, 1, 2, dev))
+    sh = ds.shard
+    tab = sy.jet_tables(ds)
+    d = sys_.zero_displacement() + 1e-3 * torch.randn(
+        sys_.cp.shape, dtype=torch.float64, device=dev,
+        generator=torch.Generator(dev).manual_seed(41)) * ds.free
+    Hs = sy.jet_hessians(ds, d, sys_.cp, th(h0))
+    H, R, gi, free = Hs.H_e, tab.R_e, tab.gi_e, tab.free
+    N = free.shape[0]
+    K = torch.zeros(N, N, dtype=torch.float64, device=dev)
+    sy.jet_assemble(K, H, R, gi, free)
+    Kp = torch.zeros_like(K)
+    sy._assemble_plain(Kp, H, R, gi, free)
+    v = torch.randn(N, dtype=torch.float64, device=dev,
+                    generator=torch.Generator(dev).manual_seed(42))
+    y = sy.jet_matvec(torch.zeros_like(v), H, R, gi, free, v)
+    yp = torch.zeros_like(v)
+    sy._matvec_plain(yp, H, R, gi, free, v)
+    e3 = float((K - Kp).abs().max()) / float(Kp.abs().max())
+    e4 = float((y - yp).abs().max()) / float(yp.abs().max())
+    lo_dof = int(gi.min())
+    say(f"[sharded] K3/K4 on rank 1's slice of 2 (dofs from {lo_dof} = "
+        f"lo*C*3, lo {sh.lo}): max|K3 - plain|/max|K| {e3:.2e}, "
+        f"max|K4 - plain|/max|Kv| {e4:.2e}")
+    if not (lo_dof == sh.lo * sys_.stack.max_cp * 3 and e3 <= 1e-12
+            and e4 <= 1e-12):
+        raise RuntimeError(f"K3/K4 with offset dof maps: {e3:.2e} {e4:.2e}")
+
+
+def phase_sharded(dev):
+    """Phase 35: the patch split. (a) The full-width wing (N = 6600) on a
+    one-rank gloo group in this process through `shard_system`, cold (the
+    thickness leg's solve and adjoint, against phase 1's cold iteration)
+    and one warm 1e-4 step (against the same step unsharded here); (b)
+    `dryrun_multichip(2)` on this card: two rank processes, gloo on CUDA
+    tensors, the reference's three legs and the full-width wing, each
+    against the unsharded leg (J 1e-9, dJ 1e-6), every rank launching K1-K4.
+    Returns the launch counts of both parts."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    from goldfish_tpu_torch import _cuda
+    from goldfish_tpu_torch.design.pipeline import ThicknessFFD
+    from goldfish_tpu_torch.entry import dryrun_multichip
+    from goldfish_tpu_torch.models import wing
+    from goldfish_tpu_torch.parallel.legs import thickness_eval
+    from goldfish_tpu_torch.parallel.sharding import make_mesh
+
+    t_phase = time.perf_counter()
+    sys_ = wing.build(num_el=6, p=3, device=dev)
+    th = ThicknessFFD(sys_, num_els=(4, 4, 1), p=(2, 2, 1))
+    h0 = torch.tensor(th.init_h_ffd(wing.H_TH), dtype=torch.float64,
+                      device=dev)
+    offset_map_checks(sys_, th, h0, dev)
+    counts = {k: 0 for k in _cuda.COUNTERS}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "gloo", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1, timeout=datetime.timedelta(seconds=120))
+        try:
+            mesh = make_mesh(device=dev)
+            reset_counts()
+            J, g, d, t_s = thickness_eval(sys_, 1, mesh, th, h0, 1e-9, 30)
+            h1 = h0 * (1.0 + 1e-4)
+            J1, g1, _, t_s1 = thickness_eval(sys_, 1, mesh, th, h1, 1e-9,
+                                             30, d0=d)
+            # the two sharded calls' launches, read once before the
+            # unsharded calls below launch more
+            counts.update(_cuda.launch_counts)
+            Ju, gu, _, t_u = thickness_eval(sys_, 1, None, th, h0, 1e-9, 30)
+            Ju1, gu1, _, t_u1 = thickness_eval(sys_, 1, None, th, h1, 1e-9,
+                                               30, d0=d)
+        finally:
+            dist.destroy_process_group()
+    eJ = abs(float(J) - MAIN_COLD["J"]) / abs(MAIN_COLD["J"])
+    eg = rel_err(g.cpu(), MAIN_COLD["g"])[0]
+    eJ1 = abs(float(J1) - float(Ju1)) / abs(float(Ju1))
+    eg1 = rel_err(g1.cpu(), gu1.cpu())[0]
+    say(f"[sharded] wing20 at 1 rank: cold {t_s:.3f} s (unsharded here "
+        f"{t_u:.3f} s, phase 1 {MAIN_COLD['wall']:.3f} s; overhead "
+        f"{t_s / t_u - 1:+.1%}), J rel {eJ:.2e}, dJ/dh_ffd rel {eg:.2e} "
+        f"against phase 1's cold iteration; warm 1e-4 step {t_s1:.3f} s "
+        f"(unsharded {t_u1:.3f} s, overhead {t_s1 / t_u1 - 1:+.1%}), J rel "
+        f"{eJ1:.2e}, dJ rel {eg1:.2e}")
+    if not (eJ <= 1e-9 and eg <= 1e-6 and eJ1 <= 1e-9 and eg1 <= 1e-6):
+        raise RuntimeError(f"sharded wing20 at 1 rank: J {eJ:.2e} / "
+                           f"{eJ1:.2e}, dJ {eg:.2e} / {eg1:.2e}")
+    del sys_, d
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = dryrun_multichip(2, legs=("wing", "boxwing", "mi", "wing_full"),
+                           timeout_s=240)
+    t_dry = time.perf_counter() - t0
+    for name, r in res.items():
+        yard = JAX_MULTICHIP_DJ.get(name)
+        ar = r["allreduce_ms"][0]
+        say(f"[sharded] {name} at 2 ranks: J rel {r['rel_J']:.2e}, dJ rel "
+            f"{r['rel_g']:.2e} (JAX on 8 CPU devices: "
+            f"{'n/a' if yard is None else f'{yard:.2e}'}); wall sharded "
+            f"{r['wall_sharded']:.3f} s, unsharded {r['wall_unsharded']:.3f}"
+            f" s; one all-reduce of K {ar[0]:.2f} ms, of K v {ar[1]:.3f} ms")
+        for rank, c in enumerate(r["counts"]):
+            for k, n in c.items():
+                counts[k] += n
+            say(f"[sharded] {name} rank {rank} launches "
+                f"{ {k: c[k] for k in K1_TO_K4} }")
+            missing = [k for k in K1_TO_K4 if c[k] == 0]
+            if missing:
+                raise RuntimeError(f"{name}: rank {rank} never launched "
+                                   f"{missing}")
+    say(f"[sharded] launch counts {counts}")
+    say(f"[sharded] phase 35 {time.perf_counter() - t_phase:.1f} s "
+        f"(dryrun_multichip(2) {t_dry:.1f} s)")
+    return counts
+
+
 def main():
     t_start = time.perf_counter()
     dev = phase_device()
@@ -5097,6 +5234,7 @@ def main():
     del dense32
     torch.cuda.empty_cache()
     say(f"[contact-routes] phases 33-34 {time.perf_counter() - t0:.1f} s")
+    counts_sh = phase_sharded(dev)
 
     paths = {"wing": (counts, WING_KERNELS), "mi": (counts_mi, None),
              "om_mi": (counts_om_mi, None),
@@ -5116,6 +5254,7 @@ def main():
              "contact_fwd": (counts_cfwd, None),
              "tbeam_stop": (counts_stop, None),
              "press32_krylov": (counts_pk32, None),
+             "sharded": (counts_sh, None),
              **{k: (c, None) for k, c in counts_csdl.items()},
              **{k: (c, None) for k, c in counts_demos.items()},
              **{k: (c, None) for k, c in DESIGN_COUNTS.items()}}

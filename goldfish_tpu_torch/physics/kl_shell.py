@@ -369,9 +369,45 @@ class _InternalEnergy(torch.autograd.Function):
         return g * r, gcp, g * dh, None, None, None
 
 
-def internal_energy(stack: PatchStack, d, cp, h_coef, E, nu):
+class _InternalEnergySharded(torch.autograd.Function):
+    """W of a patch-sharded system: each rank's patches by K1 mode (a),
+    summed by one all-reduce, so every rank holds the same W. The backward
+    takes W's cotangent as it is: it is replicated already, and summing it
+    again over the ranks (as torch.distributed.nn.functional.all_reduce's
+    backward does) would multiply dW by the world size. Each rank's
+    gradient covers its own patches' rows; one all-reduce of (dW/dd,
+    dW/dh[, dW/dcp]) joins them into the replicated gradient."""
+
+    @staticmethod
+    def forward(ctx, d, cp, h, stack, E, nu, shard):
+        dl, cpl, hl = (shard.local(t.detach()) for t in (d, cp, h))
+        El, nul = shard.local(E), shard.local(nu)
+        W, r, dh = shell_value_grad(stack, dl, cpl, hl, El, nul)
+        ctx.save_for_backward(r, dh, dl, cpl, hl)
+        ctx.stack, ctx.E, ctx.nu, ctx.shard = stack, El, nul, shard
+        return shard.mesh.sum(W.sum())
+
+    @staticmethod
+    def backward(ctx, g):
+        r, dh, dl, cpl, hl = ctx.saved_tensors
+        sh = ctx.shard
+        parts = [sh.place(g * r), sh.place(g * dh)]
+        if ctx.needs_input_grad[1]:
+            parts.append(sh.place(g * shell_geom_grad(
+                ctx.stack, dl, cpl, hl, ctx.E, ctx.nu)))
+        out = sh.mesh.sum(*parts)
+        gcp = out[2] if ctx.needs_input_grad[1] else None
+        return out[0], gcp, out[1], None, None, None, None
+
+
+def internal_energy(stack: PatchStack, d, cp, h_coef, E, nu, shard=None):
     """Total SVK KL-shell strain energy (scalar), differentiable in d and
-    h by torch autograd. d, cp: (P, C, 3); h_coef: (P, C); E, nu: (P,)."""
+    h by torch autograd. d, cp: (P, C, 3); h_coef: (P, C); E, nu: (P,).
+    With `shard` (a patch-sharded system's `SystemData.shard`; `stack` is
+    then the rank's block) every rank returns the whole W."""
+    if shard is not None:
+        return _InternalEnergySharded.apply(d, cp, h_coef, stack, E, nu,
+                                            shard)
     return _InternalEnergy.apply(d, cp, h_coef, stack, E, nu)
 
 

@@ -386,30 +386,38 @@ def areal_field_force(stack: PatchStack, cp, f_coef):
 # ------------------------------------------------------------ totals
 def external_work_and_force(stack: PatchStack, d, cp, f_areal=None,
                             point_loads=None, pressure=None, edge_loads=None,
-                            f_field=None):
+                            f_field=None, part=None):
     """(W_ext (0-dim), dW_ext/dd (P, C, 3)). The dead, point, edge and
     field loads are linear in d; the follower pressure's value and force
-    come from one K8 launch."""
+    come from one K8 launch. With `part` (a rank's part of a patch-sharded
+    system, solver/system.py; `stack` is then the rank's patch block) the
+    dead, pressure and field loads run on the rank's patches, the point and
+    edge loads on rank 0 only, and W_ext and the force are the rank's
+    share; with part=None or the whole system's, the whole."""
+    loc = (lambda t: t) if part is None else part.local   # noqa: E731
+    place = (lambda t: t) if part is None else part.place  # noqa: E731
+    rank0 = part is None or part.rank0
     P, C = cp.shape[0], cp.shape[1]
+    dl, cpl = loc(d), loc(cp)
     W = torch.zeros((), dtype=d.dtype, device=d.device)
     f = torch.zeros_like(cp)
     if f_areal is not None:
-        W = W + external_work_dead_load(stack, d, cp, f_areal)
-        f = f + dead_load_force(stack, cp, f_areal)
-    if point_loads is not None:
+        W = W + external_work_dead_load(stack, dl, cpl, loc(f_areal))
+        f = f + place(dead_load_force(stack, cpl, loc(f_areal)))
+    if point_loads is not None and rank0:
         W = W + point_load_work(point_loads, d)
         f = f + point_load_force(point_loads, P, C)
     if pressure is not None:
-        Wp, fp = pressure_value_grad(stack, d, cp, pressure)
+        Wp, fp = pressure_value_grad(stack, dl, cpl, loc(pressure))
         W = W + Wp.sum()
-        f = f + fp
-    if edge_loads is not None:
+        f = f + place(fp)
+    if edge_loads is not None and rank0:
         W = W + edge_load_work(edge_loads, d, cp)
         f = f + edge_load_force(edge_loads, cp)
     if f_field is not None:
-        ff = areal_field_force(stack, cp, f_field)
-        W = W + (ff * d).sum()
-        f = f + ff
+        ff = areal_field_force(stack, cpl, loc(f_field))
+        W = W + (ff * dl).sum()
+        f = f + place(ff)
     return W, f
 
 

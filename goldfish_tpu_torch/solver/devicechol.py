@@ -49,6 +49,7 @@ import torch
 
 from goldfish_tpu_torch.solver.system import (
     SystemData,
+    agree,
     assemble_K_from,
     jet_hessians,
     jet_tables,
@@ -133,6 +134,12 @@ class PersistentDeviceFactor:
     def _after_factor(self, s):
         """Called after every factorization at state s."""
 
+    def _agree(self, where, *values):
+        """The decision guard of a patch-sharded system (`system.agree`):
+        the factor is replicated, so its certificates and drifts must have
+        the same bits on every rank."""
+        agree(self.data, where, *values)
+
     def _fac_solve(self, B):
         """K_fac^-1 B for B (N, k) through the equilibrated factor."""
         dsc = self._dscale[:, None]
@@ -165,6 +172,7 @@ class PersistentDeviceFactor:
             LU = L
         del K
         self.factor_ok = int(info) == 0
+        self._agree("factor", drift, int(info))
         why = why or "drift"
         if not self.factor_ok:
             LU.fill_(float("nan"))
@@ -278,6 +286,7 @@ class PersistentDeviceFactor:
             delta, ratio, slope, rho_last_ = self._ir_dir(s, r, n_ir)
             self.last_ratio = float(ratio)
             rho_last = float(rho_last_)
+            self._agree("direction certificate", self.last_ratio, rho_last)
             self.cert_log.append(("dir", n_ir, self.last_ratio))
             if not math.isfinite(self.last_ratio):
                 if not self._inputs_finite(r, d):
@@ -332,6 +341,7 @@ class PersistentDeviceFactor:
         to triage."""
         tol = self._ADJOINT_TOL if tol is None else tol
         self.last_ratio = float(ratio)
+        self._agree(tag, self.last_ratio)
         self.cert_log.append((tag, n, self.last_ratio))
         if self.last_ratio <= tol:
             self.rho_est = max(self._rho_meas(n, rho_last), self._RHO0)
@@ -363,6 +373,7 @@ class PersistentDeviceFactor:
             x, ratio, rho_last_ = self._ir_solve(s, b, n)
             self.last_ratio = float(ratio)
             rho_last = float(rho_last_)
+            self._agree("exact certificate", self.last_ratio, rho_last)
             self.cert_log.append(("exact", n, self.last_ratio))
             if not math.isfinite(self.last_ratio):
                 if not self._inputs_finite(b, d):

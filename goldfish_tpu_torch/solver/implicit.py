@@ -23,6 +23,14 @@ not carried over: every step reads its scalars when it needs them.
 `continuation_solve` ramps the loads in levels (`system.scale_loads`) on
 one persistent factor, each level's Newton warm-started from the last: the
 two-plate contact press needs it.
+
+`build_solve_fn_dataarg` is the same solve with the system as an argument
+(`solve(data, cp, h, d0)`, a fresh factor a call): one function serves a
+patch-sharded and an unsharded `SystemData`. On a sharded system every
+rank runs the whole Newton loop and factor policy on replicated values
+(all-reduced operators, the replicated factor), so every branch below is
+taken alike on all ranks; `system.agree` checks it when the mesh's guard
+is on.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ import torch
 from goldfish_tpu_torch.solver.devicechol import PersistentDeviceFactor
 from goldfish_tpu_torch.solver.system import (
     SystemData,
+    agree as _agree,
     potential_and_residual,
     residual_vjp,
     residual_vjp_field,
@@ -42,7 +51,8 @@ from goldfish_tpu_torch.solver.system import (
 
 __all__ = ["damped_newton", "newton_solve_host", "continuation_solve",
            "adjoint_lambda",
-           "adjoint_solve", "build_solve_fn", "build_field_solve_fn"]
+           "adjoint_solve", "build_solve_fn", "build_field_solve_fn",
+           "build_solve_fn_dataarg"]
 
 
 # the polishing step's |r| may grow by this factor at the residual floor
@@ -107,6 +117,7 @@ def _newton_loop(d0, data, cp, h, direction, refactor, rtol, atol, max_it,
             shared["r_ref"] = r_ref
             shared["r_ref_age"] = 0
     r_ref = max(max(r_ref, rn * 1e-6), 1e-300)
+    _agree(data, "newton entry", r_ref, rn, Pi0)
     eps = torch.finfo(d0.dtype).eps
 
     d = d0
@@ -117,6 +128,7 @@ def _newton_loop(d0, data, cp, h, direction, refactor, rtol, atol, max_it,
     slow = False
     while it < max_it and rn > atol and rn > rtol * r_ref:
         delta, slope = direction(d, r, slow)
+        _agree(data, "newton slope", slope)
         # 64x-eps margin: below it the Armijo test is roundoff
         slope_tiny = abs(slope) <= 64.0 * eps * abs(Pi0) + 1e-300
 
@@ -145,6 +157,7 @@ def _newton_loop(d0, data, cp, h, direction, refactor, rtol, atol, max_it,
             ls_fail = True
         if rn_try is None:
             rn_try = float(rn_try_)
+        _agree(data, "line search", alpha, Pi_try, rn_try, float(ls_fail))
         if ls_fail and full is not None and rn <= 1e-2 * r_ref:
             rn_full = float(full[2])
             if rn_full <= 0.5 * rn:
@@ -227,6 +240,7 @@ def _polish(data, cp, h, d, r, rn, direction, slow):
     delta, _ = direction(d, r, slow)
     d_try, r_try, rn_try, _ = _trial(data, cp, h, d, delta, 1.0)
     rn_try = float(rn_try)
+    _agree(data, "polish", rn_try)
     if rn_try <= POLISH_GROWTH * rn:
         return d_try, r_try, rn_try
     return d, r, rn
@@ -252,6 +266,7 @@ def newton_solve_host(data: SystemData, fac: PersistentDeviceFactor, cp, h,
             if fac._ref is None:
                 fac.ensure(cp, h, d)
             drift = float(fac.drift_scalar(cp, h, d))
+            _agree(data, "direction drift", drift)
             if drift > 0.2:
                 # grossly stale (cold transient): refresh at this state
                 fac.ensure(cp, h, d, force=True, why="drift")
@@ -415,6 +430,41 @@ class _FieldSolve(torch.autograd.Function):
         # no cotangent for d0: the coupled gradient reaches the previous
         # state through f only
         return None, dcp, dh, df, None
+
+
+class _DataArgSolve(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, data, cp, h, d0, rtol, atol, max_it):
+        cp, h = cp.detach(), h.detach()
+        fac = PersistentDeviceFactor(data)
+        d, _, _ = newton_solve_host(data, fac, cp, h, d0.detach(), rtol=rtol,
+                                    atol=atol, max_it=max_it)
+        ctx.data, ctx.fac = data, fac
+        ctx.save_for_backward(d, cp, h)
+        return d
+
+    @staticmethod
+    def backward(ctx, g):
+        d, cp, h = ctx.saved_tensors
+        dcp, dh = adjoint_solve(ctx.data, ctx.fac, d, cp, h, g)
+        return None, dcp, dh, None, None, None, None
+
+
+def build_solve_fn_dataarg(rtol=1e-10, atol=1e-14, max_it=30):
+    """Differentiable `solve(data, cp, h, d0) -> d` with the system as an
+    argument (port of the reference's build_solve_fn_dataarg, the form its
+    multi-process run needs). `data` is not differentiable. The forward is
+    `newton_solve_host` on a fresh `PersistentDeviceFactor` a call (no
+    state is kept across calls, as in the reference's form); the backward
+    is the adjoint (`adjoint_solve`) on that factor. The same `solve`
+    takes a patch-sharded SystemData (`parallel.sharding.shard_system`)
+    and an unsharded one."""
+
+    def solve(data, cp, h, d0):
+        return _DataArgSolve.apply(data, cp, h, d0, rtol, atol, max_it)
+
+    return solve
 
 
 def build_field_solve_fn(data: SystemData, rtol=1e-9, atol=1e-14, max_it=30):

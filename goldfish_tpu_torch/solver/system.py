@@ -25,6 +25,17 @@ Shell-shell contact (`SystemData.contact`) adds its pair potential to Pi,
 its force to r, and its stiffness to K and K v through kernel K12
 (physics/contact.py): the qp positions and weights at d are the fourth
 entry of the jet Hessians.
+
+A patch-sharded system (`SystemData.shard`, parallel/sharding.py) holds
+one rank's patch block and interface block. Every operator here then runs
+its kernels on that part, with the element dof maps offset by lo*C*3, and
+sums its global-shaped result over the ranks with one all-reduce: Pi and r,
+the residual's VJP and JVP, K (the dense (N, N) tangent itself is summed,
+so K3's f64 atomics never make two ranks' K differ) and K v. Terms that the
+split does not divide (point and edge loads, contact) are evaluated on rank
+0 only; the dead, follower-pressure and field loads follow the patches.
+Each operator is written once: the whole system is the one-rank case of
+the split (`_part`), in the order of the unsharded sums.
 """
 
 from __future__ import annotations
@@ -89,6 +100,9 @@ class SystemData(NamedTuple):
     edge_loads: EdgeLoads | None = None
     f_field: torch.Tensor | None = None   # (P, C, 3) field load or None
     contact: contact_.ContactPairs | None = None
+    # parallel.sharding.PatchShard of a rank's part of a patch-sharded
+    # system (`shard_system`), or None: the whole system in one process
+    shard: object = None
 
 
 def scale_loads(data: SystemData, s):
@@ -105,27 +119,87 @@ def scale_loads(data: SystemData, s):
         else data.edge_loads._replace(F=s * data.edge_loads.F))
 
 
+# ------------------------------------------------------------ patch split
+class _Whole:
+    """The whole system as the one-rank case of a patch split, with the
+    interface of parallel.sharding.PatchShard that the operators read:
+    `local` and `place` are the identity, the rank-0 terms are on, `sum`
+    is the identity, and contact runs on the whole stack."""
+
+    __slots__ = ("contact", "contact_stack")
+    rank0 = True
+    patch_ids = None
+    contact_ids = None
+
+    def __init__(self, data: SystemData):
+        self.contact, self.contact_stack = data.contact, data.stack
+
+    @staticmethod
+    def local(t):
+        return t
+
+    @staticmethod
+    def place(t):
+        return t
+
+    @staticmethod
+    def sum(*ts):
+        return ts[0] if len(ts) == 1 else ts
+
+    @staticmethod
+    def contact_rows(*ts):
+        return ts
+
+    @staticmethod
+    def add_contact(r, rc):
+        return r + rc
+
+
+def _part(data: SystemData):
+    """The part of the system this process evaluates: the rank's
+    `PatchShard` of a patch-sharded system, else the whole (`_Whole`).
+    Every operator below is written once against it; on the whole system
+    it keeps the order of the unsharded sums, bit for bit."""
+    return _Whole(data) if data.shard is None else data.shard
+
+
+def agree(data: SystemData, where, *values):
+    """On a patch-sharded system with the mesh's guard on: raise unless the
+    values that a host decision reads have the same bits on every rank (a
+    decision on a rank-local value parts the ranks, and the next
+    collective hangs). A no-op otherwise (also where no system is given)."""
+    shard = getattr(data, "shard", None)
+    if shard is not None:
+        shard.mesh.check_agree(where, *values)
+
+
 # ------------------------------------------------------------ energy
 def potential_and_residual(data: SystemData, d, cp, h):
     """(Pi, r): the potential (summed deterministically from per-element
     and per-interface energies) and the BC-masked residual dPi/dd, from
     one K1, one K2, (with a follower pressure) one K8 and (with contact)
-    one K12 launch."""
-    W, r, _ = kl_shell.shell_value_grad(data.stack, d, cp, h, data.E,
-                                        data.nu)
+    one K12 launch. Sharded: the rank's part, then one all-reduce of
+    (Pi, r)."""
+    pt = _part(data)
+    W, r, _ = kl_shell.shell_value_grad(
+        data.stack, pt.local(d), pt.local(cp), pt.local(h), pt.local(data.E),
+        pt.local(data.nu))
     Pi = W.sum()
+    r = pt.place(r)
     if data.ifs is not None:
         Wi, ri, _ = coupling.penalty_value_grad(data.ifs, d, cp, h, data.E)
         Pi = Pi + Wi.sum()
         r = r + ri
-    if data.contact is not None:
-        Wc, rc = contact_.contact_value_force(data.contact, data.stack, d, cp)
+    if pt.contact is not None:
+        Wc, rc = contact_.contact_value_force(pt.contact, pt.contact_stack,
+                                              *pt.contact_rows(d, cp))
         Pi = Pi + Wc
-        r = r + rc
+        r = pt.add_contact(r, rc)
     W_ext, f_ext = external_work_and_force(
         data.stack, d, cp, data.f_areal, data.point_loads, data.pressure,
-        data.edge_loads, data.f_field)
-    return Pi - W_ext, (r - f_ext) * data.free
+        data.edge_loads, data.f_field, part=pt)
+    Pi, r = pt.sum(Pi - W_ext, r - f_ext)
+    return Pi, r * data.free
 
 
 def total_potential(data: SystemData, d, cp, h):
@@ -138,40 +212,96 @@ def residual(data: SystemData, d, cp, h):
     return potential_and_residual(data, d, cp, h)[1]
 
 
-def residual_vjp(data: SystemData, d, cp, h, lam):
-    """(dcp, dh) = -lam^T dR/d(cp, h): the adjoint's design gradient (K1,
-    K2 and K8 in adjoint mode, K12's hvp for contact, plus the dead, edge
-    and field loads' cp-dependence). The loads and contact do not depend on
-    h."""
+def _residual_vjp_parts(data: SystemData, d, cp, h, lam):
+    """This process's (dcp, dh) of `residual_vjp`, global-shaped, not yet
+    summed over the ranks (the whole of it on a whole system)."""
+    pt = _part(data)
+    st = data.stack
     lam = lam * data.free
-    dcp, dh = kl_shell.shell_adjoint(data.stack, d, cp, h, data.E, data.nu,
-                                     lam)
+    dl, cpl, laml = pt.local(d), pt.local(cp), pt.local(lam)
+    dcp, dh = kl_shell.shell_adjoint(st, dl, cpl, pt.local(h),
+                                     pt.local(data.E), pt.local(data.nu),
+                                     laml)
+    dcp, dh = pt.place(dcp), pt.place(dh)
     if data.ifs is not None:
         dcp_i, dh_i = coupling.penalty_adjoint(data.ifs, d, cp, h, data.E,
                                                lam)
         dcp = dcp + dcp_i
         dh = dh + dh_i
     if data.pressure is not None:
-        dcp = dcp + pressure_adjoint(data.stack, d, cp, data.pressure, lam)
-    if data.contact is not None:
-        dcp = dcp + contact_.contact_adjoint(data.contact, data.stack, d, cp,
-                                             lam)
-    if (data.f_areal is not None or data.edge_loads is not None
+        dcp = dcp + pt.place(pressure_adjoint(st, dl, cpl,
+                                              pt.local(data.pressure), laml))
+    if pt.contact is not None:
+        dcp = pt.add_contact(dcp, contact_.contact_adjoint(
+            pt.contact, pt.contact_stack, *pt.contact_rows(d, cp, lam)))
+    edge = data.edge_loads if pt.rank0 else None
+    if (data.f_areal is not None or edge is not None
             or data.f_field is not None):
         # the dead, edge and field loads are linear in d, so lam . dW_ext/dd
         # = W_ext(lam); its cp-gradient by autograd
         with torch.enable_grad():
             cpv = cp.detach().requires_grad_(True)
+            cpvl = pt.local(cpv)
             w = torch.zeros((), dtype=cp.dtype, device=cp.device)
             if data.f_areal is not None:
-                w = w + kl_shell.external_work_dead_load(data.stack, lam, cpv,
-                                                         data.f_areal)
-            if data.edge_loads is not None:
-                w = w + edge_load_work(data.edge_loads, lam, cpv)
+                w = w + kl_shell.external_work_dead_load(
+                    st, laml, cpvl, pt.local(data.f_areal))
+            if edge is not None:
+                w = w + edge_load_work(edge, lam, cpv)
             if data.f_field is not None:
-                w = w + areal_field_work(data.stack, lam, cpv, data.f_field)
+                w = w + areal_field_work(st, laml, cpvl,
+                                         pt.local(data.f_field))
             dcp = dcp + torch.autograd.grad(w, cpv)[0]
     return dcp, dh
+
+
+def residual_vjp(data: SystemData, d, cp, h, lam):
+    """(dcp, dh) = -lam^T dR/d(cp, h): the adjoint's design gradient (K1,
+    K2 and K8 in adjoint mode, K12's hvp for contact, plus the dead, edge
+    and field loads' cp-dependence). The loads and contact do not depend on
+    h. Sharded: one all-reduce of (dcp, dh)."""
+    return _part(data).sum(*_residual_vjp_parts(data, d, cp, h, lam))
+
+
+def _residual_jvp_parts(data: SystemData, d, cp, h, tcp, th):
+    """This process's masked dR/dcp tcp + dR/dh th of `residual_jvp`,
+    global-shaped, not yet summed over the ranks (masking by free, 0 or 1,
+    commutes with that sum exactly)."""
+    pt = _part(data)
+    st = data.stack
+    dl, cpl, tcpl = pt.local(d), pt.local(cp), pt.local(tcp)
+    out = pt.place(kl_shell.shell_design_jvp(
+        st, dl, cpl, pt.local(h), pt.local(data.E), pt.local(data.nu), tcpl,
+        pt.local(th)))
+    if data.ifs is not None:
+        out = out + coupling.penalty_design_jvp(data.ifs, d, cp, h, data.E,
+                                                tcp, th)
+    if data.pressure is not None:
+        out = out + pt.place(pressure_design_jvp(
+            st, dl, cpl, pt.local(data.pressure), tcpl))
+    # tcp is replicated: every rank reads the same value here, and on a
+    # sharded system only rank 0 holds contact (no collective depends on it)
+    if pt.contact is not None and bool(torch.any(tcp != 0)):
+        out = pt.add_contact(out, contact_.contact_design_jvp(
+            pt.contact, pt.contact_stack, *pt.contact_rows(d, cp, tcp)))
+    edge = data.edge_loads if pt.rank0 else None
+    if (data.f_areal is not None or edge is not None
+            or data.f_field is not None):
+        def f_ext(c):
+            cl = pt.local(c)
+            f = torch.zeros_like(c)
+            if data.f_areal is not None:
+                f = f + pt.place(kl_shell.dead_load_force(
+                    st, cl, pt.local(data.f_areal)))
+            if edge is not None:
+                f = f + edge_load_force(edge, c)
+            if data.f_field is not None:
+                f = f + pt.place(areal_field_force(st, cl,
+                                                   pt.local(data.f_field)))
+            return f
+
+        out = out - torch.func.jvp(f_ext, (cp,), (tcp,))[1]
+    return out * data.free
 
 
 def residual_jvp(data: SystemData, d, cp, h, tcp, th):
@@ -183,48 +313,33 @@ def residual_jvp(data: SystemData, d, cp, h, tcp, th):
     nonzero (K12 mode 3, `contact.contact_design_jvp`). tcp and th are
     unmasked (a clamped dof still
     moves the geometry); only the output is masked. The loads and contact
-    do not depend on h."""
-    st = data.stack
-    out = kl_shell.shell_design_jvp(st, d, cp, h, data.E, data.nu, tcp, th)
-    if data.ifs is not None:
-        out = out + coupling.penalty_design_jvp(data.ifs, d, cp, h, data.E,
-                                                tcp, th)
-    if data.pressure is not None:
-        out = out + pressure_design_jvp(st, d, cp, data.pressure, tcp)
-    if data.contact is not None and bool(torch.any(tcp != 0)):
-        out = out + contact_.contact_design_jvp(data.contact, st, d, cp, tcp)
-    if (data.f_areal is not None or data.edge_loads is not None
-            or data.f_field is not None):
-        def f_ext(c):
-            f = torch.zeros_like(c)
-            if data.f_areal is not None:
-                f = f + kl_shell.dead_load_force(st, c, data.f_areal)
-            if data.edge_loads is not None:
-                f = f + edge_load_force(data.edge_loads, c)
-            if data.f_field is not None:
-                f = f + areal_field_force(st, c, data.f_field)
-            return f
-
-        out = out - torch.func.jvp(f_ext, (cp,), (tcp,))[1]
-    return out * data.free
+    do not depend on h. Sharded: one all-reduce."""
+    return _part(data).sum(_residual_jvp_parts(data, d, cp, h, tcp, th))
 
 
 def residual_vjp_field(data: SystemData, d, cp, h, lam):
     """(dcp, dh, df) = -lam^T dR/d(cp, h, f_field): `residual_vjp` and the
     field load's pullback. R carries -dW_f/dd, so -lam^T dR/df = dW_f(lam)/df
     (the field load is bilinear in d and f; the sign of the reference's
-    vjp(-lam))."""
-    dcp, dh = residual_vjp(data, d, cp, h, lam)
-    return dcp, dh, areal_field_force(data.stack, cp, lam * data.free)
+    vjp(-lam)). Sharded: one all-reduce of (dcp, dh, df)."""
+    pt = _part(data)
+    dcp, dh = _residual_vjp_parts(data, d, cp, h, lam)
+    df = pt.place(areal_field_force(data.stack, pt.local(cp),
+                                    pt.local(lam * data.free)))
+    return pt.sum(dcp, dh, df)
 
 
 # ------------------------------------------------------------ dof maps
-def element_global_dofs(stack: PatchStack):
-    """Global dof index of each element-local dof: (P, E, 3L) int32."""
+def element_global_dofs(stack: PatchStack, patch_ids=None):
+    """Global dof index of each element-local dof: (P, E, 3L) int32.
+    `patch_ids` (P,) numbers the stack's patches (default 0..P-1; a rank's
+    block of a sharded system passes lo..hi-1)."""
     P, E, L = stack.conn.shape
     C = stack.max_cp
-    p_ids = torch.arange(P, dtype=INDEX_DTYPE,
-                         device=stack.conn.device)[:, None, None]
+    if patch_ids is None:
+        patch_ids = torch.arange(P, dtype=INDEX_DTYPE,
+                                 device=stack.conn.device)
+    p_ids = patch_ids.to(INDEX_DTYPE)[:, None, None]
     base = (p_ids * C + stack.conn) * 3
     gi = base[..., None] + torch.arange(3, dtype=INDEX_DTYPE,
                                         device=base.device)
@@ -253,7 +368,10 @@ class JetTables(NamedTuple):
     element of the pressure group (nq = Q, 3 jets over L locals, the
     element dofs gi_e). With contact, R_c are the R00 rows of the one-jet
     group that carries K12's own-side sums (nq = Q, 1 jet over L locals,
-    the element dofs gi_e)."""
+    their element dofs gi_c). Of a patch-sharded system the tables are the
+    rank's: its elements (dofs offset by lo*C*3), its interfaces, and on
+    rank 0 the contact patches' copy (R_c, gi_c); `shard` is then set and
+    K and K v are summed over the ranks."""
 
     R_e: torch.Tensor             # (P*E, Q, 5, L)
     gi_e: torch.Tensor            # (P*E, 3L) int32
@@ -261,8 +379,10 @@ class JetTables(NamedTuple):
     gi_i: torch.Tensor | None     # (I*N, 6L) int32
     free: torch.Tensor            # (P*C*3,)
     R_p: torch.Tensor | None = None   # (P*E, Q, 3, L)
-    R_c: torch.Tensor | None = None   # (P*E, Q, 1, L)
+    R_c: torch.Tensor | None = None   # (Pc*E, Q, 1, L)
     contact: contact_.ContactPairs | None = None
+    gi_c: torch.Tensor | None = None  # (Pc*E, 3L) int32, R_c's dofs
+    shard: object = None
 
 
 def interface_tables(ifs: InterfaceStack, C: int):
@@ -275,23 +395,27 @@ def interface_tables(ifs: InterfaceStack, C: int):
 
 
 def jet_tables(data: SystemData) -> JetTables:
+    pt = _part(data)
     stack = data.stack
     P, Ne, Q, L = stack.R00.shape
     R_e = torch.stack(kl_shell._jet_tables(stack), dim=-2)
-    gi_e = element_global_dofs(stack)
-    R_i = gi_i = R_p = R_c = None
+    gi_e = element_global_dofs(stack, pt.patch_ids)
+    R_i = gi_i = R_p = R_c = gi_c = None
     if data.ifs is not None:
         R_i, gi_i = interface_tables(data.ifs, stack.max_cp)
     if data.pressure is not None:
         R_p = torch.stack((stack.R00, stack.R10, stack.R01), dim=-2).reshape(
             P * Ne, Q, 3, L).contiguous()
-    if data.contact is not None:
-        R_c = stack.R00.reshape(P * Ne, Q, 1, L).contiguous()
+    if pt.contact is not None:
+        cst = pt.contact_stack
+        R_c = cst.R00.reshape(-1, Q, 1, L).contiguous()
+        gi_c = element_global_dofs(cst, pt.contact_ids).reshape(
+            -1, 3 * L).contiguous()
     return JetTables(
         R_e=R_e.reshape(P * Ne, Q, 5, L).contiguous(),
         gi_e=gi_e.reshape(P * Ne, 3 * L).contiguous(),
         R_i=R_i, gi_i=gi_i, free=data.free.reshape(-1).contiguous(),
-        R_p=R_p, R_c=R_c, contact=data.contact)
+        R_p=R_p, R_c=R_c, contact=pt.contact, gi_c=gi_c, shard=data.shard)
 
 
 class JetHessians(NamedTuple):
@@ -309,21 +433,27 @@ class JetHessians(NamedTuple):
 def jet_hessians(data: SystemData, d, cp, h):
     """The tangent's pieces at state d (`JetHessians`): jet Hessians from
     K1, K2 and K8 mode (b); with contact the qp positions and weights and
-    K12's list of element pairs that may touch at them."""
+    K12's list of element pairs that may touch at them. Sharded: the
+    rank's elements and interfaces, and on rank 0 the contact patches'."""
+    pt = _part(data)
     stack = data.stack
     P, Ne, Q, _ = stack.R00.shape
-    H_e = kl_shell.shell_hessians(stack, d, cp, h, data.E, data.nu)
+    dl, cpl = pt.local(d), pt.local(cp)
+    H_e = kl_shell.shell_hessians(stack, dl, cpl, pt.local(h),
+                                  pt.local(data.E), pt.local(data.nu))
     H_i = H_p = None
     if data.ifs is not None:
         H_i = coupling.penalty_hessians(data.ifs, d, cp, h, data.E)
         H_i = H_i.reshape(-1, 1, coupling.NZ, coupling.NZ)
     if data.pressure is not None:
-        H_p = pressure_hessians(stack, d, cp, data.pressure).reshape(
+        H_p = pressure_hessians(stack, dl, cpl,
+                                pt.local(data.pressure)).reshape(
             P * Ne, Q, 9, 9)
     xw = cells = None
-    if data.contact is not None:
-        xw = tuple(t.contiguous() for t in contact_.contact_qps(stack, d, cp))
-        cells = contact_.contact_cells(data.contact, *xw, q=Q)
+    if pt.contact is not None:
+        xw = tuple(t.contiguous() for t in contact_.contact_qps(
+            pt.contact_stack, *pt.contact_rows(d, cp)))
+        cells = contact_.contact_cells(pt.contact, *xw, q=Q)
     return JetHessians(H_e.reshape(P * Ne, Q, kl_shell.NJ, kl_shell.NJ),
                        H_i, H_p, xw, cells)
 
@@ -432,7 +562,12 @@ def assemble_K_from(tables: JetTables, Hs):
         jet_assemble(K, H_p, tables.R_p, tables.gi_e, free)
     if xw is not None:
         contact_.contact_assemble(K, tables.contact, *xw, tables.R_c,
-                                  tables.gi_e, free, cells=cells)
+                                  tables.gi_c, free, cells=cells)
+    if tables.shard is not None:
+        # the dense K summed over the ranks in place (N^2 f64; the
+        # alternative, gathering the jet Hessians and assembling the whole
+        # K on every rank, would let K3's atomics give each rank other bits)
+        tables.shard.sum(K)
     K.diagonal().add_(1.0 - free)
     return K
 
@@ -442,7 +577,7 @@ def _contact_matvec(y, tables: JetTables, xw, vf, cells=None):
     (on the list `cells` of these x, w when given), back by R00^T."""
     G, Q, _, L = tables.R_c.shape
     free = tables.free
-    gl = tables.gi_e.long()
+    gl = tables.gi_c.long()
     R = tables.R_c[:, :, 0]
     vq = torch.einsum("gql,glk->gqk", R, (vf * free)[gl].reshape(G, L, 3))
     x, w = xw
@@ -466,6 +601,8 @@ def tangent_matvec_from(tables: JetTables, Hs, v):
         jet_matvec(y, H_p, tables.R_p, tables.gi_e, free, vf)
     if xw is not None:
         _contact_matvec(y, tables, xw, vf, cells)
+    if tables.shard is not None:
+        y = tables.shard.sum(y)
     return y.reshape(v.shape)
 
 

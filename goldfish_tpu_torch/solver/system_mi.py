@@ -31,6 +31,15 @@ with dK_m assembled by K3 through a map from global dofs to seam slots
 (one padding slot with a zero `free` entry takes every other dof). The
 reference's f32 capacitance inverse with Newton-Schulz polish and its
 one-hot einsum assembly exist for the TPU and do not cross.
+
+On a patch-sharded system (`SystemData.shard`) each rank takes its block of
+the seams (`split_block` of the seam count), builds only their rows at xi
+(K5 on its seams), and the operators sum over the ranks as in
+solver/system.py: the xi cotangent and tangent products (K6) with one
+all-reduce together with the (cp, h) parts. The Woodbury subspace U is the
+union of all ranks' seam dofs and the seam stiffness on it is summed over
+the ranks, so the capacitance solve stays whole and replicated. The CP ->
+xi solve (K5, K7) is design-side and small; it runs replicated.
 """
 
 from __future__ import annotations
@@ -55,14 +64,15 @@ from goldfish_tpu_torch.solver.implicit import damped_newton
 from goldfish_tpu_torch.solver.system import (
     NonMatchingSystem,
     SystemData,
+    _part,
+    _residual_jvp_parts,
+    _residual_vjp_parts,
     assemble_K,
     assemble_K_from,
     interface_tables,
     jet_assemble,
     jet_hessians,
     potential_and_residual,
-    residual_jvp,
-    residual_vjp,
     tangent_matvec_from,
 )
 
@@ -72,13 +82,36 @@ __all__ = ["MINonMatchingSystem", "data_at", "total_potential_mi",
            "build_solve_fn_mi"]
 
 
+def _rank_seams(data: SystemData, mi, co, xi, *rows):
+    """(a, b, mi, co, xi, *rows) of this process's seams: all of them, as
+    they are, on a whole system; on a sharded one the rank's block [a, b)
+    (`split_block`), with the same rows of the (I, ...) tensors `rows`, or
+    None when the block is empty."""
+    if data.shard is None:
+        return (0, mi.n_int, mi, co, xi) + rows
+    a, b = data.shard.block(mi.n_int)
+    if a == b:
+        return None
+    return (a, b, type(mi)(*(t[a:b] for t in mi)),
+            type(co)(*(t[a:b] for t in co))) + tuple(
+        t.reshape(mi.n_int, -1)[a:b].contiguous() for t in (xi,) + rows)
+
+
 def data_at(data: SystemData, mi, co, ss, p, q, xi) -> SystemData:
     """The fixed-intersection SystemData of the MI system at xi (I, 4N):
     its interface stack has K5's rows at xi. The loads (the areal field
     load too) and contact ride along unchanged: contact pairs the shell
     qps of whole patches, which xi does not move, so the reference's
     total_potential_mi / assemble_K_mi with contact and the field load
-    (system_mi.py:44-110) are the fixed-intersection ones at these rows."""
+    (system_mi.py:44-110) are the fixed-intersection ones at these rows.
+    Of a patch-sharded system the stack holds the rank's seams only (None
+    when it has none): the seams are taken before the rows are built, so
+    that K5 runs on the rank's seams alone (each seam's rows and tangents
+    depend on its own points only)."""
+    seams = _rank_seams(data, mi, co, xi)
+    if seams is None:
+        return data._replace(ifs=None)
+    _, _, mi, co, xi = seams
     return data._replace(ifs=interface_stack_mi(ss, p, q, mi, co, xi))
 
 
@@ -103,12 +136,22 @@ def assemble_K_mi(data, mi, co, ss, p, q, d, cp, h, xi):
 def _res_vjp_mi(data, mi, co, ss, p, q, d, cp, h, xi, lam):
     """(dcp, dh, dxi) = -lam^T dR/d(cp, h, xi): K1/K2 adjoint mode on the
     rows at xi (with contact `contact_adjoint`, K12's hvp; with the field
-    load its cp-dependence), and K6 for xi (neither enters it)."""
-    dcp, dh = residual_vjp(data_at(data, mi, co, ss, p, q, xi), d, cp, h,
-                           lam)
-    dxi = penalty_xi_vjp(ss, p, q, mi, co, xi, d, cp, h, data.E,
-                         (lam * data.free).contiguous())
-    return dcp, dh, dxi
+    load its cp-dependence), and K6 for xi (neither enters it). Sharded:
+    each rank's parts, then one all-reduce of (dcp, dh, dxi)."""
+    dcp, dh = _residual_vjp_parts(data_at(data, mi, co, ss, p, q, xi), d,
+                                  cp, h, lam)
+    seams = _rank_seams(data, mi, co, xi)
+    if seams is None:
+        dxi = torch.zeros(mi.n_int, xi.shape[-1], dtype=DTYPE,
+                          device=xi.device)
+    else:
+        a, b, mi_l, co_l, xi_l = seams
+        dxi = penalty_xi_vjp(ss, p, q, mi_l, co_l, xi_l, d, cp, h, data.E,
+                             (lam * data.free).contiguous())
+        if (a, b) != (0, mi.n_int):
+            dxi = torch.cat([dxi.new_zeros((a,) + dxi.shape[1:]), dxi,
+                             dxi.new_zeros((mi.n_int - b,) + dxi.shape[1:])])
+    return _part(data).sum(dcp, dh, dxi)
 
 
 def residual_jvp_mi(data, mi, co, ss, p, q, d, cp, h, xi, tcp=None, th=None,
@@ -117,17 +160,20 @@ def residual_jvp_mi(data, mi, co, ss, p, q, d, cp, h, xi, tcp=None, th=None,
     design product: `residual_jvp` (K1 and K2 design modes, K8, with
     contact K12 mode 3 where tcp != 0) on the rows at xi, and K6's mode 1
     for xi. A tangent that is None is zero (its part
-    is skipped; tcp and th go together)."""
+    is skipped; tcp and th go together). Sharded: one all-reduce."""
     out = torch.zeros_like(d)
     if tcp is not None or th is not None:
-        out = out + residual_jvp(
+        out = out + _residual_jvp_parts(
             data_at(data, mi, co, ss, p, q, xi), d, cp, h,
             torch.zeros_like(cp) if tcp is None else tcp,
             torch.zeros_like(h) if th is None else th)
     if txi is not None:
-        out = out + penalty_xi_jvp(ss, p, q, mi, co, xi, d, cp, h, data.E,
-                                   txi) * data.free
-    return out
+        seams = _rank_seams(data, mi, co, xi, txi)
+        if seams is not None:
+            _, _, mi_l, co_l, xi_l, txi_l = seams
+            out = out + penalty_xi_jvp(ss, p, q, mi_l, co_l, xi_l, d, cp, h,
+                                       data.E, txi_l) * data.free
+    return _part(data).sum(out)
 
 
 # ------------------------------------------------------------ factor
@@ -176,7 +222,9 @@ class PersistentDeviceFactorMI(PersistentDeviceFactor):
         if self._at_key is not xi:
             data, mi, co, ss = self.args
             dx = data_at(data, mi, co, ss, self.p, self.q, xi)
-            R_i, gi_i = interface_tables(dx.ifs, data.stack.max_cp)
+            R_i = gi_i = None
+            if dx.ifs is not None:   # None: a sharded rank without seams
+                R_i, gi_i = interface_tables(dx.ifs, data.stack.max_cp)
             self._at_key = xi
             self._at_val = (dx, self.tables._replace(R_i=R_i, gi_i=gi_i))
         return self._at_val
@@ -215,6 +263,8 @@ class PersistentDeviceFactorMI(PersistentDeviceFactor):
     def _interface_hessians(self, s):
         cp, h, xi, d = s
         dx, tab = self._at(xi)
+        if dx.ifs is None:
+            return None, tab
         H = coupling.penalty_hessians(dx.ifs, d, cp, h, self.data.E)
         return H.reshape(-1, 1, coupling.NZ, coupling.NZ), tab
 
@@ -222,9 +272,13 @@ class PersistentDeviceFactorMI(PersistentDeviceFactor):
         """Interface stiffness restricted to the seam subspace (M, M): K3
         (`assemble`) with the global dofs mapped to seam slots."""
         M = self._M
-        g = self._slot[tab.gi_i.long()].to(INDEX_DTYPE).contiguous()
-        K = torch.zeros(M + 1, M + 1, dtype=DTYPE, device=H_i.device)
-        assemble(K, H_i, tab.R_i, g, self._free_m)
+        K = torch.zeros(M + 1, M + 1, dtype=DTYPE, device=self._slot.device)
+        if H_i is not None:
+            g = self._slot[tab.gi_i.long()].to(INDEX_DTYPE).contiguous()
+            assemble(K, H_i, tab.R_i, g, self._free_m)
+        if self.data.shard is not None:
+            # the ranks' seams summed: the capacitance system stays whole
+            self.data.shard.sum(K)
         return K[:M, :M]
 
     def _after_factor(self, s):
@@ -235,7 +289,12 @@ class PersistentDeviceFactorMI(PersistentDeviceFactor):
         data, mi, co, ss = self.args
         H_i, tab = self._interface_hessians(s)
         free = data.free.reshape(-1)
-        ur = torch.unique(tab.gi_i).long().cpu().numpy()
+        # U is the union of every rank's seam dofs (one all-reduce of a dof
+        # mask on a sharded system), the same on all ranks
+        mask = torch.zeros_like(free)
+        if tab.gi_i is not None:
+            mask[tab.gi_i.long().reshape(-1)] = 1.0
+        ur = torch.nonzero(_part(data).sum(mask)).reshape(-1).cpu().numpy()
         Cc = int(data.stack.max_cp)
         nv = ss.n_v.cpu().numpy()
         base, comp = ur // 3, ur % 3
@@ -282,9 +341,16 @@ class PersistentDeviceFactorMI(PersistentDeviceFactor):
             return True
         s = (cp, h, xi, d)
         H_i, tab = self._interface_hessians(s)
-        gi = tab.gi_i.long()
         free = self.data.free.reshape(-1)
-        in_u = bool(((self._slot[gi] < self._M) | (free[gi] <= 0.5)).all())
+        in_u = True
+        if tab.gi_i is not None:
+            gi = tab.gi_i.long()
+            in_u = bool(((self._slot[gi] < self._M)
+                         | (free[gi] <= 0.5)).all())
+        if self.data.shard is not None:
+            # each rank sees its own seams: the refactor is decided on all
+            # ranks' flags together, or the ranks would part here
+            in_u = self.data.shard.mesh.all_true(in_u)
         if not in_u:
             self._ensure(s, force=True, why="conn-escape")
             self._prep_key = key

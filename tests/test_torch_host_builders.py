@@ -237,7 +237,9 @@ def test_port_imports_without_jax():
             "goldfish_tpu_torch.demos.shape_opt_arch, "
             "goldfish_tpu_torch.demos.shape_opt_mint_tbeam, "
             "goldfish_tpu_torch.demos.aeroelastic_wing, "
-            "goldfish_tpu_torch.demos.csdl_plate_const_th_opt; "
+            "goldfish_tpu_torch.demos.csdl_plate_const_th_opt, "
+            "goldfish_tpu_torch.parallel.sharding, "
+            "goldfish_tpu_torch.parallel.legs; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'goldfish_tpu' "
             "or m.startswith('goldfish_tpu.')]; "
