@@ -164,9 +164,22 @@ Phases (any failure raises: non-zero exit, no result line):
    must launch K1 mode 4 and K2 mode 3; then the sibling demo
    (om_plate_var_th_opt_wint.py) at the same size: cold run_model and
    totals against the reference's sibling numbers;
-12. library calls: cholesky_ex, cholesky_solve, the Woodbury capacitance
-   linalg.solve and the batched xi linalg.solve at each path's size, timed
-   with CUDA events beside their bounds;
+12. library calls: cholesky_ex, the Woodbury capacitance linalg.solve and
+   the batched xi linalg.solve at each path's size, timed with CUDA events
+   beside their bounds; and, at the same factor, K13
+   (`phase_k13`, `[k13 <path>]` lines, at wing20, the MI T-beam, both
+   tubes, plate32, pegasus-91 and press32): K13 chol_subst's inverses of
+   the diagonal blocks and its one-column substitution at three seeded
+   right-hand sides, at an MI factor also its M-column substitution of
+   the Woodbury basis K^-1 U^T, each against its plain version: the
+   backward error of the equilibrated system ||K x - b|| / (||K|| ||x||)
+   within 4x the plain version's (a direct x-to-x bar would be as loose
+   as cond(L) allows), the same bits over two launches, and at a
+   well-conditioned SPD matrix of the same N the kernel within 1e-12 of
+   the plain version; its times with the L2 flushed beside the plain
+   version's, cholesky_solve's (its copy of the factor included), the
+   solve_triangular pair's (the library route without the copy) and the
+   bound;
 13. pegasus kernels: the full box wing of goldfish_tpu_torch/demos/
    pegasus_thickness_opt.py (91 patches, 216 interfaces, C = 42, N =
    11466, L = 16) at a seeded d: K10 pair_assemble into the (91, 126, 126)
@@ -233,8 +246,8 @@ Phases (any failure raises: non-zero exit, no result line):
    midspan deflection < -0.02, FD < 1e-5) and launch K12's three modes;
    then K12 against its plain versions and K1-K4 at this size, the same
    path at num_el=6 against tests/data/torch_port_contact_reference.json
-   (d and W_c 1e-8, dJ/dh 1e-6), and cholesky_ex / cholesky_solve at N =
-   6936;
+   (d and W_c 1e-8, dJ/dh 1e-6), and cholesky_ex and K13 (phase 12's
+   checks) at N = 6936;
 22. Riks: tests/test_riks.py's shallow cylindrical panel (hinged, centre
    point load) at num_el=24 (N = 2028): `riks_solve` with the test's
    arguments must reach lam = 1 with |r| < 1e-5 |q|, trace the limit point
@@ -308,6 +321,14 @@ Phases (any failure raises: non-zero exit, no result line):
 Wherever K3 is checked, the smoke prints its groups, the runs of equal dof
 maps it sums before adding (`jet_runs`) and the atomics into K one per
 group (the design before the runs) and one per run.
+
+From the build on, torch.cholesky_solve on a CUDA tensor raises outside
+the yardsticks and K13's plain version (`guard_cholesky_solve`): every
+Cholesky solve of a main path goes through K13, and every path that made a
+Cholesky factor on the card (K13's inverses ran) must show K13's
+one-column launches (`chol_needed`); the wing, MI, tube, plate, pegasus
+dense, press, VLM and sharded paths must show them in any case, the MI
+path also the Woodbury basis's.
 
 Launch counters, reset just before each main path and read just after,
 prove that the path went through its kernels; after each path the group
@@ -518,12 +539,13 @@ K5K7_ENTRIES = ("traced_rows_kernel", "c2x_kernel", "c2x_reduce_dcp")
 K6_ENTRIES = ("mi_penalty_xi_kernel", "mi_penalty_xi_fwd_kernel")
 K9_ENTRIES = ("vm_value", "vm_vjp_elements", "vm_gather", "vm_rows")
 K10_ENTRIES = ("patch_assemble_kernel", "pair_assemble_kernel")
+K13_ENTRIES = ("diag_inv_kernel", "subst_vec_kernel", "subst_multi_kernel")
 REDESIGNED = K1K2_ENTRIES + K8K11_ENTRIES + K5K7_ENTRIES + K6_ENTRIES + \
-    K9_ENTRIES + K10_ENTRIES + (
+    K9_ENTRIES + K10_ENTRIES + K13_ENTRIES + (
     "jet_matvec", "cell_box_kernel", "cull_kernel", "pair_list_kernel",
     "pair_hess_kernel", "jet_assemble_kernel")
 REDESIGNED_NO_SPILL = K1K2_ENTRIES + K8K11_ENTRIES + K5K7_ENTRIES + \
-    K6_ENTRIES + K9_ENTRIES + K10_ENTRIES + (
+    K6_ENTRIES + K9_ENTRIES + K10_ENTRIES + K13_ENTRIES + (
     "cell_box_kernel", "cull_kernel", "pair_list_kernel", "pair_hess_kernel",
     "jet_assemble_kernel")
 
@@ -625,6 +647,12 @@ KERNELS = [
      "goldfish_tpu/physics/contact.py:79"),
     ("contact_pairs/design_fwd", "goldfish_tpu_torch/csrc/contact_pairs.cu",
      "goldfish_tpu/operations/disp_imop.py:68"),
+    ("chol_subst/vec", "goldfish_tpu_torch/csrc/chol_subst.cu",
+     "goldfish_tpu/solver/tpu_cholesky.py:205"),
+    ("chol_subst/multi", "goldfish_tpu_torch/csrc/chol_subst.cu",
+     "goldfish_tpu/solver/tpu_cholesky.py:235"),
+    ("chol_subst/diag_inv", "goldfish_tpu_torch/csrc/chol_subst.cu",
+     "goldfish_tpu/solver/tpu_cholesky.py:177"),
 ]
 WING_KERNELS = ("shell_qp/value_grad", "shell_qp/hess", "shell_qp/adjoint",
                 "penalty_qp/value_grad", "penalty_qp/hess",
@@ -1167,7 +1195,7 @@ def phase_main_path(sys_, dev):
     say(f"[main] refactor_log {fac.refactor_log}")
     say(f"[main] cert_log tail {fac.cert_log[-16:]}")
     say(f"[main] launch counts {counts}")
-    missing = [k for k in WING_KERNELS if counts[k] == 0]
+    missing = [k for k in WING_KERNELS + CHOL if counts[k] == 0]
     if missing:
         raise RuntimeError(f"kernels never launched on the main path: "
                            f"{missing}")
@@ -1718,7 +1746,8 @@ def phase_mi_main(sys_, dev):
     say(f"[mi] cert_log tail {fac.cert_log[-16:]}")
     say(f"[mi] launch counts {counts}")
     say_route("mi", sys_.c2x, counts)
-    missing = [k for k in MI_PATH_KERNELS if counts[k] == 0]
+    missing = [k for k in MI_PATH_KERNELS + CHOL + ("chol_subst/multi",)
+               if counts[k] == 0]
     if missing:
         raise RuntimeError(f"kernels never launched on the MI path: "
                            f"{missing}")
@@ -1753,12 +1782,12 @@ def tube_state(sys_, seed=6):
 def time_library(tag, fac, c2x=None, reps=3):
     """The library calls of a path at its size, with CUDA events: potrf
     (`cholesky_ex` of the equilibrated K at the factor's reference state),
-    one-RHS `cholesky_solve`, and on an MI path the Woodbury capacitance
+    K13 at that factor against `cholesky_solve` and the rest
+    (`phase_k13`), and on an MI path the Woodbury capacitance
     `linalg.solve` (M x M, M right-hand sides) and the batched xi
     `linalg.solve` (I systems of 4N). Bounds: potrf N^3/3 and LU 2M^3/3 +
     2M^3 (M right-hand sides) f64 operations over the f64 tensor-core rate;
-    the substitution two passes over the factor, N^2 8 bytes each, over the
-    memory rate; the xi solves the larger of their operations and bytes."""
+    the xi solves the larger of their operations and bytes."""
     K = fac._assemble(fac._ref)
     dsc = torch.rsqrt(K.diagonal().abs() + 1e-300)
     K.mul_(dsc[:, None]).mul_(dsc[None, :])
@@ -1768,19 +1797,15 @@ def time_library(tag, fac, c2x=None, reps=3):
                  ms=cuda_ms(lambda: torch.linalg.cholesky_ex(K), reps),
                  bound_ms=N ** 3 / 3 / PEAK_F64_TC * 1e3,
                  bound_by="operations")]
-    del K
-    b = torch.randn(N, 1, dtype=torch.float64, device=L.device)
-    rows.append(dict(name="cholesky_solve", path=tag, n=N,
-                     ms=cuda_ms(lambda: torch.cholesky_solve(b, L), 10),
-                     bound_ms=2 * N * N * 8 / PEAK_BYTES * 1e3,
-                     bound_by="bytes"))
-    del L
+    phase_k13(tag, K, L, dsc, fac)
+    dev = L.device
+    del K, L
     M = getattr(fac, "_M", None)
     if M:
         g = torch.Generator(device="cpu").manual_seed(7)
         Cm = (torch.eye(M, dtype=torch.float64) + 0.01 * torch.randn(
-            M, M, dtype=torch.float64, generator=g) / M ** 0.5).to(b.device)
-        B = torch.randn(M, M, dtype=torch.float64, generator=g).to(b.device)
+            M, M, dtype=torch.float64, generator=g) / M ** 0.5).to(dev)
+        B = torch.randn(M, M, dtype=torch.float64, generator=g).to(dev)
         rows.append(dict(name="capacitance linalg.solve", path=tag, n=M,
                          ms=cuda_ms(lambda: torch.linalg.solve(Cm, B), reps),
                          bound_ms=(2 * M ** 3 / 3 + 2 * M ** 3) / PEAK_F64_TC
@@ -1801,6 +1826,232 @@ def time_library(tag, fac, c2x=None, reps=3):
     for row in rows:
         say(f"[library] {json.dumps(row)}")
     return rows
+
+
+# ------------------------------------------------------------ K13
+_CHOLESKY_SOLVE = torch.cholesky_solve
+_LIBRARY = [0]
+
+
+class library_calls:
+    """Inside: torch.cholesky_solve may run on CUDA tensors (the smoke's
+    yardsticks and K13's plain version); outside, the guard raises."""
+
+    def __enter__(self):
+        _LIBRARY[0] += 1
+
+    def __exit__(self, *exc):
+        _LIBRARY[0] -= 1
+
+
+def guard_cholesky_solve():
+    """From here on a torch.cholesky_solve on a CUDA tensor outside
+    `library_calls` raises: the port's main paths solve on K13 only."""
+
+    def guarded(B, L, *args, **kw):
+        if (B.is_cuda or L.is_cuda) and not _LIBRARY[0]:
+            raise RuntimeError("torch.cholesky_solve ran on a CUDA tensor "
+                               "on a main path: K13 must take every "
+                               "Cholesky solve")
+        return _CHOLESKY_SOLVE(B, L, *args, **kw)
+
+    torch.cholesky_solve = guarded
+
+
+# K13's checks over the factors (the first, wing20's, gives the kernels
+# line's times; the others add theirs as *_<path>), and the phase's seconds
+K13 = {}
+K13_SECONDS = [0.0]
+K13_BWD = 4.0    # backward error of the kernel <= K13_BWD x the plain's
+K13_WELL = 1e-12  # kernel vs plain at a well-conditioned SPD matrix
+# the kernels line's paths whose factors K13 meets
+CHOL = ("chol_subst/vec",)
+
+
+def chol_needed(counts):
+    """The K13 launches a counted path must show: every path that made a
+    Cholesky factor on the card (K13's inverses ran) must have solved on
+    it through K13."""
+    return CHOL if counts.get("chol_subst/diag_inv") else ()
+
+
+def bwd_err(K, X, B, nK):
+    """||K X - B|| / (||K|| ||X||), Frobenius norms (nK = ||K||)."""
+    return float(torch.linalg.norm(K @ X - B) / (nK * torch.linalg.norm(X)))
+
+
+def phase_k13(tag, K, L, dsc, fac, reps=5):
+    """K13 at one path's factor (K the equilibrated tangent, L its
+    cuSOLVER factor): the diagonal blocks' inverses, one column at three
+    seeded right-hand sides, and at an MI factor the Woodbury basis
+    (N x M one-hot), each against its plain version. Gates: the backward
+    error of the equilibrated system ||K x - b|| / (||K|| ||x||) (the
+    inverses': ||L_kk Z - I|| / (||L_kk|| ||Z||) over the blocks) <=
+    K13_BWD x the plain version's; the same bits over two launches; and
+    at a well-conditioned SPD matrix of the same N (A A^T / N + I, A
+    seeded) the kernel within K13_WELL of the plain version. Times with
+    the L2 flushed before each launch (CUDA events, median of `reps`):
+    the kernel, the plain version, `cholesky_solve` (its copy of the
+    factor included) and the `solve_triangular` pair, the library route
+    without the copy; none of them runs on a main path."""
+    from goldfish_tpu_torch.solver import cholesky as ch
+
+    t0 = time.perf_counter()
+    N = K.shape[0]
+    dev = K.device
+    nK = torch.linalg.norm(K)
+    g = torch.Generator(device="cpu").manual_seed(N)
+
+    def pair(B):
+        y = torch.linalg.solve_triangular(L, B, upper=False)
+        return torch.linalg.solve_triangular(L.mT, y, upper=True)
+
+    def bits(fn):
+        a, b = fn(), fn()
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            raise RuntimeError(f"K13 {tag}: two launches differ")
+        return a
+
+    # the diagonal blocks' inverses
+    invs = bits(lambda: ch.diag_inverses(L))
+    plain = ch.diag_inverses_plain(L)
+    nb = invs.shape[0]
+    blocks = torch.stack([L[k * ch.NB:(k + 1) * ch.NB,
+                            k * ch.NB:(k + 1) * ch.NB] for k in
+                          range(nb - 1)]) if nb > 1 else None
+    eye = torch.eye(ch.NB, dtype=L.dtype, device=dev).expand(
+        max(nb - 1, 1), ch.NB, ch.NB)
+
+    def inv_bwd(Z):
+        if blocks is None:
+            return 0.0
+        Zt = Z[:nb - 1].transpose(1, 2)
+        return float(torch.linalg.norm(blocks @ Zt - eye)
+                     / (torch.linalg.norm(blocks) * torch.linalg.norm(Zt)))
+
+    e_k, e_p = inv_bwd(invs), inv_bwd(plain)
+    rel, mx = rel_err(invs, plain)
+    got = dict(rel=rel, max_abs_err=mx, bwd=e_k, bwd_plain=e_p,
+               ms=cuda_ms_cold(lambda: ch.diag_inverses(L), reps),
+               plain_ms=cuda_ms_cold(lambda: ch.diag_inverses_plain(L), 2),
+               library_ms=(cuda_ms_cold(lambda: torch.linalg.solve_triangular(
+                   blocks, eye, upper=False), reps)
+                   if blocks is not None else None))
+    got["ms_solve_triangular"] = got["library_ms"] or 0.0
+    tri = nb * ch.NB * (ch.NB + 1) // 2
+    got["bound_ms"], got["bound_by"] = bound(
+        8 * (tri + nb * ch.NB * ch.NB), nb * ch.NB ** 3 / 3)
+    say(f"[k13 {tag}] diag_inv rel {rel:.3e} backward error {e_k:.3e} "
+        f"(plain {e_p:.3e}) kernel {got['ms']:.4f} ms plain "
+        f"{got['plain_ms']:.4f} ms solve_triangular "
+        f"{got['library_ms'] or 0.0:.4f} ms bound {got['bound_ms']:.4f} ms "
+        f"({got['bound_by']})")
+    if not e_k <= K13_BWD * e_p + 1e-300:
+        raise RuntimeError(f"K13 {tag}: diag_inv backward error {e_k:.3e} "
+                           f"> {K13_BWD:g} x {e_p:.3e}")
+    merge(K13, "chol_subst/diag_inv", got, tag if K13 else None)
+    del plain, blocks, eye
+
+    # one column: three seeded right-hand sides
+    ratios, mx = [], 0.0
+    with library_calls():
+        for i in range(3):
+            b = torch.randn(N, 1, dtype=torch.float64, generator=g).to(dev)
+            x = bits(lambda: ch.chol_solve(L, dsc, b, invs))
+            xp = ch.chol_solve_plain(L, dsc, b)
+            ek, ep = bwd_err(K, x / dsc[:, None], dsc[:, None] * b, nK), \
+                bwd_err(K, xp / dsc[:, None], dsc[:, None] * b, nK)
+            ratios.append(ek / ep)
+            mx = max(mx, rel_err(x, xp)[1])
+            say(f"[k13 {tag}] vec b{i}: backward error {ek:.3e} (plain "
+                f"{ep:.3e}, ratio {ek / ep:.2f}); x rel "
+                f"{rel_err(x, xp)[0]:.3e}")
+            if not ek <= K13_BWD * ep:
+                raise RuntimeError(f"K13 {tag}: backward error {ek:.3e} > "
+                                   f"{K13_BWD:g} x the plain version's "
+                                   f"{ep:.3e}")
+        got = dict(rel=max(ratios), max_abs_err=mx, bwd_ratio=max(ratios),
+                   ms=cuda_ms_cold(lambda: ch.chol_solve(L, dsc, b, invs),
+                                   reps),
+                   plain_ms=cuda_ms_cold(lambda: ch.chol_solve_plain(L, dsc,
+                                                                     b),
+                                         reps),
+                   library_ms=cuda_ms_cold(lambda: torch.cholesky_solve(b, L),
+                                           reps),
+                   ms_solve_triangular=cuda_ms_cold(lambda: pair(b), reps))
+        got["ms_cholesky_solve"] = got["library_ms"]
+    # bytes: the lower triangle, dsc, b and invs read once, x written once;
+    # the two sweeps' own count (the triangle twice) beside it
+    tri = N * (N + 1) // 2
+    got["bound_ms"], got["bound_by"] = bound(
+        8 * (tri + 3 * N + invs.numel()), 2 * N * N)
+    got["bound_ms_two_sweeps"] = 2 * tri * 8 / PEAK_BYTES * 1e3
+    say(f"[k13 {tag}] vec N={N}: kernel {got['ms']:.4f} ms plain "
+        f"{got['plain_ms']:.4f} ms cholesky_solve {got['library_ms']:.4f} ms"
+        f" solve_triangular pair {got['ms_solve_triangular']:.4f} ms bound "
+        f"{got['bound_ms']:.4f} ms ({got['bound_by']}; two sweeps "
+        f"{got['bound_ms_two_sweeps']:.4f})")
+    merge(K13, "chol_subst/vec", got, tag if "chol_subst/vec" in K13
+          else None)
+
+    # a well-conditioned SPD matrix of the same N
+    A = torch.randn(N, N, dtype=torch.float64, generator=g).to(dev)
+    Kw = A @ A.T / N + torch.eye(N, dtype=torch.float64, device=dev)
+    del A
+    Lw = torch.linalg.cholesky_ex(Kw)[0]
+    del Kw
+    one = torch.ones(N, dtype=torch.float64, device=dev)
+    bw = torch.randn(N, 1, dtype=torch.float64, generator=g).to(dev)
+    with library_calls():
+        ew = rel_err(ch.chol_solve(Lw, one, bw, ch.diag_inverses(Lw)),
+                     ch.chol_solve_plain(Lw, one, bw))[0]
+    say(f"[k13 {tag}] well-conditioned N={N}: kernel vs plain rel {ew:.3e} "
+        f"(gate {K13_WELL:g})")
+    if not ew <= K13_WELL:
+        raise RuntimeError(f"K13 {tag}: well-conditioned rel {ew:.3e}")
+    del Lw
+
+    # the Woodbury basis W = K^-1 U^T of an MI factor
+    M = getattr(fac, "_M", None)
+    if M and fac.kind == "cholesky":
+        U = torch.zeros(N, M, dtype=torch.float64, device=dev)
+        U[fac._urows, torch.arange(M, device=dev)] = 1.0
+        with library_calls():
+            W = bits(lambda: ch.chol_solve(L, dsc, U, invs))
+            Wp = ch.chol_solve_plain(L, dsc, U)
+            ek, ep = bwd_err(K, W / dsc[:, None], dsc[:, None] * U, nK), \
+                bwd_err(K, Wp / dsc[:, None], dsc[:, None] * U, nK)
+            rel, mx = rel_err(W, Wp)
+            del W, Wp
+            got = dict(rel=ek / ep, max_abs_err=mx, bwd_ratio=ek / ep,
+                       ms=cuda_ms_cold(lambda: ch.chol_solve(L, dsc, U, invs),
+                                       3),
+                       plain_ms=cuda_ms_cold(
+                           lambda: ch.chol_solve_plain(L, dsc, U), 3),
+                       library_ms=cuda_ms_cold(
+                           lambda: torch.cholesky_solve(U, L), 3),
+                       ms_solve_triangular=cuda_ms_cold(lambda: pair(U), 3))
+            got["ms_cholesky_solve"] = got["library_ms"]
+        got["bound_ms"], got["bound_by"] = bound(
+            8 * (tri + 2 * N * M + N + invs.numel()), 2 * N * N * M,
+            PEAK_F64_TC)
+        say(f"[k13 {tag}] multi N={N} M={M}: backward error {ek:.3e} "
+            f"(plain {ep:.3e}, ratio {ek / ep:.2f}); W rel {rel:.3e}; kernel "
+            f"{got['ms']:.3f} ms plain {got['plain_ms']:.3f} ms "
+            f"cholesky_solve {got['library_ms']:.3f} ms solve_triangular "
+            f"pair {got['ms_solve_triangular']:.3f} ms bound "
+            f"{got['bound_ms']:.3f} ms ({got['bound_by']})")
+        if not ek <= K13_BWD * ep:
+            raise RuntimeError(f"K13 {tag}: multi backward error {ek:.3e} > "
+                               f"{K13_BWD:g} x {ep:.3e}")
+        merge(K13, "chol_subst/multi", got, tag if "chol_subst/multi" in K13
+              else None)
+        del U
+    torch.cuda.empty_cache()
+    K13_SECONDS[0] += time.perf_counter() - t0
+    say(f"[k13 {tag}] {time.perf_counter() - t0:.1f} s (phase so far "
+        f"{K13_SECONDS[0]:.1f} s)")
 
 
 def cold_gradient(obj, name, x0, sys_, dev):
@@ -1941,7 +2192,7 @@ def phase_om_mi(dev, ref):
     say(f"[om-mi] xi route {s.c2x.route} (seams of {s.mi.n_max} points); "
         f"K7 launches "
         f"{ {k: counts[k] for k in counts if k.startswith('c2x_res_jac/')} }")
-    check_counts("om-mi", counts, OM_MI_KERNELS)
+    check_counts("om-mi", counts, OM_MI_KERNELS + CHOL)
 
     want = ref["driver"]
     res, w1 = om_driver("om-mi", prob, fac, W, w0)
@@ -2290,7 +2541,8 @@ def say_route(tag, c2x, counts):
 
 def check_counts(tag, counts, needed):
     say(f"[{tag}] launch counts {counts}")
-    missing = [k for k in needed if counts[k] == 0]
+    missing = [k for k in tuple(needed) + chol_needed(counts)
+               if counts[k] == 0]
     if missing:
         raise RuntimeError(f"kernels never launched on the {tag} path: "
                            f"{missing}")
@@ -2362,7 +2614,7 @@ def phase_tube_fixed(dev, checks, ref):
         f"{ns.solve.solver.last_its}")
     if slack < -1e-8:
         raise RuntimeError(f"tube: regu constraint broken ({slack:.3e})")
-    check_counts("tube", counts, TUBE_KERNELS)
+    check_counts("tube", counts, TUBE_KERNELS + CHOL)
     return counts, fac
 
 
@@ -2410,7 +2662,7 @@ def phase_tube_mi(dev, checks, ref):
     say(f"[tube-mi] xi-newton its of the last solve {s.c2x.last_its}; "
         f"seam subspace M {fac._M}; newton its "
         f"{ns.forward.solve_d.solver.last_its}")
-    check_counts("tube-mi", counts, TUBE_MI_KERNELS)
+    check_counts("tube-mi", counts, TUBE_MI_KERNELS + CHOL)
     say_route("tube-mi", s.c2x, counts)
     return counts, fac, s.c2x
 
@@ -2626,7 +2878,7 @@ def phase_plate(dev, checks, ref):
     if missed or not np.isfinite(out.s1):
         raise RuntimeError(f"plate SLSQP misses {missed} (the reference "
                            f"meets them)")
-    check_counts("plate", counts, PLATE_KERNELS)
+    check_counts("plate", counts, PLATE_KERNELS + CHOL)
     # the plate graph's check_partials (phase 6e's counted design run on the
     # plate): the JAX test's bars, rel < 5e-5 at step 1e-7, zero blocks abs
     # < 1e-8 (tests/test_om_adapters.py:43-58), at SLSQP's end state
@@ -3257,7 +3509,7 @@ def phase_pegasus_dense(dev, ref):
     say(f"[pegasus-dense] warm median {float(np.median(warm)):.3f} s; "
         f"n_factor {fac.n_factor} (failed {fac.n_factor_failed}); "
         f"refactor_log {fac.refactor_log}")
-    check_counts("pegasus-dense", counts, WING_KERNELS)
+    check_counts("pegasus-dense", counts, WING_KERNELS + CHOL)
     return counts, fac
 
 
@@ -3938,7 +4190,7 @@ def phase_press(dev, checks, ref, got16):
             and out["mid"] < -0.02 and out["fd_rel"] < 1e-5
             and bool(torch.isfinite(out["g"]).all())):
         raise RuntimeError("press32 misses tests/test_contact.py's criteria")
-    check_counts("press", counts, PRESS_KERNELS)
+    check_counts("press", counts, PRESS_KERNELS + CHOL)
     library = time_library("press32", fac)
     for name, case in check_contact(s, out["d"],
                                     "contact-kernel press32").items():
@@ -4983,7 +5235,8 @@ def phase_sharded(dev):
     and one warm 1e-4 step (against the same step unsharded here); (b)
     `dryrun_multichip(2)` on this card: two rank processes, gloo on CUDA
     tensors, the reference's three legs and the full-width wing, each
-    against the unsharded leg (J 1e-9, dJ 1e-6), every rank launching K1-K4.
+    against the unsharded leg (J 1e-9, dJ 1e-6), every rank launching K1-K4
+    and K13.
     Returns the launch counts of both parts."""
     import datetime
     import tempfile
@@ -5054,8 +5307,8 @@ def phase_sharded(dev):
             for k, n in c.items():
                 counts[k] += n
             say(f"[sharded] {name} rank {rank} launches "
-                f"{ {k: c[k] for k in K1_TO_K4} }")
-            missing = [k for k in K1_TO_K4 if c[k] == 0]
+                f"{ {k: c[k] for k in K1_TO_K4 + CHOL} }")
+            missing = [k for k in K1_TO_K4 + CHOL if c[k] == 0]
             if missing:
                 raise RuntimeError(f"{name}: rank {rank} never launched "
                                    f"{missing}")
@@ -5069,6 +5322,7 @@ def main():
     t_start = time.perf_counter()
     dev = phase_device()
     phase_build()
+    guard_cholesky_solve()
     phase_k2_bits(dev)
     record_k4_shapes()
     from goldfish_tpu_torch.models import tbeam, wing
@@ -5176,7 +5430,7 @@ def main():
     d_wide = phase_vlm_wide(coupled["wing20"], ref_vlm["wing20"])
     counts_vlm = dict(_cuda.launch_counts)
     say_shapes("vlm")
-    check_counts("vlm", counts_vlm, VLM_KERNELS)
+    check_counts("vlm", counts_vlm, VLM_KERNELS + CHOL)
     coupled["demo"] = demo.build_coupled(**VLM_DEMO, device=dev)
     phase_vlm_kernels(coupled, checks)
     library += time_aic_solve(coupled["wing20"][0], d_wide)
@@ -5236,7 +5490,9 @@ def main():
     say(f"[contact-routes] phases 33-34 {time.perf_counter() - t0:.1f} s")
     counts_sh = phase_sharded(dev)
 
-    paths = {"wing": (counts, WING_KERNELS), "mi": (counts_mi, None),
+    paths = {"wing": (counts, WING_KERNELS + CHOL
+                      + ("chol_subst/diag_inv",)),
+             "mi": (counts_mi, None),
              "om_mi": (counts_om_mi, None),
              "evtol_mi": (counts_evtol, None),
              "tube_om_mi": (counts_tube_om, None),
@@ -5258,6 +5514,8 @@ def main():
              **{k: (c, None) for k, c in counts_csdl.items()},
              **{k: (c, None) for k, c in counts_demos.items()},
              **{k: (c, None) for k, c in DESIGN_COUNTS.items()}}
+    checks.update(K13)
+    say(f"[k13] phase {K13_SECONDS[0]:.1f} s over the factors")
     record = {"kernels": []}
     for name, src, rep in KERNELS:
         per = {f"launches_{p}": (c.get(name, 0) if keep is None
@@ -5271,7 +5529,8 @@ def main():
              "max_abs_err": checks[name]["max_abs_err"],
              "ms": checks[name]["ms"], "plain_ms": checks[name]["plain_ms"],
              "bound_ms": checks[name]["bound_ms"],
-             "bound_by": checks[name]["bound_by"], "library_ms": None,
+             "bound_by": checks[name]["bound_by"],
+             "library_ms": checks[name].get("library_ms"),
              **{k: v for k, v in checks[name].items()
                 if k.startswith(("ms_", "plain_ms_", "bound_ms_"))}})
     say(json.dumps({"library": library}))

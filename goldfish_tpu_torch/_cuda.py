@@ -53,7 +53,8 @@ COUNTERS = ("shell_qp/value_grad", "shell_qp/hess", "shell_qp/adjoint",
             "vlm_aic/value", "vlm_aic/vjp",
             "contact_pairs/cull", "contact_pairs/value_grad",
             "contact_pairs/hvp", "contact_pairs/hess",
-            "contact_pairs/design_fwd")
+            "contact_pairs/design_fwd",
+            "chol_subst/vec", "chol_subst/multi", "chol_subst/diag_inv")
 launch_counts: dict[str, int] = {k: 0 for k in COUNTERS}
 _lib = None
 build_info: dict = {}
@@ -78,6 +79,9 @@ _SIGNATURES = {
     "gf_contact_cull": [_P] * 9 + [_I] * 4 + [_P],
     "gf_contact_pairs": [_I] + [_P] * 18 + [_I] * 5 + [ctypes.c_longlong,
                                                        _P],
+    "gf_chol_diag_inv": [_P] * 2 + [_I] * 2 + [_P],
+    "gf_chol_subst": [_P] * 6 + [_I] * 2 + [_P],
+    "gf_chol_subst_multi": [_P] * 8 + [_I] * 5 + [_P],
 }
 
 

@@ -5,8 +5,9 @@ Port of `__graft_entry__.entry`: `entry()` returns `(fn, example_args)`,
 4-patch wing (`wing.build(n_chord=2, n_span=2, num_el=2, p=2)`): the
 residual, the tangent K (the shell and penalty jet Hessians, kernel K1 and
 K2 mode b, assembled by K3), the Cholesky solve of the diagonally
-equilibrated K, and the update masked to the free dofs. It is the
-per-iteration step of the hot loop, on the card by default.
+equilibrated K (cuSOLVER's factor, K13's substitution), and the update
+masked to the free dofs. It is the per-iteration step of the hot loop, on
+the card by default.
 
     from goldfish_tpu_torch.entry import entry
     fn, args = entry()
@@ -32,6 +33,7 @@ __all__ = ["entry", "newton_update", "dryrun_multichip"]
 @torch.no_grad()
 def newton_update(data, cp, h, d):
     """(d_new, |r|): d_new = d + free * K^-1 (-r) at d."""
+    from goldfish_tpu_torch.solver.cholesky import chol_solve, diag_inverses
     from goldfish_tpu_torch.solver.system import assemble_K, residual
 
     r = residual(data, d, cp, h)
@@ -41,8 +43,7 @@ def newton_update(data, cp, h, d):
     if int(info) != 0:
         raise RuntimeError(f"the tangent is not positive definite "
                            f"(cholesky_ex info {int(info)})")
-    b = -r.reshape(-1, 1)
-    delta = s[:, None] * torch.cholesky_solve(s[:, None] * b, L)
+    delta = chol_solve(L, s, -r.reshape(-1, 1), diag_inverses(L))
     d_new = d + delta.reshape(r.shape) * data.free
     return d_new, torch.linalg.norm(r)
 

@@ -6,9 +6,11 @@ Port of goldfish_tpu/solver/devicechol.py (`PersistentDeviceFactor`):
   1. the dense BC-reduced f64 tangent K(d) is assembled from the jet
      Hessians (kernels K1/K2 mode (b) + K3);
   2. Jacobi equilibration D K D, D = diag(K)^(-1/2), then
-     `torch.linalg.cholesky_ex` (cuSOLVER potrf on the card), or, for a
+     `torch.linalg.cholesky_ex` (cuSOLVER potrf on the card) and the
+     inverses of its diagonal blocks (K13's factor-time kernel), or, for a
      factor made with kind="lu", `torch.linalg.lu_factor_ex` (getrf);
-  3. substitutions with `torch.cholesky_solve` (`lu_solve`); iterative
+  3. substitutions with K13 (solver/cholesky.chol_solve: the factor read
+     in place, the equilibration folded in) or `lu_solve`; iterative
      refinement
      x += K_fac^-1 (b - K(d) x) whose matvec is the EXACT tangent product
      at the current state (kernel K4 on jet Hessians recomputed once per
@@ -47,6 +49,7 @@ import warnings
 
 import torch
 
+from goldfish_tpu_torch.solver.cholesky import chol_solve, diag_inverses
 from goldfish_tpu_torch.solver.system import (
     SystemData,
     agree,
@@ -94,6 +97,7 @@ class PersistentDeviceFactor:
         self.rho_est = self._RHO0
         self._ref = None         # solver state at factor time
         self._L = None           # Cholesky factor, or (LU, pivots)
+        self._invs = None        # its diagonal blocks' inverses (K13)
         self._dscale = None
         self.factor_ok = False
         self.n_factor = 0
@@ -142,10 +146,10 @@ class PersistentDeviceFactor:
 
     def _fac_solve(self, B):
         """K_fac^-1 B for B (N, k) through the equilibrated factor."""
-        dsc = self._dscale[:, None]
         if self.kind == "lu":
+            dsc = self._dscale[:, None]
             return dsc * torch.linalg.lu_solve(*self._L, dsc * B)
-        return dsc * torch.cholesky_solve(dsc * B, self._L)
+        return chol_solve(self._L, self._dscale, B, self._invs)
 
     def _subst(self, b):
         """K_fac^-1 b (the preconditioner of every refinement sweep)."""
@@ -179,6 +183,7 @@ class PersistentDeviceFactor:
             self.n_factor_failed += 1
             self.failed_info.append(int(info))
             why += "/indefinite"
+        self._invs = diag_inverses(L) if self.kind == "cholesky" else None
         self._L, self._dscale = L, dsc
         self._ref = s
         self.n_factor += 1

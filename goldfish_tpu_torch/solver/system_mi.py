@@ -24,7 +24,7 @@ subspace (M dofs) and dK_m the current-minus-reference interface stiffness
 on it, is applied by Woodbury:
 
     P^-1 r = s - V (U s),   s = K_ref^-1 r,   V = W C^-1 dK_m,
-    W = K_ref^-1 U^T (one multi-RHS cholesky_solve per factorization),
+    W = K_ref^-1 U^T (one multi-RHS substitution per factorization, K13),
     C = I + dK_m U W   (solved directly in f64 per design step),
 
 with dK_m assembled by K3 through a map from global dofs to seam slots

@@ -193,6 +193,23 @@ def _calls(data, d, cp, h, lam, v):
     }
 
 
+def _chol_calls(data, d, cp, h):
+    """K13's wrappers (one column, two columns, the diagonal blocks'
+    inverses) on the equilibrated factor of the wing's K at d."""
+    from goldfish_tpu_torch.solver import cholesky, system
+
+    K = system.assemble_K(data, d, cp, h)
+    dsc = torch.rsqrt(K.diagonal().abs())
+    L = torch.linalg.cholesky_ex(dsc[:, None] * K * dsc[None, :])[0]
+    b = d.reshape(-1, 1)
+    return {
+        "chol_subst/vec": lambda: cholesky.chol_solve(L, dsc, b),
+        "chol_subst/multi": lambda: cholesky.chol_solve(
+            L, dsc, torch.cat([b, 2.0 * b], 1)),
+        "chol_subst/diag_inv": lambda: cholesky.diag_inverses(L),
+    }
+
+
 def test_cpu_tensors_take_the_plain_path():
     from goldfish_tpu_torch import _cuda
     from goldfish_tpu_torch.models import tbeam
@@ -204,6 +221,7 @@ def test_cpu_tensors_take_the_plain_path():
     calls.update(_mi_calls(s, *_mi_inputs(s, t)))
     calls.update(_vlm_calls(*_vlm_inputs(t)))
     calls.update(_contact_calls("cpu"))
+    calls.update(_chol_calls(port_data(), t(d), t(cp), t(h)))
     assert set(calls) == set(_cuda.COUNTERS)
     for fn in calls.values():
         fn()
