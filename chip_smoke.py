@@ -12,13 +12,17 @@ Phases (any failure raises: non-zero exit, no result line):
    K1's four modes, K2's three, every K4 instantiation, K12's cull and
    work kernels, every K3 instantiation, K8's three, K11's two, K5 and
    K7's four modes and its cross-intersection sum, K6, K9's value, VJP,
-   gather and rows kernels (it fails if any of K1, K2, K12, K3, K8, K11, K5,
-   K7, K6 or K9 spills, or K5, K7 or K6 has a stack frame); then K2's
+   gather and rows kernels, K13's three and K14's three (it fails if any of
+   K1, K2, K12, K3, K8, K11, K5, K7, K6, K9, K10, K13 or K14 spills, or K5,
+   K7 or K6 has a stack frame); then K2's
    three modes on the small wing's interface stack unrolled so that no two
    qps share a node (no two atomics meet) against the outputs the parent
    tree's K2 gave on the card, bit for bit (`[kernel K2 bits]`, sha256 in
    tests/data/torch_port_k2_bits.json: the extended penalty_sweep.cuh
-   must leave K2 as it was);
+   must leave K2 as it was), and K13's outputs at seeded inputs against
+   the parent tree's, bit for bit (`[kernel K13 bits]`,
+   tests/data/torch_port_k13_bits.json: the pieces moved into
+   csrc/chol_blocks.cuh for K14 must leave K13 as it was);
 3. wing kernels: at the full 20-patch wing (6600 dofs) on the card, at a
    seeded nonzero d, K1 shell_qp and K2 penalty_qp in their three modes
    and their forward design-tangent modes (K1 mode 4, K2 mode 3, along a
@@ -166,9 +170,18 @@ Phases (any failure raises: non-zero exit, no result line):
    totals against the reference's sibling numbers;
 12. library calls: cholesky_ex, the Woodbury capacitance linalg.solve and
    the batched xi linalg.solve at each path's size, timed with CUDA events
-   beside their bounds; and, at the same factor, K13
-   (`phase_k13`, `[k13 <path>]` lines, at wing20, the MI T-beam, both
-   tubes, plate32, pegasus-91 and press32): K13 chol_subst's inverses of
+   beside their bounds; at the same equilibrated K, K14 (`phase_k14`,
+   `[k14 <path>]` lines, at wing20, the MI T-beam, both tubes, plate32,
+   pegasus-91 and press32) against cholesky_ex: the factor's backward
+   error ||K - L L^T|| / ||K|| within 4x cholesky_ex's, the same bits over
+   two launches, `info` equal (also with one diagonal entry negated), at
+   a well-conditioned SPD matrix of the same N L within 1e-12 of
+   cholesky_ex's, K14's diagonal inverses against `diag_inverses` of its
+   factor (backward error within 4x), its times with the L2 flushed beside
+   the plain version's, cholesky_ex's and the bound, and the peak memory
+   of one factorization beside cholesky_ex's; then, on K14's factor and
+   inverses, K13
+   (`phase_k13`, `[k13 <path>]` lines): K13 chol_subst's inverses of
    the diagonal blocks and its one-column substitution at three seeded
    right-hand sides, at an MI factor also its M-column substitution of
    the Woodbury basis K^-1 U^T, each against its plain version: the
@@ -322,13 +335,14 @@ Wherever K3 is checked, the smoke prints its groups, the runs of equal dof
 maps it sums before adding (`jet_runs`) and the atomics into K one per
 group (the design before the runs) and one per run.
 
-From the build on, torch.cholesky_solve on a CUDA tensor raises outside
-the yardsticks and K13's plain version (`guard_cholesky_solve`): every
-Cholesky solve of a main path goes through K13, and every path that made a
-Cholesky factor on the card (K13's inverses ran) must show K13's
-one-column launches (`chol_needed`); the wing, MI, tube, plate, pegasus
-dense, press, VLM and sharded paths must show them in any case, the MI
-path also the Woodbury basis's.
+From the build on, torch.cholesky_solve and torch.linalg.cholesky_ex on a
+CUDA tensor raise outside the yardsticks and the plain versions
+(`guard_cholesky_solve`, `guard_cholesky_ex`): every Cholesky factor of a
+main path is K14's and every Cholesky solve goes through K13; every path
+that made a Cholesky factor on the card must show K14's launches and
+K13's one-column launches (`chol_needed`); the wing, MI, tube, plate,
+pegasus dense, press, VLM and sharded paths must show them in any case,
+the MI path also the Woodbury basis's.
 
 Launch counters, reset just before each main path and read just after,
 prove that the path went through its kernels; after each path the group
@@ -389,6 +403,9 @@ PEG = dict(n_sections=18, num_el=3, p=3)   # the reference's full box wing
 # sha256 of K2's outputs on the card at `k2_bits`' input, as the parent
 # tree of the extended penalty_sweep.cuh gave them
 K2_BITS = os.path.join(ROOT, "tests", "data", "torch_port_k2_bits.json")
+# sha256 of K13's outputs on the card at `k13_bits`' input, as the parent
+# tree of the shared csrc/chol_blocks.cuh gave them
+K13_BITS = os.path.join(ROOT, "tests", "data", "torch_port_k13_bits.json")
 KERNEL_TOL = 1e-11
 STRESS_TOL = {"vm_stress_qp/value": 1e-12, "vm_stress_qp/vjp": 1e-11,
               "vm_stress_qp/rows": 1e-12}
@@ -528,7 +545,8 @@ def phase_build():
 # template `pressure_grad_block` is modes 0 and 2), K11's two, K5, K7's four
 # modes (the template `c2x_kernel`) and its cross-intersection sum, K6, K9's
 # value, VJP, gather and rows kernels, K10's two stages (each instantiated for 1
-# and 3 (l, m) pairs a thread)), and those of them that must not spill;
+# and 3 (l, m) pairs a thread), K13's three, K14's update, its split parts'
+# sum and its panel), and those of them that must not spill;
 # K5's, K7's and K6's also have no stack frame
 K1K2_ENTRIES = ("shell_value_grad", "shell_hess", "shell_adjoint",
                 "shell_geom_grad", "shell_design_jvp", "penalty_value_grad",
@@ -540,12 +558,13 @@ K6_ENTRIES = ("mi_penalty_xi_kernel", "mi_penalty_xi_fwd_kernel")
 K9_ENTRIES = ("vm_value", "vm_vjp_elements", "vm_gather", "vm_rows")
 K10_ENTRIES = ("patch_assemble_kernel", "pair_assemble_kernel")
 K13_ENTRIES = ("diag_inv_kernel", "subst_vec_kernel", "subst_multi_kernel")
+K14_ENTRIES = ("update_kernel", "reduce_kernel", "panel_kernel")
 REDESIGNED = K1K2_ENTRIES + K8K11_ENTRIES + K5K7_ENTRIES + K6_ENTRIES + \
-    K9_ENTRIES + K10_ENTRIES + K13_ENTRIES + (
+    K9_ENTRIES + K10_ENTRIES + K13_ENTRIES + K14_ENTRIES + (
     "jet_matvec", "cell_box_kernel", "cull_kernel", "pair_list_kernel",
     "pair_hess_kernel", "jet_assemble_kernel")
 REDESIGNED_NO_SPILL = K1K2_ENTRIES + K8K11_ENTRIES + K5K7_ENTRIES + \
-    K6_ENTRIES + K9_ENTRIES + K10_ENTRIES + K13_ENTRIES + (
+    K6_ENTRIES + K9_ENTRIES + K10_ENTRIES + K13_ENTRIES + K14_ENTRIES + (
     "cell_box_kernel", "cull_kernel", "pair_list_kernel", "pair_hess_kernel",
     "jet_assemble_kernel")
 
@@ -653,6 +672,8 @@ KERNELS = [
      "goldfish_tpu/solver/tpu_cholesky.py:235"),
     ("chol_subst/diag_inv", "goldfish_tpu_torch/csrc/chol_subst.cu",
      "goldfish_tpu/solver/tpu_cholesky.py:177"),
+    ("chol_factor", "goldfish_tpu_torch/csrc/chol_factor.cu",
+     "goldfish_tpu/solver/tpu_cholesky.py:139"),
 ]
 WING_KERNELS = ("shell_qp/value_grad", "shell_qp/hess", "shell_qp/adjoint",
                 "penalty_qp/value_grad", "penalty_qp/hess",
@@ -1115,6 +1136,45 @@ def phase_k2_bits(dev):
         f"tree's: {same}")
     if not all(same.values()):
         raise RuntimeError(f"K2's outputs changed: {same}")
+
+
+def k13_bits(dev):
+    """K13's outputs at seeded inputs: {name: tensor}, the diagonal
+    inverses and the solves with 1, 40 and 130 columns on the
+    `cholesky_ex` factor of the equilibrated SPD matrix (eigenvalues
+    log-spaced over 1e8, numpy-seeded) at N = 700 and 1100."""
+    from goldfish_tpu_torch.solver import cholesky as ch
+
+    out = {}
+    for N in (700, 1100):
+        rng = np.random.default_rng(N)
+        Q, _ = np.linalg.qr(rng.normal(size=(N, N)))
+        K = (Q * np.logspace(0.0, -8.0, N)) @ Q.T
+        Kt = torch.tensor(0.5 * (K + K.T), device=dev)
+        dsc = torch.rsqrt(Kt.diagonal().abs())
+        Kt = dsc[:, None] * Kt * dsc[None, :]
+        with library_calls():
+            L = torch.linalg.cholesky_ex(Kt)[0]
+        invs = ch.diag_inverses(L)
+        out[f"{N} diag_inv"] = invs
+        for k in (1, 40, 130):
+            B = torch.tensor(rng.normal(size=(N, k)), device=dev)
+            out[f"{N} solve k={k}"] = ch.chol_solve(L, dsc, B, invs)
+    return out
+
+
+def phase_k13_bits(dev):
+    """[kernel K13 bits]: K13's outputs at `k13_bits`' input, bit for bit
+    against those the parent tree of csrc/chol_blocks.cuh (the pieces K13
+    and K14 share) gave on the card (tests/data/torch_port_k13_bits.json)."""
+    with open(K13_BITS) as fh:
+        want = json.load(fh)["sha256"]
+    got = {k: sha256(v) for k, v in k13_bits(dev).items()}
+    same = {k: got[k] == want[k] for k in want}
+    say(f"[kernel K13 bits] chol_subst outputs bit for bit as the parent "
+        f"tree's: {same}")
+    if not all(same.values()):
+        raise RuntimeError(f"K13's outputs changed: {same}")
 
 
 def make_iteration(sys_, th, solve):
@@ -1781,25 +1841,28 @@ def tube_state(sys_, seed=6):
 
 def time_library(tag, fac, c2x=None, reps=3):
     """The library calls of a path at its size, with CUDA events: potrf
-    (`cholesky_ex` of the equilibrated K at the factor's reference state),
-    K13 at that factor against `cholesky_solve` and the rest
-    (`phase_k13`), and on an MI path the Woodbury capacitance
-    `linalg.solve` (M x M, M right-hand sides) and the batched xi
-    `linalg.solve` (I systems of 4N). Bounds: potrf N^3/3 and LU 2M^3/3 +
-    2M^3 (M right-hand sides) f64 operations over the f64 tensor-core rate;
-    the xi solves the larger of their operations and bytes."""
+    (`cholesky_ex` of the equilibrated K at the factor's reference state,
+    K14's yardstick), K14 at that K (`phase_k14`), K13 on K14's factor
+    against `cholesky_solve` and the rest (`phase_k13`), and on an MI path
+    the Woodbury capacitance `linalg.solve` (M x M, M right-hand sides) and
+    the batched xi `linalg.solve` (I systems of 4N). Bounds: potrf N^3/3
+    and LU 2M^3/3 + 2M^3 (M right-hand sides) f64 operations over the f64
+    tensor-core rate; the xi solves the larger of their operations and
+    bytes."""
     K = fac._assemble(fac._ref)
     dsc = torch.rsqrt(K.diagonal().abs() + 1e-300)
     K.mul_(dsc[:, None]).mul_(dsc[None, :])
     N = K.shape[0]
-    L, info = torch.linalg.cholesky_ex(K)
-    rows = [dict(name="cholesky_ex", path=tag, n=N, info=int(info),
-                 ms=cuda_ms(lambda: torch.linalg.cholesky_ex(K), reps),
-                 bound_ms=N ** 3 / 3 / PEAK_F64_TC * 1e3,
-                 bound_by="operations")]
-    phase_k13(tag, K, L, dsc, fac)
+    with library_calls():
+        info = torch.linalg.cholesky_ex(K)[1]
+        rows = [dict(name="cholesky_ex", path=tag, n=N, info=int(info),
+                     ms=cuda_ms(lambda: torch.linalg.cholesky_ex(K), reps),
+                     bound_ms=N ** 3 / 3 / PEAK_F64_TC * 1e3,
+                     bound_by="operations")]
+    L, invs = phase_k14(tag, K)
+    phase_k13(tag, K, L, dsc, invs, fac)
     dev = L.device
-    del K, L
+    del K, L, invs
     M = getattr(fac, "_M", None)
     if M:
         g = torch.Generator(device="cpu").manual_seed(7)
@@ -1828,14 +1891,16 @@ def time_library(tag, fac, c2x=None, reps=3):
     return rows
 
 
-# ------------------------------------------------------------ K13
+# ------------------------------------------------------------ K13, K14
 _CHOLESKY_SOLVE = torch.cholesky_solve
+_CHOLESKY_EX = torch.linalg.cholesky_ex
 _LIBRARY = [0]
 
 
 class library_calls:
-    """Inside: torch.cholesky_solve may run on CUDA tensors (the smoke's
-    yardsticks and K13's plain version); outside, the guard raises."""
+    """Inside: torch.cholesky_solve and torch.linalg.cholesky_ex may run on
+    CUDA tensors (the smoke's yardsticks and K13's and K14's plain
+    versions); outside, the guards raise."""
 
     def __enter__(self):
         _LIBRARY[0] += 1
@@ -1858,21 +1923,41 @@ def guard_cholesky_solve():
     torch.cholesky_solve = guarded
 
 
+def guard_cholesky_ex():
+    """From here on a torch.linalg.cholesky_ex on a CUDA tensor outside
+    `library_calls` raises: the port's main paths factor on K14 only."""
+
+    def guarded(A, *args, **kw):
+        if A.is_cuda and not _LIBRARY[0]:
+            raise RuntimeError("torch.linalg.cholesky_ex ran on a CUDA "
+                               "tensor on a main path: K14 must take every "
+                               "Cholesky factorization")
+        return _CHOLESKY_EX(A, *args, **kw)
+
+    torch.linalg.cholesky_ex = guarded
+
+
 # K13's checks over the factors (the first, wing20's, gives the kernels
 # line's times; the others add theirs as *_<path>), and the phase's seconds
 K13 = {}
 K13_SECONDS = [0.0]
 K13_BWD = 4.0    # backward error of the kernel <= K13_BWD x the plain's
 K13_WELL = 1e-12  # kernel vs plain at a well-conditioned SPD matrix
-# the kernels line's paths whose factors K13 meets
-CHOL = ("chol_subst/vec",)
+# K14's checks over the factors (the first, wing20's, gives the kernels
+# line's times; the others add theirs as *_<path>), and the phase's seconds
+K14 = {}
+K14_SECONDS = [0.0]
+# what a path that factors and solves by Cholesky on the card must launch:
+# K14's factor and K13's one-column substitution
+CHOL = ("chol_subst/vec", "chol_factor")
 
 
 def chol_needed(counts):
-    """The K13 launches a counted path must show: every path that made a
-    Cholesky factor on the card (K13's inverses ran) must have solved on
-    it through K13."""
-    return CHOL if counts.get("chol_subst/diag_inv") else ()
+    """The K13 and K14 launches a counted path must show: every path that
+    made a Cholesky factor on the card (K14 ran, or K13's inverses) must
+    have made it with K14 and solved on it through K13."""
+    made = counts.get("chol_factor") or counts.get("chol_subst/diag_inv")
+    return CHOL if made else ()
 
 
 def bwd_err(K, X, B, nK):
@@ -1880,17 +1965,186 @@ def bwd_err(K, X, B, nK):
     return float(torch.linalg.norm(K @ X - B) / (nK * torch.linalg.norm(X)))
 
 
-def phase_k13(tag, K, L, dsc, fac, reps=5):
-    """K13 at one path's factor (K the equilibrated tangent, L its
-    cuSOLVER factor): the diagonal blocks' inverses, one column at three
-    seeded right-hand sides, and at an MI factor the Woodbury basis
-    (N x M one-hot), each against its plain version. Gates: the backward
-    error of the equilibrated system ||K x - b|| / (||K|| ||x||) (the
-    inverses': ||L_kk Z - I|| / (||L_kk|| ||Z||) over the blocks) <=
-    K13_BWD x the plain version's; the same bits over two launches; and
-    at a well-conditioned SPD matrix of the same N (A A^T / N + I, A
-    seeded) the kernel within K13_WELL of the plain version. Times with
-    the L2 flushed before each launch (CUDA events, median of `reps`):
+def fac_bwd(K, L, nK):
+    """||K - L L^T|| / ||K||, Frobenius norms (nK = ||K||)."""
+    return float(torch.linalg.norm(K - L @ L.T) / nK)
+
+
+def inv_bwd_of(L, NB):
+    """The inverses' backward error ||L_kk Z_k^T - I|| / (||L_kk|| ||Z_k||)
+    over L's full NB-row diagonal blocks, as a function of Z (nblk, NB,
+    NB) laid out as `diag_inverses` returns it."""
+    N = L.shape[0]
+    nb = -(-N // NB)
+    if nb < 2:
+        return lambda Z: 0.0
+    blocks = torch.stack([L[k * NB:(k + 1) * NB, k * NB:(k + 1) * NB]
+                          for k in range(nb - 1)])
+    eye = torch.eye(NB, dtype=L.dtype, device=L.device)
+
+    def bwd(Z):
+        Zt = Z[:nb - 1].transpose(1, 2)
+        return float(torch.linalg.norm(blocks @ Zt - eye)
+                     / (torch.linalg.norm(blocks) * torch.linalg.norm(Zt)))
+
+    return bwd
+
+
+def chol_factor_ms(K, reps):
+    """Median device time of K14 on a fresh copy of K (the kernel factors
+    in place), the copy made and the L2 flushed outside the timed window
+    (CUDA events)."""
+    from goldfish_tpu_torch.solver import cholesky as ch
+
+    if not _FLUSH:
+        _FLUSH.append(torch.empty(2 ** 25, dtype=torch.float64,
+                                  device="cuda"))
+    buf = torch.empty_like(K)
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(reps + 1):
+        buf.copy_(K)
+        _FLUSH[0].fill_(1.0)
+        t0.record()
+        ch.chol_factor(buf)
+        t1.record()
+        torch.cuda.synchronize()
+        times.append(t0.elapsed_time(t1))
+    return float(np.median(times[1:]))
+
+
+def peak_mb(fn):
+    """Device memory fn() allocates at its peak beyond what was allocated
+    before it (MB), its results freed after."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    return peak / 1e6
+
+
+def phase_k14(tag, K, reps=5):
+    """K14 at one path's equilibrated tangent K (left as it is: K14 runs on
+    copies) against `cholesky_ex` on the same K. Gates: the factor's
+    backward error ||K - L L^T|| / ||K|| <= K13_BWD x cholesky_ex's; the
+    same bits (L, info, invs) over two launches; `info` equal to
+    cholesky_ex's, at K and at K with one diagonal entry negated (the
+    order of the first leading minor that is not positive definite); at a
+    well-conditioned SPD matrix of the same N (A A^T / N + I, A seeded) L
+    within K13_WELL of cholesky_ex's; K14's diagonal inverses against
+    `diag_inverses(L)` of its own factor: the backward error <= K13_BWD x
+    theirs, the relative difference printed. Times with the L2 flushed
+    before each launch (CUDA events, median of `reps`): the kernel, its
+    plain version (`cholesky_ex` and `diag_inverses_plain`) and
+    `cholesky_ex` alone (the library call, its copy of K included); the
+    peak memory of one factorization beside cholesky_ex's. Returns K14's
+    (L, invs) at K, on which phase_k13 checks K13."""
+    from goldfish_tpu_torch.solver import cholesky as ch
+
+    t0 = time.perf_counter()
+    N = K.shape[0]
+    dev = K.device
+    nK = torch.linalg.norm(K)
+    runs = [ch.chol_factor(K.clone()) for _ in range(2)]
+    torch.cuda.synchronize()
+    (L, info, invs), (L2, info2, invs2) = runs
+    same = torch.equal(L, L2) and torch.equal(invs, invs2) and \
+        int(info) == int(info2)
+    del runs, L2, invs2
+    with library_calls():
+        Lx, info_x = torch.linalg.cholesky_ex(K)
+    e_k, e_x = fac_bwd(K, L, nK), fac_bwd(K, Lx, nK)
+    rel, mx = rel_err(L, Lx)
+    del Lx
+    # info where a leading minor is not positive definite
+    j = N // 2 + 7
+    Kj = K.clone()
+    Kj[j, j] = -Kj[j, j]
+    with library_calls():
+        info_xj = int(torch.linalg.cholesky_ex(Kj)[1])
+    info_j = int(ch.chol_factor(Kj)[1])
+    del Kj
+    # the diagonal blocks' inverses against K13's of the same factor
+    inv_bwd = inv_bwd_of(L, ch.NB)
+    Z = ch.diag_inverses(L)
+    ei_k, ei_z = inv_bwd(invs), inv_bwd(Z)
+    rel_inv = rel_err(invs, Z)[0]
+    del Z
+    # a well-conditioned SPD matrix of the same N
+    g = torch.Generator(device="cpu").manual_seed(N + 14)
+    A = torch.randn(N, N, dtype=torch.float64, generator=g).to(dev)
+    Kw = A @ A.T / N + torch.eye(N, dtype=torch.float64, device=dev)
+    del A
+    with library_calls():
+        Lwx = torch.linalg.cholesky_ex(Kw)[0]
+    ew = rel_err(ch.chol_factor(Kw)[0], Lwx)[0]
+    del Kw, Lwx
+    torch.cuda.empty_cache()
+    # times and memory
+    got = dict(rel=rel, max_abs_err=mx, bwd=e_k, bwd_library=e_x,
+               bwd_ratio=e_k / e_x, ms=chol_factor_ms(K, reps))
+    with library_calls():
+        got["plain_ms"] = cuda_ms_cold(lambda: ch.chol_factor_plain(K), 2)
+        got["library_ms"] = cuda_ms_cold(
+            lambda: torch.linalg.cholesky_ex(K), reps)
+        mb_x = peak_mb(lambda: torch.linalg.cholesky_ex(K))
+    B = K.clone()
+    mb_k = peak_mb(lambda: ch.chol_factor(B))
+    del B
+    got["ms_cholesky_ex"] = got["library_ms"]
+    got["bound_ms"], got["bound_by"] = bound(
+        8 * (N * (N + 1) + invs.numel()), N ** 3 / 3, PEAK_F64_TC)
+    got["peak_mb"], got["peak_mb_cholesky_ex"] = mb_k, mb_x
+    say(f"[k14 {tag}] N={N}: backward error {e_k:.3e} (cholesky_ex "
+        f"{e_x:.3e}, ratio {e_k / e_x:.2f}); L rel {rel:.3e}; same bits "
+        f"over two launches {same}; info {int(info)} (cholesky_ex "
+        f"{int(info_x)}), with K[{j},{j}] negated {info_j} ({info_xj}); "
+        f"well-conditioned rel {ew:.3e} (gate {K13_WELL:g}); invs backward "
+        f"error {ei_k:.3e} (diag_inverses {ei_z:.3e}), rel {rel_inv:.3e}")
+    say(f"[k14 {tag}] kernel {got['ms']:.3f} ms plain {got['plain_ms']:.3f} "
+        f"ms cholesky_ex {got['library_ms']:.3f} ms bound "
+        f"{got['bound_ms']:.3f} ms ({got['bound_by']}); peak memory of one "
+        f"factorization {mb_k:.1f} MB (cholesky_ex {mb_x:.1f} MB)")
+    bad = []
+    if not e_k <= K13_BWD * e_x:
+        bad.append(f"backward error {e_k:.3e} > {K13_BWD:g} x {e_x:.3e}")
+    if not same:
+        bad.append("two launches differ")
+    if int(info) != int(info_x) or info_j != info_xj or info_j != j + 1:
+        bad.append(f"info {int(info)} / {info_j}, cholesky_ex "
+                   f"{int(info_x)} / {info_xj}")
+    if not ew <= K13_WELL:
+        bad.append(f"well-conditioned rel {ew:.3e}")
+    if not ei_k <= K13_BWD * ei_z + 1e-300:
+        bad.append(f"invs backward error {ei_k:.3e} > {K13_BWD:g} x "
+                   f"{ei_z:.3e}")
+    if bad:
+        raise RuntimeError(f"K14 {tag}: " + "; ".join(bad))
+    merge(K14, "chol_factor", got, tag if K14 else None)
+    torch.cuda.empty_cache()
+    K14_SECONDS[0] += time.perf_counter() - t0
+    say(f"[k14 {tag}] {time.perf_counter() - t0:.1f} s (phase so far "
+        f"{K14_SECONDS[0]:.1f} s)")
+    return L, invs
+
+
+def phase_k13(tag, K, L, dsc, invs14, fac, reps=5):
+    """K13 at one path's factor (K the equilibrated tangent, L and invs14
+    its K14 factor and diagonal inverses, as the main paths make them): the
+    diagonal blocks' inverses of L (`diag_inverses`), one column at three
+    seeded right-hand sides, and at an MI factor the Woodbury basis (N x M
+    one-hot), each against its plain version, the solves on invs14. Gates:
+    the backward error of the equilibrated system ||K x - b|| / (||K||
+    ||x||) (the inverses': ||L_kk Z - I|| / (||L_kk|| ||Z||) over the
+    blocks) <= K13_BWD x the plain version's; the same bits over two
+    launches; and at a well-conditioned SPD matrix of the same N (A A^T /
+    N + I, A seeded, factored by K14) the kernel within K13_WELL of the
+    plain version. Times with the L2 flushed before each launch (CUDA
+    events, median of `reps`):
     the kernel, the plain version, `cholesky_solve` (its copy of the
     factor included) and the `solve_triangular` pair, the library route
     without the copy; none of them runs on a main path."""
@@ -1922,14 +2176,7 @@ def phase_k13(tag, K, L, dsc, fac, reps=5):
                           range(nb - 1)]) if nb > 1 else None
     eye = torch.eye(ch.NB, dtype=L.dtype, device=dev).expand(
         max(nb - 1, 1), ch.NB, ch.NB)
-
-    def inv_bwd(Z):
-        if blocks is None:
-            return 0.0
-        Zt = Z[:nb - 1].transpose(1, 2)
-        return float(torch.linalg.norm(blocks @ Zt - eye)
-                     / (torch.linalg.norm(blocks) * torch.linalg.norm(Zt)))
-
+    inv_bwd = inv_bwd_of(L, ch.NB)
     e_k, e_p = inv_bwd(invs), inv_bwd(plain)
     rel, mx = rel_err(invs, plain)
     got = dict(rel=rel, max_abs_err=mx, bwd=e_k, bwd_plain=e_p,
@@ -1952,6 +2199,7 @@ def phase_k13(tag, K, L, dsc, fac, reps=5):
                            f"> {K13_BWD:g} x {e_p:.3e}")
     merge(K13, "chol_subst/diag_inv", got, tag if K13 else None)
     del plain, blocks, eye
+    invs = invs14   # the solves take the main paths' inverses: K14's
 
     # one column: three seeded right-hand sides
     ratios, mx = [], 0.0
@@ -1999,18 +2247,17 @@ def phase_k13(tag, K, L, dsc, fac, reps=5):
     A = torch.randn(N, N, dtype=torch.float64, generator=g).to(dev)
     Kw = A @ A.T / N + torch.eye(N, dtype=torch.float64, device=dev)
     del A
-    Lw = torch.linalg.cholesky_ex(Kw)[0]
-    del Kw
+    Lw, _, invs_w = ch.chol_factor(Kw)   # Kw consumed
     one = torch.ones(N, dtype=torch.float64, device=dev)
     bw = torch.randn(N, 1, dtype=torch.float64, generator=g).to(dev)
     with library_calls():
-        ew = rel_err(ch.chol_solve(Lw, one, bw, ch.diag_inverses(Lw)),
+        ew = rel_err(ch.chol_solve(Lw, one, bw, invs_w),
                      ch.chol_solve_plain(Lw, one, bw))[0]
     say(f"[k13 {tag}] well-conditioned N={N}: kernel vs plain rel {ew:.3e} "
         f"(gate {K13_WELL:g})")
     if not ew <= K13_WELL:
         raise RuntimeError(f"K13 {tag}: well-conditioned rel {ew:.3e}")
-    del Lw
+    del Lw, Kw, invs_w
 
     # the Woodbury basis W = K^-1 U^T of an MI factor
     M = getattr(fac, "_M", None)
@@ -2103,7 +2350,7 @@ def report_slsqp(tag, prob, res, fac, J_start, A_pin, p0, x):
         f"(n {len(wf)}, max {max(wf):.3f}); per jac median "
         f"{float(np.median(wj)):.3f} s (n {len(wj)}, max {max(wj):.3f})")
     say(f"[{tag}] n_factor {fac.n_factor} (failed {fac.n_factor_failed}, "
-        f"cholesky_ex info {fac.failed_info}); refactor_log "
+        f"chol_factor info {fac.failed_info}); refactor_log "
         f"{fac.refactor_log}")
     say(f"[{tag}] pin residual {pin:.3e}")
     if not (np.isfinite(res.fun) and res.fun < J_start and res.nit >= 1
@@ -2866,7 +3113,7 @@ def phase_plate(dev, checks, ref):
         f"median {float(np.median(log.jac_wall)):.3f} s (n "
         f"{len(log.jac_wall)}, max {max(log.jac_wall):.3f})")
     say(f"[plate] n_factor {fac.n_factor} (failed {fac.n_factor_failed}, "
-        f"cholesky_ex info {fac.failed_info}); refactor_log "
+        f"chol_factor info {fac.failed_info}); refactor_log "
         f"{fac.refactor_log}")
     held = {"lighter": out.V1 < out.V0,
             "stress_le_1.02_allow": out.s1 <= 1.02 * sigma_allow,
@@ -4180,7 +4427,7 @@ def phase_press(dev, checks, ref, got16):
     fac = out["fac"]
     say(f"[press32] continuation (cold, 4 levels) {out['t_cont']:.3f} s, "
         f"Newton its and |r| per level {out['levels']}; n_factor "
-        f"{fac.n_factor} (failed {fac.n_factor_failed}, cholesky_ex info "
+        f"{fac.n_factor} (failed {fac.n_factor_failed}, chol_factor info "
         f"{fac.failed_info}); refactor_log {fac.refactor_log}")
     say(f"[press32] |r|/|r(0)| {out['rn'] / out['r0']:.3e} (gate 1e-8), W_c "
         f"{out['W_c']!r}, midspan u_z {out['mid']!r} (gate < -0.02); J = W_int "
@@ -5323,7 +5570,9 @@ def main():
     dev = phase_device()
     phase_build()
     guard_cholesky_solve()
+    guard_cholesky_ex()
     phase_k2_bits(dev)
+    phase_k13_bits(dev)
     record_k4_shapes()
     from goldfish_tpu_torch.models import tbeam, wing
 
@@ -5515,7 +5764,9 @@ def main():
              **{k: (c, None) for k, c in counts_demos.items()},
              **{k: (c, None) for k, c in DESIGN_COUNTS.items()}}
     checks.update(K13)
+    checks.update(K14)
     say(f"[k13] phase {K13_SECONDS[0]:.1f} s over the factors")
+    say(f"[k14] phase {K14_SECONDS[0]:.1f} s over the factors")
     record = {"kernels": []}
     for name, src, rep in KERNELS:
         per = {f"launches_{p}": (c.get(name, 0) if keep is None

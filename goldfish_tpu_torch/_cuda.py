@@ -54,7 +54,8 @@ COUNTERS = ("shell_qp/value_grad", "shell_qp/hess", "shell_qp/adjoint",
             "contact_pairs/cull", "contact_pairs/value_grad",
             "contact_pairs/hvp", "contact_pairs/hess",
             "contact_pairs/design_fwd",
-            "chol_subst/vec", "chol_subst/multi", "chol_subst/diag_inv")
+            "chol_subst/vec", "chol_subst/multi", "chol_subst/diag_inv",
+            "chol_factor")
 launch_counts: dict[str, int] = {k: 0 for k in COUNTERS}
 _lib = None
 build_info: dict = {}
@@ -82,6 +83,8 @@ _SIGNATURES = {
     "gf_chol_diag_inv": [_P] * 2 + [_I] * 2 + [_P],
     "gf_chol_subst": [_P] * 6 + [_I] * 2 + [_P],
     "gf_chol_subst_multi": [_P] * 8 + [_I] * 5 + [_P],
+    "gf_chol_factor": [_P] * 4 + [ctypes.c_longlong, _P] + [_I] * 3 + [_P],
+    "gf_chol_factor_scratch": [_I],
 }
 
 

@@ -5,7 +5,7 @@ Port of `__graft_entry__.entry`: `entry()` returns `(fn, example_args)`,
 4-patch wing (`wing.build(n_chord=2, n_span=2, num_el=2, p=2)`): the
 residual, the tangent K (the shell and penalty jet Hessians, kernel K1 and
 K2 mode b, assembled by K3), the Cholesky solve of the diagonally
-equilibrated K (cuSOLVER's factor, K13's substitution), and the update
+equilibrated K (K14's factor, K13's substitution), and the update
 masked to the free dofs. It is the per-iteration step of the hot loop, on
 the card by default.
 
@@ -33,17 +33,18 @@ __all__ = ["entry", "newton_update", "dryrun_multichip"]
 @torch.no_grad()
 def newton_update(data, cp, h, d):
     """(d_new, |r|): d_new = d + free * K^-1 (-r) at d."""
-    from goldfish_tpu_torch.solver.cholesky import chol_solve, diag_inverses
+    from goldfish_tpu_torch.solver.cholesky import chol_factor, chol_solve
     from goldfish_tpu_torch.solver.system import assemble_K, residual
 
     r = residual(data, d, cp, h)
     K = assemble_K(data, d, cp, h)
     s = torch.rsqrt(K.diagonal().abs())
-    L, info = torch.linalg.cholesky_ex(s[:, None] * K * s[None, :])
+    K.mul_(s[:, None]).mul_(s[None, :])   # equilibrate, then factor in place
+    L, info, invs = chol_factor(K)
     if int(info) != 0:
         raise RuntimeError(f"the tangent is not positive definite "
-                           f"(cholesky_ex info {int(info)})")
-    delta = chol_solve(L, s, -r.reshape(-1, 1), diag_inverses(L))
+                           f"(chol_factor info {int(info)})")
+    delta = chol_solve(L, s, -r.reshape(-1, 1), invs)
     d_new = d + delta.reshape(r.shape) * data.free
     return d_new, torch.linalg.norm(r)
 

@@ -1,6 +1,13 @@
-"""K13: the substitution of the persistent Cholesky factor.
+"""K14: the Cholesky factor, and K13: its substitution.
 
-Port of goldfish_tpu/solver/tpu_cholesky.py:205 `_chol_substitute` (one
+K14 (`chol_factor`) ports goldfish_tpu/solver/tpu_cholesky.py:139
+`blocked_cholesky_unrolled` and :171 `blocked_cholesky` (the facade's
+factor, :302-:314): the equilibrated tangent K_eq = L L^T, factored in place
+by csrc/chol_factor.cu (counter `chol_factor`, one a factorization), with
+the inverses of L's diagonal blocks as K13 reads them. On CPU tensors its
+plain version: `torch.linalg.cholesky_ex` and `diag_inverses_plain`.
+
+K13 ports goldfish_tpu/solver/tpu_cholesky.py:205 `_chol_substitute` (one
 right-hand side) and :235 `_chol_substitute_multi` (M right-hand sides),
 with the inverses of the diagonal panels they use (`invs`,
 tpu_cholesky.py:177-200). For the equilibrated factor K_eq = L L^T of a
@@ -9,9 +16,10 @@ tangent K = D^-1 K_eq D^-1 (D = diag(dsc)),
     chol_solve(L, dsc, B, invs) = dsc * (L L^T)^-1 (dsc * B) = K^-1 B,
 
 the two scalings folded into the kernel's sweeps. L is the factor
-`torch.linalg.cholesky_ex` returns (column-major, strides (1, N)), read in
-place and only below the diagonal; `diag_inverses(L)` computes `invs` once a
-factorization. On CUDA tensors both launch csrc/chol_subst.cu (counters
+`chol_factor` (or `torch.linalg.cholesky_ex`) returns (column-major, strides
+(1, N)), read in place and only below the diagonal; `chol_factor` returns
+`invs` with it, and `diag_inverses(L)` computes them for any such L. On CUDA
+tensors both launch csrc/chol_subst.cu (counters
 `chol_subst/vec` for one column, `chol_subst/multi` for more,
 `chol_subst/diag_inv`); on CPU tensors they run their plain versions:
 `dsc * torch.cholesky_solve(dsc * B, L)` and batched triangular inverses.
@@ -24,11 +32,12 @@ import torch
 from goldfish_tpu_torch import _cuda
 from goldfish_tpu_torch.config import DTYPE
 
-__all__ = ["NB", "CT", "chol_solve", "diag_inverses", "chol_solve_plain",
-           "diag_inverses_plain"]
+__all__ = ["NB", "CT", "PW", "chol_factor", "chol_solve", "diag_inverses",
+           "chol_factor_plain", "chol_solve_plain", "diag_inverses_plain"]
 
-NB = 64    # rows of a diagonal block (csrc/chol_subst.cu: NB)
-CT = 128   # columns of a multi-RHS work item (csrc/chol_subst.cu: CT)
+NB = 64    # rows of a diagonal block (csrc/chol_blocks.cuh: NB)
+CT = 128   # columns of a multi-RHS work item (csrc/chol_blocks.cuh: CT)
+PW = 256   # columns of a factor panel (csrc/chol_factor.cu: PW)
 
 
 def _n_blocks(N):
@@ -57,6 +66,51 @@ def chol_solve_plain(L, dsc, B):
     """dsc * (L L^T)^-1 (dsc * B) for B (N, k) by `torch.cholesky_solve`."""
     d = dsc[:, None]
     return d * torch.cholesky_solve(d * B, L)
+
+
+def chol_factor_plain(K):
+    """(L, info, invs): `torch.linalg.cholesky_ex(K)` and the inverses of
+    L's diagonal blocks (`diag_inverses_plain`); K is left as it was."""
+    L, info = torch.linalg.cholesky_ex(K)
+    return L, info, diag_inverses_plain(L)
+
+
+def chol_factor(K):
+    """K14: the Cholesky factor of the SPD matrix K (N, N), f64, row-major
+    contiguous: (L, info, invs) with K = L L^T, `info` a 0-dim int32 tensor
+    as `torch.linalg.cholesky_ex` gives it (0, or the order of the first
+    leading minor that is not positive definite: the factor is then not
+    usable) and `invs` the inverses of L's diagonal blocks as
+    `diag_inverses(L)` lays them out (nblk, NB, NB).
+
+    On a CUDA tensor the kernel factors K IN PLACE: K is consumed (no copy
+    of its N^2 entries is made) and L is the view `K.t()`, column-major
+    (strides (1, N)), its strict upper triangle zero, as `chol_solve` reads
+    it. Only K's lower triangle is read. On a CPU tensor the plain version
+    (K untouched)."""
+    if not isinstance(K, torch.Tensor):
+        raise TypeError(f"K: expected a tensor, got {type(K).__name__}")
+    if K.dim() != 2 or K.shape[0] != K.shape[1] or K.shape[0] < 1:
+        raise ValueError(f"K: a square matrix, got shape {tuple(K.shape)}")
+    if K.dtype != DTYPE:
+        raise TypeError(f"K: dtype {K.dtype}, expected {DTYPE}")
+    if not K.is_contiguous():
+        raise ValueError("K: must be row-major contiguous (the kernel "
+                         "factors it in place)")
+    if not _cuda.on_cuda(K):
+        return chol_factor_plain(K)
+    N, dev = K.shape[0], K.device
+    nb = _n_blocks(N)
+    invs = torch.empty(nb, NB, NB, dtype=DTYPE, device=dev)
+    info = torch.empty((), dtype=torch.int32, device=dev)
+    W = torch.empty(_cuda.library().gf_chol_factor_scratch(N), dtype=DTYPE,
+                    device=dev)
+    nflags = (N + PW - 1) // PW * (PW // NB + 1)
+    flags = torch.empty(nflags, dtype=torch.int32, device=dev)
+    p = _cuda.ptr
+    _cuda.launch("chol_factor", "gf_chol_factor", p(K), p(invs), p(info),
+                 p(W), W.numel(), p(flags), nflags, N, nb)
+    return K.t(), info, invs
 
 
 def _check_factor(L):
@@ -93,8 +147,8 @@ def diag_inverses(L):
 
 def chol_solve(L, dsc, B, invs=None):
     """K^-1 B = dsc * (L L^T)^-1 (dsc * B) for B (N, k): K13 on CUDA
-    tensors (`invs` from `diag_inverses(L)` required there), the plain
-    version on CPU tensors."""
+    tensors (`invs` from `chol_factor` or `diag_inverses(L)` required
+    there), the plain version on CPU tensors."""
     N = _check_factor(L)
     dev = L.device
     if not isinstance(B, torch.Tensor) or B.dim() != 2:
@@ -107,7 +161,8 @@ def chol_solve(L, dsc, B, invs=None):
         return chol_solve_plain(L, dsc, B)
     nb = _n_blocks(N)
     if invs is None:
-        raise ValueError("invs: required on CUDA (diag_inverses(L))")
+        raise ValueError("invs: required on CUDA (chol_factor's, or "
+                         "diag_inverses(L))")
     _cuda.check(invs, "invs", DTYPE, (nb, NB, NB), dev)
     out = torch.empty(N, k, dtype=DTYPE, device=dev)
     if k == 0:

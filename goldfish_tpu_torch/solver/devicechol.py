@@ -5,10 +5,10 @@ Port of goldfish_tpu/solver/devicechol.py (`PersistentDeviceFactor`):
 
   1. the dense BC-reduced f64 tangent K(d) is assembled from the jet
      Hessians (kernels K1/K2 mode (b) + K3);
-  2. Jacobi equilibration D K D, D = diag(K)^(-1/2), then
-     `torch.linalg.cholesky_ex` (cuSOLVER potrf on the card) and the
-     inverses of its diagonal blocks (K13's factor-time kernel), or, for a
-     factor made with kind="lu", `torch.linalg.lu_factor_ex` (getrf);
+  2. Jacobi equilibration D K D, D = diag(K)^(-1/2), then the Cholesky
+     factor with the inverses of its diagonal blocks (solver/cholesky.
+     chol_factor: kernel K14 on the card, in place in the assembled K), or,
+     for a factor made with kind="lu", `torch.linalg.lu_factor_ex` (getrf);
   3. substitutions with K13 (solver/cholesky.chol_solve: the factor read
      in place, the equilibration folded in) or `lu_solve`; iterative
      refinement
@@ -31,11 +31,12 @@ entry is the displacement d); the problem enters only through the hooks
 (cp, h, d); solver/system_mi.PersistentDeviceFactorMI is the
 moving-intersection one with state (cp, h, xi, d).
 
-An indefinite K (possible at a cold or trial state) makes `cholesky_ex`
-report info != 0. The factor is then filled with NaN, so every solve
-against it returns a non-finite certificate and goes through the same
-policy as any non-finite certificate; the failure is also logged in
-`refactor_log` and counted in `n_factor_failed`. The LU variant is for
+An indefinite K (possible at a cold or trial state) makes `chol_factor`
+report info != 0 (`torch.linalg.cholesky_ex`'s meaning). The factor and its
+diagonal inverses are then filled with NaN, so every solve against it
+returns a non-finite certificate and goes through the same policy as any
+non-finite certificate; the failure is also logged in `refactor_log` and
+counted in `n_factor_failed`. The LU variant is for
 tangents that are indefinite by nature (past a limit point: solver/riks.py);
 it fails only on an exactly singular K (`lu_factor_ex` info != 0), with the
 same bookkeeping. A caller picks the variant by name; a failed Cholesky
@@ -49,7 +50,7 @@ import warnings
 
 import torch
 
-from goldfish_tpu_torch.solver.cholesky import chol_solve, diag_inverses
+from goldfish_tpu_torch.solver.cholesky import chol_factor, chol_solve
 from goldfish_tpu_torch.solver.system import (
     SystemData,
     agree,
@@ -105,7 +106,7 @@ class PersistentDeviceFactor:
         self.last_ratio = 0.0    # certificate of the last IR solve
         self.nonconverged = False
         self.refactor_log = []   # (why, drift) per factorization
-        self.failed_info = []    # cholesky_ex / lu_factor_ex info of each
+        self.failed_info = []    # chol_factor / lu_factor_ex info of each
                                  # failed one
         self.cert_log = []       # (tag, n_ir, ratio) per IR attempt
 
@@ -168,11 +169,12 @@ class PersistentDeviceFactor:
         K = self._assemble(s)
         dsc = torch.rsqrt(K.diagonal().abs() + 1e-300)
         K.mul_(dsc[:, None]).mul_(dsc[None, :])   # equilibrate in place
+        invs = None
         if self.kind == "lu":
             LU, piv, info = torch.linalg.lu_factor_ex(K)
             L = (LU, piv)
         else:
-            L, info = torch.linalg.cholesky_ex(K)
+            L, info, invs = chol_factor(K)   # K consumed on the card
             LU = L
         del K
         self.factor_ok = int(info) == 0
@@ -180,11 +182,12 @@ class PersistentDeviceFactor:
         why = why or "drift"
         if not self.factor_ok:
             LU.fill_(float("nan"))
+            if invs is not None:
+                invs.fill_(float("nan"))
             self.n_factor_failed += 1
             self.failed_info.append(int(info))
             why += "/indefinite"
-        self._invs = diag_inverses(L) if self.kind == "cholesky" else None
-        self._L, self._dscale = L, dsc
+        self._L, self._invs, self._dscale = L, invs, dsc
         self._ref = s
         self.n_factor += 1
         self.rho_est = self._RHO0

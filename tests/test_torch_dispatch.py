@@ -194,15 +194,18 @@ def _calls(data, d, cp, h, lam, v):
 
 
 def _chol_calls(data, d, cp, h):
-    """K13's wrappers (one column, two columns, the diagonal blocks'
-    inverses) on the equilibrated factor of the wing's K at d."""
+    """K14's wrapper (the factor of the equilibrated wing's K at d, on a
+    copy: the kernel factors in place) and K13's (one column, two columns,
+    the diagonal blocks' inverses) on that factor."""
     from goldfish_tpu_torch.solver import cholesky, system
 
     K = system.assemble_K(data, d, cp, h)
     dsc = torch.rsqrt(K.diagonal().abs())
-    L = torch.linalg.cholesky_ex(dsc[:, None] * K * dsc[None, :])[0]
+    K_eq = dsc[:, None] * K * dsc[None, :]
+    L = torch.linalg.cholesky_ex(K_eq)[0]
     b = d.reshape(-1, 1)
     return {
+        "chol_factor": lambda: cholesky.chol_factor(K_eq.clone()),
         "chol_subst/vec": lambda: cholesky.chol_solve(L, dsc, b),
         "chol_subst/multi": lambda: cholesky.chol_solve(
             L, dsc, torch.cat([b, 2.0 * b], 1)),
